@@ -1,0 +1,166 @@
+"""The GraphiT encoder layer: kernel-modulated attention + FFN block.
+
+Post-attention structure follows torch.nn.TransformerEncoderLayer
+(residual -> norm1 -> FFN(relu) -> residual -> norm2), with a masked
+batch-norm variant. Attention runs through the flash kernel wrappers
+(`ops/kernels/flash_attention.py`): the CUDA kernels for CUDA tensors, their
+plain versions for CPU tensors.
+
+Parameters keep the JAX package's layout so that `convert.from_flax` copies
+them one to one: `qkv` [d, 3d] and `out_proj_kernel` [d, d] are [in, out]
+matrices; `nn.Linear` weights are the transposed flax kernels.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from feta_tmlr_tpu_torch.ops.kernels.flash_attention import (
+    flash_graphit_attention,
+    flash_graphit_attention_heads,
+)
+
+
+class AttnColStats(NamedTuple):
+    """Detached coefficient-head statistics emitted by the filtered layer
+    in place of a dense attention matrix:
+    s[b, h, j] = sum_i gcn_norm_directed(attn)[b, h, i, j]."""
+
+    s: torch.Tensor          # [B, H, N]
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator,
+                  fan_in: int) -> torch.Tensor:
+    """N(0, 1/fan_in) init from an explicit generator."""
+    with torch.no_grad():
+        return t.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+
+def glorot_uniform_(t: torch.Tensor, generator: torch.Generator,
+                    fan_in: int, fan_out: int) -> torch.Tensor:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+def dense(d_in: int, d_out: int, generator: torch.Generator,
+          bias: bool = True) -> nn.Linear:
+    """nn.Linear with a lecun-normal weight and zero bias (flax Dense)."""
+    lin = nn.Linear(d_in, d_out, bias=bias)
+    lecun_normal_(lin.weight, generator, d_in)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over features with statistics over real nodes only.
+
+    Eval uses the running statistics (buffers `mean`, `var`); training
+    uses the masked batch statistics and updates the running ones as
+    `running = momentum * running + (1 - momentum) * batch` (flax's
+    convention: momentum 0.9 here is torch's 0.1)."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.momentum = 0.9
+        self.eps = 1e-5
+        self.scale = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+        self.register_buffer("mean", torch.zeros(d))
+        self.register_buffer("var", torch.ones(d))
+
+    def forward(self, x: torch.Tensor, node_mask: torch.Tensor):
+        if self.training:
+            m = node_mask.to(x.dtype)[..., None]
+            cnt = m.sum().clamp_min(1.0)
+            mean = (x * m).sum((0, 1)) / cnt
+            var = (((x - mean) ** 2) * m).sum((0, 1)) / cnt
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+
+
+class GraphiTEncoderLayer(nn.Module):
+    """Returns (out [B,N,D], attn, out_each_head [B,N,H,dh] or None).
+
+    need_heads=False: attn is None and the attention output is fused with
+    the output projection (vw = v_h @ Wout_h) inside the flash kernel.
+    need_heads=True: attn is `AttnColStats` and out_each_head holds the
+    per-head outputs that the FeTA block filters spectrally.
+    """
+
+    def __init__(self, d_model: int, n_heads: int,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 batch_norm: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if d_model % n_heads:
+            raise ValueError(f"d_model={d_model} must divide evenly by "
+                             f"n_heads={n_heads}")
+        g = generator if generator is not None else torch.Generator()
+        d = d_model
+        self.d_model, self.n_heads = d_model, n_heads
+        self.qkv = nn.Parameter(lecun_normal_(torch.empty(d, 3 * d), g, d))
+        self.qkv_bias = nn.Parameter(torch.zeros(3 * d))
+        self.out_proj_kernel = nn.Parameter(
+            lecun_normal_(torch.empty(d, d), g, d))
+        self.out_proj_bias = nn.Parameter(torch.zeros(d))
+        self.ff1 = dense(d, dim_feedforward, g)
+        self.ff2 = dense(dim_feedforward, d, g)
+        norm = ((lambda: MaskedBatchNorm(d)) if batch_norm
+                else (lambda: nn.LayerNorm(d, eps=1e-5)))
+        self.norm1, self.norm2 = norm(), norm()
+        self.batch_norm = batch_norm
+        self.dropout = nn.Dropout(dropout)
+
+    def _norm(self, norm, x, node_mask):
+        return norm(x, node_mask) if self.batch_norm else norm(x)
+
+    def forward(self, x, pe, node_mask, degree=None, need_heads=True):
+        b, n, d = x.shape
+        h = self.n_heads
+        dh = d // h
+        # scores as x (Wq_h Wk_h^T) x^T plus rank-1 bias terms: the kernel
+        # contracts over the full d_model instead of dh
+        wqkv = self.qkv.reshape(d, 3, h, dh)
+        bqkv = self.qkv_bias.reshape(3, h, dh)
+        wq, wk, wv = wqkv[:, 0], wqkv[:, 1], wqkv[:, 2]      # [d, h, dh]
+        bq, bk, bv = bqkv[0], bqkv[1], bqkv[2]               # [h, dh]
+        a_mix = torch.einsum("dhe,ghe->hdg", wq, wk)         # [h, d, d]
+        xa = torch.einsum("bnd,hdg->bhng", x, a_mix)
+        c_q = torch.einsum("bnd,dhe,he->bnh", x, wq, bk)    # q-side bias
+        c_k = torch.einsum("bmd,dhe,he->bmh", x, wk, bq)
+        c_0 = torch.einsum("he,he->h", bq, bk)
+        v_nhd = torch.einsum("bnd,dhe->bnhe", x, wv) + bv    # [B,N,H,dh]
+
+        if need_heads:
+            out_each_head, s = flash_graphit_attention_heads(
+                xa, x, c_q, c_k, c_0, v_nhd.transpose(1, 2), node_mask,
+                pe=pe, degree=degree)
+            attn_out = (out_each_head.reshape(b, n, d) @ self.out_proj_kernel
+                        + self.out_proj_bias)
+            attn = AttnColStats(s=s)
+        else:
+            vw = torch.einsum("bmhe,hef->bhmf", v_nhd,
+                              self.out_proj_kernel.reshape(h, dh, d))
+            attn_out = flash_graphit_attention(
+                xa, x, c_q, c_k, c_0, vw, node_mask, pe=pe,
+                degree=degree) + self.out_proj_bias
+            attn = out_each_head = None
+
+        x = self._norm(self.norm1, x + self.dropout(attn_out), node_mask)
+        ff = self.ff2(self.dropout(torch.relu(self.ff1(x))))
+        x = self._norm(self.norm2, x + self.dropout(ff), node_mask)
+
+        mask_f = node_mask.to(x.dtype)[..., None]
+        if out_each_head is not None:
+            out_each_head = out_each_head * mask_f[:, :, None, :]
+        return x * mask_f, attn, out_each_head

@@ -1,0 +1,47 @@
+"""GraphiT kernel-modulated attention chain on precomputed scores.
+
+The dense specification that both attention kernels must equal:
+
+  p = softmax(scores masked over keys)
+  p = p * pe * degree          (relative PE kernel, per-key rescale)
+  p = p / sum_k p              (renormalised; eps-guarded denominator)
+  p = p * qmask * kmask
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_NEG_INF = -1e30
+_EPS = 1e-9
+
+
+def modulated_attention_from_scores(
+    scores: torch.Tensor,
+    v: Optional[torch.Tensor],
+    node_mask: torch.Tensor,
+    pe: Optional[torch.Tensor] = None,
+    degree: Optional[torch.Tensor] = None,
+):
+    """scores [B, H, N, N] (already scaled by 1/sqrt(dh)), v [B, H, N, dv]
+    or None.
+
+    Returns (out [B, H, N, dv] or None when v is None, attn [B, H, N, N])."""
+    km = node_mask.bool()[:, None, None, :]
+    scores = torch.where(km, scores, torch.full_like(scores, _NEG_INF))
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    attn = e / e.sum(-1, keepdim=True)
+    if pe is not None:
+        attn = attn * pe[:, None, :, :].to(attn.dtype)
+    if degree is not None:
+        attn = attn * degree[:, None, None, :].to(attn.dtype)
+    if pe is not None or degree is not None:
+        denom = attn.sum(-1, keepdim=True)
+        attn = attn / torch.where(denom.abs() > _EPS, denom,
+                                  torch.ones_like(denom))
+    mask = node_mask.to(attn.dtype)
+    attn = attn * mask[:, None, :, None] * mask[:, None, None, :]
+    return (None if v is None else attn @ v), attn

@@ -1,0 +1,90 @@
+"""Pieces shared by the attention kernels' wrappers and plain versions.
+
+Operand layout of both kernels (all float32, contiguous):
+  xa [B, H, N, D]   x [B, N, D]   cq, ck [B, H, N]   c0 [H]
+  pe [B, N, N] or None   deg [B, N] or None   mask [B, N] (1 = real node)
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+EPS = 1e-9
+
+
+def plain_scores(xa, x, cq, ck, c0, mask, inv_sqrt):
+    """Masked scaled scores [B, H, N, N]; -1e30 on padded keys."""
+    s = (xa @ x[:, None].transpose(-1, -2) + cq[..., :, None]
+         + ck[..., None, :] + c0[None, :, None, None]) * inv_sqrt
+    return torch.where(mask[:, None, None, :] > 0, s,
+                       torch.full_like(s, NEG_INF))
+
+
+def plain_pd(pe, deg, ref):
+    """Modulation pe[i, j] * deg[j] as [B, 1, N, N] (1 where absent)."""
+    b, _, n, _ = ref.shape
+    pd = torch.ones((b, 1, n, n), dtype=ref.dtype, device=ref.device)
+    if pe is not None:
+        pd = pd * pe[:, None]
+    if deg is not None:
+        pd = pd * deg[:, None, None, :]
+    return pd
+
+
+def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
+                   extra=()) -> None:
+    """Raise unless every operand is a contiguous float32 CUDA tensor of
+    the layout above, on one device."""
+    b, h, n, d = xa.shape
+    shapes = {"xa": (xa, (b, h, n, d)), "x": (x, (b, n, d)),
+              "cq": (cq, (b, h, n)), "ck": (ck, (b, h, n)),
+              "c0": (c0, (h,)), "pe": (pe, (b, n, n)),
+              "deg": (deg, (b, n)), "mask": (mask, (b, n))}
+    for key, t, shape in [(k, t, s) for k, (t, s) in shapes.items()] + list(
+            extra):
+        if t is None and key in ("pe", "deg", "wq"):
+            continue
+        if t.device != xa.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be float32 on {xa.device}, "
+                             f"got {t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xa, x, cq, ck, c0, pe, deg, *(e[1] for e in extra))):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet; run it under "
+            "torch.no_grad() / torch.inference_mode()")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def bind(lib, fn_name: str, n_ptrs: int, n_ints: int, n_floats: int = 1):
+    """Set ctypes signatures: n_ptrs void*, n_ints int, n_floats float,
+    then the stream; returns int (cudaError_t)."""
+    fn = getattr(lib, fn_name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.feta_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.feta_cuda_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def check_launch(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.feta_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
