@@ -7,8 +7,8 @@ code is PyTorch and the attention kernels are hand-written CUDA C++ under
 `csrc/`, built with nvcc at first use (`ops/kernels/build.py`).
 
 Entry points (`serve.Predictor`, model construction) run on CUDA unless the
-caller passes `device="cpu"`; on CPU tensors every kernel wrapper takes its
-plain PyTorch version.
+caller passes `device="cpu"`; `train.Trainer` runs on its model's device.
+On CPU tensors every kernel wrapper takes its plain PyTorch version.
 """
 
 from feta_tmlr_tpu_torch.device import resolve_device

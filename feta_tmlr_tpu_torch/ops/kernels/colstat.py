@@ -95,7 +95,7 @@ def attention_column_gcn_sums(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt,
     """
     args = (xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su)
     colsum, diag = colstat(*args)
-    missing = (diag == 0).to(torch.float32) * mask[:, None, :]
+    missing = (diag == 0).to(mask.dtype) * mask[:, None, :]
     dis = rsqrt_pos(colsum + fill * missing)
     wcolsum, _ = colstat(*args, wq=dis.contiguous())
     return dis * (wcolsum + fill * missing * dis)

@@ -1,6 +1,6 @@
 """Pieces shared by the attention kernels' wrappers and plain versions.
 
-Operand layout of both kernels (all float32, contiguous):
+Operand layout of the kernels (all float32, contiguous):
   xa [B, H, N, D]   x [B, N, D]   cq, ck [B, H, N]   c0 [H]
   pe [B, N, N] or None   deg [B, N] or None   mask [B, N] (1 = real node)
 """
@@ -59,9 +59,32 @@ def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (xa, x, cq, ck, c0, pe, deg, *(e[1] for e in extra))):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet; run it under "
-            "torch.no_grad() / torch.inference_mode()")
+        raise RuntimeError(
+            f"{name}: the raw kernel wrapper is not differentiable; call it "
+            "under torch.no_grad(), or use flash_graphit_attention(_heads) "
+            "(FlashGraphiT) for gradients")
+
+
+def bwd_row_constants(g_heads, outh, se, su, mask):
+    """Row constants of the backward, each [B, H, N], from the
+    per-head cotangent g_heads and output outh [B, H, N, dv] and the
+    forward's row sums se, su [B, H, N]:
+
+      safe = |su/se| > 1e-9 ? su/se : 1     (guard: the same test)
+      r    = safe * sum_d(g * outh)
+      ise  = 1/se      qa = qmask/safe
+      beta = guard * r / safe^2             c = (1 - guard) * r
+    """
+    delta = (g_heads * outh).sum(-1)
+    denom = su / se
+    guard = (denom.abs() > EPS).to(denom.dtype)
+    safe = torch.where(guard > 0, denom, torch.ones_like(denom))
+    r = safe * delta
+    ise = 1.0 / se
+    qa = mask[:, None, :] / safe
+    beta = r / (safe * safe) * guard
+    c = (1.0 - guard) * r
+    return ise, qa, beta, c
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,14 +1,19 @@
-"""GraphiT attention through the online-softmax forward kernel.
+"""GraphiT attention through the online-softmax kernels, forward and backward.
 
-Kernel: `csrc/flash_fwd.cu`, the H100 counterpart of the TPU kernel
-`feta_tmlr_tpu/ops/pallas/flash_attention.py::_fwd_kernel`. Its source note
-says what bounds it (f32 arithmetic on CUDA cores, about 2·B·H·N²·(D+dv)
-flops) and how the design answers that.
+Kernels:
+  `csrc/flash_fwd.cu`  the H100 counterpart of the TPU kernel
+                       `feta_tmlr_tpu/ops/pallas/flash_attention.py::_fwd_kernel`;
+  `csrc/flash_bwd.cu`  the counterparts of `_bwd_q_kernel` (dxa, dcq) and
+                       `_bwd_k_kernel` (dvw, dck, dx).
+Their source notes say what bounds them (f32 arithmetic on CUDA cores) and
+how the design answers that.
 
-`flash_fwd` is the wrapper: on a CUDA tensor it launches the kernel and
-counts the launch in `flash_fwd.launches`; on a CPU tensor it runs
-`flash_fwd_plain`, the same function from dense [B, H, N, N] tensors.
-There is no other route and no fallback.
+`flash_fwd`, `flash_bwd_q` and `flash_bwd_k` are the wrappers: on a CUDA
+tensor each launches its kernel and counts the launch in its `launches`
+attribute; on a CPU tensor each runs its plain version (`*_plain`), the same
+function from dense [B, H, N, N] tensors. There is no other route and no
+fallback. `FlashGraphiT` is the `torch.autograd.Function` that ties the
+forward to the two backward kernels.
 
 Public entry points mirror the JAX package:
   flash_graphit_attention        need_heads=False layers: sum_h attn_h @ vw_h
@@ -21,12 +26,14 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from feta_tmlr_tpu_torch.ops.kernels import build
 from feta_tmlr_tpu_torch.ops.kernels.colstat import attention_column_gcn_sums
 from feta_tmlr_tpu_torch.ops.kernels.common import (
     EPS,
     bind,
+    bwd_row_constants,
     check_launch,
     check_operands,
     plain_pd,
@@ -35,15 +42,27 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     stream_ptr,
 )
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = build.load("flash_fwd")
-        _fn = (lib, bind(lib, "feta_flash_fwd", 13, 5))
-    return _fn
+def _kernel(name):
+    """(lib, bound C function) for "fwd", "bwd_q" or "bwd_k"."""
+    if name not in _fns:
+        if name == "fwd":
+            lib = build.load("flash_fwd")
+            _fns[name] = (lib, bind(lib, "feta_flash_fwd", 13, 5))
+        else:
+            lib = build.load("flash_bwd")
+            n_ptrs = 17 if name == "bwd_q" else 19
+            _fns[name] = (lib, bind(lib, f"feta_flash_{name}", n_ptrs, 5))
+    return _fns[name]
+
+
+def _cuda_or_plain(name, xa) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if xa.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {xa.device}")
+    return xa.device.type == "cuda"
 
 
 def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
@@ -63,17 +82,15 @@ def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
 def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     """Online-softmax GraphiT forward (operand layout in `common`; vw is
     [B, H, N, dv] with dv <= 64). Returns (outh, m, se, su)."""
-    if xa.device.type == "cpu":
+    if not _cuda_or_plain("flash_fwd", xa):
         return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
-    if xa.device.type != "cuda":
-        raise ValueError(f"flash_fwd: unsupported device {xa.device}")
     b, h, n, d = xa.shape
     dv = vw.shape[-1]
     check_operands("flash_fwd", xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[("vw", vw, (b, h, n, dv))])
     if dv > 64:
         raise ValueError(f"flash_fwd: value width {dv} > 64")
-    lib, fn = _kernel()
+    lib, fn = _kernel("fwd")
     outh = torch.empty((b, h, n, dv), dtype=torch.float32, device=xa.device)
     m, se, su = (torch.empty((b, h, n), dtype=torch.float32,
                              device=xa.device) for _ in range(3))
@@ -88,16 +105,161 @@ def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
 flash_fwd.launches = 0
 
 
+# ---------------------------------------------------------------- backward
+#
+# Operands of both passes: the forward's (xa, x, cq, ck, c0, vw, pe, deg,
+# mask, inv_sqrt), the per-head cotangent g [B, H, N, dv], the forward's
+# row maximum m and the row constants ise, qa, beta, c [B, H, N]
+# (`common.bwd_row_constants`).
+
+def _plain_tiles(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
+                 qa, beta, c):
+    """Dense (ds, attn) [B, H, N, N], recomputed as the kernels do."""
+    s = plain_scores(xa, x, cq, ck, c0, mask, inv_sqrt)
+    a = torch.exp(s - m[..., None]) * ise[..., None]
+    pd = plain_pd(pe, deg, xa)
+    km = mask[:, None, None, :]
+    attn = a * pd * qa[..., None] * km
+    du = (g @ vw.transpose(-1, -2)) * km * qa[..., None] - beta[..., None]
+    ds = a * (du * pd - c[..., None]) * inv_sqrt
+    return ds, attn
+
+
+def flash_bwd_q_plain(*args):
+    """Dense version of the q pass: (dxa [B,H,N,D], dcq [B,H,N])."""
+    ds, _ = _plain_tiles(*args)
+    return ds @ args[1][:, None], ds.sum(-1)
+
+
+def flash_bwd_k_plain(*args):
+    """Dense version of the k pass: (dvw [B,H,N,dv], dck [B,H,N],
+    dx [B,N,D])."""
+    ds, attn = _plain_tiles(*args)
+    xa, g = args[0], args[10]
+    return (attn.transpose(-1, -2) @ g, ds.sum(-2),
+            (ds.transpose(-1, -2) @ xa).sum(1))
+
+
+def flash_bwd_plain(*args):
+    """Dense version of both passes: (dxa, dcq, dvw, dck, dx)."""
+    return flash_bwd_q_plain(*args) + flash_bwd_k_plain(*args)
+
+
+def _check_bwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
+               ise, qa, beta, c):
+    b, h, n, d = xa.shape
+    dv = vw.shape[-1]
+    rows = [(k, t, (b, h, n)) for k, t in (("m", m), ("ise", ise), ("qa", qa),
+                                           ("beta", beta), ("c", c))]
+    check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
+                   extra=[("vw", vw, (b, h, n, dv)), ("g", g, (b, h, n, dv)),
+                          *rows])
+    if d > 64 or dv > 64:
+        raise ValueError(f"{name}: width {d} or value width {dv} > 64")
+    return b, h, n, d, dv
+
+
+def flash_bwd_q(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
+                qa, beta, c):
+    """Query pass of the backward: (dxa [B,H,N,D], dcq [B,H,N])."""
+    args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
+            beta, c)
+    if not _cuda_or_plain("flash_bwd_q", xa):
+        return flash_bwd_q_plain(*args)
+    b, h, n, d, dv = _check_bwd("flash_bwd_q", *args)
+    lib, fn = _kernel("bwd_q")
+    dxa = torch.empty((b, h, n, d), dtype=torch.float32, device=xa.device)
+    dcq = torch.empty((b, h, n), dtype=torch.float32, device=xa.device)
+    err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
+             ptr(dxa), ptr(dcq), b, h, n, d, dv, float(inv_sqrt),
+             stream_ptr(xa.device))
+    check_launch(lib, err, "flash_bwd_q")
+    flash_bwd_q.launches += 1
+    return dxa, dcq
+
+
+def flash_bwd_k(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
+                qa, beta, c):
+    """Key pass of the backward: (dvw [B,H,N,dv], dck [B,H,N], dx [B,N,D]).
+    One call is two launches from `csrc/flash_bwd.cu`: the pass itself,
+    which writes one dx partial per head, and the fixed-order head sum."""
+    args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
+            beta, c)
+    if not _cuda_or_plain("flash_bwd_k", xa):
+        return flash_bwd_k_plain(*args)
+    b, h, n, d, dv = _check_bwd("flash_bwd_k", *args)
+    lib, fn = _kernel("bwd_k")
+    dev = xa.device
+    dvw = torch.empty((b, h, n, dv), dtype=torch.float32, device=dev)
+    dck = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    dx_heads = torch.empty((b, h, n, d), dtype=torch.float32, device=dev)
+    dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
+    err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
+             ptr(dvw), ptr(dck), ptr(dx_heads), ptr(dx), b, h, n, d, dv,
+             float(inv_sqrt), stream_ptr(dev))
+    check_launch(lib, err, "flash_bwd_k")
+    flash_bwd_k.launches += 1
+    return dvw, dck, dx
+
+
+flash_bwd_q.launches = 0
+flash_bwd_k.launches = 0
+
+
+def flash_bwd(*args):
+    """Both backward passes: (dxa, dcq, dvw, dck, dx)."""
+    return flash_bwd_q(*args) + flash_bwd_k(*args)
+
+
+class FlashGraphiT(torch.autograd.Function):
+    """outh, m, se, su = flash_fwd(...) with a backward through the two
+    backward kernels. m, se and su are not differentiable: they feed only
+    the detached coefficient head (the JAX package's `_flash_heads_bwd`
+    drops their cotangents too)."""
+
+    @staticmethod
+    def forward(ctx, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
+        outh, m, se, su = flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask,
+                                    inv_sqrt)
+        ctx.save_for_backward(xa, x, cq, ck, c0, vw, pe, deg, mask, outh, m,
+                              se, su)
+        ctx.inv_sqrt = inv_sqrt
+        ctx.mark_non_differentiable(m, se, su)
+        return outh, m, se, su
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _gm, _gse, _gsu):
+        xa, x, cq, ck, c0, vw, pe, deg, mask, outh, m, se, su = \
+            ctx.saved_tensors
+        g = g.contiguous()        # the head sum's cotangent is expanded
+        ise, qa, beta, c = bwd_row_constants(g, outh, se, su, mask)
+        dxa, dcq, dvw, dck, dx = flash_bwd(
+            xa, x, cq, ck, c0, vw, pe, deg, mask, ctx.inv_sqrt, g, m, ise,
+            qa, beta, c)
+        return dxa, dx, dcq, dck, dcq.sum((0, 2)), dvw, None, None, None, None
+
+
 def prepare(xa, x, cq, ck, c0, node_mask, pe, degree):
     """Public-layout operands -> the kernels' layout (see `common`):
-    cq/ck [B, N, H] -> [B, H, N], float32 mask, 1/sqrt(head dim)."""
+    cq/ck [B, N, H] -> [B, H, N], a float mask, 1/sqrt(head dim). Operands
+    become float32, except that float64 xa keeps everything in float64: a
+    reference run on the CPU (the CUDA kernels take float32 only)."""
     b, h, n, d = xa.shape
-    f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
+    dt = torch.float64 if xa.dtype == torch.float64 else torch.float32
+    cast = lambda t: None if t is None else t.to(dt).contiguous()
     return dict(
-        xa=f32(xa), x=f32(x), cq=f32(cq.transpose(1, 2)),
-        ck=f32(ck.transpose(1, 2)), c0=f32(c0.reshape(h)), pe=f32(pe),
-        deg=f32(degree), mask=f32(node_mask),
+        xa=cast(xa), x=cast(x), cq=cast(cq.transpose(1, 2)),
+        ck=cast(ck.transpose(1, 2)), c0=cast(c0.reshape(h)), pe=cast(pe),
+        deg=cast(degree), mask=cast(node_mask),
         inv_sqrt=1.0 / math.sqrt(d // h))
+
+
+def _flash(ops, vw):
+    return FlashGraphiT.apply(
+        ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"],
+        vw.to(ops["xa"].dtype).contiguous(), ops["pe"], ops["deg"],
+        ops["mask"], ops["inv_sqrt"])
 
 
 def flash_graphit_attention(xa, x, cq, ck, c0, vw, node_mask, pe=None,
@@ -107,9 +269,9 @@ def flash_graphit_attention(xa, x, cq, ck, c0, vw, node_mask, pe=None,
     xa [B,H,N,D] = x @ Wq_h Wk_h^T, x [B,N,D], cq/ck [B,N,H] rank-1 bias
     terms, c0 [H], vw [B,H,N,D] = v_h @ Wout_h, node_mask [B,N], optional
     pe [B,N,N] and degree [B,N]."""
-    ops = prepare(xa, x, cq, ck, c0, node_mask, pe, degree)
-    outh, _, _, _ = flash_fwd(vw=vw.to(torch.float32).contiguous(), **ops)
-    return outh.sum(1)
+    outh, _, _, _ = _flash(prepare(xa, x, cq, ck, c0, node_mask, pe, degree),
+                           vw)
+    return outh.sum(1)       # autograd hands every head the same cotangent
 
 
 def flash_graphit_attention_heads(xa, x, cq, ck, c0, v_heads, node_mask,
@@ -122,8 +284,7 @@ def flash_graphit_attention_heads(xa, x, cq, ck, c0, v_heads, node_mask,
     v_heads [B, H, N, dh] per-head values (not folded with W_out).
     Returns (out_each_head [B, N, H, dh], s [B, H, N])."""
     ops = prepare(xa, x, cq, ck, c0, node_mask, pe, degree)
-    outh, m, se, su = flash_fwd(
-        vw=v_heads.to(torch.float32).contiguous(), **ops)
+    outh, m, se, su = _flash(ops, v_heads)
     with torch.no_grad():                    # s is detached by definition
         s = attention_column_gcn_sums(m=m, se=se, su=su, fill=coeff_fill,
                                       **ops)

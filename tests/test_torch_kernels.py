@@ -7,7 +7,9 @@ CUDA kernels themselves are held to the plain versions by the `cuda`-marked
 tests in tests/test_torch_cuda.py, which need a card, and by chip_smoke.py.
 
 Tolerance: rtol 1e-4, atol 1e-5 (f32; the two sides sum in different
-orders and the JAX kernel's online rescaling rounds differently).
+orders and the JAX kernel's online rescaling rounds differently); for
+gradients through the whole attention rtol 1e-4, atol 2e-5 (one more
+f32 reduction over the keys).
 """
 
 import numpy as np
@@ -22,9 +24,11 @@ from feta_tmlr_tpu.ops.pallas import flash_attention as jfl
 from feta_tmlr_tpu_torch.ops.attention import modulated_attention_from_scores
 from feta_tmlr_tpu_torch.ops.kernels import colstat as tcs
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
+from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
 from feta_tmlr_tpu_torch.ops.laplacian import gcn_norm_directed
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
 @pytest.fixture
@@ -174,3 +178,132 @@ def test_heads_signal_is_detached():
         *a[:7], pe=a[7], degree=a[8])
     assert heads.requires_grad and not s.requires_grad
 
+
+
+# ---------------------------------------------------------------- backward
+
+def _guarded(inp):
+    """pe zero on the first 6 query rows of graph 1: su = 0 there, so
+    those rows take the |su/se| <= 1e-9 branch of forward and backward."""
+    inp = dict(inp)
+    inp["pe"] = inp["pe"].copy()
+    inp["pe"][1, :6] = 0.0
+    return inp
+
+
+@pytest.mark.parametrize("case", ["mod", "plain", "guard"])
+def test_flash_bwd_plain_matches_jax_call_bwd(case, interpret_mode):
+    """Both backward passes (row constants included) vs the JAX package's
+    `_bwd_common`, which runs kernels #3/#4 (`_call_bwd`) at block 8; in
+    the guard case su is also zeroed on 5 rows of graph 0 on both sides,
+    so the branch runs with c = r != 0."""
+    inp = _inputs(seed=10, dv=4)
+    if case == "guard":
+        inp = _guarded(inp)
+    with_mod = case != "plain"
+    jargs, jkw = _jax_args(inp, with_mod)
+    xa, x, cq, ck, c0, vw, mask = jargs
+    pe_a, deg_a, qm, km, inv_sqrt, cq_k, ck_k, c0_k = jfl._prepare(
+        xa, x, cq, ck, c0, mask, jkw["pe"], jkw["degree"], None)
+    outh, m, se, su = jfl._call_fwd(xa, x, cq_k, ck_k, c0_k, vw, pe_a,
+                                    deg_a, qm, km, inv_sqrt, 8, 8)
+    if case == "guard":
+        su = su.at[0, :, :5].set(0.0)
+    g = np.random.default_rng(11).standard_normal(
+        outh.shape).astype(np.float32)
+    res = (xa, x, cq_k, ck_k, c0_k, vw, pe_a, deg_a, qm, km, inv_sqrt,
+           outh, m, se, su)
+    w_dxa, w_dx, w_dcq, w_dck, w_dc0, w_dvw = jfl._bwd_common(
+        res, jnp.asarray(g), 8, 8)[:6]
+
+    a = _port_args(inp, with_mod)
+    ops = tfl.prepare(*a[:5], a[6], a[7], a[8])
+    sq = lambda t: _t(np.asarray(t)[..., 0])
+    consts = bwd_row_constants(_t(g), _t(outh), sq(se), sq(su), ops["mask"])
+    if case == "guard":
+        assert float(consts[3].abs().max()) > 1e-3       # c != 0 runs
+    got = tfl.flash_bwd(ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"],
+                        a[5], ops["pe"], ops["deg"], ops["mask"],
+                        ops["inv_sqrt"], _t(g), sq(m), *consts)
+    dxa, dcq, dvw, dck, dx = (t.numpy() for t in got)
+    np.testing.assert_allclose(dxa, np.asarray(w_dxa), **TOL)
+    np.testing.assert_allclose(dcq, np.asarray(w_dcq)[..., 0], **TOL)
+    np.testing.assert_allclose(dvw, np.asarray(w_dvw), **TOL)
+    np.testing.assert_allclose(dck, np.asarray(w_dck)[:, :, 0], **TOL)
+    np.testing.assert_allclose(dx, np.asarray(w_dx), **TOL)
+    np.testing.assert_allclose(dcq.sum((0, 2)), np.asarray(w_dc0).ravel(),
+                               **TOL)
+
+
+@pytest.mark.parametrize("case", ["mod", "plain", "guard"])
+def test_flash_bwd_plain_matches_autograd_of_forward(case):
+    """The closed-form backward vs torch.autograd through the dense
+    forward, an independent derivation."""
+    inp = _inputs(seed=12, n=24, dv=4)
+    if case == "guard":
+        inp = _guarded(inp)
+    a = _port_args(inp, case != "plain")
+    ops = tfl.prepare(*a[:5], a[6], a[7], a[8])
+    leaves = {k: ops[k].clone().requires_grad_()
+              for k in ("xa", "x", "cq", "ck", "c0")}
+    vw = a[5].clone().requires_grad_()
+    rest = dict(pe=ops["pe"], deg=ops["deg"], mask=ops["mask"],
+                inv_sqrt=ops["inv_sqrt"])
+    outh, m, se, su = tfl.flash_fwd_plain(vw=vw, **leaves, **rest)
+    g = _t(np.random.default_rng(13).standard_normal(
+        tuple(outh.shape)).astype(np.float32))
+    (outh * g).sum().backward()
+    consts = bwd_row_constants(g, outh.detach(), se.detach(), su.detach(),
+                               ops["mask"])
+    got = tfl.flash_bwd(*(ops[k] for k in ("xa", "x", "cq", "ck", "c0")),
+                        a[5], ops["pe"], ops["deg"], ops["mask"],
+                        ops["inv_sqrt"], g, m.detach(), *consts)
+    want = (leaves["xa"].grad, leaves["cq"].grad, vw.grad,
+            leaves["ck"].grad, leaves["x"].grad)
+    for name, gt, wt in zip(("dxa", "dcq", "dvw", "dck", "dx"), got, want):
+        np.testing.assert_allclose(gt.numpy(), wt.numpy(), err_msg=name,
+                                   **TOL)
+    np.testing.assert_allclose(got[1].sum((0, 2)).numpy(),
+                               leaves["c0"].grad.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("heads", [False, True])
+@pytest.mark.parametrize("case", ["mod", "plain", "guard"])
+def test_flash_attention_grads_match_jax(heads, case, interpret_mode):
+    """Gradients of both public entry points (through `FlashGraphiT`) vs
+    jax.grad of the JAX functions, whose backward runs kernels #3/#4
+    interpreted at block 8."""
+    inp = _inputs(seed=14, dv=4 if heads else 8)
+    if case == "guard":
+        inp = _guarded(inp)
+    with_mod = case != "plain"
+    jargs, jkw = _jax_args(inp, with_mod)
+    rng = np.random.default_rng(15)
+    b, h, n, _ = inp["xa"].shape
+    dv = inp["vw"].shape[-1]
+    g = rng.standard_normal((b, n, h, dv) if heads else (b, n, 8)
+                            ).astype(np.float32)
+
+    def jloss(*diff):
+        args = diff + jargs[6:]
+        if heads:
+            out, _ = jfl.flash_graphit_attention_heads(
+                *args, block_q=8, block_k=8, **jkw)
+        else:
+            out = jfl.flash_graphit_attention(*args, block_q=8, block_k=8,
+                                              **jkw)
+        return (out * g).sum()
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*jargs[:6])
+    a = list(_port_args(inp, with_mod))
+    diff = [t.requires_grad_() for t in a[:6]]
+    if heads:
+        out, s = tfl.flash_graphit_attention_heads(*a[:7], pe=a[7],
+                                                   degree=a[8])
+        assert not s.requires_grad
+    else:
+        out = tfl.flash_graphit_attention(*a[:7], pe=a[7], degree=a[8])
+    (out * _t(g)).sum().backward()
+    for name, t, w in zip(("xa", "x", "cq", "ck", "c0", "vw"), diff, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   err_msg=name, **GRAD_TOL)

@@ -211,6 +211,84 @@ def test_graphit_layer_matches_jax(need_heads, batch_norm, jax_flash_path):
         assert g_attn is None and g_heads is None
 
 
+@pytest.mark.parametrize("need_heads", [False, True])
+def test_graphit_layer_grads_match_jax(need_heads, jax_flash_path):
+    """Train-mode gradients of one layer (batch norm on its batch
+    statistics) w.r.t. every parameter and the input, vs jax.grad of the
+    JAX layer on its flash path (backward kernels #3/#4 interpreted).
+    Tolerance rtol 1e-3 / atol 1e-5: a backward through attention, FFN and
+    two batch norms in f32, sums in other orders on the two sides."""
+    x, mask, pe, deg = _layer_inputs(seed=16)
+    rng = np.random.default_rng(17)
+    layer = jlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, True)
+    jx, jpe_, jmask, jdeg = (jnp.asarray(a) for a in (x, pe, mask, deg))
+    variables = dict(layer.init(jax.random.key(0), jx, jpe_, jmask, jdeg))
+    variables["params"] = jax.tree.map(       # non-zero biases
+        lambda p: p + 0.05 * rng.standard_normal(p.shape).astype(np.float32),
+        variables["params"])
+    g_out = rng.standard_normal(x.shape).astype(np.float32)
+    g_heads = rng.standard_normal((2, 32, 2, 8)).astype(np.float32)
+
+    def jloss(params, xin):
+        (out, _, heads), _ = layer.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            xin, jpe_, jmask, jdeg, deterministic=False,
+            need_heads=need_heads, mutable=["batch_stats"])
+        loss = (out * g_out).sum()
+        return loss + (heads * g_heads).sum() if need_heads else loss
+
+    w_params, w_x = jax.grad(jloss, argnums=(0, 1))(variables["params"], jx)
+
+    port = from_flax(_np_tree(variables),
+                     tlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, True))
+    port.train()
+    tx = _t(x).requires_grad_()
+    out, _, heads = port(tx, _t(pe), _t(mask), _t(deg),
+                         need_heads=need_heads)
+    loss = (out * _t(g_out)).sum()
+    if need_heads:
+        loss = loss + (heads * _t(g_heads)).sum()
+    loss.backward()
+    tol = dict(rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(w_x), **tol)
+    want = from_flax({"params": _np_tree(w_params),
+                      "batch_stats": _np_tree(variables["batch_stats"])},
+                     tlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, True))
+    want = dict(want.named_parameters())
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(),
+                                   want[name].detach().numpy(),
+                                   err_msg=name, **tol)
+
+
+def _grad_fn_names(t):
+    seen, todo, names = set(), [t.grad_fn], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+@pytest.mark.parametrize("need_heads", [False, True])
+def test_layer_trains_through_flash_function_and_dropout(need_heads):
+    x, mask, pe, deg = _layer_inputs(seed=18)
+    args = (_t(x), _t(pe), _t(mask), _t(deg))
+    layer = tlayers.GraphiTEncoderLayer(16, 2, 32, 0.5, True)
+    torch.manual_seed(0)
+    out, _, _ = layer.train()(*args, need_heads=need_heads)
+    assert "FlashGraphiTBackward" in _grad_fn_names(out)
+    with torch.no_grad():          # eval: no dropout; train: a new mask
+        a = layer.eval()(*args, need_heads=need_heads)[0]
+        b = layer(*args, need_heads=need_heads)[0]
+        c = layer.train()(*args, need_heads=need_heads)[0]
+        d = layer(*args, need_heads=need_heads)[0]
+    assert torch.equal(a, b) and not torch.allclose(c, d)
+
+
 def test_masked_batch_norm_train_mode_matches_jax():
     rng = np.random.default_rng(9)
     x, mask, _, _ = _layer_inputs(seed=9)

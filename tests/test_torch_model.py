@@ -163,6 +163,27 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert TPredictor(model, device="cpu").device.type == "cpu"
 
 
+def test_float64_cpu_route_matches_float32():
+    """A float64 model on the CPU keeps float64 through the attention (a
+    reference run) and agrees with the float32 route to f32 precision."""
+    _, tg = _graphs(n_graphs=2)
+    tb = tbatch.collate_graphs(tg, max_nodes=N_MAX, node_labels=True)
+    tb64 = tbatch.GraphBatch(**{
+        k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+        for k, v in vars(tb).items()})
+    m32 = tmodels.DiffGraphTransformerGenGCNSBM(**CFG, device="cpu")
+    m64 = tmodels.DiffGraphTransformerGenGCNSBM(
+        **CFG, device="cpu").to(torch.float64)
+    m64.load_state_dict(m32.state_dict())
+    got, _ = m64.train()(tb64)
+    want, _ = m32.train()(tb)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    got.sum().backward()
+    assert all(p.grad.dtype == torch.float64 for p in m64.parameters())
+
+
 def test_model_init_is_seeded():
     a = tmodels.DiffGraphTransformerGenGCNSBM(**CFG, seed=3, device="cpu")
     b = tmodels.DiffGraphTransformerGenGCNSBM(**CFG, seed=3, device="cpu")
