@@ -9,12 +9,16 @@ Phases (any failure raises and the script exits non-zero):
   2. build the CUDA kernels from `feta_tmlr_tpu_torch/csrc/` (one nvcc per
      source, all started together) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at the
-     slice's shapes (H=8, N=1024, D=64, value widths 64 and 8; B=4, the
-     training batch, and B=8, the serving batch) and at a ragged N=200
-     with B=8, with padded nodes; the backward kernels also on rows in
-     the |su/se| <= 1e-9 branch; print the largest absolute error, the
-     kernel's and the plain version's median milliseconds (CUDA events) and
-     the bound;
+     slices' shapes, printing the largest absolute error, the kernel's and
+     the plain version's median milliseconds (CUDA events) and the bound:
+     the attention kernels at H=8, N=1024, D=64, value widths 64 and 8
+     (B=4, the training batch, and B=8, the serving batch) and at a ragged
+     N=200 with B=8, with padded nodes, the backward kernels also on rows
+     in the |su/se| <= 1e-9 branch; the fused-MLP kernels at the SAN
+     eigen-PE head's 40,960 rows (d 8, F 2048) and at a ragged 10,007, at
+     dropout 0 and 0.1, with their masks read back bit-equal to the plain
+     version's, a keep fraction of 0.9 +- 0.002 and two backward runs
+     bit-identical;
   4. serve the FeTA SBM node classifier (DiffGraphTransformerGenGCNSBM at
      d_model 64, 8 heads, 10 layers, ff 128, batch norm, LapPE 8, Chebyshev
      order 4; random weights from a seed) at N=1024 through `Predictor` on
@@ -26,14 +30,28 @@ Phases (any failure raises and the script exits non-zero):
      epochs (40 steps: ms per step over the window with its spread, and
      each epoch's process CPU time, garbage-collection time and new device
      memory segments); launch counts per step over all 46 steps; acc_sbm;
+     no host sync in one more step (torch's sync debug mode);
      then one step from the same initial weights on CUDA,
      on the CPU in float32 and on the CPU in float64, the CUDA loss and
      gradients held to the float64 ones;
-  6. print the kernels' JSON line, the card line, and the final status line
+  6. serve SAN_NodeSpectra (ZINC: hidden 56, 8 heads, 10 layers, eigen-PE
+     head of dim 8, 4 heads, 2 layers, ff 2048 over m=10 frequencies,
+     typed bond edges, batch norm, Chebyshev order 4 in every layer) through
+     `Predictor`: four requests of 128 ZINC-shaped graphs padded to 32
+     nodes, 2 fused-MLP forward launches each, 8 graphs held against the
+     CPU path;
+  7. train it through `Trainer` (graph_reg, L1): 2 batches of 128 graphs,
+     3 epochs warming up towards lr 7e-4 (weight decay 0, FreqTransformer
+     dropout 0.1, eigvec sign flip on), then a timed window of 10 epochs;
+     2 + 2 fused-MLP launches per step, finite loss, no host sync in a
+     step (torch's sync debug mode); the eigen-PE dropout mask's device
+     and host time and kernel count; then one step on 16 graphs with that
+     dropout at 0, CUDA against the CPU in float64;
+  8. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
-training step's device time. It needs one card and exits non-zero without
+training step's device time, for each model. It needs one card and exits non-zero without
 printing a result when CUDA is unavailable.
 """
 
@@ -49,20 +67,27 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
 
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
-from feta_tmlr_tpu_torch.data.synthetic import sbm_like_dataset
+from feta_tmlr_tpu_torch.data.synthetic import (
+    sbm_like_dataset,
+    zinc_categorical_dataset,
+)
 from feta_tmlr_tpu_torch.nn.layers import MaskedBatchNorm
 from feta_tmlr_tpu_torch.nn.models import DiffGraphTransformerGenGCNSBM
+from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import build
 from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as fl_mod
+from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as fm_mod
 from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
 from feta_tmlr_tpu_torch.pe.encodings import DiffusionEncoding, LapEncoding
+from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.serve import Predictor
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -96,9 +121,37 @@ CHECK_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (N_GRAPHS, N_NODES, 60),
 # the wrappers whose launches a run counts, and their launches per step
 KERNELS = {"flash_fwd": fl_mod.flash_fwd, "colstat": cs_mod.colstat,
            "flash_bwd_q": fl_mod.flash_bwd_q,
-           "flash_bwd_k": fl_mod.flash_bwd_k}
-STEP_LAUNCHES = {"flash_fwd": 10, "colstat": 2, "flash_bwd_q": 10,
+           "flash_bwd_k": fl_mod.flash_bwd_k,
+           "fused_mlp_fwd": fm_mod.fused_mlp_fwd,
+           "fused_mlp_bwd": fm_mod.fused_mlp_bwd}
+NONE = dict.fromkeys(KERNELS, 0)
+STEP_LAUNCHES = {**NONE, "flash_fwd": 10, "colstat": 2, "flash_bwd_q": 10,
                  "flash_bwd_k": 10}
+# SAN_NodeSpectra at configs/LPE/ZINC/optimized.json's net params under the
+# mean readout (bench_tiers.py:210-215; full graph, batch norm, residuals,
+# layer dropout 0 and the filter in every layer are the port's only
+# variant): FreqTransformer ff 2048, dropout 0.1; batches of 128
+# ZINC-shaped graphs padded to 32 nodes, m = 10 eigen-frequencies, so the
+# fused MLP sees 128 * 32 * 10 = 40,960 rows
+SAN_CFG = dict(num_atom_type=28, num_bond_type=4, hidden_dim=56, out_dim=56,
+               n_heads=8, n_layers=10, lpe_dim=8, lpe_heads=4, lpe_layers=2,
+               gamma=1e-5, filter_order=4, n_out=1)
+SAN_GRAPHS = 128
+SAN_NODES = 32
+SAN_FREQS = 10
+SAN_ROWS = SAN_GRAPHS * SAN_NODES * SAN_FREQS
+SAN_REQUESTS = 4
+SAN_TRAIN_EPOCHS = 3
+SAN_TIMED_EPOCHS = 10
+SAN_STEP_LAUNCHES = {**NONE, "fused_mlp_fwd": 2, "fused_mlp_bwd": 2}
+SAN_STEP_PARAMS = ("embedding_h.weight", "layers.0.attention.Q.weight",
+                   "layers.9.attention.E.weight", "layers.9.cheb_weight",
+                   "pe_transformer.freq_transformer.ff1_0.kernel",
+                   "pe_transformer.freq_transformer.ff2_1.kernel",
+                   "mlp_readout.fc_out.weight")
+# fused-MLP checks: (rows, d_in, F, d_out); the JSON rows are those of the
+# first shape at dropout 0.1, the training path's
+MLP_SHAPES = ((SAN_ROWS, 8, 2048, 8), (10007, 8, 2048, 8))
 
 
 def card_line() -> str:
@@ -303,6 +356,119 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
     return rows
 
 
+def mlp_inputs(seed, r, din, f, dout, device, g_scale=0.005):
+    """x, w1, b1, w2, b2 at the scales of the model's initializers
+    (lecun-normal weights) and a cotangent g of scale `g_scale`; the
+    default is the scale the L1 loss's mean over 128 graphs gives (|g| <
+    1e-2): dW2 and db2 sum R = 40,960 terms, and at g ~ 0.05 their f32
+    rounding alone reaches 3e-5 on both sides (against float64), above
+    atol 1e-5 on entries near zero.
+
+    x, w1 and b1 lie on dyadic grids (steps 2^-3, 2^-6, 2^-9), so that
+    pre = x w1 + b1 is exact in f32 in any summation order. The relu's
+    derivative jumps at 0: an f32 pre within rounding of 0 (a few of the
+    84M units at R = 40,960) would take another branch in the kernel than
+    in cuBLAS and move dx and dW1 by ~1e-2, whatever the kernel's
+    accuracy."""
+    rng = np.random.default_rng(seed)
+    t = lambda scale, *s: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(device)
+    grid = lambda step, a: torch.round(a / step) * step
+    return (grid(2 ** -3, t(1.0, r, din)).clamp(-4, 4),
+            grid(2 ** -6, t(din ** -0.5, din, f)), grid(2 ** -9, t(0.1, f)),
+            t(f ** -0.5, f, dout), t(0.1, dout), t(g_scale, r, dout))
+
+
+def mlp_cost(r, din, f, dout, which):
+    """(flops, bytes) of one call: the forward's two products, or the
+    backward's five (g W2^T, dx, dW1, dW2 and the recomputed x W1); each
+    input read once, each output written once."""
+    weights = din * f + f + f * dout
+    if which == "fwd":
+        return (2.0 * r * f * (din + dout),
+                4.0 * (r * din + weights + dout + r * dout))
+    return (2.0 * r * f * (3 * din + 2 * dout),
+            4.0 * (r * din + weights + r * dout + r * din + weights + dout))
+
+
+def mlp_masks(device, seed, rate, rows, units=64):
+    """The keep masks the kernels apply, read back exactly: with x = 0 and
+    b1 = 1 every unit is live with h = scale, so w2 = I makes the
+    forward's y = scale ([rows, units]), and g = I over the first `units`
+    rows makes the backward's dW2[j, r] = scale[r, j]."""
+    x = torch.zeros(rows, 1, device=device)
+    w1 = torch.zeros(1, units, device=device)
+    b1 = torch.ones(units, device=device)
+    eye = torch.eye(units, device=device)
+    with torch.no_grad():
+        y = fm_mod.fused_mlp_fwd(x, w1, b1, eye,
+                                 torch.zeros(units, device=device), rate,
+                                 seed)
+        dw2 = fm_mod.fused_mlp_bwd(x[:units], w1, b1, eye, eye, rate, seed)[3]
+    return y > 0, dw2.T > 0
+
+
+def check_fused_mlp(device, shapes=MLP_SHAPES, seed=7):
+    """Phase 3, fused MLP: forward and backward kernels vs their plain
+    versions at rate 0 and 0.1; two backward runs bit-identical; the
+    kernels' dropout masks bit-equal to the plain version's and keeping
+    0.9 +- 0.002 of the units. Returns the JSON rows like
+    `check_kernels`."""
+    rows = {}
+    errs = {"fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}
+    for r, din, f, dout in shapes:
+        x, w1, b1, w2, b2, g = mlp_inputs(r + f, r, din, f, dout, device)
+        for rate in (0.0, 0.1):
+            with torch.no_grad():
+                fwd = lambda: fm_mod.fused_mlp_fwd(x, w1, b1, w2, b2, rate,
+                                                   seed)
+                bwd = lambda: fm_mod.fused_mlp_bwd(x, w1, b1, w2, g, rate,
+                                                   seed)
+                plain_f = lambda: fm_mod.fused_mlp_plain(x, w1, b1, w2, b2,
+                                                         rate, seed)
+                plain_b = lambda: fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2,
+                                                             g, rate, seed)
+                got_f, got_b, again = fwd(), bwd(), bwd()
+                torch.cuda.synchronize()
+                tag = f"R={r} rate={rate}"
+                e_f = max_err([got_f], [plain_f()], f"fused_mlp_fwd {tag}")
+                e_b = max_err(got_b, plain_b(), f"fused_mlp_bwd {tag}")
+                if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+                    raise AssertionError(f"fused_mlp_bwd {tag}: two runs "
+                                         "differ")
+                times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
+            errs["fused_mlp_fwd"] = max(errs["fused_mlp_fwd"], e_f)
+            errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], e_b)
+            bf = bound(*mlp_cost(r, din, f, dout, "fwd"))
+            bb = bound(*mlp_cost(r, din, f, dout, "bwd"))
+            print(f"fused-MLP check R={r} d_in={din} F={f} d_out={dout} "
+                  f"rate={rate}: fwd err {e_f:.3e} {times[0]:.4f} ms (plain "
+                  f"{times[2]:.4f} ms, bound {bf[0]:.4f} ms {bf[1]}); bwd err "
+                  f"{e_b:.3e} {times[1]:.4f} ms (plain {times[3]:.4f} ms, "
+                  f"bound {bb[0]:.4f} ms {bb[1]}); two bwd runs bit-identical;"
+                  f" tolerance rtol 1e-4 atol 1e-5", flush=True)
+            if (r, din, f, dout) == shapes[0] and rate > 0:
+                for name, t_k, t_p, (b_ms, by) in (
+                        ("fused_mlp_fwd", times[0], times[2], bf),
+                        ("fused_mlp_bwd", times[1], times[3], bb)):
+                    rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                      bound_by=by)
+    keep_f, keep_b = mlp_masks(device, seed, 0.1, shapes[0][0])
+    want = fm_mod.dropout_keep(seed, shapes[0][0], 64, 0.1, device)
+    frac = float(keep_f.float().mean())
+    if not (torch.equal(keep_f, want) and torch.equal(keep_b, want[:64])):
+        raise AssertionError("fused-MLP dropout masks differ from the plain "
+                             "version's")
+    if abs(frac - 0.9) > 0.002:
+        raise AssertionError(f"fused-MLP keep fraction {frac}")
+    print(f"fused-MLP dropout 0.1: forward mask [{shapes[0][0]}, 64] and "
+          f"backward mask [64, 64] bit-equal to the plain version's; keep "
+          f"fraction {frac:.6f} (0.9 +- 0.002)", flush=True)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    return rows
+
+
 def _pe_worker(graph):
     DiffusionEncoding(beta=1.0).apply_to([graph])
     LapEncoding(MODEL_CFG["lap_pos_enc_dim"]).apply_to([graph])
@@ -325,14 +491,13 @@ def make_graphs():
     return graphs
 
 
-def calibrate_batch_norm(model, graphs, device):
+def calibrate_batch_norm(model, batch, device):
     """Non-trivial running statistics, as training leaves them: one
     train-mode pass with momentum 0 sets every MaskedBatchNorm's running
-    mean and variance to the masked statistics of its input on `graphs`
+    mean and variance to the masked statistics of its input on `batch`
     (random statistics instead would let activations grow layer by layer
     to magnitudes no trained model has)."""
     norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
-    batch = collate_graphs(graphs, max_nodes=N_NODES, node_labels=True)
     for m in norms:
         m.momentum = 0.0
     model.train()
@@ -346,7 +511,8 @@ def calibrate_batch_norm(model, graphs, device):
 def serve_slice(graphs, device, card, profile=False):
     """Phase 4: the port's serving path through Predictor on CUDA."""
     model = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, seed=0, device=device)
-    calibrate_batch_norm(model, graphs, device)
+    calibrate_batch_norm(model, collate_graphs(graphs, max_nodes=N_NODES,
+                                               node_labels=True), device)
     cpu_model = copy.deepcopy(model).to("cpu")
     kw = dict(collate_kwargs={"max_nodes": N_NODES, "node_labels": True},
               node_level=True)
@@ -361,8 +527,8 @@ def serve_slice(graphs, device, card, profile=False):
         call_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
     forwards = len(requests)
-    if launches != {"flash_fwd": 10 * forwards, "colstat": 2 * forwards,
-                    "flash_bwd_q": 0, "flash_bwd_k": 0}:
+    if launches != {**NONE, "flash_fwd": 10 * forwards,
+                    "colstat": 2 * forwards}:
         raise AssertionError(f"launch counts {launches} for {forwards} "
                              "forward batches; expected 10 and 2 per batch")
 
@@ -436,6 +602,51 @@ def timed_epochs(trainer, batches, epochs):
     return losses, rows
 
 
+def step_syncs(trainer, batch):
+    """The host syncs of one `trainer.step` on a batch already on the
+    card: the messages of torch's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def dropout_cost(device):
+    """One eigen-PE dropout mask at the training shape ([40,960, 8], rate
+    0.1; a SAN step draws 4): its span on the card (CUDA events, median of
+    25), the host ms to enqueue it (mean of 25, no sync), and its device
+    kernels and their summed device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    t = torch.ones(SAN_ROWS, SAN_CFG["lpe_dim"], device=device)
+    gen = torch.Generator().manual_seed(0)
+    fn = lambda: hash_dropout(t, 0.1, gen)
+    dev_ms = time_ms(fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(25):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 25
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"san dropout mask [{SAN_ROWS}, {SAN_CFG['lpe_dim']}] rate 0.1: "
+          f"span {dev_ms:.4f} ms, host enqueue {host_ms:.4f} ms, "
+          f"{sum(e.count for e in rows)} device kernels busy {busy:.4f} ms "
+          f"per mask; 4 masks per step", flush=True)
+
+
 def train_slice(graphs, device, card, profile=False):
     """Phase 5: the port's training path through Trainer on CUDA, then one
     step from the same initial weights on CUDA and on the CPU."""
@@ -459,6 +670,7 @@ def train_slice(graphs, device, card, profile=False):
     more, window = timed_epochs(trainer, batches, TIMED_EPOCHS)
     launches = read_launches()
     metric = trainer.evaluate(batches)
+    syncs = step_syncs(trainer, batches[0])
     n_window = TIMED_EPOCHS * len(batches)
     per_step = [r[0] / len(batches) for r in window]
     mean = sum(r[0] for r in window) / n_window
@@ -482,17 +694,141 @@ def train_slice(graphs, device, card, profile=False):
           f"losses {[round(x, 6) for x in more]}", flush=True)
     total = steps + n_window
     print(f"train: acc_sbm {metric['acc_sbm']:.4f} on the training graphs "
-          f"after {total} steps; launches {launches}", flush=True)
+          f"after {total} steps; launches {launches}; host syncs in one "
+          f"step (sync debug mode): {len(syncs)} {syncs[:3]}", flush=True)
     if profile:
         profile_call(f"one training step of {per} graphs",
                      lambda: trainer.step(batches[0]))
-    step_parity(initial, graphs[:2], device)
+    step_parity(initial, graphs[:2], device, "train",
+                dict(max_nodes=N_NODES, node_labels=True),
+                TrainConfig(regularization=0.1, sign_flip=False), STEP_PARAMS)
     want = {name: total * k for name, k in STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launch counts {launches} for {total} training "
                              f"steps; expected {STEP_LAUNCHES} per step")
+    if syncs:
+        raise AssertionError(f"an SBM training step syncs the host: {syncs}")
     if not all(np.isfinite(losses + more)) or not losses[-1] < losses[0]:
         raise AssertionError(f"epoch losses {losses}: not finite and falling")
+    return launches
+
+
+def make_san_graphs():
+    """ZINC-shaped graphs with their eigen-PE: the requests' graphs first,
+    then the two training batches (the first two requests' graphs)."""
+    t0 = time.perf_counter()
+    graphs = zinc_categorical_dataset(seed=3,
+                                      n_graphs=SAN_REQUESTS * SAN_GRAPHS)
+    apply_laplace_decomp(graphs, SAN_FREQS)
+    sizes = [g.num_nodes for g in graphs]
+    print(f"host eigen-PE (m={SAN_FREQS}) for {len(graphs)} ZINC-shaped "
+          f"graphs of {min(sizes)}-{max(sizes)} nodes: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return graphs
+
+
+def san_serve_slice(graphs, device, card, profile=False):
+    """Phase 6: SAN_NodeSpectra served through Predictor on CUDA, one
+    request of 128 graphs at a time."""
+    model = SANNodeSpectra(**SAN_CFG, seed=0, device=device)
+    calibrate_batch_norm(model, collate_graphs(
+        graphs[:SAN_GRAPHS], max_nodes=SAN_NODES), device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    kw = dict(collate_kwargs={"max_nodes": SAN_NODES}, max_batch=SAN_GRAPHS)
+    pred = Predictor(model, device=device, **kw)
+    requests = [graphs[i * SAN_GRAPHS:(i + 1) * SAN_GRAPHS]
+                for i in range(SAN_REQUESTS)]
+
+    reset_launches()
+    outs, call_ms = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.predict(req))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    if launches != {**NONE, "fused_mlp_fwd": 2 * len(requests)}:
+        raise AssertionError(f"launch counts {launches} for {len(requests)} "
+                             "SAN requests; expected 2 fused_mlp_fwd each")
+    for out in outs:
+        if out.shape != (SAN_GRAPHS, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"bad SAN outputs {out.shape}")
+    n_ref = 8
+    ref = Predictor(cpu_model, device="cpu", **kw).predict(requests[0][:n_ref])
+    err = float(np.abs(outs[0][:n_ref] - ref).max())
+    np.testing.assert_allclose(outs[0][:n_ref], ref, **SLICE_TOL)
+    steady = statistics.median(call_ms[1:])
+    print(f"san serve: {len(requests)} requests of {SAN_GRAPHS} graphs at "
+          f"N={SAN_NODES}; ms/call {[round(t, 2) for t in call_ms]}; steady "
+          f"(median of the last {len(requests) - 1}) {steady:.2f} ms/call = "
+          f"{SAN_GRAPHS / steady * 1e3:.1f} graphs/s on {card}", flush=True)
+    print(f"san serve: launches {launches}; CUDA vs CPU outputs of {n_ref} "
+          f"graphs: max abs err {err:.3e}, max |y| "
+          f"{float(np.abs(ref).max()):.3f} (tolerance rtol 1e-3 atol 1e-3)",
+          flush=True)
+    if profile:
+        profile_call(f"one SAN request of {SAN_GRAPHS} graphs",
+                     lambda: pred.predict(requests[0]))
+    return launches
+
+
+def san_train_slice(graphs, device, card, profile=False):
+    """Phase 7: SAN_NodeSpectra trained through Trainer (graph_reg, L1)
+    on CUDA, FreqTransformer dropout 0.1, eigvec sign flip on; then one
+    step on 16 graphs with that dropout at 0, on CUDA and on the CPU."""
+    model = SANNodeSpectra(**SAN_CFG, seed=1, device=device)
+    initial = copy.deepcopy(model)
+    batches = [collate_graphs(graphs[i:i + SAN_GRAPHS],
+                              max_nodes=SAN_NODES).to(device)
+               for i in (0, SAN_GRAPHS)]
+    steps = SAN_TRAIN_EPOCHS * len(batches)
+    # the reference ZINC config: lr 7e-4, weight decay 0; warmed up over
+    # the first steps, as random weights need (see train_slice)
+    trainer = Trainer(model, TrainConfig(task="graph_reg", lr=7e-4,
+                                         weight_decay=0.0, sign_flip=True,
+                                         seed=0, schedule="warmup",
+                                         warmup_steps=steps))
+    reset_launches()
+    losses, first = timed_epochs(trainer, batches, SAN_TRAIN_EPOCHS)
+    more, window = timed_epochs(trainer, batches, SAN_TIMED_EPOCHS)
+    launches = read_launches()
+    metric = trainer.evaluate(batches)
+    syncs = step_syncs(trainer, batches[0])
+    total = steps + SAN_TIMED_EPOCHS * len(batches)
+    per_step = [r[0] / len(batches) for r in window]
+    mean = sum(r[0] for r in window) / (SAN_TIMED_EPOCHS * len(batches))
+    print(f"san train: {steps} AdamW steps of {SAN_GRAPHS} graphs at "
+          f"N={SAN_NODES} (L1 loss; warmup towards lr 7e-4, weight decay 0, "
+          f"FreqTransformer dropout 0.1, eigvec sign flip on); epoch losses "
+          f"{[round(x, 6) for x in losses]}; ms/epoch "
+          f"{[round(r[0], 2) for r in first]}", flush=True)
+    print(f"san train: timed window of {SAN_TIMED_EPOCHS} more epochs = "
+          f"{SAN_TIMED_EPOCHS * len(batches)} steps: {mean:.2f} ms/step over "
+          f"the window; per epoch ms/step median "
+          f"{statistics.median(per_step):.2f}, min {min(per_step):.2f}, max "
+          f"{max(per_step):.2f}, stdev {statistics.stdev(per_step):.2f}; "
+          f"process CPU ms/epoch {[round(r[2], 2) for r in window]}; new "
+          f"device memory segments {sum(r[4] for r in window)}; epoch "
+          f"losses {[round(x, 6) for x in more]}; on {card}", flush=True)
+    print(f"san train: mae {metric['mae']:.4f} on the training graphs after "
+          f"{total} steps; launches {launches}; host syncs in one step (sync "
+          f"debug mode): {len(syncs)} {syncs[:3]}", flush=True)
+    dropout_cost(device)
+    if profile:
+        profile_call(f"one SAN training step of {SAN_GRAPHS} graphs",
+                     lambda: trainer.step(batches[0]))
+    want = {name: total * k for name, k in SAN_STEP_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} for {total} SAN "
+                             f"steps; expected {SAN_STEP_LAUNCHES} per step")
+    if not all(np.isfinite(losses + more)):
+        raise AssertionError(f"SAN epoch losses {losses + more}: not finite")
+    if syncs:
+        raise AssertionError(f"a SAN training step syncs the host: {syncs}")
+    initial.pe_transformer.freq_transformer.dropout = 0.0
+    step_parity(initial, graphs[:16], device, "san train",
+                dict(max_nodes=SAN_NODES),
+                TrainConfig(task="graph_reg", sign_flip=False),
+                SAN_STEP_PARAMS)
     return launches
 
 
@@ -504,15 +840,14 @@ def as_float64(batch):
         and getattr(batch, f.name).is_floating_point()})
 
 
-def step_parity(initial, graphs, device):
+def step_parity(initial, graphs, device, label, collate, cfg, params):
     """One step from the same weights (sign flip off, so no random numbers
     enter) on CUDA in float32, on the CPU in float32 and on the CPU in
     float64: the loss and the gradients of a few named parameters. The
     float64 step is the reference: from random weights the 10-layer
     network's gradients reach |g| ~ 40 and amplify f32 rounding, so each
     float32 route is held to it, not to the other."""
-    batch = collate_graphs(graphs, max_nodes=N_NODES, node_labels=True)
-    cfg = TrainConfig(regularization=0.1, sign_flip=False)
+    batch = collate_graphs(graphs, **collate)
     runs = {"cuda": (copy.deepcopy(initial), batch.to(device)),
             "cpu32": (copy.deepcopy(initial).to("cpu"), batch),
             "cpu64": (copy.deepcopy(initial).to("cpu", torch.float64),
@@ -523,9 +858,9 @@ def step_parity(initial, graphs, device):
         loss[route] = float(Trainer(model, cfg).step(b))
         secs[route] = time.perf_counter() - t0
         grads[route] = {name: model.get_parameter(name).grad.double().cpu()
-                        for name in STEP_PARAMS}
+                        for name in params}
     report, bad = [], []
-    for name in STEP_PARAMS:
+    for name in params:
         ref = grads["cpu64"][name]
         scale = float(ref.abs().max())
         rel = {r: float((grads[r][name] - ref).abs().max()) / scale
@@ -535,7 +870,7 @@ def step_parity(initial, graphs, device):
         if not torch.isfinite(grads["cuda"][name]).all() or \
                 rel["cuda"] > STEP_GRAD_REL:
             bad.append(name)
-    print(f"train: one step on {len(graphs)} graphs from the initial weights;"
+    print(f"{label}: one step on {len(graphs)} graphs from the initial weights;"
           f" loss cuda {loss['cuda']:.8f}, cpu32 {loss['cpu32']:.8f}, cpu64 "
           f"{loss['cpu64']:.8f}; grad max abs err / max |g| against cpu64: "
           + "; ".join(report) + f" (tolerance for cuda: loss rtol "
@@ -603,21 +938,27 @@ def main() -> int:
 
     rows = check_kernels(device)
     rows.update(check_bwd_kernels(device))
+    rows.update(check_fused_mlp(device))
     profile = "--profile" in sys.argv
     graphs = make_graphs()
-    served = serve_slice(graphs, device, card, profile=profile)
-    trained = train_slice(graphs, device, card, profile=profile)
+    runs = [serve_slice(graphs, device, card, profile=profile),
+            train_slice(graphs, device, card, profile=profile)]
+    san_graphs = make_san_graphs()
+    runs += [san_serve_slice(san_graphs, device, card, profile=profile),
+             san_train_slice(san_graphs, device, card, profile=profile)]
 
-    tpu = "feta_tmlr_tpu/ops/pallas/flash_attention.py:"
-    meta = {"flash_fwd": ("flash_fwd.cu", "95"),
-            "colstat": ("colstat.cu", "776"),
-            "flash_bwd_q": ("flash_bwd.cu", "528"),
-            "flash_bwd_k": ("flash_bwd.cu", "556")}
-    # launches: the serving run's plus the training run's
+    pallas = "feta_tmlr_tpu/ops/pallas/"
+    meta = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:95"),
+            "colstat": ("colstat.cu", "flash_attention.py:776"),
+            "flash_bwd_q": ("flash_bwd.cu", "flash_attention.py:528"),
+            "flash_bwd_k": ("flash_bwd.cu", "flash_attention.py:556"),
+            "fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:58"),
+            "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:70")}
+    # launches: the main paths' runs (SBM and SAN, serving and training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
-                    replaces=tpu + line,
-                    launches=served[name] + trained[name],
+                    replaces=pallas + line,
+                    launches=sum(run[name] for run in runs),
                     max_abs_err=rows[name]["max_abs_err"],
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
                     bound_ms=rows[name]["bound_ms"],

@@ -7,9 +7,11 @@ names its flax leaf:
 
   - `layers.<i>` is flax's `layer_<i>`;
   - an `nn.Linear` weight is the flax Dense `kernel` transposed ([in, out]
-    -> [out, in]); an `nn.LayerNorm` weight is the flax `scale`;
-  - raw parameters (`qkv`, `out_proj_kernel`, `gcn_kernel`, `cheb_bias`,
-    MaskedBatchNorm `scale`/`bias`) keep their flax name and layout;
+    -> [out, in]); an `nn.LayerNorm` weight is the flax `scale`; an
+    `nn.Embedding` weight is the flax Embed `embedding`;
+  - raw parameters (`qkv`, `out_proj_kernel`, `gcn_kernel`, `cheb_weight`,
+    `cheb_bias`, the SAN FFN's `kernel`/`bias`, MaskedBatchNorm
+    `scale`/`bias`) keep their flax name and layout;
   - buffers (MaskedBatchNorm `mean`/`var`) come from `batch_stats`.
 
 Every torch tensor must find its leaf and every flax leaf must be used,
@@ -68,6 +70,8 @@ def from_flax(variables: Mapping, model: nn.Module) -> nn.Module:
                     leaf, transpose = "kernel", True
                 elif isinstance(mod, nn.LayerNorm) and name == "weight":
                     leaf = "scale"
+                elif isinstance(mod, nn.Embedding) and name == "weight":
+                    leaf = "embedding"
                 key = "/".join(p for p in (coll, scope, leaf) if p)
                 if key not in leaves:
                     raise KeyError(f"no flax leaf {key!r} for "

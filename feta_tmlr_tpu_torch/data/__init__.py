@@ -4,7 +4,12 @@ from feta_tmlr_tpu_torch.data.batch import (
     collate_graphs,
     pad_bucket,
 )
-from feta_tmlr_tpu_torch.data.synthetic import sbm_like_dataset
+from feta_tmlr_tpu_torch.data.synthetic import (
+    random_connected_graph,
+    sbm_like_dataset,
+    zinc_categorical_dataset,
+)
 
 __all__ = ["Graph", "GraphBatch", "collate_graphs", "pad_bucket",
-           "sbm_like_dataset"]
+           "random_connected_graph", "sbm_like_dataset",
+           "zinc_categorical_dataset"]

@@ -28,6 +28,9 @@ class Graph:
       pe: optional [n, n] relative positional-encoding kernel.
       lap_pe: optional [n, p] absolute (Laplacian) PE.
       degree: optional [n] degree feature 1/sqrt(1+deg).
+      edge_type: optional [e] int edge (bond) types, one per edge.
+      eigvecs: optional [n, m] Laplacian eigenvectors, NaN-padded.
+      eigvals: optional [m] eigenvalues, NaN-padded.
     """
 
     x: np.ndarray
@@ -36,6 +39,9 @@ class Graph:
     pe: Optional[np.ndarray] = None
     lap_pe: Optional[np.ndarray] = None
     degree: Optional[np.ndarray] = None
+    edge_type: Optional[np.ndarray] = None
+    eigvecs: Optional[np.ndarray] = None
+    eigvals: Optional[np.ndarray] = None
 
     @property
     def num_nodes(self) -> int:
@@ -57,13 +63,16 @@ class GraphBatch:
     """Dense batch of B graphs padded to N nodes (tensors; optional fields
     are None)."""
 
-    x: torch.Tensor                           # [B, N, F] float
+    x: torch.Tensor                           # [B, N, F] float or [B, N] ids
     node_mask: torch.Tensor                   # [B, N] bool, True = real node
     adj: torch.Tensor                         # [B, N, N] float
     y: Optional[torch.Tensor] = None          # [B] / [B, N] labels
     pe: Optional[torch.Tensor] = None         # [B, N, N]
     lap_pe: Optional[torch.Tensor] = None     # [B, N, P]
     degree: Optional[torch.Tensor] = None     # [B, N]
+    edge_type: Optional[torch.Tensor] = None  # [B, N, N] int32 (src, dst)
+    eigvecs: Optional[torch.Tensor] = None    # [B, N, M] NaN-padded
+    eigvals: Optional[torch.Tensor] = None    # [B, M] NaN-padded
 
     @property
     def num_graphs(self) -> int:
@@ -97,17 +106,21 @@ def collate_graphs(
     max_nodes: Optional[int] = None,
     node_labels: Optional[bool] = None,
 ) -> GraphBatch:
-    """Host collation into a CPU `GraphBatch` (float32 features)."""
+    """Host collation into a CPU `GraphBatch`. Float features become
+    float32 [B, N, F]; integer features become int32 ids, [B, N] for a
+    single column (categorical atoms) and [B, N, F] otherwise."""
     bsz = len(graphs)
     n_raw = max(g.num_nodes for g in graphs)
     n = max_nodes if max_nodes is not None else pad_bucket(n_raw, node_buckets)
     if n < n_raw:
         raise ValueError(f"max_nodes={n} < largest graph ({n_raw})")
-    if np.issubdtype(graphs[0].x.dtype, np.integer):
-        raise NotImplementedError("categorical (integer) node features")
+    int_x = np.issubdtype(graphs[0].x.dtype, np.integer)
+    squeeze_x = int_x and graphs[0].x.shape[-1] == 1
     use_pe = graphs[0].pe is not None
     use_lap = graphs[0].lap_pe is not None
     use_deg = graphs[0].degree is not None
+    use_etype = graphs[0].edge_type is not None
+    use_eig = graphs[0].eigvecs is not None
     for name, used in (("pe", use_pe), ("lap_pe", use_lap),
                        ("degree", use_deg)):
         if used:
@@ -119,17 +132,27 @@ def collate_graphs(
                     "optional attributes must be consistent across a batch")
 
     f32 = np.float32
-    x = np.zeros((bsz, n, graphs[0].x.shape[-1]), dtype=f32)
+    if squeeze_x:
+        x = np.zeros((bsz, n), dtype=np.int32)
+    else:
+        x = np.zeros((bsz, n, graphs[0].x.shape[-1]),
+                     dtype=np.int32 if int_x else f32)
     node_mask = np.zeros((bsz, n), dtype=bool)
     adj = np.zeros((bsz, n, n), dtype=f32)
     pe = np.zeros((bsz, n, n), dtype=f32) if use_pe else None
     lap_pe = (np.zeros((bsz, n, graphs[0].lap_pe.shape[-1]), dtype=f32)
               if use_lap else None)
     degree = np.zeros((bsz, n), dtype=f32) if use_deg else None
+    edge_type = np.zeros((bsz, n, n), dtype=np.int32) if use_etype else None
+    eigvecs = eigvals = None
+    if use_eig:
+        m_freqs = graphs[0].eigvecs.shape[-1]
+        eigvecs = np.full((bsz, n, m_freqs), np.nan, dtype=f32)
+        eigvals = np.full((bsz, m_freqs), np.nan, dtype=f32)
     ys = []
     for i, g in enumerate(graphs):
         m = g.num_nodes
-        x[i, :m] = g.x
+        x[i, :m] = g.x.reshape(m) if squeeze_x else g.x
         node_mask[i, :m] = True
         if g.num_edges:
             adj[i, g.edge_index[0], g.edge_index[1]] = 1.0
@@ -139,13 +162,21 @@ def collate_graphs(
             lap_pe[i, :m, : g.lap_pe.shape[-1]] = g.lap_pe
         if use_deg:
             degree[i, :m] = g.degree
+        if use_etype and g.num_edges:
+            edge_type[i, g.edge_index[0], g.edge_index[1]] = \
+                np.asarray(g.edge_type).ravel()
+        if use_eig:
+            eigvecs[i, :m] = g.eigvecs
+            eigvals[i] = g.eigvals
         if g.y is not None:
             ys.append(np.asarray(g.y))
     y = _pack_labels(ys, graphs, node_labels, bsz, n)
 
     t = lambda a: None if a is None else torch.from_numpy(a)
     return GraphBatch(x=t(x), node_mask=t(node_mask), adj=t(adj), y=t(y),
-                      pe=t(pe), lap_pe=t(lap_pe), degree=t(degree))
+                      pe=t(pe), lap_pe=t(lap_pe), degree=t(degree),
+                      edge_type=t(edge_type), eigvecs=t(eigvecs),
+                      eigvals=t(eigvals))
 
 
 def _pack_labels(ys, graphs, node_labels, bsz, n):

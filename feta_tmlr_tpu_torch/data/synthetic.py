@@ -1,14 +1,61 @@
-"""Synthetic SBM-shaped graphs (PATTERN/CLUSTER-like) for tests and the
-chip smoke run. The numpy call sequence is the JAX package's, so a seed
-gives identical graphs in both."""
+"""Synthetic graphs for tests and the chip smoke run: SBM-shaped node
+classification graphs (PATTERN/CLUSTER-like) and ZINC-shaped molecules with
+categorical atoms and bonds. The numpy call sequence is the JAX package's,
+so a seed gives identical graphs in both."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 from feta_tmlr_tpu_torch.data.batch import Graph
+
+
+def random_connected_graph(rng: np.random.Generator, n_nodes: int,
+                           n_features: int, edge_prob: float = 0.2,
+                           node_classes: Optional[int] = None) -> Graph:
+    """Random undirected graph: a spanning chain plus Erdos-Renyi edges
+    (so it is connected); one-hot class features or Gaussian ones."""
+    upper = np.triu(rng.random((n_nodes, n_nodes)) < edge_prob, k=1)
+    for i in range(n_nodes - 1):
+        upper[i, i + 1] = True
+    rows, cols = np.nonzero(upper)
+    edge_index = np.stack([np.concatenate([rows, cols]),
+                           np.concatenate([cols, rows])]).astype(np.int32)
+    if node_classes is not None:
+        labels = rng.integers(0, node_classes, size=n_nodes)
+        x = np.eye(n_features, dtype=np.float32)[labels % n_features]
+    else:
+        x = rng.standard_normal((n_nodes, n_features)).astype(np.float32)
+    return Graph(x=x, edge_index=edge_index)
+
+
+def zinc_categorical_dataset(seed: int = 0, n_graphs: int = 32,
+                             num_atom_type: int = 28,
+                             num_bond_type: int = 4) -> List[Graph]:
+    """ZINC-shaped molecules of 9-29 atoms: int atom ids as node features
+    [n, 1], symmetric int bond types in 1..num_bond_type-1 per edge, and a
+    float regression target."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n_graphs):
+        n = int(rng.integers(9, 30))
+        g = random_connected_graph(rng, n, 1, edge_prob=2.0 / max(n - 1, 1))
+        g.x = rng.integers(0, num_atom_type, size=(n, 1)).astype(np.int32)
+        et = np.zeros(g.num_edges, dtype=np.int32)
+        seen = {}
+        for i in range(g.num_edges):
+            key = tuple(sorted((int(g.edge_index[0, i]),
+                                int(g.edge_index[1, i]))))
+            if key not in seen:
+                seen[key] = int(rng.integers(1, num_bond_type))
+            et[i] = seen[key]
+        g.edge_type = et
+        g.y = np.float32(rng.standard_normal())
+        g.compute_degree_feature()
+        graphs.append(g)
+    return graphs
 
 
 def sbm_like_dataset(seed: int = 0, n_graphs: int = 8, n_nodes: int = 128,

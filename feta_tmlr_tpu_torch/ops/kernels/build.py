@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("flash_fwd", "flash_bwd", "colstat")
+SOURCES = ("flash_fwd", "flash_bwd", "colstat", "fused_mlp")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -53,11 +53,15 @@ def cheb_scaled_laplacian(adj: torch.Tensor, node_mask: torch.Tensor,
         diag = deg
     else:
         raise ValueError(f"invalid normalization {normalization!r}")
-    lam = torch.as_tensor(lambda_max, dtype=adj.dtype, device=adj.device)
-    scale = 2.0 / lam
-    scale = torch.where(torch.isinf(scale), torch.zeros_like(scale), scale)
-    if scale.ndim == 1:
-        scale = scale[:, None, None]
+    if isinstance(lambda_max, (int, float)):    # no copy to the device
+        scale = 2.0 / lambda_max if lambda_max else 0.0
+    else:
+        lam = torch.as_tensor(lambda_max, dtype=adj.dtype, device=adj.device)
+        scale = 2.0 / lam
+        scale = torch.where(torch.isinf(scale), torch.zeros_like(scale),
+                            scale)
+        if scale.ndim == 1:
+            scale = scale[:, None, None]
     lhat = scale * (off + diag[..., :, None] * eye) - mask[..., :, None] * eye
     return lhat * pm
 

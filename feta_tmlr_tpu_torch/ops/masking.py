@@ -11,6 +11,21 @@ def pair_mask(node_mask: torch.Tensor) -> torch.Tensor:
     return m[..., :, None] & m[..., None, :]
 
 
+def pair_mask_no_diag(node_mask: torch.Tensor) -> torch.Tensor:
+    """Valid node pairs without self-pairs: SAN's full graph is the complete
+    graph with no self loops, so a node never attends to itself there."""
+    pm = pair_mask(node_mask)
+    n = pm.shape[-1]
+    return pm & ~torch.eye(n, dtype=torch.bool, device=pm.device)
+
+
+def in_edge_mask(adj: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """[..., i(dst), j(src)] bool: edge j -> i exists. `collate_graphs`
+    writes adj[src, dst]; attention indexes [dst, src], hence the
+    transpose."""
+    return (adj.transpose(-1, -2) > 0) & pair_mask(node_mask)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor,
                 dim: int) -> torch.Tensor:
     """Mean of x over `dim`, counting only entries where mask is True

@@ -1,4 +1,4 @@
-from feta_tmlr_tpu_torch.train.metrics import accuracy_sbm
+from feta_tmlr_tpu_torch.train.metrics import accuracy_sbm, mae
 from feta_tmlr_tpu_torch.train.optim import (
     PlateauScheduler,
     make_optimizer,
@@ -13,5 +13,5 @@ from feta_tmlr_tpu_torch.train.trainer import (
 )
 
 __all__ = ["PlateauScheduler", "TrainConfig", "Trainer", "accuracy_sbm",
-           "make_optimizer", "step_lr", "task_loss", "task_metric",
+           "mae", "make_optimizer", "step_lr", "task_loss", "task_metric",
            "warmup_inverse_sqrt"]

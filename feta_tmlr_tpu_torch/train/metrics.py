@@ -1,6 +1,7 @@
 """Evaluation metrics, numerically matching the reference definitions.
 
-accuracy_sbm is the class-balanced accuracy of the SBM node-classification
+mae is the L1 metric of the ZINC regression reference (LPE/train/
+metrics.py:11-14). accuracy_sbm is the class-balanced accuracy of the SBM node-classification
 reference (LPE/train/metrics.py:34-51): per-class recall from the
 confusion matrix, averaged over the classes that appear in the targets or
 the predictions. numpy only, as in the JAX package.
@@ -9,6 +10,11 @@ the predictions. numpy only, as in the JAX package.
 from __future__ import annotations
 
 import numpy as np
+
+
+def mae(pred, target) -> float:
+    """Mean absolute error."""
+    return float(np.abs(np.asarray(pred) - np.asarray(target)).mean())
 
 
 def accuracy_sbm(logits, labels, mask=None) -> float:

@@ -1,23 +1,28 @@
-"""Trainer for the FeTA node classifier (the `node_clf` task).
+"""Trainer for the node classifier (`node_clf`) and the graph regressor
+(`graph_reg`).
 
-The counterpart of the JAX package's `train/trainer.py` for the task the
+The counterpart of the JAX package's `train/trainer.py` for the tasks the
 port trains so far: masked cross-entropy over labelled real nodes plus the
-weighted coefficient regularizer, class-balanced accuracy (SBM
-PATTERN/CLUSTER). Reference behaviours kept: the Laplacian-PE sign-flip
-augmentation during training, batch-norm running statistics updated in
-train mode, best-val selection, and the constant / step / warmup / plateau
-learning-rate schedules.
+weighted coefficient regularizer with class-balanced accuracy (SBM
+PATTERN/CLUSTER), and the L1 loss with MAE (ZINC). Reference behaviours
+kept: the Laplacian-PE and eigenvector sign-flip augmentations during
+training, batch-norm running statistics updated in train mode, best-val
+selection (lower is better for `graph_reg`), and the constant / step /
+warmup / plateau learning-rate schedules.
 
-The trainer runs on the model's device (CUDA by default). PyTorch runs
-eagerly, so a step is the model's forward, `backward()` through the
-attention kernels' `autograd.Function`, and one AdamW update; losses stay
-on the device until `train_epoch` takes their mean in one host sync.
+Models may return the logits or a tuple (logits, reg, ...), and take the
+`regularization` keyword only if their forward has it, as in the JAX
+trainer. The trainer runs on the model's device (CUDA by default). PyTorch
+runs eagerly, so a step is the model's forward, `backward()` through the
+kernels' `autograd.Function`s, and one AdamW update; losses stay on the
+device until `train_epoch` takes their mean in one host sync.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import inspect
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
-from feta_tmlr_tpu_torch.train.metrics import accuracy_sbm
+from feta_tmlr_tpu_torch.train.metrics import accuracy_sbm, mae
 from feta_tmlr_tpu_torch.train.optim import (
     PlateauScheduler,
     make_optimizer,
@@ -33,15 +38,17 @@ from feta_tmlr_tpu_torch.train.optim import (
     warmup_inverse_sqrt,
 )
 
+TASKS = ("node_clf", "graph_reg")
+
 
 @dataclasses.dataclass
 class TrainConfig:
-    task: str = "node_clf"             # the one task ported so far
+    task: str = "node_clf"             # node_clf | graph_reg
     lr: float = 1e-3
     weight_decay: float = 1e-5
     epochs: int = 100
     regularization: float = 0.0
-    sign_flip: bool = True             # lap-PE sign-flip augmentation
+    sign_flip: bool = True             # lap-PE / eigvec sign-flip augmentation
     schedule: str = "constant"         # constant | step | plateau | warmup
     grad_clip_norm: Optional[float] = None   # global-norm clip (off = ref)
     warmup_steps: int = 2000           # for schedule='warmup'
@@ -54,16 +61,26 @@ class TrainConfig:
 
 
 def _check_task(task: str) -> None:
-    if task != "node_clf":
+    if task not in TASKS:
         raise ValueError(
             f"task {task!r} is not ported yet (ROADMAP Queue 1 item 2 and "
-            "later); the port trains 'node_clf'")
+            f"later); the port trains {', '.join(TASKS)}")
+
+
+def _model_outputs(out):
+    """Models return logits or (logits, reg) or (logits, reg, ...)."""
+    if isinstance(out, tuple):
+        return out[0], (out[1] if len(out) > 1 else 0.0)
+    return out, 0.0
 
 
 def task_loss(task: str, logits: torch.Tensor,
               batch: GraphBatch) -> torch.Tensor:
-    """Masked cross-entropy over real nodes with a label (y >= 0)."""
+    """node_clf: masked cross-entropy over real nodes with a label
+    (y >= 0); graph_reg: mean absolute error of one output per graph."""
     _check_task(task)
+    if task == "graph_reg":
+        return (logits.reshape(batch.y.shape) - batch.y).abs().mean()
     labels = batch.y.clamp_min(0).long()
     ce = -torch.log_softmax(logits, -1).gather(-1, labels[..., None])[..., 0]
     m = (batch.node_mask & (batch.y >= 0)).to(ce.dtype)
@@ -73,15 +90,19 @@ def task_loss(task: str, logits: torch.Tensor,
 def task_metric(task: str, logits: np.ndarray, y, node_mask=None) -> dict:
     """Metric over a full split (logits and labels of all its batches)."""
     _check_task(task)
+    if task == "graph_reg":
+        return {"mae": mae(np.asarray(logits).reshape(np.shape(y)), y)}
     return {"acc_sbm": accuracy_sbm(logits, y, mask=node_mask)}
 
 
 class Trainer:
-    """Train and evaluate one model on the `node_clf` task.
+    """Train and evaluate one model on one task.
 
     The optimizer and the sign-flip generator (a CPU `torch.Generator`
     seeded from `config.seed`, so a seed gives the same signs on every
-    device) live on the trainer; the weights live in the model."""
+    device) live on the trainer; the weights live in the model. A model
+    with a `dropout_generator` (the SAN models) has it reseeded from
+    `config.seed` too."""
 
     def __init__(self, model: torch.nn.Module, config: TrainConfig,
                  steps_per_epoch: int = 1):
@@ -90,6 +111,8 @@ class Trainer:
         self.model = model
         self.cfg = config
         self.device = next(model.parameters()).device
+        self._model_takes_reg = ("regularization" in inspect.signature(
+            model.forward).parameters)
         self.optimizer = make_optimizer(model.parameters(), c.lr,
                                         c.weight_decay, c.grad_clip_norm)
         self.plateau = None
@@ -102,24 +125,42 @@ class Trainer:
         elif c.schedule == "plateau":
             self.plateau = PlateauScheduler(
                 factor=c.plateau_factor, patience=c.plateau_patience,
-                mode="max", min_lr=c.min_lr)      # acc_sbm: higher is better
+                mode=self._mode, min_lr=c.min_lr)
         elif c.schedule != "constant":
             raise ValueError(f"unknown schedule {c.schedule!r}")
         self.steps = 0
         self.sign_generator = torch.Generator().manual_seed(c.seed)
+        dropout_generator = getattr(model, "dropout_generator", None)
+        if dropout_generator is not None:
+            dropout_generator.manual_seed(c.seed)
+
+    @property
+    def _mode(self) -> str:
+        """Whether a lower ("min", MAE) or higher ("max") metric is better."""
+        return "min" if self.cfg.task == "graph_reg" else "max"
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
+    def _signs(self, t: torch.Tensor) -> torch.Tensor:
+        """Signs drawn on the host, sent to a card from pinned memory
+        without a sync."""
+        draw = torch.rand(t.shape[-1], generator=self.sign_generator)
+        signs = torch.where(draw >= 0.5, 1.0, -1.0).to(t.dtype)
+        if t.device.type == "cuda":
+            return signs.pin_memory().to(t.device, non_blocking=True)
+        return signs.to(t.device)
+
     def _sign_flip(self, batch: GraphBatch) -> GraphBatch:
-        """Random sign per Laplacian-PE dimension (one draw per step)."""
-        if not self.cfg.sign_flip or batch.lap_pe is None:
+        """Random sign per Laplacian-PE dimension and, separately, per
+        eigenvector (one draw of each per step)."""
+        if not self.cfg.sign_flip:
             return batch
-        draw = torch.rand(batch.lap_pe.shape[-1],
-                          generator=self.sign_generator)
-        signs = torch.where(draw >= 0.5, 1.0, -1.0).to(batch.lap_pe.device)
-        return dataclasses.replace(batch, lap_pe=batch.lap_pe * signs)
+        flips = {name: t * self._signs(t) for name, t in
+                 (("lap_pe", batch.lap_pe), ("eigvecs", batch.eigvecs))
+                 if t is not None}
+        return dataclasses.replace(batch, **flips) if flips else batch
 
     def step(self, batch: GraphBatch) -> torch.Tensor:
         """One AdamW update on `batch`; returns the loss on the device.
@@ -129,8 +170,10 @@ class Trainer:
         self.model.train()
         batch = self._sign_flip(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        logits, reg = self.model(batch,
-                                 regularization=self.cfg.regularization)
+        kwargs = ({"regularization": self.cfg.regularization}
+                  if self.cfg.regularization > 0 and self._model_takes_reg
+                  else {})
+        logits, reg = _model_outputs(self.model(batch, **kwargs))
         loss = (task_loss(self.cfg.task, logits, batch)
                 + self.cfg.regularization * reg)
         loss.backward()
@@ -150,7 +193,7 @@ class Trainer:
         logits_all, y_all, mask_all = [], [], []
         with torch.inference_mode():
             for b in batches:
-                logits, _ = self.model(b)
+                logits, _ = _model_outputs(self.model(b))
                 logits_all.append(logits.cpu().numpy())
                 y_all.append(b.y.cpu().numpy())
                 mask_all.append(b.node_mask.cpu().numpy())
@@ -188,7 +231,9 @@ class Trainer:
                 row.update({f"val_{k}": v for k, v in vm.items()})
                 cur = next(iter(vm.values()))
                 if (best_val is None or np.isnan(best_val)
-                        or (not np.isnan(cur) and cur > best_val)):
+                        or (not np.isnan(cur)
+                            and (cur < best_val if self._mode == "min"
+                                 else cur > best_val))):
                     best_val, best_epoch = cur, epoch
                     best_state = copy.deepcopy(self.model.state_dict())
                 if self.plateau is not None:

@@ -1,14 +1,17 @@
 """The port's CUDA kernels on the card: each held to its plain PyTorch
-version, the wrappers' operand checks, and a small model served and
-trained on CUDA against the CPU path.
+version, the wrappers' operand checks, and small SBM and SAN models served
+and trained on CUDA against the CPU path.
 
 These tests need an NVIDIA card and skip without one. They import no JAX,
 so they run on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: kernels rtol 1e-4 / atol 1e-5 (f32, sums in another order); the
-two-layer model rtol 1e-4 / atol 1e-4, its gradients rtol 1e-3 / atol 1e-5.
+Tolerance: kernels rtol 1e-4 / atol 1e-5 (f32, sums in another order),
+dropout masks bit-equal; the two-layer SBM model rtol 1e-4 / atol 1e-4
+and its gradients rtol 1e-3 / atol 1e-5; the two-layer SAN model's outputs
+rtol 1e-4 / atol 1e-4 and its gradients within 1e-3 of each tensor's
+largest entry (eigen-PE dropout 0.1 on both sides, the same masks).
 """
 
 import copy
@@ -17,13 +20,20 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import mlp_inputs, mlp_masks
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
-from feta_tmlr_tpu_torch.data.synthetic import sbm_like_dataset
+from feta_tmlr_tpu_torch.data.synthetic import (
+    sbm_like_dataset,
+    zinc_categorical_dataset,
+)
 from feta_tmlr_tpu_torch.nn.models import DiffGraphTransformerGenGCNSBM
+from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra
 from feta_tmlr_tpu_torch.ops.kernels import colstat as tcs
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
+from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as tfm
 from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
 from feta_tmlr_tpu_torch.pe.encodings import DiffusionEncoding, LapEncoding
+from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.serve import Predictor
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -196,3 +206,103 @@ def test_cuda_predictor_matches_cpu(cuda):
     assert (tfl.flash_fwd.launches, tcs.colstat.launches) == (4, 4)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------- fused MLP
+
+def _mlp_inputs(seed, r, din, f, dout):
+    """chip_smoke's fused-MLP operands (dyadic x, w1 and b1, so that the
+    relu takes the same branch as in cuBLAS) on the CPU, with a cotangent
+    of scale 0.05: these rows are at most 10,007."""
+    return mlp_inputs(seed, r, din, f, dout, "cpu", g_scale=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,din,f,dout,rate", [
+    (4096, 8, 2048, 8, 0.0), (4096, 8, 2048, 8, 0.1),
+    (10007, 8, 2048, 8, 0.1), (257, 3, 100, 5, 0.3), (300, 16, 512, 16, 0.1),
+    (64, 40, 70, 64, 0.0)])
+def test_cuda_fused_mlp_matches_plain(cuda, r, din, f, dout, rate):
+    args = _mlp_inputs(3, r, din, f, dout)
+    x, w1, b1, w2, b2, g = args
+    gargs = [t.to(cuda) for t in args]
+    before = tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches
+    with torch.no_grad():
+        got = tfm.fused_mlp_fwd(*gargs[:5], rate, 17)
+        got_b = tfm.fused_mlp_bwd(*gargs[:4], gargs[5], rate, 17)
+        again = tfm.fused_mlp_bwd(*gargs[:4], gargs[5], rate, 17)
+    torch.cuda.synchronize()
+    _close([got], [tfm.fused_mlp_plain(x, w1, b1, w2, b2, rate, 17)])
+    _close(got_b, tfm.fused_mlp_bwd_plain(x, w1, b1, w2, g, rate, 17))
+    # no atomics: the weight gradients are bit-identical run to run
+    assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+    assert (tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_cuda_fused_mlp_masks_bit_equal_plain(cuda, rate):
+    fwd, bwd = mlp_masks(cuda, 1234, rate, rows=64)
+    want = tfm.dropout_keep(1234, 64, 64, rate)
+    assert torch.equal(fwd.cpu(), want) and torch.equal(bwd.cpu(), want)
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_mlp_never_takes_the_plain_route(cuda, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    monkeypatch.setattr(tfm, "fused_mlp_plain", refuse)
+    monkeypatch.setattr(tfm, "fused_mlp_bwd_plain", refuse)
+    x, w1, b1, w2, b2, _ = (t.to(cuda) for t in
+                            _mlp_inputs(4, 100, 8, 256, 8))
+    ws = [t.requires_grad_() for t in (w1, b1, w2, b2)]
+    before = tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches
+    tfm.fused_mlp(x.requires_grad_(), *ws, dropout_rate=0.1,
+                  seed=2).sum().backward()
+    assert (tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None for t in (x, *ws))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfm.fused_mlp_fwd(x.detach().T.contiguous().T, *(
+            t.detach() for t in ws))
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tfm.fused_mlp_fwd(x, *ws)
+
+
+_SAN = dict(num_atom_type=28, num_bond_type=4, hidden_dim=16, out_dim=16,
+            n_heads=2, n_layers=2, lpe_dim=4, lpe_heads=2, lpe_layers=2,
+            filter_order=3, seed=5)
+
+
+def _zinc(n_graphs):
+    graphs = zinc_categorical_dataset(seed=2, n_graphs=n_graphs)
+    return apply_laplace_decomp(graphs, 10)
+
+
+@pytest.mark.cuda
+def test_cuda_san_step_and_predictor_match_cpu(cuda):
+    graphs = _zinc(6)
+    batch = collate_graphs(graphs[:4], max_nodes=32)
+    cpu_model = SANNodeSpectra(**_SAN, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(task="graph_reg", sign_flip=False)
+    before = tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    assert (tfm.fused_mlp_fwd.launches - before[0],
+            tfm.fused_mlp_bwd.launches - before[1]) == (2, 2)
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        scale = float(want[name].grad.abs().max()) + 1e-12
+        err = float((p.grad.cpu() - want[name].grad).abs().max())
+        assert err <= 1e-3 * scale + 1e-6, name
+    # both served from the CUDA model's stepped weights and statistics
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    kw = dict(max_batch=4, collate_kwargs={"max_nodes": 32})
+    got = Predictor(gpu_model, **kw).predict(graphs)
+    ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

@@ -252,7 +252,7 @@ def test_sign_flip_is_reproducible_from_seed():
 
 def test_unported_tasks_raise():
     model = tmodels.DiffGraphTransformerGenGCNSBM(**CFG, device="cpu")
-    for task in ("graph_clf", "graph_reg", "binary_graph"):
+    for task in ("graph_clf", "binary_graph"):
         with pytest.raises(ValueError, match="Queue 1 item 2"):
             Trainer(model, TrainConfig(task=task))
     with pytest.raises(ValueError, match="schedule"):
