@@ -10,20 +10,27 @@ Phases (any failure raises and the script exits non-zero):
      source, all started together) and print the build seconds;
   3. hold each kernel against its plain PyTorch version on the card, at the
      slices' shapes, printing the largest absolute error, the kernel's and
-     the plain version's median milliseconds (CUDA events) and the bound:
+     the plain version's median device milliseconds (CUDA events, each call
+     queued behind ~1 ms of device spin; see `time_ms`) and the bound:
      the attention kernels at H=8, N=1024, D=64, value widths 64 and 8
      (B=4, the training batch, and B=8, the serving batch) and at a ragged
-     N=200 with B=8, with padded nodes, the backward kernels also on rows
-     in the |su/se| <= 1e-9 branch; the fused-MLP kernels at the SAN
-     eigen-PE head's 40,960 rows (d 8, F 2048) and at a ragged 10,007, at
-     dropout 0 and 0.1, with their masks read back bit-equal to the plain
-     version's, a keep fraction of 0.9 +- 0.002 and two backward runs
+     N=200 with B=8 and at the ZINC batch (B=128, N=48), with padded
+     nodes, the backward kernels also on rows in the |su/se| <= 1e-9
+     branch; the fused-MLP kernels at the SAN eigen-PE head's 40,960 rows
+     (d 8, F 2048) and at a ragged 10,007, at dropout 0 and 0.1, with their
+     masks read back bit-equal to the plain version's, a keep fraction of
+     0.9 +- 0.002 and two backward runs bit-identical; the modulation
+     kernels at B=128, N=48, at B=32, N=128 and at B=4, N=1024, and the
+     single-block fused attention kernels at the first two, with padded
+     nodes and rows in the |denom| <= 1e-9 branch, two backward runs
      bit-identical;
   4. serve the FeTA SBM node classifier (DiffGraphTransformerGenGCNSBM at
      d_model 64, 8 heads, 10 layers, ff 128, batch norm, LapPE 8, Chebyshev
      order 4; random weights from a seed) at N=1024 through `Predictor` on
      CUDA: four requests (8, 8, 8 and 5 graphs), launch counts read around
-     them, logits of two graphs held against the CPU path;
+     them, logits of two graphs held against the CPU path in float64 (the
+     CPU's float32 route printed beside); each LapPE eigenvector's sign is
+     fixed (`canonical_signs`), so every host serves the same inputs;
   5. train the same model on the same 8 graphs through `Trainer` on CUDA:
      2 batches of 4 graphs, 3 epochs of AdamW (6 steps, warmup towards lr
      1e-3) with finite and falling loss, then a timed window of 20 more
@@ -33,7 +40,8 @@ Phases (any failure raises and the script exits non-zero):
      no host sync in one more step (torch's sync debug mode);
      then one step from the same initial weights on CUDA,
      on the CPU in float32 and on the CPU in float64, the CUDA loss and
-     gradients held to the float64 ones;
+     gradients held to the float64 ones (loss rtol 5e-5, see
+     SBM_STEP_LOSS_RTOL);
   6. serve SAN_NodeSpectra (ZINC: hidden 56, 8 heads, 10 layers, eigen-PE
      head of dim 8, 4 heads, 2 layers, ff 2048 over m=10 frequencies,
      typed bond edges, batch norm, Chebyshev order 4 in every layer) through
@@ -47,12 +55,32 @@ Phases (any failure raises and the script exits non-zero):
      step (torch's sync debug mode); the eigen-PE dropout mask's device
      and host time and kernel count; then one step on 16 graphs with that
      dropout at 0, CUDA against the CPU in float64;
-  8. print the kernels' JSON line, the card line, and the final status line
+  8. serve the flagship ZINC regressor (DiffGraphTransformerGenGCN at
+     bench.py's widths: in_size 28, d_model 64, 8 heads, 10 layers, ff 128,
+     batch norm, LapPE 8, Chebyshev order 4) through `Predictor` on its
+     three attention routes: "fused" (the single-block fused kernels on the
+     nine unfiltered layers, the modulation kernel on the filtered one),
+     four requests of 128 zinc_like_dataset graphs padded to 48 nodes, 9 +
+     1 launches each, 8 graphs held against the CPU path; "modulation" and
+     "flash", two requests each;
+  9. train it through `Trainer` (graph_reg, L1; AdamW lr 1e-3, sign flip
+     on) on 2 batches of 128 graphs: "fused" for 3 + 10 timed epochs, with
+     exact launch counts per step, finite loss, no host sync in a step, and
+     one step on 16 graphs on CUDA against the CPU in float64; "modulation"
+     and "flash" for 1 + 4 epochs; the three routes' ms/request and ms/step
+     side by side, then in 9 interleaved rounds (one request and one epoch
+     of each route per round, the order rotating) with their medians and
+     quartiles;
+ 10. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
-training step's device time, for each model. It needs one card and exits non-zero without
-printing a result when CUDA is unavailable.
+training step's device time, for each model (ZINC on the "fused" route).
+`--rounding` runs only phase 5's parity step, on the canonical LapPE signs
+and on 8 random sign patterns, and prints how far float32 rounding moves
+its loss and gradients from float64 on CUDA and on the CPU.
+It needs one card and exits non-zero without printing a result when CUDA is
+unavailable.
 """
 
 from __future__ import annotations
@@ -77,14 +105,20 @@ from feta_tmlr_tpu_torch.data.batch import collate_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
     sbm_like_dataset,
     zinc_categorical_dataset,
+    zinc_like_dataset,
 )
 from feta_tmlr_tpu_torch.nn.layers import MaskedBatchNorm
-from feta_tmlr_tpu_torch.nn.models import DiffGraphTransformerGenGCNSBM
+from feta_tmlr_tpu_torch.nn.models import (
+    DiffGraphTransformerGenGCN,
+    DiffGraphTransformerGenGCNSBM,
+)
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import build
 from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as fl_mod
+from feta_tmlr_tpu_torch.ops.kernels import fused_attention as fa_mod
 from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as fm_mod
+from feta_tmlr_tpu_torch.ops.kernels import modulation as mod_mod
 from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
 from feta_tmlr_tpu_torch.pe.encodings import DiffusionEncoding, LapEncoding
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
@@ -94,14 +128,27 @@ from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
+PAD_CYCLES = 2_000_000          # ~1 ms of device spin at the H100's clocks
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
-SLICE_TOL = dict(rtol=1e-3, atol=1e-3)    # 10 f32 layers, CUDA vs CPU
+# CUDA vs the CPU path after 10 layers. Through the randomly initialised SBM
+# model at N=1024 float32 rounding grows layer by layer on either float32
+# route, by an amount that depends on the input: 1e-4 in the logits with
+# the canonical LapPE signs, and 2.7e-3 between the two routes on another
+# host's signs. So its CUDA logits are held to the CPU in float64, not to
+# the CPU's float32 route; the ZINC and SAN models' errors stay near 1e-5
+# and are held to float32
+SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
 # one training step on CUDA (float32) vs the CPU route in float64: loss
 # within rtol 1e-5; each named gradient within 1e-2 of its largest entry.
 # From random weights the gradients reach |g| ~ 40 through 10 layers at
 # N=1024, and f32 rounding in the forward is amplified on the way back; the
-# CPU's own float32 route is printed beside it for scale.
+# CPU's own float32 route is printed beside it for scale. The SBM step's
+# loss moves further: over its canonical LapPE signs and 8 random sign
+# patterns (`python3 chip_smoke.py --rounding`) float32 rounding put it up
+# to 1.46e-5 off the float64 loss on the H100 and 6.66e-6 on the CPU, so it
+# is held at about three times that
 STEP_LOSS_RTOL = 1e-5
+SBM_STEP_LOSS_RTOL = 5e-5
 STEP_GRAD_REL = 1e-2
 STEP_PARAMS = ("encoder.layers.0.qkv", "encoder.layers.9.qkv",
                "encoder.layers.9.out_proj_kernel",
@@ -115,15 +162,20 @@ N_GRAPHS = 8
 TRAIN_EPOCHS = 3
 TIMED_EPOCHS = 20
 # kernel checks: (B, N, padding); the JSON rows are those of the first
-# shape, the training batch, whose steps make most of the counted launches
+# shape, the training batch, whose steps make most of the counted launches;
+# the last is the ZINC batch, which the "flash" route runs at N=48
 CHECK_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (N_GRAPHS, N_NODES, 60),
-                (N_GRAPHS, 200, 9))
+                (N_GRAPHS, 200, 9), (128, 48, 11))
 # the wrappers whose launches a run counts, and their launches per step
 KERNELS = {"flash_fwd": fl_mod.flash_fwd, "colstat": cs_mod.colstat,
            "flash_bwd_q": fl_mod.flash_bwd_q,
            "flash_bwd_k": fl_mod.flash_bwd_k,
            "fused_mlp_fwd": fm_mod.fused_mlp_fwd,
-           "fused_mlp_bwd": fm_mod.fused_mlp_bwd}
+           "fused_mlp_bwd": fm_mod.fused_mlp_bwd,
+           "modulation_fwd": mod_mod.modulation_fwd,
+           "modulation_bwd": mod_mod.modulation_bwd,
+           "fused_attn_fwd": fa_mod.fused_attn_fwd,
+           "fused_attn_bwd": fa_mod.fused_attn_bwd}
 NONE = dict.fromkeys(KERNELS, 0)
 STEP_LAUNCHES = {**NONE, "flash_fwd": 10, "colstat": 2, "flash_bwd_q": 10,
                  "flash_bwd_k": 10}
@@ -152,6 +204,34 @@ SAN_STEP_PARAMS = ("embedding_h.weight", "layers.0.attention.Q.weight",
 # fused-MLP checks: (rows, d_in, F, d_out); the JSON rows are those of the
 # first shape at dropout 0.1, the training path's
 MLP_SHAPES = ((SAN_ROWS, 8, 2048, 8), (10007, 8, 2048, 8))
+# DiffGraphTransformerGenGCN at bench.py's flagship widths (bench.py:133-136)
+# on its ZINC batch: 128 zinc_like_dataset graphs of 9-37 nodes padded to 48
+ZINC_CFG = dict(in_size=28, nb_class=1, d_model=64, nb_heads=8,
+                dim_feedforward=128, dropout=0.0, nb_layers=10,
+                batch_norm=True, lap_pos_enc=True, lap_pos_enc_dim=8,
+                filter_order=4)
+ZINC_GRAPHS = 128
+ZINC_NODES = 48
+ZINC_REQUESTS = 4
+# (requests, warm-up epochs, timed epochs) of each attention route; the
+# "fused" route is the slice's main path, the other two are its comparison
+ZINC_RUNS = {"fused": (ZINC_REQUESTS, 3, 10), "modulation": (2, 1, 4),
+             "flash": (2, 1, 4)}
+ZINC_ROUNDS = 9     # interleaved rounds of the routes' comparison
+ZINC_REQUEST_LAUNCHES = {
+    "fused": {**NONE, "fused_attn_fwd": 9, "modulation_fwd": 1},
+    "modulation": {**NONE, "modulation_fwd": 10},
+    "flash": {**NONE, "flash_fwd": 10, "colstat": 2}}
+ZINC_STEP_LAUNCHES = {
+    "fused": {**NONE, "fused_attn_fwd": 9, "fused_attn_bwd": 9,
+              "modulation_fwd": 1, "modulation_bwd": 1},
+    "modulation": {**NONE, "modulation_fwd": 10, "modulation_bwd": 10},
+    "flash": STEP_LAUNCHES}
+# checks of the modulation kernels: (B, N, padding) at H=8, the ZINC batch,
+# the SBM-PATTERN shape (bench.py:267) and the SBM slice's N=1024; the
+# fused kernels take N <= 128, so the first two
+MOD_SHAPES = ((ZINC_GRAPHS, ZINC_NODES, 11), (32, 128, 17), (4, 1024, 60))
+FUSED_SHAPES = MOD_SHAPES[:2]
 
 
 def card_line() -> str:
@@ -162,7 +242,12 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 25) -> float:
-    """Median milliseconds of one call, CUDA events around each call."""
+    """Median device milliseconds of one call, CUDA events around each call.
+    Each call is queued behind ~1 ms of device spin, so the host has
+    enqueued the start event, the call's kernels and the end event before
+    the device reaches them: the events time the device's work, not the
+    host's enqueue of it, which for a kernel of tens of microseconds (the
+    ZINC batch's) takes as long as the work."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -170,6 +255,7 @@ def time_ms(fn, reps: int = 25) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PAD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -180,12 +266,12 @@ def time_ms(fn, reps: int = 25) -> float:
 
 def attention_inputs(seed, b, h, n, d, dv, pad, device):
     """Public-layout attention operands from numpy, as the layer makes
-    them; the last `pad`..`pad + b` nodes of each graph are padding."""
+    them; graph i loses its last pad + (i mod 8) nodes to padding."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     mask = np.ones((b, n), bool)
     for i in range(b):
-        mask[i, n - pad - i:] = False
+        mask[i, n - pad - i % 8:] = False
     pe = (rng.random((b, n, n)) * mask[:, :, None]
           * mask[:, None, :]).astype(np.float32)
     deg = (rng.random((b, n)) * mask).astype(np.float32)
@@ -469,10 +555,157 @@ def check_fused_mlp(device, shapes=MLP_SHAPES, seed=7):
     return rows
 
 
+def modulation_inputs(seed, b, h, n, pad, device, guard_rows=4):
+    """Scaled scores [B, H, N, N], pe, degree and mask (graph i loses its
+    last pad + (i mod 8) nodes), with pe zero on the first `guard_rows`
+    query rows of graph 0 (the |denom| <= 1e-9 branch), and a cotangent."""
+    ops, _ = attention_inputs(seed, b, h, n, 8, 8, pad, device)
+    ops["pe"][0, :guard_rows] = 0.0
+    gen = torch.Generator(device).manual_seed(seed)
+    scores = torch.randn((b, h, n, n), device=device, generator=gen)
+    g = torch.randn((b, h, n, n), device=device, generator=gen)
+    return scores, ops["pe"], ops["deg"], ops["mask"], g
+
+
+def modulation_cost(b, h, n, which):
+    """(operations, bytes) of one call: ~10 operations per score forward
+    (masked max, exp, two row sums, two divisions, three products) and ~20
+    backward (the recomputed chain and three more row sums); scores (and g)
+    read once, the output written once, pe, degree and mask read once."""
+    cells = b * h * n * n
+    data = b * n * n + 2 * b * n
+    if which == "fwd":
+        return 10.0 * cells, 4.0 * (2 * cells + data)
+    return 20.0 * cells, 4.0 * (3 * cells + data)
+
+
+def fused_cost(b, h, n, d, which):
+    """(operations, bytes): the forward's 2 products of 2 B H N^2 D flops,
+    the backward's 5; each input read once, each output written once."""
+    inputs = 2 * b * h * n * d + b * n * d + 2 * b * h * n + h + b * n * n \
+        + 2 * b * n
+    if which == "fwd":
+        return 4.0 * b * h * n * n * d, 4.0 * (inputs + b * n * d)
+    return (10.0 * b * h * n * n * d,
+            4.0 * (inputs + b * n * d + 2 * b * h * n * d + b * n * d
+                   + 2 * b * h * n + b * h))
+
+
+def check_backward(name, got, again, want, outs, tag):
+    """Errors of each output; raise unless two runs are bit-identical."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {tag}: two runs differ")
+    return [max_err([g_], [w_], f"{name} {o} {tag}")
+            for o, g_, w_ in zip(outs, got, want)]
+
+
+def check_modulation(device, h=8, shapes=MOD_SHAPES):
+    """Phase 3, modulation kernels: forward and backward vs their plain
+    versions, with padded nodes and guard rows; two backward runs
+    bit-identical. Returns the JSON rows (numbers of the first shape, the
+    ZINC batch)."""
+    rows = {}
+    errs = {"modulation_fwd": 0.0, "modulation_bwd": 0.0}
+    for b, n, pad in shapes:
+        scores, pe, deg, mask, g = modulation_inputs(b + n, b, h, n, pad,
+                                                     device)
+        fwd = lambda: mod_mod.modulation_fwd(scores, pe, deg, mask)
+        bwd = lambda: mod_mod.modulation_bwd(scores, pe, deg, mask, g)
+        plain_f = lambda: mod_mod.modulation_fwd_plain(scores, pe, deg, mask)
+        plain_b = lambda: mod_mod.modulation_bwd_plain(scores, pe, deg, mask,
+                                                       g)
+        with torch.inference_mode():
+            got_f, got_b, again = fwd(), bwd(), bwd()
+            torch.cuda.synchronize()
+            tag = f"B={b} N={n}"
+            e_f = max_err([got_f], [plain_f()], f"modulation_fwd {tag}")
+            (e_b,) = check_backward("modulation_bwd", [got_b], [again],
+                                    [plain_b()], ("ds",), tag)
+            pd = pe[0, :4] * deg[0]
+            n_guard = int((pd.sum(-1) == 0).sum())
+            times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
+        errs["modulation_fwd"] = max(errs["modulation_fwd"], e_f)
+        errs["modulation_bwd"] = max(errs["modulation_bwd"], e_b)
+        bf = bound(*modulation_cost(b, h, n, "fwd"))
+        bb = bound(*modulation_cost(b, h, n, "bwd"))
+        print(f"modulation check B={b} H={h} N={n} pad~{pad} ({n_guard} "
+              f"guard rows x {h} heads): fwd err {e_f:.3e} {times[0]:.4f} ms "
+              f"(plain {times[2]:.4f} ms, bound {bf[0]:.4f} ms {bf[1]}); bwd "
+              f"err {e_b:.3e} {times[1]:.4f} ms (plain {times[3]:.4f} ms, "
+              f"bound {bb[0]:.4f} ms {bb[1]}); two bwd runs bit-identical; "
+              f"tolerance rtol 1e-4 atol 1e-5", flush=True)
+        if (b, n, pad) == shapes[0]:
+            for name, t_k, t_p, (b_ms, by) in (
+                    ("modulation_fwd", times[0], times[2], bf),
+                    ("modulation_bwd", times[1], times[3], bb)):
+                rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                  bound_by=by)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    return rows
+
+
+def check_fused_attention(device, h=8, d=64, shapes=FUSED_SHAPES):
+    """Phase 3, single-block fused attention kernels: forward and backward
+    vs their plain versions, with padded nodes and guard rows; two backward
+    runs bit-identical. Returns the JSON rows (the ZINC batch's)."""
+    rows = {}
+    errs = {"fused_attn_fwd": 0.0, "fused_attn_bwd": 0.0}
+    outs = ("dxa", "dx", "dcq", "dck", "dc0", "dvw")
+    for b, n, pad in shapes:
+        ops, vw = attention_inputs(b + n + 3, b, h, n, d, d, pad, device)
+        ops["pe"][0, :4] = 0.0                      # guard rows
+        g = 0.1 * torch.randn((b, n, d), device=device,
+                              generator=torch.Generator(device).manual_seed(n))
+        fwd = lambda: fa_mod.fused_attn_fwd(vw=vw, **ops)
+        bwd = lambda: fa_mod.fused_attn_bwd(vw=vw, g=g, **ops)
+        plain_f = lambda: fa_mod.fused_attn_fwd_plain(vw=vw, **ops)
+        plain_b = lambda: fa_mod.fused_attn_bwd_plain(vw=vw, g=g, **ops)
+        with torch.inference_mode():
+            got_f, got_b, again = fwd(), bwd(), bwd()
+            torch.cuda.synchronize()
+            tag = f"B={b} N={n}"
+            e_f = max_err([got_f], [plain_f()], f"fused_attn_fwd {tag}")
+            each = check_backward("fused_attn_bwd", got_b, again, plain_b(),
+                                  outs, tag)
+            times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
+        errs["fused_attn_fwd"] = max(errs["fused_attn_fwd"], e_f)
+        errs["fused_attn_bwd"] = max(errs["fused_attn_bwd"], *each)
+        bf = bound(*fused_cost(b, h, n, d, "fwd"))
+        bb = bound(*fused_cost(b, h, n, d, "bwd"))
+        print(f"fused-attention check B={b} H={h} N={n} D={d} pad~{pad}: fwd "
+              f"err {e_f:.3e} {times[0]:.4f} ms (plain {times[2]:.4f} ms, "
+              f"bound {bf[0]:.4f} ms {bf[1]}); bwd err " + " ".join(
+                  f"{o} {e:.3e}" for o, e in zip(outs, each))
+              + f"; {times[1]:.4f} ms (plain {times[3]:.4f} ms, bound "
+              f"{bb[0]:.4f} ms {bb[1]}); two bwd runs bit-identical; "
+              f"tolerance rtol 1e-4 atol 1e-5", flush=True)
+        if (b, n, pad) == shapes[0]:
+            for name, t_k, t_p, (b_ms, by) in (
+                    ("fused_attn_fwd", times[0], times[2], bf),
+                    ("fused_attn_bwd", times[1], times[3], bb)):
+                rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                  bound_by=by)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    return rows
+
+
+def canonical_signs(vecs):
+    """Each eigenvector column with its largest-magnitude entry positive.
+    An eigenvector's sign is arbitrary and LAPACK builds return different
+    ones for the same graph, and the size of the SBM model's float32
+    rounding error depends on them: fixing the sign makes every host check
+    the same inputs."""
+    cols = np.arange(vecs.shape[1])
+    sign = np.sign(vecs[np.abs(vecs).argmax(0), cols])
+    return (vecs * np.where(sign == 0, 1, sign)).astype(vecs.dtype)
+
+
 def _pe_worker(graph):
     DiffusionEncoding(beta=1.0).apply_to([graph])
     LapEncoding(MODEL_CFG["lap_pos_enc_dim"]).apply_to([graph])
-    return graph.pe, graph.lap_pe
+    return graph.pe, canonical_signs(graph.lap_pe)
 
 
 def make_graphs():
@@ -540,10 +773,16 @@ def serve_slice(graphs, device, card, profile=False):
                     not np.isfinite(o).all():
                 raise AssertionError(f"bad logits {o.shape}")
     t0 = time.perf_counter()
-    ref = Predictor(cpu_model, device="cpu", max_batch=2, **kw).predict(
+    ref32 = Predictor(cpu_model, device="cpu", max_batch=2, **kw).predict(
         graphs[:2])
     cpu_s = time.perf_counter() - t0
-    err = max(float(np.abs(o - r).max()) for o, r in zip(outs[0][:2], ref))
+    batch = collate_graphs(graphs[:2], **kw["collate_kwargs"])
+    with torch.inference_mode():
+        logits = cpu_model.to(torch.float64)(as_float64(batch))[0].numpy()
+    ref = [logits[i, :g.num_nodes] for i, g in enumerate(graphs[:2])]
+    gap = lambda got: max(float(np.abs(o - r).max())
+                          for o, r in zip(got, ref))
+    err, err32 = gap(outs[0][:2]), gap(ref32)
     for o, r in zip(outs[0][:2], ref):
         np.testing.assert_allclose(o, r, **SLICE_TOL)
 
@@ -553,9 +792,10 @@ def serve_slice(graphs, device, card, profile=False):
           f"steady {steady:.2f} ms/call for {N_GRAPHS} graphs = "
           f"{N_GRAPHS / steady * 1e3:.1f} graphs/s on {card}", flush=True)
     scale = max(float(np.abs(r).max()) for r in ref)
-    print(f"slice: launches {launches}; CUDA vs CPU logits of 2 graphs: max "
-          f"abs err {err:.3e}, max |logit| {scale:.3f} (tolerance rtol 1e-3 "
-          f"atol 1e-3; CPU path {cpu_s:.1f} s)", flush=True)
+    print(f"slice: launches {launches}; logits of 2 graphs against the CPU "
+          f"path in float64: max abs err CUDA {err:.3e} (tolerance rtol 1e-3 "
+          f"atol 1e-3), CPU float32 {err32:.3e}; max |logit| {scale:.3f} "
+          f"(CPU float32 path {cpu_s:.1f} s)", flush=True)
     if profile:
         profile_call(f"one request of {len(graphs)} graphs",
                      lambda: pred.predict(graphs))
@@ -701,7 +941,8 @@ def train_slice(graphs, device, card, profile=False):
                      lambda: trainer.step(batches[0]))
     step_parity(initial, graphs[:2], device, "train",
                 dict(max_nodes=N_NODES, node_labels=True),
-                TrainConfig(regularization=0.1, sign_flip=False), STEP_PARAMS)
+                TrainConfig(regularization=0.1, sign_flip=False), STEP_PARAMS,
+                loss_rtol=SBM_STEP_LOSS_RTOL)
     want = {name: total * k for name, k in STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"launch counts {launches} for {total} training "
@@ -832,6 +1073,190 @@ def san_train_slice(graphs, device, card, profile=False):
     return launches
 
 
+def make_zinc_graphs():
+    """bench.py's ZINC data (bench.py:142-146), four requests' worth:
+    zinc_like_dataset with diffusion PE (beta 1) and LapPE 8."""
+    t0 = time.perf_counter()
+    graphs = zinc_like_dataset(seed=0, n_graphs=ZINC_REQUESTS * ZINC_GRAPHS)
+    DiffusionEncoding(beta=1.0).apply_to(graphs)
+    LapEncoding(dim=ZINC_CFG["lap_pos_enc_dim"]).apply_to(graphs)
+    sizes = [g.num_nodes for g in graphs]
+    print(f"host PE (diffusion beta=1 + LapPE 8) for {len(graphs)} ZINC-like "
+          f"graphs of {min(sizes)}-{max(sizes)} nodes: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return graphs
+
+
+def zinc_serve(graphs, device, card, impl, profile=False):
+    """Phase 8: DiffGraphTransformerGenGCN served through Predictor on
+    CUDA under one attention route, requests of 128 distinct graphs; on the
+    "fused" route 8 graphs are also held against the CPU path. Returns the
+    launches, the steady ms/request and a function that serves one more
+    request."""
+    n_req = ZINC_RUNS[impl][0]
+    model = DiffGraphTransformerGenGCN(**ZINC_CFG, attention_impl=impl,
+                                       seed=0, device=device)
+    calibrate_batch_norm(model, collate_graphs(
+        graphs[:ZINC_GRAPHS], max_nodes=ZINC_NODES), device)
+    kw = dict(collate_kwargs={"max_nodes": ZINC_NODES},
+              max_batch=ZINC_GRAPHS)
+    pred = Predictor(model, device=device, **kw)
+    requests = [graphs[i * ZINC_GRAPHS:(i + 1) * ZINC_GRAPHS]
+                for i in range(n_req)]
+    reset_launches()
+    outs, call_ms = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.predict(req))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    want = {k: n_req * v for k, v in ZINC_REQUEST_LAUNCHES[impl].items()}
+    if launches != want:
+        raise AssertionError(f"zinc {impl}: launch counts {launches} for "
+                             f"{n_req} requests; expected "
+                             f"{ZINC_REQUEST_LAUNCHES[impl]} each")
+    for out in outs:
+        if out.shape != (ZINC_GRAPHS, 1) or not np.isfinite(out).all():
+            raise AssertionError(f"bad ZINC outputs {out.shape}")
+    steady = statistics.median(call_ms[1:])
+    print(f"zinc serve [{impl}]: {n_req} requests of {ZINC_GRAPHS} graphs at "
+          f"N={ZINC_NODES}; ms/call {[round(t, 2) for t in call_ms]}; steady "
+          f"(median after the first) {steady:.2f} ms/call = "
+          f"{ZINC_GRAPHS / steady * 1e3:.1f} graphs/s on {card}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if impl == "fused":
+        n_ref = 8
+        cpu_model = copy.deepcopy(model).to("cpu")
+        ref = Predictor(cpu_model, device="cpu", **kw).predict(
+            requests[0][:n_ref])
+        err = float(np.abs(outs[0][:n_ref] - ref).max())
+        np.testing.assert_allclose(outs[0][:n_ref], ref, **SLICE_TOL)
+        print(f"zinc serve [{impl}]: CUDA vs CPU outputs of {n_ref} graphs: "
+              f"max abs err {err:.3e}, max |y| {float(np.abs(ref).max()):.3f}"
+              f" (tolerance rtol 1e-3 atol 1e-3)", flush=True)
+    if profile:
+        profile_call(f"one ZINC request of {ZINC_GRAPHS} graphs [{impl}]",
+                     lambda: pred.predict(requests[0]))
+    return launches, steady, lambda: pred.predict(requests[0])
+
+
+def zinc_train(graphs, device, card, impl, profile=False):
+    """Phase 9: DiffGraphTransformerGenGCN trained through Trainer
+    (graph_reg, L1) on CUDA under one attention route, bench.py's step:
+    AdamW at lr 1e-3, weight decay 1e-5, LapPE sign flip on, on 2 batches of
+    128 graphs; warm-up epochs, then a timed window. On the "fused" route
+    one step on 16 graphs is also held against a float64 CPU step. Returns
+    the launches, the window's ms/step and a function that trains one more
+    epoch and returns its ms/step."""
+    _, warm, timed = ZINC_RUNS[impl]
+    model = DiffGraphTransformerGenGCN(**ZINC_CFG, attention_impl=impl,
+                                       seed=1, device=device)
+    initial = copy.deepcopy(model)
+    batches = [collate_graphs(graphs[i:i + ZINC_GRAPHS],
+                              max_nodes=ZINC_NODES).to(device)
+               for i in (0, ZINC_GRAPHS)]
+    trainer = Trainer(model, TrainConfig(task="graph_reg", lr=1e-3,
+                                         weight_decay=1e-5, sign_flip=True,
+                                         seed=0))
+    reset_launches()
+    losses, _ = timed_epochs(trainer, batches, warm)
+    more, window = timed_epochs(trainer, batches, timed)
+    launches = read_launches()
+    syncs = step_syncs(trainer, batches[0])
+    total = (warm + timed) * len(batches)
+    per_step = [r[0] / len(batches) for r in window]
+    mean = sum(r[0] for r in window) / (timed * len(batches))
+    spread = statistics.stdev(per_step) if len(per_step) > 1 else 0.0
+    print(f"zinc train [{impl}]: {warm} warm-up + {timed} timed epochs of "
+          f"{len(batches)} steps of {ZINC_GRAPHS} graphs at N={ZINC_NODES} "
+          f"(L1, AdamW lr 1e-3, weight decay 1e-5, sign flip on): "
+          f"{mean:.2f} ms/step over the window; per epoch ms/step median "
+          f"{statistics.median(per_step):.2f}, min {min(per_step):.2f}, max "
+          f"{max(per_step):.2f}, stdev {spread:.2f}; process CPU ms/epoch "
+          f"{[round(r[2], 2) for r in window]}; epoch losses "
+          f"{[round(x, 6) for x in losses + more]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } over {total} steps; "
+          f"host syncs in one step (sync debug mode): {len(syncs)} "
+          f"{syncs[:3]}; on {card}", flush=True)
+    want = {k: total * v for k, v in ZINC_STEP_LAUNCHES[impl].items()}
+    if launches != want:
+        raise AssertionError(f"zinc {impl}: launch counts {launches} for "
+                             f"{total} steps; expected "
+                             f"{ZINC_STEP_LAUNCHES[impl]} per step")
+    if not all(np.isfinite(losses + more)):
+        raise AssertionError(f"zinc {impl}: epoch losses {losses + more}")
+    if syncs:
+        raise AssertionError(f"a ZINC training step [{impl}] syncs the "
+                             f"host: {syncs}")
+    if profile:
+        profile_call(f"one ZINC training step of {ZINC_GRAPHS} graphs "
+                     f"[{impl}]", lambda: trainer.step(batches[0]))
+    if impl == "fused":
+        step_parity(initial, graphs[:16], device, f"zinc train [{impl}]",
+                    dict(max_nodes=ZINC_NODES),
+                    TrainConfig(task="graph_reg", regularization=0.1,
+                                sign_flip=False), STEP_PARAMS)
+
+    def step_ms():
+        """ms/step of one more epoch."""
+        return timed_epochs(trainer, batches, 1)[1][0][0] / len(batches)
+
+    return launches, mean, step_ms
+
+
+def compare_routes(request_fns, step_fns, card):
+    """The routes in turns: each of ZINC_ROUNDS rounds serves one request
+    and trains one epoch on every route, the order rotating from round to
+    round, so that a change in the host's speed (which sets these times,
+    PERF.md section 5) falls on every route alike. Prints each route's
+    median and quartiles of ms/request and ms/step over the rounds, and the
+    rounds in which it was the fastest."""
+    names = list(request_fns)
+    req = {k: [] for k in names}
+    step = {k: [] for k in names}
+    for r in range(ZINC_ROUNDS):
+        for impl in names[r % len(names):] + names[:r % len(names)]:
+            t0 = time.perf_counter()
+            request_fns[impl]()
+            req[impl].append((time.perf_counter() - t0) * 1e3)
+            step[impl].append(step_fns[impl]())
+
+    def summary(times):
+        wins = {k: sum(min(names, key=lambda n: times[n][r]) == k
+                       for r in range(ZINC_ROUNDS)) for k in names}
+        return "; ".join(
+            f"{k} median {statistics.median(v):.2f} (quartiles "
+            + " / ".join(f"{q:.2f}" for q in statistics.quantiles(v, n=4))
+            + f", fastest in {wins[k]} rounds)" for k, v in times.items())
+
+    print(f"zinc routes at B={ZINC_GRAPHS}, N={ZINC_NODES}, {ZINC_ROUNDS} "
+          f"interleaved rounds: ms/request {summary(req)}", flush=True)
+    print(f"zinc routes at B={ZINC_GRAPHS}, N={ZINC_NODES}, {ZINC_ROUNDS} "
+          f"interleaved rounds: ms/step {summary(step)}; on {card}",
+          flush=True)
+
+
+def zinc_slice(device, card, profile=False):
+    """Phases 8-9 on each attention route, the main path ("fused") first,
+    then the routes' times in interleaved rounds; returns the launches of
+    every phase."""
+    graphs = make_zinc_graphs()
+    runs, served, trained, request_fns, step_fns = [], {}, {}, {}, {}
+    for impl in ZINC_RUNS:
+        launches, served[impl], request_fns[impl] = zinc_serve(
+            graphs, device, card, impl, profile and impl == "fused")
+        runs.append(launches)
+        launches, trained[impl], step_fns[impl] = zinc_train(
+            graphs, device, card, impl, profile and impl == "fused")
+        runs.append(launches)
+    print(f"zinc routes at B={ZINC_GRAPHS}, N={ZINC_NODES} (ms/request "
+          "steady, ms/step over the window of each phase): " + "; ".join(
+              f"{impl} {served[impl]:.2f} / {trained[impl]:.2f}"
+              for impl in ZINC_RUNS) + f"; on {card}", flush=True)
+    compare_routes(request_fns, step_fns, card)
+    return runs
+
+
 def as_float64(batch):
     return dataclasses.replace(batch, **{
         f.name: getattr(batch, f.name).double()
@@ -840,13 +1265,15 @@ def as_float64(batch):
         and getattr(batch, f.name).is_floating_point()})
 
 
-def step_parity(initial, graphs, device, label, collate, cfg, params):
+def step_errors(initial, graphs, device, collate, cfg, params):
     """One step from the same weights (sign flip off, so no random numbers
     enter) on CUDA in float32, on the CPU in float32 and on the CPU in
-    float64: the loss and the gradients of a few named parameters. The
-    float64 step is the reference: from random weights the 10-layer
-    network's gradients reach |g| ~ 40 and amplify f32 rounding, so each
-    float32 route is held to it, not to the other."""
+    float64. Returns the losses, each float32 route's gradient error per
+    named parameter (max abs err / max |g| of the float64 step), the
+    float64 step's max |g| and the CPU steps' seconds. The float64 step is
+    the reference: from random weights the 10-layer network's gradients
+    reach |g| ~ 40 and amplify f32 rounding, so each float32 route is held
+    to it, not to the other."""
     batch = collate_graphs(graphs, **collate)
     runs = {"cuda": (copy.deepcopy(initial), batch.to(device)),
             "cpu32": (copy.deepcopy(initial).to("cpu"), batch),
@@ -859,29 +1286,69 @@ def step_parity(initial, graphs, device, label, collate, cfg, params):
         secs[route] = time.perf_counter() - t0
         grads[route] = {name: model.get_parameter(name).grad.double().cpu()
                         for name in params}
-    report, bad = [], []
-    for name in params:
-        ref = grads["cpu64"][name]
-        scale = float(ref.abs().max())
-        rel = {r: float((grads[r][name] - ref).abs().max()) / scale
-               for r in ("cuda", "cpu32")}
-        report.append(f"{name} (max |g| {scale:.3e}): cuda {rel['cuda']:.2e}"
-                      f", cpu32 {rel['cpu32']:.2e}")
-        if not torch.isfinite(grads["cuda"][name]).all() or \
-                rel["cuda"] > STEP_GRAD_REL:
-            bad.append(name)
+    scale = {name: float(grads["cpu64"][name].abs().max()) for name in params}
+    rel = {r: {name: float((grads[r][name] - grads["cpu64"][name]).abs()
+                           .max()) / scale[name] for name in params}
+           for r in ("cuda", "cpu32")}
+    if not all(torch.isfinite(g).all() for g in grads["cuda"].values()):
+        rel["cuda"] = dict.fromkeys(params, float("inf"))
+    return loss, rel, scale, secs
+
+
+def step_parity(initial, graphs, device, label, collate, cfg, params,
+                loss_rtol=STEP_LOSS_RTOL):
+    """The CUDA step's loss within `loss_rtol` of the float64 step's and
+    each named gradient within STEP_GRAD_REL of its largest entry."""
+    loss, rel, scale, secs = step_errors(initial, graphs, device, collate,
+                                         cfg, params)
+    report = [f"{name} (max |g| {scale[name]:.3e}): cuda "
+              f"{rel['cuda'][name]:.2e}, cpu32 {rel['cpu32'][name]:.2e}"
+              for name in params]
+    bad = [name for name in params if not rel["cuda"][name] <= STEP_GRAD_REL]
     print(f"{label}: one step on {len(graphs)} graphs from the initial weights;"
           f" loss cuda {loss['cuda']:.8f}, cpu32 {loss['cpu32']:.8f}, cpu64 "
           f"{loss['cpu64']:.8f}; grad max abs err / max |g| against cpu64: "
           + "; ".join(report) + f" (tolerance for cuda: loss rtol "
-          f"{STEP_LOSS_RTOL}, grads {STEP_GRAD_REL}; CPU steps "
+          f"{loss_rtol}, grads {STEP_GRAD_REL}; CPU steps "
           f"{secs['cpu32']:.1f} s f32, {secs['cpu64']:.1f} s f64)",
           flush=True)
-    if abs(loss["cuda"] - loss["cpu64"]) > STEP_LOSS_RTOL * abs(loss["cpu64"]):
+    if abs(loss["cuda"] - loss["cpu64"]) > loss_rtol * abs(loss["cpu64"]):
         raise AssertionError(f"step loss CUDA {loss['cuda']} vs float64 "
                              f"{loss['cpu64']}")
     if bad:
         raise AssertionError(f"CUDA gradients off the float64 step: {bad}")
+
+
+def rounding_sweep(graphs, device, patterns=8):
+    """`--rounding`: how far float32 rounding alone moves the SBM step
+    (phase 5's parity step) from float64, on CUDA and on the CPU, over the
+    canonical LapPE signs and `patterns` random sign patterns of the same
+    graphs: the basis of SBM_STEP_LOSS_RTOL."""
+    initial = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, seed=1,
+                                            device=device)
+    collate = dict(max_nodes=N_NODES, node_labels=True)
+    cfg = TrainConfig(regularization=0.1, sign_flip=False)
+    worst = {r: [0.0, 0.0] for r in ("cuda", "cpu32")}
+    for p in range(patterns + 1):
+        gs = [copy.copy(g) for g in graphs[:2]]
+        rng = np.random.default_rng(p)
+        for g in gs if p else ():
+            g.lap_pe = g.lap_pe * rng.choice(
+                np.float32([-1, 1]), g.lap_pe.shape[1])
+        loss, rel, _, _ = step_errors(initial, gs, device, collate, cfg,
+                                      STEP_PARAMS)
+        line = []
+        for r in worst:
+            err = abs(loss[r] - loss["cpu64"]) / abs(loss["cpu64"])
+            grad = max(rel[r].values())
+            worst[r] = [max(worst[r][0], err), max(worst[r][1], grad)]
+            line.append(f"{r} loss rel err {err:.2e}, grads {grad:.2e}")
+        print(f"rounding: sign pattern {p if p else 'canonical'}: "
+              + "; ".join(line), flush=True)
+    print("rounding: worst over the patterns: " + "; ".join(
+        f"{r} loss {w[0]:.2e}, grads {w[1]:.2e}" for r, w in worst.items())
+        + f" (tolerances for cuda: loss {SBM_STEP_LOSS_RTOL}, grads "
+        f"{STEP_GRAD_REL})", flush=True)
 
 
 def profile_call(label, fn):
@@ -936,9 +1403,14 @@ def main() -> int:
     print(f"built {', '.join(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    if "--rounding" in sys.argv:
+        rounding_sweep(make_graphs(), device)
+        return 0
     rows = check_kernels(device)
     rows.update(check_bwd_kernels(device))
     rows.update(check_fused_mlp(device))
+    rows.update(check_modulation(device))
+    rows.update(check_fused_attention(device))
     profile = "--profile" in sys.argv
     graphs = make_graphs()
     runs = [serve_slice(graphs, device, card, profile=profile),
@@ -946,6 +1418,7 @@ def main() -> int:
     san_graphs = make_san_graphs()
     runs += [san_serve_slice(san_graphs, device, card, profile=profile),
              san_train_slice(san_graphs, device, card, profile=profile)]
+    runs += zinc_slice(device, card, profile=profile)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"
     meta = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:95"),
@@ -953,8 +1426,13 @@ def main() -> int:
             "flash_bwd_q": ("flash_bwd.cu", "flash_attention.py:528"),
             "flash_bwd_k": ("flash_bwd.cu", "flash_attention.py:556"),
             "fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:58"),
-            "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:70")}
-    # launches: the main paths' runs (SBM and SAN, serving and training)
+            "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:70"),
+            "modulation_fwd": ("modulation.cu", "modulation.py:30"),
+            "modulation_bwd": ("modulation.cu", "modulation.py:53"),
+            "fused_attn_fwd": ("fused_attention.cu", "fused_attention.py:60"),
+            "fused_attn_bwd": ("fused_attention.cu", "fused_attention.py:85")}
+    # launches: the main paths' runs (SBM, SAN and ZINC on its three
+    # routes, serving and training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,

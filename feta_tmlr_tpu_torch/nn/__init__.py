@@ -6,6 +6,7 @@ from feta_tmlr_tpu_torch.nn.layers import (
 )
 from feta_tmlr_tpu_torch.nn.models import (
     ClassifierMLP,
+    DiffGraphTransformerGenGCN,
     DiffGraphTransformerGenGCNSBM,
     coefficient_regularizer,
 )
@@ -21,7 +22,8 @@ from feta_tmlr_tpu_torch.nn.san import (
     typed_edge_scores,
 )
 
-__all__ = ["AttnColStats", "ClassifierMLP", "DiffGraphTransformerGenGCNSBM",
+__all__ = ["AttnColStats", "ClassifierMLP", "DiffGraphTransformerGenGCN",
+           "DiffGraphTransformerGenGCNSBM",
            "FeTAEncoder", "FilterCoefficientHead", "FreqTransformer",
            "GraphiTEncoderLayer", "LPETransformer", "MLPReadout",
            "MaskedBatchNorm", "SANAttention", "SANCoeffHead",

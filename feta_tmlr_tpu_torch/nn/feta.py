@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from feta_tmlr_tpu_torch.nn.layers import (
+    AttnColStats,
     GraphiTEncoderLayer,
     dense,
     glorot_uniform_,
@@ -63,12 +64,14 @@ class FeTAEncoder(nn.Module):
     dynamic per-(graph, head) weights) and skip-concat fusion.
 
     Returns (out [B,N,D], attn of the last layer, coefficients [B, H, C]).
+    `attention_impl` picks the layers' kernel route (`nn/layers.py`).
     """
 
     def __init__(self, d_model: int, n_heads: int, n_layers: int,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  batch_norm: bool = False, filter_order: int = 4,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attention_impl: str = "flash"):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.d_model, self.n_heads, self.n_layers = d_model, n_heads, n_layers
@@ -76,7 +79,8 @@ class FeTAEncoder(nn.Module):
         dh = d_model // n_heads
         self.layers = nn.ModuleList(
             GraphiTEncoderLayer(d_model, n_heads, dim_feedforward, dropout,
-                                batch_norm, generator=g)
+                                batch_norm, generator=g,
+                                attention_impl=attention_impl)
             for _ in range(n_layers))
         self.coeff_head = FilterCoefficientHead(
             self.num_coefficients, generator=g)
@@ -100,7 +104,10 @@ class FeTAEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             out, attn, heads = layer(out, pe, node_mask, degree,
                                      need_heads=i + 1 == self.n_layers)
-        coeff = self.coeff_head(None, node_mask, precomputed_s=attn.s)
+        if isinstance(attn, AttnColStats):
+            coeff = self.coeff_head(None, node_mask, precomputed_s=attn.s)
+        else:                                 # dense [B, H, N, N] attention
+            coeff = self.coeff_head(attn, node_mask)
         w = coeff.reshape(b, h, self.filter_order, dh, dh)
         filt = cheb_filter_dynamic(heads.transpose(1, 2), lhat, w,
                                    self.cheb_bias)        # [B, H, N, dh]

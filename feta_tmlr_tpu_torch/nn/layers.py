@@ -2,9 +2,22 @@
 
 Post-attention structure follows torch.nn.TransformerEncoderLayer
 (residual -> norm1 -> FFN(relu) -> residual -> norm2), with a masked
-batch-norm variant. Attention runs through the flash kernel wrappers
-(`ops/kernels/flash_attention.py`): the CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors.
+batch-norm variant. Attention runs through one of three kernel routes,
+chosen by `attention_impl` (the values of the JAX package's
+FETA_PALLAS_IMPL, and its dispatch with the Pallas kernels on):
+
+  "flash"       every layer through the online-softmax kernels
+                (`ops/kernels/flash_attention.py`); the filtered layer gets
+                the coefficient head's column statistics from them;
+  "modulation"  every layer computes its scores [B, H, N, N] with a plain
+                product and runs the modulation kernel on them
+                (`ops/kernels/modulation.py`);
+  "fused"       unfiltered layers through the single-block fused kernels
+                (`ops/kernels/fused_attention.py`, N <= 128); the filtered
+                layer as under "modulation".
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors.
 
 Parameters keep the JAX package's layout so that `convert.from_flax` copies
 them one to one: `qkv` [d, 3d] and `out_proj_kernel` [d, d] are [in, out]
@@ -23,6 +36,14 @@ from feta_tmlr_tpu_torch.ops.kernels.flash_attention import (
     flash_graphit_attention,
     flash_graphit_attention_heads,
 )
+from feta_tmlr_tpu_torch.ops.kernels.fused_attention import (
+    fused_graphit_attention,
+)
+from feta_tmlr_tpu_torch.ops.kernels.modulation import (
+    fused_modulated_attention,
+)
+
+ATTENTION_IMPLS = ("flash", "modulation", "fused")
 
 
 class AttnColStats(NamedTuple):
@@ -91,20 +112,27 @@ class MaskedBatchNorm(nn.Module):
 class GraphiTEncoderLayer(nn.Module):
     """Returns (out [B,N,D], attn, out_each_head [B,N,H,dh] or None).
 
-    need_heads=False: attn is None and the attention output is fused with
-    the output projection (vw = v_h @ Wout_h) inside the flash kernel.
-    need_heads=True: attn is `AttnColStats` and out_each_head holds the
-    per-head outputs that the FeTA block filters spectrally.
+    need_heads=False: out_each_head is None and the attention output is
+    fused with the output projection (vw = v_h @ Wout_h); attn is None on
+    the kernel routes and the dense attention on the score route.
+    need_heads=True: out_each_head holds the per-head outputs that the FeTA
+    block filters spectrally, and attn is `AttnColStats` on the "flash"
+    route, the dense attention [B, H, N, N] on the others.
     """
 
     def __init__(self, d_model: int, n_heads: int,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  batch_norm: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 attention_impl: str = "flash"):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} must divide evenly by "
                              f"n_heads={n_heads}")
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {attention_impl!r} is not one "
+                             f"of {ATTENTION_IMPLS}")
+        self.attention_impl = attention_impl
         g = generator if generator is not None else torch.Generator()
         d = d_model
         self.d_model, self.n_heads = d_model, n_heads
@@ -141,20 +169,39 @@ class GraphiTEncoderLayer(nn.Module):
         c_0 = torch.einsum("he,he->h", bq, bk)
         v_nhd = torch.einsum("bnd,dhe->bnhe", x, wv) + bv    # [B,N,H,dh]
 
-        if need_heads:
+        impl = self.attention_impl
+        vw = lambda: torch.einsum("bmhe,hef->bhmf", v_nhd,
+                                  self.out_proj_kernel.reshape(h, dh, d))
+        if need_heads and impl == "flash":
             out_each_head, s = flash_graphit_attention_heads(
                 xa, x, c_q, c_k, c_0, v_nhd.transpose(1, 2), node_mask,
                 pe=pe, degree=degree)
             attn_out = (out_each_head.reshape(b, n, d) @ self.out_proj_kernel
                         + self.out_proj_bias)
             attn = AttnColStats(s=s)
-        else:
-            vw = torch.einsum("bmhe,hef->bhmf", v_nhd,
-                              self.out_proj_kernel.reshape(h, dh, d))
-            attn_out = flash_graphit_attention(
-                xa, x, c_q, c_k, c_0, vw, node_mask, pe=pe,
-                degree=degree) + self.out_proj_bias
+        elif not need_heads and impl != "modulation":
+            fused = (fused_graphit_attention if impl == "fused"
+                     else flash_graphit_attention)
+            attn_out = fused(xa, x, c_q, c_k, c_0, vw(), node_mask, pe=pe,
+                             degree=degree) + self.out_proj_bias
             attn = out_each_head = None
+        else:
+            # the score route: a plain product, then the modulation kernel
+            scores = (torch.einsum("bhng,bmg->bhnm", xa, x)
+                      + c_q.transpose(1, 2)[:, :, :, None]
+                      + c_k.transpose(1, 2)[:, :, None, :]
+                      + c_0[None, :, None, None]) / math.sqrt(dh)
+            attn = fused_modulated_attention(scores, node_mask, pe=pe,
+                                             degree=degree)
+            if need_heads:
+                heads = torch.einsum("bhqk,bkhd->bhqd", attn, v_nhd)
+                out_each_head = heads.transpose(1, 2)        # [B,N,H,dh]
+                attn_out = (out_each_head.reshape(b, n, d)
+                            @ self.out_proj_kernel + self.out_proj_bias)
+            else:
+                attn_out = torch.einsum("bhnm,bhmf->bnf", attn,
+                                        vw()) + self.out_proj_bias
+                out_each_head = None
 
         x = self._norm(self.norm1, x + self.dropout(attn_out), node_mask)
         ff = self.ff2(self.dropout(torch.relu(self.ff1(x))))

@@ -1,4 +1,5 @@
-"""FeTA node-level classifier (SBM PATTERN/CLUSTER) and its pieces."""
+"""FeTA node-level classifier (SBM PATTERN/CLUSTER), FeTA graph-level
+model (ZINC), and their pieces."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.feta import FeTAEncoder
 from feta_tmlr_tpu_torch.nn.layers import dense
+from feta_tmlr_tpu_torch.ops.masking import masked_mean
 
 
 class ClassifierMLP(nn.Module):
@@ -49,16 +51,16 @@ def coefficient_regularizer(coeff: torch.Tensor,
     raise ValueError(f"unknown reg_type {reg_type}")
 
 
-class DiffGraphTransformerGenGCNSBM(nn.Module):
-    """FeTA node classifier: embedding (+ LapPE), FeTA encoder with the
-    last layer filtered by a dynamic Chebyshev filter, per-node MLP head.
+class _FeTATransformer(nn.Module):
+    """Embedding (+ LapPE) and the FeTA encoder, with the last layer
+    filtered by a dynamic Chebyshev filter; subclasses add the head.
 
-    Forward returns (logits [B, N, C], reg). Parameters are drawn from a
-    `torch.Generator` seeded with `seed`; the module is built on `device`
-    (default CUDA; raises if CUDA is absent and the CPU was not asked for).
-    Only the JAX model's default variant is ported: gnn_type
-    'ChebConvDynamic', last_layer_filter, dynamic coefficients and
-    use_skip_conn.
+    Parameters are drawn from a `torch.Generator` seeded with `seed`; the
+    module is built on `device` (default CUDA; raises if CUDA is absent and
+    the CPU was not asked for). `attention_impl` picks the layers' kernel
+    route: "flash", "modulation" or "fused" (`nn/layers.py`). Only the JAX
+    models' default variant is ported: gnn_type 'ChebConvDynamic',
+    last_layer_filter, dynamic coefficients and use_skip_conn.
     """
 
     def __init__(self, in_size: int, nb_class: int, d_model: int,
@@ -66,7 +68,7 @@ class DiffGraphTransformerGenGCNSBM(nn.Module):
                  dropout: float = 0.1, nb_layers: int = 4,
                  batch_norm: bool = False, lap_pos_enc: bool = False,
                  lap_pos_enc_dim: int = 0, filter_order: int = 4,
-                 seed: int = 0, device=None):
+                 attention_impl: str = "flash", seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
@@ -76,18 +78,42 @@ class DiffGraphTransformerGenGCNSBM(nn.Module):
             self.embedding_lap_pos_enc = dense(lap_pos_enc_dim, d_model, g)
         self.encoder = FeTAEncoder(
             d_model, nb_heads, nb_layers, dim_feedforward, dropout,
-            batch_norm, filter_order, generator=g)
+            batch_norm, filter_order, generator=g,
+            attention_impl=attention_impl)
         self.classifier = ClassifierMLP(d_model, nb_class, generator=g)
         self.to(dev)
 
-    def forward(self, batch: GraphBatch, regularization: float = 0.0):
+    def encode(self, batch: GraphBatch):
+        """(node features [B, N, D] out of the encoder, coefficients)."""
         x = self.embedding(batch.x)
         if self.lap_pos_enc and batch.lap_pe is not None:
             x = x + self.embedding_lap_pos_enc(batch.lap_pe)
         out, _attn, coeff = self.encoder(x, batch.pe, batch.adj,
                                          batch.node_mask,
                                          degree=batch.degree)
-        logits = self.classifier(out)
+        return out, coeff
+
+    def _with_reg(self, logits, coeff, regularization):
         reg = (coefficient_regularizer(coeff) if regularization > 0
                else logits.new_zeros(()))
         return logits, reg
+
+
+class DiffGraphTransformerGenGCNSBM(_FeTATransformer):
+    """FeTA node classifier (SBM PATTERN/CLUSTER): a per-node MLP head.
+    Forward returns (logits [B, N, C], reg)."""
+
+    def forward(self, batch: GraphBatch, regularization: float = 0.0):
+        out, coeff = self.encode(batch)
+        return self._with_reg(self.classifier(out), coeff, regularization)
+
+
+class DiffGraphTransformerGenGCN(_FeTATransformer):
+    """FeTA graph-level model (ZINC regression, graph classification): the
+    masked mean of the node features over each graph's real nodes, then the
+    MLP head. Forward returns (logits [B, C], reg)."""
+
+    def forward(self, batch: GraphBatch, regularization: float = 0.0):
+        out, coeff = self.encode(batch)
+        pooled = masked_mean(out, batch.node_mask, dim=1)
+        return self._with_reg(self.classifier(pooled), coeff, regularization)

@@ -24,6 +24,7 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     bind,
     check_launch,
     check_operands,
+    cuda_or_plain,
     plain_pd,
     plain_scores,
     ptr,
@@ -59,11 +60,9 @@ def colstat_plain(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su,
 def colstat(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su, wq=None):
     """colsum[b,h,j] = sum_i attn[i,j] * wq[i] (wq None: 1) and
     diag[b,h,j] = attn[j,j], attn recomputed from (m, se, su)."""
-    if xa.device.type == "cpu":
+    if not cuda_or_plain("colstat", xa):
         return colstat_plain(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt,
                              m, se, su, wq)
-    if xa.device.type != "cuda":
-        raise ValueError(f"colstat: unsupported device {xa.device}")
     b, h, n, d = xa.shape
     check_operands("colstat", xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[(k, t, (b, h, n)) for k, t in

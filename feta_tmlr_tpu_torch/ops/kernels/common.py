@@ -35,21 +35,24 @@ def plain_pd(pe, deg, ref):
     return pd
 
 
-def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
-                   extra=()) -> None:
-    """Raise unless every operand is a contiguous float32 CUDA tensor of
-    the layout above, on one device."""
-    b, h, n, d = xa.shape
-    shapes = {"xa": (xa, (b, h, n, d)), "x": (x, (b, n, d)),
-              "cq": (cq, (b, h, n)), "ck": (ck, (b, h, n)),
-              "c0": (c0, (h,)), "pe": (pe, (b, n, n)),
-              "deg": (deg, (b, n)), "mask": (mask, (b, n))}
-    for key, t, shape in [(k, t, s) for k, (t, s) in shapes.items()] + list(
-            extra):
+def cuda_or_plain(name, t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def check_f32(name, device, items, entry) -> None:
+    """Raise unless every (key, tensor, shape) of `items` is a contiguous
+    float32 tensor of that shape on `device` (the optional pe, deg and wq
+    may be None), and unless none requires grad while grad mode is on: a
+    raw kernel wrapper is not differentiable, `entry` is."""
+    for key, t, shape in items:
         if t is None and key in ("pe", "deg", "wq"):
             continue
-        if t.device != xa.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be float32 on {xa.device}, "
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be float32 on {device}, "
                              f"got {t.dtype} on {t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
@@ -57,12 +60,25 @@ def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (xa, x, cq, ck, c0, pe, deg, *(e[1] for e in extra))):
+            t is not None and t.requires_grad for _, t, _ in items):
         raise RuntimeError(
             f"{name}: the raw kernel wrapper is not differentiable; call it "
-            "under torch.no_grad(), or use flash_graphit_attention(_heads) "
-            "(FlashGraphiT) for gradients")
+            f"under torch.no_grad(), or use {entry} for gradients")
+
+
+def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask, extra=(),
+                   entry="flash_graphit_attention(_heads) (FlashGraphiT)"
+                   ) -> None:
+    """Raise unless every operand is a contiguous float32 CUDA tensor of
+    the layout above, on one device."""
+    b, h, n, d = xa.shape
+    shapes = {"xa": (xa, (b, h, n, d)), "x": (x, (b, n, d)),
+              "cq": (cq, (b, h, n)), "ck": (ck, (b, h, n)),
+              "c0": (c0, (h,)), "pe": (pe, (b, n, n)),
+              "deg": (deg, (b, n)), "mask": (mask, (b, n))}
+    check_f32(name, xa.device,
+              [(k, t, s) for k, (t, s) in shapes.items()] + list(extra),
+              entry)
 
 
 def bwd_row_constants(g_heads, outh, se, su, mask):

@@ -36,6 +36,7 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     bwd_row_constants,
     check_launch,
     check_operands,
+    cuda_or_plain,
     plain_pd,
     plain_scores,
     ptr,
@@ -58,13 +59,6 @@ def _kernel(name):
     return _fns[name]
 
 
-def _cuda_or_plain(name, xa) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if xa.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {xa.device}")
-    return xa.device.type == "cuda"
-
-
 def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     """Dense version of the kernel: (outh [B,H,N,dv], m, se, su [B,H,N])."""
     s = plain_scores(xa, x, cq, ck, c0, mask, inv_sqrt)
@@ -82,7 +76,7 @@ def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
 def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     """Online-softmax GraphiT forward (operand layout in `common`; vw is
     [B, H, N, dv] with dv <= 64). Returns (outh, m, se, su)."""
-    if not _cuda_or_plain("flash_fwd", xa):
+    if not cuda_or_plain("flash_fwd", xa):
         return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
     b, h, n, d = xa.shape
     dv = vw.shape[-1]
@@ -164,7 +158,7 @@ def flash_bwd_q(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
     """Query pass of the backward: (dxa [B,H,N,D], dcq [B,H,N])."""
     args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
             beta, c)
-    if not _cuda_or_plain("flash_bwd_q", xa):
+    if not cuda_or_plain("flash_bwd_q", xa):
         return flash_bwd_q_plain(*args)
     b, h, n, d, dv = _check_bwd("flash_bwd_q", *args)
     lib, fn = _kernel("bwd_q")
@@ -185,7 +179,7 @@ def flash_bwd_k(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
     which writes one dx partial per head, and the fixed-order head sum."""
     args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
             beta, c)
-    if not _cuda_or_plain("flash_bwd_k", xa):
+    if not cuda_or_plain("flash_bwd_k", xa):
         return flash_bwd_k_plain(*args)
     b, h, n, d, dv = _check_bwd("flash_bwd_k", *args)
     lib, fn = _kernel("bwd_k")

@@ -33,7 +33,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from feta_tmlr_tpu_torch.ops.kernels import build
-from feta_tmlr_tpu_torch.ops.kernels.common import check_launch, ptr, stream_ptr
+from feta_tmlr_tpu_torch.ops.kernels.common import (
+    check_launch,
+    cuda_or_plain,
+    ptr,
+    stream_ptr,
+)
 
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -140,13 +145,6 @@ def fused_mlp_bwd_plain(x, w1, b1, w2, g, rate: float = 0.0,
     return dh @ w1.T, x.T @ dh, dh.sum(0), hd.T @ g, g.sum(0)
 
 
-def _cuda(name, x) -> bool:
-    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return x.device.type == "cuda"
-
-
 def _check(name, x, w1, b1, w2, extra):
     """Raise unless every operand is a contiguous float32 tensor on x's
     device of the kernels' shapes, with widths <= 64."""
@@ -183,7 +181,7 @@ def _dropout_args(rate, seed):
 def fused_mlp_fwd(x, w1, b1, w2, b2, rate: float = 0.0,
                   seed: Optional[int] = None) -> torch.Tensor:
     """y [R, d_out] = dropout(relu(x @ w1 + b1)) @ w2 + b2."""
-    if not _cuda("fused_mlp_fwd", x):
+    if not cuda_or_plain("fused_mlp_fwd", x):
         return fused_mlp_plain(x, w1, b1, w2, b2, rate, seed)
     seed = _check_seed(rate, seed)
     r, din, f, dout = _check("fused_mlp_fwd", x, w1, b1, w2,
@@ -205,7 +203,7 @@ def fused_mlp_bwd(x, w1, b1, w2, g, rate: float = 0.0,
     """(dx, dw1, db1, dw2, db2) of `fused_mlp_fwd` for the cotangent g
     [R, d_out]. One call is three launches from `csrc/fused_mlp.cu`: dx,
     the weight-gradient partials of each row split, and their sum."""
-    if not _cuda("fused_mlp_bwd", x):
+    if not cuda_or_plain("fused_mlp_bwd", x):
         return fused_mlp_bwd_plain(x, w1, b1, w2, g, rate, seed)
     seed = _check_seed(rate, seed)
     r, din, f, dout = _check("fused_mlp_bwd", x, w1, b1, w2,

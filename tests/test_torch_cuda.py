@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each held to its plain PyTorch
-version, the wrappers' operand checks, and small SBM and SAN models served
-and trained on CUDA against the CPU path.
+version, the wrappers' operand checks, and small SBM, SAN and ZINC models
+served and trained on CUDA against the CPU path.
 
 These tests need an NVIDIA card and skip without one. They import no JAX,
 so they run on a machine that has only PyTorch:
@@ -11,7 +11,8 @@ Tolerance: kernels rtol 1e-4 / atol 1e-5 (f32, sums in another order),
 dropout masks bit-equal; the two-layer SBM model rtol 1e-4 / atol 1e-4
 and its gradients rtol 1e-3 / atol 1e-5; the two-layer SAN model's outputs
 rtol 1e-4 / atol 1e-4 and its gradients within 1e-3 of each tensor's
-largest entry (eigen-PE dropout 0.1 on both sides, the same masks).
+largest entry (eigen-PE dropout 0.1 on both sides, the same masks); the
+two-layer ZINC model on the modulation and fused routes as the SBM model.
 """
 
 import copy
@@ -25,12 +26,18 @@ from feta_tmlr_tpu_torch.data.batch import collate_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
     sbm_like_dataset,
     zinc_categorical_dataset,
+    zinc_like_dataset,
 )
-from feta_tmlr_tpu_torch.nn.models import DiffGraphTransformerGenGCNSBM
+from feta_tmlr_tpu_torch.nn.models import (
+    DiffGraphTransformerGenGCN,
+    DiffGraphTransformerGenGCNSBM,
+)
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra
 from feta_tmlr_tpu_torch.ops.kernels import colstat as tcs
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
+from feta_tmlr_tpu_torch.ops.kernels import fused_attention as tfa
 from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as tfm
+from feta_tmlr_tpu_torch.ops.kernels import modulation as tmod
 from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
 from feta_tmlr_tpu_torch.pe.encodings import DiffusionEncoding, LapEncoding
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
@@ -303,6 +310,152 @@ def test_cuda_san_step_and_predictor_match_cpu(cuda):
     # both served from the CUDA model's stepped weights and statistics
     cpu_model.load_state_dict(gpu_model.state_dict())
     kw = dict(max_batch=4, collate_kwargs={"max_nodes": 32})
+    got = Predictor(gpu_model, **kw).predict(graphs)
+    ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- modulation and fused attention
+
+def _mod_inputs(seed, b, h, n, pad, with_mod):
+    """Scores, pe, degree, float mask and a cotangent on the CPU; pe is 0
+    on the first 3 rows of graph 1 (the |denom| <= 1e-9 branch)."""
+    ops, _ = _ops(seed, b, h, n, 8, 8, pad, with_mod)
+    if with_mod:
+        ops["pe"][1, :3] = 0.0
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    return f(b, h, n, n), ops["pe"], ops["deg"], ops["mask"], f(b, h, n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,pad,with_mod", [
+    (3, 48, 7, True), (2, 300, 11, False), (2, 1, 0, True)])
+def test_cuda_modulation_matches_plain(cuda, b, n, pad, with_mod):
+    args = _mod_inputs(10, b, 8, n, pad, with_mod)
+    gargs = [None if t is None else t.to(cuda) for t in args]
+    before = tmod.modulation_fwd.launches, tmod.modulation_bwd.launches
+    got = tmod.modulation_fwd(*gargs[:4])
+    got_b = tmod.modulation_bwd(*gargs)
+    again = tmod.modulation_bwd(*gargs)
+    torch.cuda.synchronize()
+    _close([got, got_b], [tmod.modulation_fwd_plain(*args[:4]),
+                          tmod.modulation_bwd_plain(*args)])
+    assert torch.equal(got_b, again)
+    assert (tmod.modulation_fwd.launches, tmod.modulation_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,pad,d,with_mod", [
+    (3, 48, 7, 64, True), (2, 128, 0, 16, False), (2, 77, 5, 40, True)])
+def test_cuda_fused_attention_matches_plain(cuda, b, n, pad, d, with_mod):
+    ops, vw = _ops(11, b, 8, n, d, d, pad, with_mod)
+    if with_mod:
+        ops["pe"][1, :3] = 0.0
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (b, n, d)).astype(np.float32))
+    gops = _to(ops, cuda)
+    before = tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches
+    got = tfa.fused_attn_fwd(vw=vw.to(cuda), **gops)
+    got_b = tfa.fused_attn_bwd(vw=vw.to(cuda), g=g.to(cuda), **gops)
+    again = tfa.fused_attn_bwd(vw=vw.to(cuda), g=g.to(cuda), **gops)
+    torch.cuda.synchronize()
+    _close([got], [tfa.fused_attn_fwd_plain(vw=vw, **ops)])
+    _close(got_b, tfa.fused_attn_bwd_plain(vw=vw, g=g, **ops))
+    # no atomics: the column and head sums are bit-identical run to run
+    assert all(torch.equal(x, y) for x, y in zip(got_b, again))
+    assert (tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_modulation_and_fused_wrappers_reject(cuda):
+    scores, pe, deg, mask, g = (t.to(cuda) for t in
+                                _mod_inputs(13, 2, 2, 16, 3, True))
+    with pytest.raises(ValueError, match="float32"):
+        tmod.modulation_fwd(scores.double(), pe, deg, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmod.modulation_bwd(scores, pe, deg, mask, g.transpose(2, 3))
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tmod.modulation_fwd(scores.requires_grad_(), pe, deg, mask)
+    ops, vw = _ops(14, 1, 2, tfa.MAX_NODES + 1, 16, 16, 0, True)
+    gops, vw = _to(ops, cuda), vw.to(cuda)
+    with pytest.raises(ValueError, match="N=129 > 128"):
+        tfa.fused_attn_fwd(vw=vw, **gops)
+    ops, vw = _ops(15, 1, 2, 32, 16, 16, 0, True)
+    gops, vw = _to(ops, cuda), vw.to(cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tfa.fused_attn_fwd(vw=vw.double(), **gops)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.fused_attn_bwd(vw=vw, g=torch.zeros(1, 16, 32, device=cuda)
+                           .transpose(1, 2), **gops)
+    wide, vw = _ops(16, 1, 2, 32, 72, 72, 0, True)
+    with pytest.raises(ValueError, match="D=72 > 64"):
+        tfa.fused_attn_fwd(vw=vw.to(cuda), **_to(wide, cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_modulation_and_fused_never_take_the_plain_route(
+        cuda, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    for mod, names in ((tmod, ("modulation_fwd_plain",
+                               "modulation_bwd_plain")),
+                       (tfa, ("fused_attn_fwd_plain",
+                              "fused_attn_bwd_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    scores, pe, deg, mask, g = (t.to(cuda) for t in
+                                _mod_inputs(17, 2, 2, 16, 3, True))
+    s = scores.requires_grad_()
+    tmod.fused_modulated_attention(s, mask > 0, pe=pe, degree=deg).backward(g)
+    rng = np.random.default_rng(18)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(cuda).requires_grad_()
+    args = (f(2, 2, 16, 8), f(2, 16, 8), f(2, 16, 2), f(2, 16, 2), f(2),
+            f(2, 2, 16, 8))
+    before = tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches
+    tfa.fused_graphit_attention(*args, mask > 0, pe=pe,
+                                degree=deg).sum().backward()
+    assert (tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert s.grad is not None and all(a.grad is not None for a in args)
+
+
+_ZINC = dict(in_size=28, nb_class=1, d_model=16, nb_heads=2,
+             dim_feedforward=32, dropout=0.0, nb_layers=2, batch_norm=True,
+             lap_pos_enc=True, lap_pos_enc_dim=8, filter_order=3, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,launches", [
+    ("modulation", (2, 2, 0, 0)), ("fused", (1, 1, 1, 1))])
+def test_cuda_zinc_step_and_predictor_match_cpu(cuda, impl, launches):
+    graphs = zinc_like_dataset(seed=4, n_graphs=6)
+    DiffusionEncoding(beta=1.0).apply_to(graphs)
+    LapEncoding(8).apply_to(graphs)
+    batch = collate_graphs(graphs[:4], max_nodes=48)
+    cpu_model = DiffGraphTransformerGenGCN(**_ZINC, attention_impl=impl,
+                                           device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(task="graph_reg", regularization=0.1, sign_flip=False)
+    counts = lambda: (tmod.modulation_fwd.launches,
+                      tmod.modulation_bwd.launches,
+                      tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches)
+    before = counts()
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    assert tuple(a - b for a, b in zip(counts(), before)) == launches
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   want[name].grad.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    kw = dict(max_batch=4, collate_kwargs={"max_nodes": 48})
     got = Predictor(gpu_model, **kw).predict(graphs)
     ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
