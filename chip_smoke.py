@@ -16,14 +16,17 @@ Phases (any failure raises and the script exits non-zero):
      (B=4, the training batch, and B=8, the serving batch) and at a ragged
      N=200 with B=8 and at the ZINC batch (B=128, N=48), with padded
      nodes, the backward kernels also on rows in the |su/se| <= 1e-9
-     branch; the fused-MLP kernels at the SAN eigen-PE head's 40,960 rows
-     (d 8, F 2048) and at a ragged 10,007, at dropout 0 and 0.1, with their
-     masks read back bit-equal to the plain version's, a keep fraction of
-     0.9 +- 0.002 and two backward runs bit-identical; the modulation
-     kernels at B=128, N=48, at B=32, N=128 and at B=4, N=1024, and the
-     single-block fused attention kernels at the first two, with padded
-     nodes and rows in the |denom| <= 1e-9 branch, two backward runs
-     bit-identical;
+     branch; the head-folded attention kernels at B=1 and B=2, N=2048 and
+     at B=2, N=1990, value widths 64 and 8, against their plain versions
+     and their unfolded CUDA twins, guard rows included, two runs
+     bit-identical; the fused-MLP kernels at the SAN eigen-PE head's 40,960
+     rows (d 8, F 2048) and at a ragged 10,007, at dropout 0 and 0.1, with
+     their masks read back bit-equal to the plain version's, a keep
+     fraction of 0.9 +- 0.002 and two backward runs bit-identical; the
+     modulation kernels at B=128, N=48, at B=32, N=128, at B=4, N=1024 and
+     at B=2, N=2048, and the single-block fused attention kernels at the
+     first two, with padded nodes and rows in the |denom| <= 1e-9 branch,
+     two backward runs bit-identical;
   4. serve the FeTA SBM node classifier (DiffGraphTransformerGenGCNSBM at
      d_model 64, 8 heads, 10 layers, ff 128, batch norm, LapPE 8, Chebyshev
      order 4; random weights from a seed) at N=1024 through `Predictor` on
@@ -71,20 +74,40 @@ Phases (any failure raises and the script exits non-zero):
      side by side, then in 9 interleaved rounds (one request and one epoch
      of each route per round, the order rotating) with their medians and
      quartiles;
- 10. print the kernels' JSON line, the card line, and the final status line
+ 10. the SBM model at N=2048 (examples/largen_combo_ab.py's step) under the
+     three settings of the attention dispatch: "fold" (head_fold, the
+     head-folded kernels on every layer) serves two requests of 2 graphs
+     (10 + 2 launches each, one graph's logits held to the CPU in float64)
+     and trains on 4 one-graph batches for 2 + 5 timed epochs (10 + 2 + 10
+     + 10 launches a step, falling loss, no host sync, one step held to a
+     float64 CPU step; both held at the N=1024 tolerances or within a
+     stated multiple of the CPU's float32 error on the same input, see
+     LOGITS_CPU32_FACTOR); "stream" (the unfolded kernels) and "r4"
+     (flash_need_heads off: the filtered layer through the score product
+     and the modulation kernel) serve two requests and train 1 + 2 epochs;
+     then 9 interleaved rounds of one request and one epoch per setting;
+ 11. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
-training step's device time, for each model (ZINC on the "fused" route).
+training step's device time, for each model (ZINC on the "fused" route,
+SBM at N=2048 under "fold").
 `--rounding` runs only phase 5's parity step, on the canonical LapPE signs
 and on 8 random sign patterns, and prints how far float32 rounding moves
-its loss and gradients from float64 on CUDA and on the CPU.
+its loss and gradients from float64 on CUDA and on the CPU; then phase
+10's parity step and one graph's served logits at N=2048 over 4 random
+patterns, with each CUDA error over the CPU float32 route's.
+`--precision` runs only a probe of phase 10's forward: each layer re-run
+from the float64 forward's inputs in float32 on the CPU, on the card and
+on the card with the plain versions (`plain_kernels`), its steps held to
+float64, then one graph's logits on each route.
 It needs one card and exits non-zero without printing a result when CUDA is
 unavailable.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -120,7 +143,10 @@ from feta_tmlr_tpu_torch.ops.kernels import fused_attention as fa_mod
 from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as fm_mod
 from feta_tmlr_tpu_torch.ops.kernels import modulation as mod_mod
 from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
-from feta_tmlr_tpu_torch.pe.encodings import DiffusionEncoding, LapEncoding
+from feta_tmlr_tpu_torch.pe.encodings import (
+    DiffusionEncoding,
+    LapEncoding,
+)
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.serve import Predictor
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -170,6 +196,9 @@ CHECK_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (N_GRAPHS, N_NODES, 60),
 KERNELS = {"flash_fwd": fl_mod.flash_fwd, "colstat": cs_mod.colstat,
            "flash_bwd_q": fl_mod.flash_bwd_q,
            "flash_bwd_k": fl_mod.flash_bwd_k,
+           "flash_fwd_hf": fl_mod.flash_fwd_hf,
+           "flash_bwd_q_hf": fl_mod.flash_bwd_q_hf,
+           "flash_bwd_k_hf": fl_mod.flash_bwd_k_hf,
            "fused_mlp_fwd": fm_mod.fused_mlp_fwd,
            "fused_mlp_bwd": fm_mod.fused_mlp_bwd,
            "modulation_fwd": mod_mod.modulation_fwd,
@@ -230,8 +259,49 @@ ZINC_STEP_LAUNCHES = {
 # checks of the modulation kernels: (B, N, padding) at H=8, the ZINC batch,
 # the SBM-PATTERN shape (bench.py:267) and the SBM slice's N=1024; the
 # fused kernels take N <= 128, so the first two
-MOD_SHAPES = ((ZINC_GRAPHS, ZINC_NODES, 11), (32, 128, 17), (4, 1024, 60))
+MOD_SHAPES = ((ZINC_GRAPHS, ZINC_NODES, 11), (32, 128, 17), (4, 1024, 60),
+              (2, 2048, 60))
 FUSED_SHAPES = MOD_SHAPES[:2]
+# The SBM model at N=2048 (examples/largen_combo_ab.py, the JAX package's
+# measurement of its head-folded kernels: sbm_like_dataset(seed=2,
+# n_nodes=2048), widths not cut): 4 graphs of 1792-2048 nodes, served two
+# at a time and trained one at a time, under the three settings of the
+# attention dispatch that mirror that script's Pallas combos (JAX's
+# FETA_FLASH_HEAD_FOLD / FETA_FLASH_NEED_HEADS)
+LARGE_N = 2048
+LARGE_GRAPHS = 4
+LARGE_SETTINGS = {"fold": dict(head_fold=True, flash_need_heads=True),
+                  "stream": dict(head_fold=False, flash_need_heads=True),
+                  "r4": dict(head_fold=False, flash_need_heads=False)}
+# (requests, warm-up epochs, timed epochs) of each setting; "fold" is the
+# slice's main path, the other two its comparison
+LARGE_RUNS = {"fold": (2, 2, 5), "stream": (2, 1, 2), "r4": (2, 1, 2)}
+LARGE_ROUNDS = 9
+# The N=2048 model from random weights amplifies float32 rounding beyond
+# the SBM tolerances on the CPU's float32 route too: over 5 LapPE sign
+# patterns (`--rounding`) the CPU's own step misses the gradient tolerance
+# on some. So at N=2048 the logits and the parity step are held to float64
+# within SLICE_TOL and the SBM tolerances, or, where float32 rounding
+# exceeds those, within a multiple of the error of the CPU's float32 route
+# on the same input, a witness that shares no operation with the card:
+# the sweep's worst ratios, rounded up (logits 1.70, a step's gradients
+# 3.99 on one pattern, 1.04 or less on the others). `--precision` shows
+# where the card's float32 parts from the CPU's, layer by layer
+LOGITS_CPU32_FACTOR = 2
+STEP_CPU32_FACTOR = 4
+LARGE_REQUEST_LAUNCHES = {
+    "fold": {**NONE, "flash_fwd_hf": 10, "colstat": 2},
+    "stream": {**NONE, "flash_fwd": 10, "colstat": 2},
+    "r4": {**NONE, "flash_fwd": 9, "modulation_fwd": 1}}
+LARGE_STEP_LAUNCHES = {
+    "fold": {**NONE, "flash_fwd_hf": 10, "colstat": 2, "flash_bwd_q_hf": 10,
+             "flash_bwd_k_hf": 10},
+    "stream": STEP_LAUNCHES,
+    "r4": {**NONE, "flash_fwd": 9, "flash_bwd_q": 9, "flash_bwd_k": 9,
+           "modulation_fwd": 1, "modulation_bwd": 1}}
+# checks of the head-folded kernels: (B, N, padding) at the training shape,
+# the serving shape and a ragged N; the JSON rows are the first shape's
+HF_SHAPES = ((1, LARGE_N, 100), (2, LARGE_N, 60), (2, 1990, 9))
 
 
 def card_line() -> str:
@@ -384,14 +454,16 @@ def bwd_inputs(seed, b, h, n, d, dv, pad, device, guard_rows=8):
     `guard_rows` (real) query rows of graph 0, so su = 0 there and those
     rows take the |su/se| <= 1e-9 branch (beta = 0; c = r = 0 as outh = 0);
     the forward statistics from the plain version; a random cotangent; su
-    zeroed on `guard_rows` further real rows of graph 1, so the branch also
-    runs with c = r != 0; and the row constants."""
+    zeroed on `guard_rows` further real rows (of graph 1; with one graph,
+    graph 0's next rows), so the branch also runs with c = r != 0; and the
+    row constants."""
     ops, vw = attention_inputs(seed, b, h, n, d, dv, pad, device)
     ops["pe"][0, :guard_rows] = 0.0
     outh, m, se, su = fl_mod.flash_fwd_plain(vw=vw, **ops)
     g = torch.randn(outh.shape, device=device,
                     generator=torch.Generator(device).manual_seed(seed))
-    su[1, :, :guard_rows] = 0.0
+    first = guard_rows if b == 1 else 0
+    su[min(b - 1, 1), :, first:first + guard_rows] = 0.0
     consts = bwd_row_constants(g, outh, se, su, ops["mask"])
     n_guard = int(((su / se).abs() <= 1e-9).logical_and(
         ops["mask"][:, None] > 0).sum())
@@ -437,6 +509,61 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                                           bound_by=by)
             print("; ".join(line) + "; tolerance rtol 1e-4 atol 1e-5",
                   flush=True)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    return rows
+
+
+def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
+    """Phase 3, head-folded kernels: each against its plain version (the
+    unfolded kernel's: the same function) and against its unfolded CUDA
+    twin, on the backward's guard-row operands; two runs of each
+    bit-identical. Returns the JSON rows (the first shape at dv=64)."""
+    rows = {}
+    errs = dict.fromkeys(("flash_fwd_hf", "flash_bwd_q_hf", "flash_bwd_k_hf"),
+                         0.0)
+    for b, n, pad in shapes:
+        for dv in (64, 8):
+            args, n_guard, n_c = bwd_inputs(b + n + dv + 2, b, h, n, d, dv,
+                                            pad, device)
+            passes = (
+                ("flash_fwd_hf", fl_mod.flash_fwd, fl_mod.flash_fwd_plain,
+                 args[:10], ("outh", "m", "se", "su"),
+                 flash_cost(b, h, n, d, dv)),
+                ("flash_bwd_q_hf", fl_mod.flash_bwd_q,
+                 fl_mod.flash_bwd_q_plain, args, ("dxa", "dcq"),
+                 bwd_cost(b, h, n, d, dv, "q")),
+                ("flash_bwd_k_hf", fl_mod.flash_bwd_k,
+                 fl_mod.flash_bwd_k_plain, args, ("dvw", "dck", "dx"),
+                 bwd_cost(b, h, n, d, dv, "k")))
+            line = [f"folded check B={b} H={h} N={n} D={d} dv={dv} "
+                    f"pad~{pad}: {n_guard} rows in the guard branch, {n_c} "
+                    f"with c != 0"]
+            for name, twin, plain, a, outs, cost in passes:
+                kernel = getattr(fl_mod, name)
+                tag = f"B={b} N={n} dv={dv}"
+                with torch.inference_mode():
+                    got, again, unf = kernel(*a), kernel(*a), twin(*a)
+                    want = plain(*a)
+                    torch.cuda.synchronize()
+                    each = check_backward(name, got, again, want, outs, tag)
+                    e_twin = max_err(got, unf, f"{name} against the unfolded "
+                                     f"kernel {tag}")
+                    t_k, t_u, t_p = (time_ms(lambda f=f: f(*a))
+                                     for f in (kernel, twin, plain))
+                errs[name] = max(errs[name], *each)
+                bnd, by = bound(*cost)
+                line.append(
+                    f"{name} err " + " ".join(
+                        f"{o} {e:.3e}" for o, e in zip(outs, each))
+                    + f" (against the unfolded kernel {e_twin:.3e}); "
+                    f"{t_k:.4f} ms (unfolded {t_u:.4f} ms, plain {t_p:.4f} "
+                    f"ms, bound {bnd:.4f} ms {by})")
+                if (b, n, pad) == shapes[0] and dv == 64:
+                    rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd,
+                                      bound_by=by)
+            print("; ".join(line) + "; two runs of each bit-identical; "
+                  "tolerance rtol 1e-4 atol 1e-5", flush=True)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
     return rows
@@ -703,21 +830,24 @@ def canonical_signs(vecs):
 
 
 def _pe_worker(graph):
+    """Diffusion PE (beta 1) and LapPE of one graph."""
     DiffusionEncoding(beta=1.0).apply_to([graph])
     LapEncoding(MODEL_CFG["lap_pos_enc_dim"]).apply_to([graph])
     return graph.pe, canonical_signs(graph.lap_pe)
 
 
-def make_graphs():
-    graphs = sbm_like_dataset(seed=2, n_graphs=N_GRAPHS, n_nodes=N_NODES)
+def make_graphs(n_graphs=N_GRAPHS, n_nodes=N_NODES):
+    graphs = sbm_like_dataset(seed=2, n_graphs=n_graphs, n_nodes=n_nodes)
     t0 = time.perf_counter()
     workers = max(1, min(len(graphs), os.cpu_count() or 1))
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
-        for g, (pe, lap_pe) in zip(graphs, pool.map(_pe_worker, graphs)):
+        pes = pool.map(_pe_worker, graphs)
+        for g, (pe, lap_pe) in zip(graphs, pes):
             g.pe, g.lap_pe = pe, lap_pe
-    print(f"host PE (diffusion beta=1 + LapPE 8) for {len(graphs)} graphs "
-          f"of {min(g.num_nodes for g in graphs)}-"
+    print(f"host PE (diffusion beta=1 + "
+          f"LapPE 8) for {len(graphs)} graphs of "
+          f"{min(g.num_nodes for g in graphs)}-"
           f"{max(g.num_nodes for g in graphs)} nodes: "
           f"{time.perf_counter() - t0:.1f} s on {workers} processes",
           flush=True)
@@ -1204,9 +1334,9 @@ def zinc_train(graphs, device, card, impl, profile=False):
     return launches, mean, step_ms
 
 
-def compare_routes(request_fns, step_fns, card):
-    """The routes in turns: each of ZINC_ROUNDS rounds serves one request
-    and trains one epoch on every route, the order rotating from round to
+def compare_routes(request_fns, step_fns, card, label, rounds):
+    """The routes in turns: each of `rounds` rounds serves one request and
+    trains one epoch on every route, the order rotating from round to
     round, so that a change in the host's speed (which sets these times,
     PERF.md section 5) falls on every route alike. Prints each route's
     median and quartiles of ms/request and ms/step over the rounds, and the
@@ -1214,7 +1344,7 @@ def compare_routes(request_fns, step_fns, card):
     names = list(request_fns)
     req = {k: [] for k in names}
     step = {k: [] for k in names}
-    for r in range(ZINC_ROUNDS):
+    for r in range(rounds):
         for impl in names[r % len(names):] + names[:r % len(names)]:
             t0 = time.perf_counter()
             request_fns[impl]()
@@ -1223,17 +1353,16 @@ def compare_routes(request_fns, step_fns, card):
 
     def summary(times):
         wins = {k: sum(min(names, key=lambda n: times[n][r]) == k
-                       for r in range(ZINC_ROUNDS)) for k in names}
+                       for r in range(rounds)) for k in names}
         return "; ".join(
             f"{k} median {statistics.median(v):.2f} (quartiles "
             + " / ".join(f"{q:.2f}" for q in statistics.quantiles(v, n=4))
             + f", fastest in {wins[k]} rounds)" for k, v in times.items())
 
-    print(f"zinc routes at B={ZINC_GRAPHS}, N={ZINC_NODES}, {ZINC_ROUNDS} "
-          f"interleaved rounds: ms/request {summary(req)}", flush=True)
-    print(f"zinc routes at B={ZINC_GRAPHS}, N={ZINC_NODES}, {ZINC_ROUNDS} "
-          f"interleaved rounds: ms/step {summary(step)}; on {card}",
-          flush=True)
+    print(f"{label}, {rounds} interleaved rounds: ms/request "
+          f"{summary(req)}", flush=True)
+    print(f"{label}, {rounds} interleaved rounds: ms/step {summary(step)}; "
+          f"on {card}", flush=True)
 
 
 def zinc_slice(device, card, profile=False):
@@ -1253,7 +1382,156 @@ def zinc_slice(device, card, profile=False):
           "steady, ms/step over the window of each phase): " + "; ".join(
               f"{impl} {served[impl]:.2f} / {trained[impl]:.2f}"
               for impl in ZINC_RUNS) + f"; on {card}", flush=True)
-    compare_routes(request_fns, step_fns, card)
+    compare_routes(request_fns, step_fns, card,
+                   f"zinc routes at B={ZINC_GRAPHS}, N={ZINC_NODES}",
+                   ZINC_ROUNDS)
+    return runs
+
+
+def large_serve(graphs, device, card, setting, profile=False):
+    """The N=2048 slice served through Predictor on CUDA under one setting
+    of the attention dispatch: requests of 2 graphs (B=2, ragged N padded
+    to 2048), exact launch counts; under "fold" one graph's logits are held
+    to a float64 forward on the CPU. Returns the launches, the median
+    ms/request and a function that serves one more request."""
+    n_req = LARGE_RUNS[setting][0]
+    collate = {"max_nodes": LARGE_N, "node_labels": True}
+    model = DiffGraphTransformerGenGCNSBM(
+        **MODEL_CFG, **LARGE_SETTINGS[setting], seed=0, device=device)
+    calibrate_batch_norm(model, collate_graphs(graphs[:2], **collate), device)
+    pred = Predictor(model, device=device, max_batch=2, node_level=True,
+                     collate_kwargs=collate)
+    requests = [graphs[2 * i:2 * i + 2] for i in range(n_req)]
+    reset_launches()
+    outs, call_ms = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.predict(req))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    want = {k: n_req * v for k, v in LARGE_REQUEST_LAUNCHES[setting].items()}
+    if launches != want:
+        raise AssertionError(f"N={LARGE_N} {setting}: launch counts "
+                             f"{launches} for {n_req} requests; expected "
+                             f"{LARGE_REQUEST_LAUNCHES[setting]} each")
+    for req, out in zip(requests, outs):
+        for g, o in zip(req, out):
+            if o.shape != (g.num_nodes, MODEL_CFG["nb_class"]) or \
+                    not np.isfinite(o).all():
+                raise AssertionError(f"bad logits {o.shape}")
+    steady = statistics.median(call_ms)
+    print(f"large serve [{setting}]: {n_req} requests of 2 graphs "
+          f"({[[g.num_nodes for g in r] for r in requests]} nodes) at "
+          f"N={LARGE_N}; ms/call {[round(t, 2) for t in call_ms]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; on {card}",
+          flush=True)
+    if setting == "fold":
+        t0 = time.perf_counter()
+        errs = logits_errors(model, graphs, collate,
+                             lambda: pred.predict(requests[0])[0])
+        print(f"large serve [{setting}]: logits of one graph "
+              f"({graphs[0].num_nodes} nodes) against the CPU path in "
+              f"float64: max abs err CUDA {errs['cuda']:.3e}, CPU float32 "
+              f"{errs['cpu32']:.3e}; max |logit| {errs['scale']:.3f} "
+              f"(tolerance: rtol 1e-3 atol 1e-3, or {LOGITS_CPU32_FACTOR}x "
+              f"the CPU float32 route's error; CPU forwards "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        if not (errs["within"]
+                or errs["cuda"] <= LOGITS_CPU32_FACTOR * errs["cpu32"]):
+            raise AssertionError(f"N={LARGE_N} logits off float64: {errs}")
+    if profile:
+        profile_call(f"one request of 2 graphs at N={LARGE_N} [{setting}]",
+                     lambda: pred.predict(requests[0]))
+    return launches, steady, lambda: pred.predict(requests[0])
+
+
+def large_train(graphs, device, card, setting, profile=False):
+    """The N=2048 slice trained through Trainer (node_clf, AdamW, warmup
+    towards lr 1e-3, weight decay 1e-5, sign flip on) on CUDA under one
+    setting, one graph a step (examples/largen_combo_ab.py's step): warm-up
+    epochs over the 4 graphs, then a timed window; exact launch counts,
+    finite loss and no host sync in a step; under "fold" a falling loss,
+    and one step on one graph held to a float64 CPU step. Returns the
+    launches, the window's ms/step and a function that trains one more
+    epoch and returns its ms/step."""
+    _, warm, timed = LARGE_RUNS[setting]
+    model = DiffGraphTransformerGenGCNSBM(
+        **MODEL_CFG, **LARGE_SETTINGS[setting], seed=1, device=device)
+    initial = copy.deepcopy(model)
+    batches = [collate_graphs([g], max_nodes=LARGE_N, node_labels=True)
+               .to(device) for g in graphs]
+    trainer = Trainer(model, TrainConfig(lr=1e-3, weight_decay=1e-5,
+                                         sign_flip=True, seed=0,
+                                         schedule="warmup",
+                                         warmup_steps=warm * len(batches)))
+    reset_launches()
+    losses, _ = timed_epochs(trainer, batches, warm)
+    more, window = timed_epochs(trainer, batches, timed)
+    launches = read_launches()
+    syncs = step_syncs(trainer, batches[0])
+    total = (warm + timed) * len(batches)
+    per_step = [r[0] / len(batches) for r in window]
+    mean = sum(r[0] for r in window) / (timed * len(batches))
+    print(f"large train [{setting}]: {warm} warm-up + {timed} timed epochs "
+          f"of {len(batches)} one-graph steps at N={LARGE_N}: {mean:.2f} "
+          f"ms/step over the window; per epoch ms/step median "
+          f"{statistics.median(per_step):.2f}, min {min(per_step):.2f}, max "
+          f"{max(per_step):.2f}; process CPU ms/epoch "
+          f"{[round(r[2], 2) for r in window]}; epoch losses "
+          f"{[round(x, 6) for x in losses + more]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } over {total} steps; "
+          f"host syncs in one step (sync debug mode): {len(syncs)} "
+          f"{syncs[:3]}; on {card}", flush=True)
+    want = {k: total * v for k, v in LARGE_STEP_LAUNCHES[setting].items()}
+    if launches != want:
+        raise AssertionError(f"N={LARGE_N} {setting}: launch counts "
+                             f"{launches} for {total} steps; expected "
+                             f"{LARGE_STEP_LAUNCHES[setting]} per step")
+    epochs = losses + more
+    if not all(np.isfinite(epochs)):
+        raise AssertionError(f"N={LARGE_N} {setting}: epoch losses {epochs}")
+    if syncs:
+        raise AssertionError(f"a training step at N={LARGE_N} [{setting}] "
+                             f"syncs the host: {syncs}")
+    if profile:
+        profile_call(f"one training step of 1 graph at N={LARGE_N} "
+                     f"[{setting}]", lambda: trainer.step(batches[0]))
+    if setting == "fold":
+        if not epochs[-1] < epochs[0]:
+            raise AssertionError(f"epoch losses {epochs}: not falling")
+        step_parity(initial, graphs[:1], device, f"large train [{setting}]",
+                    dict(max_nodes=LARGE_N, node_labels=True),
+                    TrainConfig(regularization=0.1, sign_flip=False),
+                    STEP_PARAMS, loss_rtol=SBM_STEP_LOSS_RTOL,
+                    cpu_factor=STEP_CPU32_FACTOR)
+
+    def step_ms():
+        """ms/step of one more epoch."""
+        return timed_epochs(trainer, batches, 1)[1][0][0] / len(batches)
+
+    return launches, mean, step_ms
+
+
+def large_slice(device, card, profile=False):
+    """The N=2048 slice under each setting, the main path ("fold") first,
+    then the settings' times in interleaved rounds; returns the launches
+    of every phase."""
+    graphs = make_graphs(LARGE_GRAPHS, LARGE_N)
+    runs, served, trained, request_fns, step_fns = [], {}, {}, {}, {}
+    for setting in LARGE_RUNS:
+        launches, served[setting], request_fns[setting] = large_serve(
+            graphs, device, card, setting, profile and setting == "fold")
+        runs.append(launches)
+        launches, trained[setting], step_fns[setting] = large_train(
+            graphs, device, card, setting, profile and setting == "fold")
+        runs.append(launches)
+    print(f"large settings at N={LARGE_N} (ms/request median, ms/step over "
+          "the window of each phase): " + "; ".join(
+              f"{s} {served[s]:.2f} / {trained[s]:.2f}" for s in LARGE_RUNS)
+          + f"; on {card}", flush=True)
+    compare_routes(request_fns, step_fns, card,
+                   f"large settings at N={LARGE_N} (requests of 2 graphs, "
+                   "steps of 1)", LARGE_ROUNDS)
     return runs
 
 
@@ -1263,6 +1541,48 @@ def as_float64(batch):
         for f in dataclasses.fields(batch)
         if torch.is_tensor(getattr(batch, f.name))
         and getattr(batch, f.name).is_floating_point()})
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The N=2048 path's kernel wrappers swapped for their plain PyTorch
+    versions, which run on CUDA tensors too: the same model on the same
+    card without the hand-written kernels (`--precision`). Nothing
+    launches or counts inside."""
+    swaps = [(fl_mod, "flash_fwd_hf", fl_mod.flash_fwd_plain),
+             (fl_mod, "flash_bwd_q_hf", fl_mod.flash_bwd_q_plain),
+             (fl_mod, "flash_bwd_k_hf", fl_mod.flash_bwd_k_plain),
+             (cs_mod, "colstat", cs_mod.colstat_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def logits_errors(model, graphs, collate, serve, plain=False):
+    """Max abs errors against a float64 CPU forward of graphs[0] of its
+    logits as `serve()` returns them on CUDA (with `plain`, also with the
+    plain versions on the card) and on the CPU in float32; whether the
+    CUDA ones lie within SLICE_TOL, and the float64 max |logit|."""
+    rows = slice(0, graphs[0].num_nodes)
+    one = collate_graphs(graphs[:1], **collate)
+    with torch.inference_mode():
+        ref = copy.deepcopy(model).to("cpu", torch.float64)(
+            as_float64(one))[0][0, rows].numpy()
+        ref32 = copy.deepcopy(model).to("cpu")(one)[0][0, rows].numpy()
+    got = serve()
+    gap = lambda a: float(np.abs(a - ref).max())
+    errs = dict(cuda=gap(got), cpu32=gap(ref32),
+                scale=float(np.abs(ref).max()),
+                within=bool(np.allclose(got, ref, **SLICE_TOL)))
+    if plain:
+        with plain_kernels():
+            errs["cuda_plain"] = gap(serve())
+    return errs
 
 
 def step_errors(initial, graphs, device, collate, cfg, params):
@@ -1296,59 +1616,159 @@ def step_errors(initial, graphs, device, collate, cfg, params):
 
 
 def step_parity(initial, graphs, device, label, collate, cfg, params,
-                loss_rtol=STEP_LOSS_RTOL):
+                loss_rtol=STEP_LOSS_RTOL, cpu_factor=None):
     """The CUDA step's loss within `loss_rtol` of the float64 step's and
-    each named gradient within STEP_GRAD_REL of its largest entry."""
+    each named gradient within STEP_GRAD_REL of its largest entry; with
+    `cpu_factor`, a loss or gradient beyond that may instead lie within
+    `cpu_factor` times the error of the CPU's float32 step."""
     loss, rel, scale, secs = step_errors(initial, graphs, device, collate,
                                          cfg, params)
-    report = [f"{name} (max |g| {scale[name]:.3e}): cuda "
-              f"{rel['cuda'][name]:.2e}, cpu32 {rel['cpu32'][name]:.2e}"
-              for name in params]
-    bad = [name for name in params if not rel["cuda"][name] <= STEP_GRAD_REL]
+    routes = ("cuda", "cpu32")
+    report = [f"{name} (max |g| {scale[name]:.3e}): " + ", ".join(
+        f"{r} {rel[r][name]:.2e}" for r in routes) for name in params]
+    loss_err = {r: abs(loss[r] - loss["cpu64"]) / abs(loss["cpu64"])
+                for r in routes}
+    factor = cpu_factor or 0.0
+    bad = [name for name in params if not (
+        rel["cuda"][name] <= STEP_GRAD_REL
+        or rel["cuda"][name] <= factor * rel["cpu32"][name])]
     print(f"{label}: one step on {len(graphs)} graphs from the initial weights;"
-          f" loss cuda {loss['cuda']:.8f}, cpu32 {loss['cpu32']:.8f}, cpu64 "
-          f"{loss['cpu64']:.8f}; grad max abs err / max |g| against cpu64: "
+          f" loss " + ", ".join(f"{r} {loss[r]:.8f}" for r in routes)
+          + f", cpu64 {loss['cpu64']:.8f} (rel err " + ", ".join(
+              f"{r} {loss_err[r]:.2e}" for r in routes)
+          + "); grad max abs err / max |g| against cpu64: "
           + "; ".join(report) + f" (tolerance for cuda: loss rtol "
-          f"{loss_rtol}, grads {STEP_GRAD_REL}; CPU steps "
-          f"{secs['cpu32']:.1f} s f32, {secs['cpu64']:.1f} s f64)",
-          flush=True)
-    if abs(loss["cuda"] - loss["cpu64"]) > loss_rtol * abs(loss["cpu64"]):
+          f"{loss_rtol}, grads {STEP_GRAD_REL}"
+          + (f", or {cpu_factor}x cpu32's" if cpu_factor else "")
+          + f"; CPU steps {secs['cpu32']:.1f} s f32, {secs['cpu64']:.1f} s "
+          f"f64)", flush=True)
+    if not (loss_err["cuda"] <= loss_rtol
+            or loss_err["cuda"] <= factor * loss_err["cpu32"]):
         raise AssertionError(f"step loss CUDA {loss['cuda']} vs float64 "
                              f"{loss['cpu64']}")
     if bad:
         raise AssertionError(f"CUDA gradients off the float64 step: {bad}")
 
 
-def rounding_sweep(graphs, device, patterns=8):
-    """`--rounding`: how far float32 rounding alone moves the SBM step
-    (phase 5's parity step) from float64, on CUDA and on the CPU, over the
-    canonical LapPE signs and `patterns` random sign patterns of the same
-    graphs: the basis of SBM_STEP_LOSS_RTOL."""
-    initial = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, seed=1,
-                                            device=device)
-    collate = dict(max_nodes=N_NODES, node_labels=True)
+def rounding_sweep(graphs, device, n_nodes, n_step, patterns,
+                   settings=None):
+    """`--rounding`: how far float32 rounding alone moves the SBM model's
+    parity step (on the first `n_step` graphs, padded to `n_nodes`) from
+    float64, on CUDA and on the CPU, over the canonical LapPE signs and
+    `patterns` random sign patterns of the same graphs. At N=1024 the basis
+    of SBM_STEP_LOSS_RTOL; with `settings` (the N=2048 slice's), also the
+    served logits of one graph, and each CUDA error over the CPU float32
+    route's: the basis of LOGITS_CPU32_FACTOR and STEP_CPU32_FACTOR."""
+    large = settings is not None
+    initial = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, **(settings or {}),
+                                            seed=1, device=device)
+    collate = dict(max_nodes=n_nodes, node_labels=True)
     cfg = TrainConfig(regularization=0.1, sign_flip=False)
-    worst = {r: [0.0, 0.0] for r in ("cuda", "cpu32")}
+    worst = {r: [0.0, 0.0, 0.0] for r in ("cuda", "cpu32", "ratio")}
     for p in range(patterns + 1):
-        gs = [copy.copy(g) for g in graphs[:2]]
+        gs = [copy.copy(g) for g in graphs]
         rng = np.random.default_rng(p)
         for g in gs if p else ():
             g.lap_pe = g.lap_pe * rng.choice(
                 np.float32([-1, 1]), g.lap_pe.shape[1])
-        loss, rel, _, _ = step_errors(initial, gs, device, collate, cfg,
-                                      STEP_PARAMS)
-        line = []
-        for r in worst:
-            err = abs(loss[r] - loss["cpu64"]) / abs(loss["cpu64"])
-            grad = max(rel[r].values())
-            worst[r] = [max(worst[r][0], err), max(worst[r][1], grad)]
-            line.append(f"{r} loss rel err {err:.2e}, grads {grad:.2e}")
-        print(f"rounding: sign pattern {p if p else 'canonical'}: "
-              + "; ".join(line), flush=True)
-    print("rounding: worst over the patterns: " + "; ".join(
-        f"{r} loss {w[0]:.2e}, grads {w[1]:.2e}" for r, w in worst.items())
+        loss, rel, _, _ = step_errors(initial, gs[:n_step], device, collate,
+                                      cfg, STEP_PARAMS)
+        logits = {}
+        if large:
+            model = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, **settings,
+                                                  seed=0, device=device)
+            calibrate_batch_norm(model, collate_graphs(gs[:2], **collate),
+                                 device)
+            pred = Predictor(model, device=device, max_batch=2,
+                             node_level=True, collate_kwargs=collate)
+            logits = logits_errors(model, gs, collate,
+                                   lambda: pred.predict(gs[:2])[0])
+        errs = {r: [abs(loss[r] - loss["cpu64"]) / abs(loss["cpu64"]),
+                    max(rel[r].values()), logits.get(r, 0.0)]
+                for r in ("cuda", "cpu32")}
+        errs["ratio"] = [c / max(q, 1e-30) for c, q in
+                         zip(errs["cuda"], errs["cpu32"])]
+        for r, e in errs.items():
+            worst[r] = [max(w, x) for w, x in zip(worst[r], e)]
+        line = [f"{r} loss rel err {e[0]:.2e}, grads {e[1]:.2e}"
+                + (f", logits {e[2]:.3e}" if large else "")
+                for r, e in errs.items() if r != "ratio"]
+        if large:
+            line.append("cuda/cpu32 loss {:.2f}, grads {:.2f}, logits {:.2f}"
+                        .format(*errs["ratio"]))
+        print(f"rounding N={n_nodes}: sign pattern "
+              f"{p if p else 'canonical'}: " + "; ".join(line), flush=True)
+    print(f"rounding N={n_nodes}: worst over the patterns: " + "; ".join(
+        f"{'cuda/cpu32' if r == 'ratio' else r} loss {w[0]:.2e}, grads "
+        f"{w[1]:.2e}" + (f", logits {w[2]:.3e}" if large else "")
+        for r, w in worst.items() if large or r != "ratio")
         + f" (tolerances for cuda: loss {SBM_STEP_LOSS_RTOL}, grads "
-        f"{STEP_GRAD_REL})", flush=True)
+        f"{STEP_GRAD_REL}"
+        + (f", or {STEP_CPU32_FACTOR}x cpu32's; logits rtol/atol 1e-3, "
+           f"or {LOGITS_CPU32_FACTOR}x cpu32's" if large else "") + ")",
+        flush=True)
+
+
+def precision_probe(device):
+    """`--precision`: where the card's float32 N=2048 forward ("fold") parts
+    from the CPU's. Each GraphiT layer is re-run from the float64 forward's
+    own inputs cast to float32, on the CPU, on the card and on the card with
+    the plain versions (`plain_kernels`), and what it computes (its
+    attention output, the FFN's two products, the layer's output) is held
+    to the float64 layer's: each step's own rounding, not what came before
+    it (max abs err / max |float64|). Then one graph's served logits on each
+    route against float64."""
+    graphs = make_graphs(2, LARGE_N)
+    collate = dict(max_nodes=LARGE_N, node_labels=True)
+    model = DiffGraphTransformerGenGCNSBM(
+        **MODEL_CFG, **LARGE_SETTINGS["fold"], seed=0, device=device)
+    calibrate_batch_norm(model, collate_graphs(graphs[:2], **collate), device)
+    one = collate_graphs(graphs[:1], **collate)
+    ref_model = copy.deepcopy(model).to("cpu", torch.float64)
+    layer_inputs = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, kwargs, out: layer_inputs.append((args, kwargs)),
+        with_kwargs=True) for layer in ref_model.encoder.layers]
+    with torch.inference_mode():
+        ref_model(as_float64(one))
+    for hk in hooks:
+        hk.remove()
+    routes = {"cpu64": ("cpu", torch.float64, contextlib.nullcontext),
+              "cpu32": ("cpu", torch.float32, contextlib.nullcontext),
+              "cuda": (device, torch.float32, contextlib.nullcontext),
+              "cuda_plain": (device, torch.float32, plain_kernels)}
+    f32 = list(routes)[1:]
+    steps = ("attention", "ff1", "ff2", "out")
+    for i, (args, kwargs) in enumerate(layer_inputs):
+        got = {}
+        for route, (dev, dtype, ctx) in routes.items():
+            layer = copy.deepcopy(model.encoder.layers[i]).to(dev, dtype)
+            seen = []   # what the dropouts see: attn_out, relu(ff1), ff2
+            layer.dropout.register_forward_hook(
+                lambda mod, a, out: seen.append(out))
+            cast = [t.to(dev, dtype) if torch.is_tensor(t)
+                    and t.is_floating_point() else
+                    t.to(dev) if torch.is_tensor(t) else t for t in args]
+            with torch.inference_mode(), ctx():
+                out = layer(*cast, **kwargs)[0]
+            got[route] = [t.double().cpu() for t in seen + [out]]
+        errs = {r: [float((g - w).abs().max() / w.abs().max())
+                    for g, w in zip(got[r], got["cpu64"])] for r in f32}
+        ratio = [c / max(q, 1e-30) for c, q in zip(errs["cuda"],
+                                                   errs["cpu32"])]
+        print(f"precision N={LARGE_N} layer {i}: " + "; ".join(
+            f"{st} " + ", ".join(f"{r} {errs[r][k]:.3e}" for r in f32)
+            + f" (cuda/cpu32 {ratio[k]:.2f})"
+            for k, st in enumerate(steps)), flush=True)
+    pred = Predictor(model, device=device, max_batch=2, node_level=True,
+                     collate_kwargs=collate)
+    errs = logits_errors(model, graphs, collate,
+                         lambda: pred.predict(graphs[:2])[0], plain=True)
+    print(f"precision N={LARGE_N} logits of one graph "
+          f"({graphs[0].num_nodes} nodes) against float64: max abs err "
+          f"cuda {errs['cuda']:.3e}, cuda_plain {errs['cuda_plain']:.3e}, "
+          f"cpu32 {errs['cpu32']:.3e} (max |logit| {errs['scale']:.3f})",
+          flush=True)
 
 
 def profile_call(label, fn):
@@ -1404,10 +1824,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     if "--rounding" in sys.argv:
-        rounding_sweep(make_graphs(), device)
+        rounding_sweep(make_graphs()[:2], device, N_NODES, 2, 8)
+        rounding_sweep(make_graphs(LARGE_GRAPHS, LARGE_N),
+                       device, LARGE_N, 1, 4, LARGE_SETTINGS["fold"])
+        return 0
+    if "--precision" in sys.argv:
+        precision_probe(device)
         return 0
     rows = check_kernels(device)
     rows.update(check_bwd_kernels(device))
+    rows.update(check_hf_kernels(device))
     rows.update(check_fused_mlp(device))
     rows.update(check_modulation(device))
     rows.update(check_fused_attention(device))
@@ -1419,20 +1845,25 @@ def main() -> int:
     runs += [san_serve_slice(san_graphs, device, card, profile=profile),
              san_train_slice(san_graphs, device, card, profile=profile)]
     runs += zinc_slice(device, card, profile=profile)
+    runs += large_slice(device, card, profile=profile)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"
     meta = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:95"),
             "colstat": ("colstat.cu", "flash_attention.py:776"),
             "flash_bwd_q": ("flash_bwd.cu", "flash_attention.py:528"),
             "flash_bwd_k": ("flash_bwd.cu", "flash_attention.py:556"),
+            "flash_fwd_hf": ("flash_hf.cu", "flash_attention.py:163"),
+            "flash_bwd_q_hf": ("flash_hf.cu", "flash_attention.py:268"),
+            "flash_bwd_k_hf": ("flash_hf.cu", "flash_attention.py:310"),
             "fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:58"),
             "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:70"),
             "modulation_fwd": ("modulation.cu", "modulation.py:30"),
             "modulation_bwd": ("modulation.cu", "modulation.py:53"),
             "fused_attn_fwd": ("fused_attention.cu", "fused_attention.py:60"),
             "fused_attn_bwd": ("fused_attention.cu", "fused_attention.py:85")}
-    # launches: the main paths' runs (SBM, SAN and ZINC on its three
-    # routes, serving and training)
+    # launches: the main paths' runs (SBM at N=1024, SAN, ZINC on its
+    # three routes and SBM at N=2048 under its three settings, serving and
+    # training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,

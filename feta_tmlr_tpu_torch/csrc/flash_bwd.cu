@@ -64,18 +64,6 @@ using namespace graphit;
 constexpr int kMaxW = 64;           // D and DV at most 64
 constexpr int kOut = kMaxW / kTX;   // output columns per thread
 
-// ds (and attn) of one score from the recomputed tile and the row constants.
-__device__ __forceinline__ float grad_score(float dot, float cq, float ck,
-                                            float c0, float inv_sqrt,
-                                            float km, float m, float ise,
-                                            float qa, float beta, float c,
-                                            float pd, float ga, float& attn) {
-  const float a = expf(score(dot, cq, ck, c0, inv_sqrt, km) - m) * ise;
-  attn = a * pd * qa * km;
-  const float du = ga * km * qa - beta;
-  return a * (du * pd - c) * inv_sqrt;
-}
-
 __device__ __forceinline__ void stage_keys(float* ps, float* cks, float* dgs,
                                            float* kms, const float* pe_b,
                                            const float* ck_bh,
@@ -193,7 +181,9 @@ flash_bwd_q_kernel(Operands op, float* __restrict__ dxa,
     }
     __syncthreads();  // ds complete
 
-    // dxa[r, k] += sum_c ds[r, c] * x[c, k]; x read from its transposed tile
+    // dxa[r, k] += sum_c ds[r, c] * x[c, k]; x read from its transposed
+    // tile; the tile's sum into a fresh partial (flash_fwd.cu's note)
+    float part[kRows][kOut] = {};
     for (int c = 0; c < kBK; ++c) {
       float p[kRows], xv[kOut];
 #pragma unroll
@@ -206,8 +196,13 @@ flash_bwd_q_kernel(Operands op, float* __restrict__ dxa,
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kOut; ++j) acc[i][j] = fmaf(p[i], xv[j], acc[i][j]);
+        for (int j = 0; j < kOut; ++j)
+          part[i][j] = fmaf(p[i], xv[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) acc[i][j] += part[i][j];
   }
 
 #pragma unroll
@@ -320,27 +315,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     __syncthreads();  // attn and ds complete
 
     // dvw[c, v] += sum_r attn[r, c] g[r, v];  dx_h[c, k] += sum_r ds[r, c] xa[r, k]
-    for (int r = 0; r < kBQ; ++r) {
-      float at[kRows], dd[kRows], gv[kOut], xv[kOut];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        at[i] = ps[r * kLDK + ty + kTY * i];
-        dd[i] = dss[r * kLDK + ty + kTY * i];
-      }
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int col = tx + kTX * j;
-        gv[j] = col < DV ? gT[col * kLDQ + r] : 0.f;
-        xv[j] = col < D ? xaT[col * kLDQ + r] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j) {
-          acc_v[i][j] = fmaf(at[i], gv[j], acc_v[i][j]);
-          acc_x[i][j] = fmaf(dd[i], xv[j], acc_x[i][j]);
-        }
-    }
+    add_tile_product<kBQ>(acc_v, ps, kLDK, gT, kLDQ, DV, tx, ty, kTX, kTY);
+    add_tile_product<kBQ>(acc_x, dss, kLDK, xaT, kLDQ, D, tx, ty, kTX, kTY);
   }
 
   // fixed-order reduction of the 16 per-thread partial column sums

@@ -16,6 +16,11 @@
 // (m, se, su) triple is rescaled by exp(m_old - m_new) per key tile, so no
 // [N, N] tile ever reaches device memory.
 //
+// Summation order: each key tile's P·V goes into a fresh partial that is
+// added to the rescaled accumulator once per tile, as se and su are. One
+// f32 accumulator over all N keys in order rounds ~4x worse at N=2048
+// (measured on the SBM model's layers, `chip_smoke.py --precision`).
+//
 // What bounds it on the H100: arithmetic. Per (b, h) it does
 // 2·N²·(D + DV) FMA-flops on CUDA cores in full f32 (no TF32), against 67
 // TFLOP/s; the bytes (xa, x, vw once, pe once per graph) are ~1/30 of what
@@ -93,7 +98,8 @@ flash_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ x,
   }
   const float c0h = c0[h];
 
-  float m_r[kRows], se_r[kRows], su_r[kRows], acc[kRows][kVals];
+  float m_r[kRows], se_r[kRows], su_r[kRows], scale_r[kRows];
+  float acc[kRows][kVals];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     m_r[i] = -INFINITY;
@@ -164,11 +170,11 @@ flash_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ x,
       se_r[i] = se_r[i] * scale + es;
       su_r[i] = su_r[i] * scale + ws;
       m_r[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kVals; ++j) acc[i][j] *= scale;
+      scale_r[i] = scale;
     }
     __syncthreads();  // P complete
 
+    float part[kRows][kVals] = {};  // this key tile's P·V
     for (int c = 0; c < kBK; ++c) {
       float p[kRows], vv[kVals];
 #pragma unroll
@@ -181,8 +187,14 @@ flash_fwd_kernel(const float* __restrict__ xa, const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kVals; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+        for (int j = 0; j < kVals; ++j)
+          part[i][j] = fmaf(p[i], vv[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kVals; ++j)
+        acc[i][j] = fmaf(acc[i][j], scale_r[i], part[i][j]);
   }
 
 #pragma unroll

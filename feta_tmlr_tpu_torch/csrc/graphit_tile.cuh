@@ -1,4 +1,6 @@
-// Score tiles of GraphiT attention, shared by flash_fwd.cu and colstat.cu.
+// Score tiles of GraphiT attention, shared by flash_fwd.cu, flash_bwd.cu,
+// colstat.cu and flash_hf.cu (which uses only the score functions and
+// `add_tile_product`).
 //
 // One 256-thread block works on a 64-query x 64-key tile. Thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows ty + 16 i and key columns
@@ -62,9 +64,55 @@ __device__ __forceinline__ void tile_dot(const float* xaT, const float* xT,
   }
 }
 
+// acc[i][j] += sum_{r < R} a[r * lda + ty + sy * i] * bT[col * ldb + r]
+// for the columns col = tx + sx * j (0 where col >= width): one product of
+// a backward k pass over one query tile of R rows. The tile's sum goes
+// into a fresh partial first (flash_fwd.cu's note on summation order),
+// one product at a time, so only one partial is live.
+template <int R, int I, int J>
+__device__ __forceinline__ void add_tile_product(float (&acc)[I][J],
+                                                 const float* a, int lda,
+                                                 const float* bT, int ldb,
+                                                 int width, int tx, int ty,
+                                                 int sx, int sy) {
+  float part[I][J] = {};
+  for (int r = 0; r < R; ++r) {
+    float av[I], bv[J];
+#pragma unroll
+    for (int i = 0; i < I; ++i) av[i] = a[r * lda + ty + sy * i];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int col = tx + sx * j;
+      bv[j] = col < width ? bT[col * ldb + r] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] += part[i][j];
+}
+
 __device__ __forceinline__ float score(float dot, float cq, float ck,
                                        float c0, float inv_sqrt, float km) {
   return km > 0.f ? (dot + cq + ck + c0) * inv_sqrt : kMaskedScore;
+}
+
+// The backward's ds (and attn) of one score, recomputed from the forward's
+// row maximum m and the row constants ise, qa, beta, c (flash_bwd.cu's
+// note); pd = pe[i, j] * deg[j], ga = g_h[i] . vw_h[j].
+__device__ __forceinline__ float grad_score(float dot, float cq, float ck,
+                                            float c0, float inv_sqrt,
+                                            float km, float m, float ise,
+                                            float qa, float beta, float c,
+                                            float pd, float ga, float& attn) {
+  const float a = expf(score(dot, cq, ck, c0, inv_sqrt, km) - m) * ise;
+  attn = a * pd * qa * km;
+  const float du = ga * km * qa - beta;
+  return a * (du * pd - c) * inv_sqrt;
 }
 
 }  // namespace graphit

@@ -64,14 +64,16 @@ class FeTAEncoder(nn.Module):
     dynamic per-(graph, head) weights) and skip-concat fusion.
 
     Returns (out [B,N,D], attn of the last layer, coefficients [B, H, C]).
-    `attention_impl` picks the layers' kernel route (`nn/layers.py`).
+    `attention_impl` picks the layers' kernel route, `head_fold` and
+    `flash_need_heads` refine the "flash" route (`nn/layers.py`).
     """
 
     def __init__(self, d_model: int, n_heads: int, n_layers: int,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  batch_norm: bool = False, filter_order: int = 4,
                  generator: Optional[torch.Generator] = None,
-                 attention_impl: str = "flash"):
+                 attention_impl: str = "flash", head_fold: bool = False,
+                 flash_need_heads: bool = True):
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.d_model, self.n_heads, self.n_layers = d_model, n_heads, n_layers
@@ -80,7 +82,9 @@ class FeTAEncoder(nn.Module):
         self.layers = nn.ModuleList(
             GraphiTEncoderLayer(d_model, n_heads, dim_feedforward, dropout,
                                 batch_norm, generator=g,
-                                attention_impl=attention_impl)
+                                attention_impl=attention_impl,
+                                head_fold=head_fold,
+                                flash_need_heads=flash_need_heads)
             for _ in range(n_layers))
         self.coeff_head = FilterCoefficientHead(
             self.num_coefficients, generator=g)

@@ -16,6 +16,19 @@ FETA_PALLAS_IMPL, and its dispatch with the Pallas kernels on):
                 (`ops/kernels/fused_attention.py`, N <= 128); the filtered
                 layer as under "modulation".
 
+Two more options refine the "flash" route, as the JAX package's
+environment switches refine its flash dispatch (they change nothing under
+"modulation" and "fused", as the switches change nothing there):
+
+  head_fold         (FETA_FLASH_HEAD_FOLD=1) every flash call, forward and
+                    backward, through the head-folded kernels
+                    (`csrc/flash_hf.cu`: one block per graph tile for all
+                    heads);
+  flash_need_heads  (FETA_FLASH_NEED_HEADS, default on) the filtered layer
+                    through the flash kernels and the column statistics;
+                    off, it takes the score route with the modulation
+                    kernel, a dense [B, H, N, N] attention in device memory.
+
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors.
 
@@ -117,14 +130,16 @@ class GraphiTEncoderLayer(nn.Module):
     the kernel routes and the dense attention on the score route.
     need_heads=True: out_each_head holds the per-head outputs that the FeTA
     block filters spectrally, and attn is `AttnColStats` on the "flash"
-    route, the dense attention [B, H, N, N] on the others.
+    route (unless flash_need_heads is off), the dense attention
+    [B, H, N, N] on the others.
     """
 
     def __init__(self, d_model: int, n_heads: int,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  batch_norm: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 attention_impl: str = "flash"):
+                 attention_impl: str = "flash", head_fold: bool = False,
+                 flash_need_heads: bool = True):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} must divide evenly by "
@@ -133,6 +148,8 @@ class GraphiTEncoderLayer(nn.Module):
             raise ValueError(f"attention_impl {attention_impl!r} is not one "
                              f"of {ATTENTION_IMPLS}")
         self.attention_impl = attention_impl
+        self.head_fold = head_fold
+        self.flash_need_heads = flash_need_heads
         g = generator if generator is not None else torch.Generator()
         d = d_model
         self.d_model, self.n_heads = d_model, n_heads
@@ -172,18 +189,19 @@ class GraphiTEncoderLayer(nn.Module):
         impl = self.attention_impl
         vw = lambda: torch.einsum("bmhe,hef->bhmf", v_nhd,
                                   self.out_proj_kernel.reshape(h, dh, d))
-        if need_heads and impl == "flash":
+        if need_heads and impl == "flash" and self.flash_need_heads:
             out_each_head, s = flash_graphit_attention_heads(
                 xa, x, c_q, c_k, c_0, v_nhd.transpose(1, 2), node_mask,
-                pe=pe, degree=degree)
+                pe=pe, degree=degree, head_fold=self.head_fold)
             attn_out = (out_each_head.reshape(b, n, d) @ self.out_proj_kernel
                         + self.out_proj_bias)
             attn = AttnColStats(s=s)
         elif not need_heads and impl != "modulation":
+            kw = {} if impl == "fused" else {"head_fold": self.head_fold}
             fused = (fused_graphit_attention if impl == "fused"
                      else flash_graphit_attention)
             attn_out = fused(xa, x, c_q, c_k, c_0, vw(), node_mask, pe=pe,
-                             degree=degree) + self.out_proj_bias
+                             degree=degree, **kw) + self.out_proj_bias
             attn = out_each_head = None
         else:
             # the score route: a plain product, then the modulation kernel

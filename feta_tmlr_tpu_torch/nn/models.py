@@ -58,7 +58,8 @@ class _FeTATransformer(nn.Module):
     Parameters are drawn from a `torch.Generator` seeded with `seed`; the
     module is built on `device` (default CUDA; raises if CUDA is absent and
     the CPU was not asked for). `attention_impl` picks the layers' kernel
-    route: "flash", "modulation" or "fused" (`nn/layers.py`). Only the JAX
+    route: "flash", "modulation" or "fused"; `head_fold` and
+    `flash_need_heads` refine "flash" (`nn/layers.py`). Only the JAX
     models' default variant is ported: gnn_type 'ChebConvDynamic',
     last_layer_filter, dynamic coefficients and use_skip_conn.
     """
@@ -68,7 +69,8 @@ class _FeTATransformer(nn.Module):
                  dropout: float = 0.1, nb_layers: int = 4,
                  batch_norm: bool = False, lap_pos_enc: bool = False,
                  lap_pos_enc_dim: int = 0, filter_order: int = 4,
-                 attention_impl: str = "flash", seed: int = 0, device=None):
+                 attention_impl: str = "flash", head_fold: bool = False,
+                 flash_need_heads: bool = True, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
@@ -79,7 +81,8 @@ class _FeTATransformer(nn.Module):
         self.encoder = FeTAEncoder(
             d_model, nb_heads, nb_layers, dim_feedforward, dropout,
             batch_norm, filter_order, generator=g,
-            attention_impl=attention_impl)
+            attention_impl=attention_impl, head_fold=head_fold,
+            flash_need_heads=flash_need_heads)
         self.classifier = ClassifierMLP(d_model, nb_class, generator=g)
         self.to(dev)
 

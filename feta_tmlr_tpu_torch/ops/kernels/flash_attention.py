@@ -4,16 +4,22 @@ Kernels:
   `csrc/flash_fwd.cu`  the H100 counterpart of the TPU kernel
                        `feta_tmlr_tpu/ops/pallas/flash_attention.py::_fwd_kernel`;
   `csrc/flash_bwd.cu`  the counterparts of `_bwd_q_kernel` (dxa, dcq) and
-                       `_bwd_k_kernel` (dvw, dck, dx).
+                       `_bwd_k_kernel` (dvw, dck, dx);
+  `csrc/flash_hf.cu`   the head-folded counterparts of `_fwd_kernel_hf`,
+                       `_bwd_q_kernel_hf` and `_bwd_k_kernel_hf`: the same
+                       three functions, one block per (graph, tile) for all
+                       heads (the JAX package's FETA_FLASH_HEAD_FOLD=1).
 Their source notes say what bounds them (f32 arithmetic on CUDA cores) and
 how the design answers that.
 
-`flash_fwd`, `flash_bwd_q` and `flash_bwd_k` are the wrappers: on a CUDA
-tensor each launches its kernel and counts the launch in its `launches`
-attribute; on a CPU tensor each runs its plain version (`*_plain`), the same
-function from dense [B, H, N, N] tensors. There is no other route and no
-fallback. `FlashGraphiT` is the `torch.autograd.Function` that ties the
-forward to the two backward kernels.
+`flash_fwd`, `flash_bwd_q`, `flash_bwd_k` and their folded twins
+`flash_fwd_hf`, `flash_bwd_q_hf`, `flash_bwd_k_hf` are the wrappers: on a
+CUDA tensor each launches its kernel and counts the launch in its
+`launches` attribute; on a CPU tensor each runs its plain version
+(`*_plain`, shared by a kernel and its folded twin), the same function from
+dense [B, H, N, N] tensors. There is no other route and no fallback.
+`FlashGraphiT` is the `torch.autograd.Function` that ties the forward to
+the two backward kernels, folded or not (`head_fold`).
 
 Public entry points mirror the JAX package:
   flash_graphit_attention        need_heads=False layers: sum_h attn_h @ vw_h
@@ -24,6 +30,7 @@ Public entry points mirror the JAX package:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -43,20 +50,45 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     stream_ptr,
 )
 
+
+class _Kernel(NamedTuple):
+    """What a wrapper's launch code needs to know of its kernel."""
+
+    source: str                  # under csrc/
+    symbol: str                  # its C entry point
+    n_ptrs: int                  # the entry point's pointer arguments
+    dx_scratch: bool = False     # the k pass writes one dx partial a head
+    max_heads: Optional[int] = None
+
+
+# wrapper name -> its kernel; the folded kernels run the heads side by side
+_SYMBOLS = {
+    "flash_fwd": _Kernel("flash_fwd", "feta_flash_fwd", 13),
+    "flash_bwd_q": _Kernel("flash_bwd", "feta_flash_bwd_q", 17),
+    "flash_bwd_k": _Kernel("flash_bwd", "feta_flash_bwd_k", 19,
+                           dx_scratch=True),
+    "flash_fwd_hf": _Kernel("flash_hf", "feta_flash_fwd_hf", 13,
+                            max_heads=8),
+    "flash_bwd_q_hf": _Kernel("flash_hf", "feta_flash_bwd_q_hf", 17,
+                              max_heads=8),
+    "flash_bwd_k_hf": _Kernel("flash_hf", "feta_flash_bwd_k_hf", 18,
+                              max_heads=8)}
 _fns = {}
 
 
 def _kernel(name):
-    """(lib, bound C function) for "fwd", "bwd_q" or "bwd_k"."""
+    """(lib, bound C function) of the wrapper `name`."""
     if name not in _fns:
-        if name == "fwd":
-            lib = build.load("flash_fwd")
-            _fns[name] = (lib, bind(lib, "feta_flash_fwd", 13, 5))
-        else:
-            lib = build.load("flash_bwd")
-            n_ptrs = 17 if name == "bwd_q" else 19
-            _fns[name] = (lib, bind(lib, f"feta_flash_{name}", n_ptrs, 5))
+        k = _SYMBOLS[name]
+        lib = build.load(k.source)
+        _fns[name] = (lib, bind(lib, k.symbol, k.n_ptrs, 5))
     return _fns[name]
+
+
+def _check_heads(name, h):
+    limit = _SYMBOLS[name].max_heads
+    if limit is not None and h > limit:
+        raise ValueError(f"{name}: {h} heads > {limit}")
 
 
 def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
@@ -73,30 +105,51 @@ def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     return outh, m, se, su
 
 
-def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
-    """Online-softmax GraphiT forward (operand layout in `common`; vw is
-    [B, H, N, dv] with dv <= 64). Returns (outh, m, se, su)."""
-    if not cuda_or_plain("flash_fwd", xa):
-        return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
+def _launch_fwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     b, h, n, d = xa.shape
     dv = vw.shape[-1]
-    check_operands("flash_fwd", xa, x, cq, ck, c0, pe, deg, mask,
+    check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[("vw", vw, (b, h, n, dv))])
     if dv > 64:
-        raise ValueError(f"flash_fwd: value width {dv} > 64")
-    lib, fn = _kernel("fwd")
+        raise ValueError(f"{name}: value width {dv} > 64")
+    _check_heads(name, h)
+    lib, fn = _kernel(name)
     outh = torch.empty((b, h, n, dv), dtype=torch.float32, device=xa.device)
     m, se, su = (torch.empty((b, h, n), dtype=torch.float32,
                              device=xa.device) for _ in range(3))
     err = fn(ptr(xa), ptr(x), ptr(cq), ptr(ck), ptr(c0), ptr(vw), ptr(pe),
              ptr(deg), ptr(mask), ptr(outh), ptr(m), ptr(se), ptr(su),
              b, h, n, d, dv, float(inv_sqrt), stream_ptr(xa.device))
-    check_launch(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
+    check_launch(lib, err, name)
     return outh, m, se, su
 
 
+def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
+    """Online-softmax GraphiT forward (operand layout in `common`; vw is
+    [B, H, N, dv] with dv <= 64). Returns (outh, m, se, su)."""
+    if not cuda_or_plain("flash_fwd", xa):
+        return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
+    out = _launch_fwd("flash_fwd", xa, x, cq, ck, c0, vw, pe, deg, mask,
+                      inv_sqrt)
+    flash_fwd.launches += 1
+    return out
+
+
+def flash_fwd_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
+    """Head-folded forward (`csrc/flash_hf.cu`, TPU `_fwd_kernel_hf`): the
+    same function as `flash_fwd`, so its plain version is
+    `flash_fwd_plain`; one block per (graph, 16-query tile) for all heads
+    (H <= 8)."""
+    if not cuda_or_plain("flash_fwd_hf", xa):
+        return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
+    out = _launch_fwd("flash_fwd_hf", xa, x, cq, ck, c0, vw, pe, deg, mask,
+                      inv_sqrt)
+    flash_fwd_hf.launches += 1
+    return out
+
+
 flash_fwd.launches = 0
+flash_fwd_hf.launches = 0
 
 
 # ---------------------------------------------------------------- backward
@@ -150,7 +203,40 @@ def _check_bwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
                           *rows])
     if d > 64 or dv > 64:
         raise ValueError(f"{name}: width {d} or value width {dv} > 64")
+    _check_heads(name, h)
     return b, h, n, d, dv
+
+
+def _launch_bwd_q(name, *args):
+    b, h, n, d, dv = _check_bwd(name, *args)
+    xa, inv_sqrt = args[0], args[9]
+    lib, fn = _kernel(name)
+    dxa = torch.empty((b, h, n, d), dtype=torch.float32, device=xa.device)
+    dcq = torch.empty((b, h, n), dtype=torch.float32, device=xa.device)
+    err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
+             ptr(dxa), ptr(dcq), b, h, n, d, dv, float(inv_sqrt),
+             stream_ptr(xa.device))
+    check_launch(lib, err, name)
+    return dxa, dcq
+
+
+def _launch_bwd_k(name, *args):
+    """The k pass; the unfolded kernel takes one dx partial per head as
+    scratch, the folded one sums the heads itself."""
+    b, h, n, d, dv = _check_bwd(name, *args)
+    xa, inv_sqrt = args[0], args[9]
+    lib, fn = _kernel(name)
+    dev = xa.device
+    dvw = torch.empty((b, h, n, dv), dtype=torch.float32, device=dev)
+    dck = torch.empty((b, h, n), dtype=torch.float32, device=dev)
+    dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
+    scratch = [torch.empty((b, h, n, d), dtype=torch.float32, device=dev)
+               ] if _SYMBOLS[name].dx_scratch else []
+    err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
+             ptr(dvw), ptr(dck), *(ptr(t) for t in scratch), ptr(dx), b, h,
+             n, d, dv, float(inv_sqrt), stream_ptr(dev))
+    check_launch(lib, err, name)
+    return dvw, dck, dx
 
 
 def flash_bwd_q(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
@@ -160,16 +246,9 @@ def flash_bwd_q(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
             beta, c)
     if not cuda_or_plain("flash_bwd_q", xa):
         return flash_bwd_q_plain(*args)
-    b, h, n, d, dv = _check_bwd("flash_bwd_q", *args)
-    lib, fn = _kernel("bwd_q")
-    dxa = torch.empty((b, h, n, d), dtype=torch.float32, device=xa.device)
-    dcq = torch.empty((b, h, n), dtype=torch.float32, device=xa.device)
-    err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
-             ptr(dxa), ptr(dcq), b, h, n, d, dv, float(inv_sqrt),
-             stream_ptr(xa.device))
-    check_launch(lib, err, "flash_bwd_q")
+    out = _launch_bwd_q("flash_bwd_q", *args)
     flash_bwd_q.launches += 1
-    return dxa, dcq
+    return out
 
 
 def flash_bwd_k(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
@@ -181,43 +260,72 @@ def flash_bwd_k(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
             beta, c)
     if not cuda_or_plain("flash_bwd_k", xa):
         return flash_bwd_k_plain(*args)
-    b, h, n, d, dv = _check_bwd("flash_bwd_k", *args)
-    lib, fn = _kernel("bwd_k")
-    dev = xa.device
-    dvw = torch.empty((b, h, n, dv), dtype=torch.float32, device=dev)
-    dck = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    dx_heads = torch.empty((b, h, n, d), dtype=torch.float32, device=dev)
-    dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
-    err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
-             ptr(dvw), ptr(dck), ptr(dx_heads), ptr(dx), b, h, n, d, dv,
-             float(inv_sqrt), stream_ptr(dev))
-    check_launch(lib, err, "flash_bwd_k")
+    out = _launch_bwd_k("flash_bwd_k", *args)
     flash_bwd_k.launches += 1
-    return dvw, dck, dx
+    return out
+
+
+def flash_bwd_q_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
+                   ise, qa, beta, c):
+    """Head-folded query pass (`csrc/flash_hf.cu`, TPU `_bwd_q_kernel_hf`):
+    the same function as `flash_bwd_q`, so its plain version is
+    `flash_bwd_q_plain`; one block per (graph, 16-query tile) for all
+    heads (H <= 8)."""
+    args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
+            beta, c)
+    if not cuda_or_plain("flash_bwd_q_hf", xa):
+        return flash_bwd_q_plain(*args)
+    out = _launch_bwd_q("flash_bwd_q_hf", *args)
+    flash_bwd_q_hf.launches += 1
+    return out
+
+
+def flash_bwd_k_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
+                   ise, qa, beta, c):
+    """Head-folded key pass (`csrc/flash_hf.cu`, TPU `_bwd_k_kernel_hf`):
+    the same function as `flash_bwd_k`, so its plain version is
+    `flash_bwd_k_plain`; one block per (graph, 16-key tile) for all heads
+    (H <= 8), which sums dx over the heads itself in a fixed order: one
+    launch, no per-head partials."""
+    args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
+            beta, c)
+    if not cuda_or_plain("flash_bwd_k_hf", xa):
+        return flash_bwd_k_plain(*args)
+    out = _launch_bwd_k("flash_bwd_k_hf", *args)
+    flash_bwd_k_hf.launches += 1
+    return out
 
 
 flash_bwd_q.launches = 0
 flash_bwd_k.launches = 0
+flash_bwd_q_hf.launches = 0
+flash_bwd_k_hf.launches = 0
 
 
-def flash_bwd(*args):
-    """Both backward passes: (dxa, dcq, dvw, dck, dx)."""
+def flash_bwd(*args, head_fold=False):
+    """Both backward passes, folded or not: (dxa, dcq, dvw, dck, dx)."""
+    if head_fold:
+        return flash_bwd_q_hf(*args) + flash_bwd_k_hf(*args)
     return flash_bwd_q(*args) + flash_bwd_k(*args)
 
 
 class FlashGraphiT(torch.autograd.Function):
     """outh, m, se, su = flash_fwd(...) with a backward through the two
-    backward kernels. m, se and su are not differentiable: they feed only
-    the detached coefficient head (the JAX package's `_flash_heads_bwd`
-    drops their cotangents too)."""
+    backward kernels; `head_fold` (not differentiable, as `hf` is a
+    nondiff argument of the JAX package's `_flash`) picks the folded
+    kernels for the forward and the backward alike. m, se and su are not
+    differentiable: they feed only the detached coefficient head (the JAX
+    package's `_flash_heads_bwd` drops their cotangents too)."""
 
     @staticmethod
-    def forward(ctx, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
-        outh, m, se, su = flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask,
-                                    inv_sqrt)
+    def forward(ctx, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt,
+                head_fold=False):
+        fwd = flash_fwd_hf if head_fold else flash_fwd
+        outh, m, se, su = fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
         ctx.save_for_backward(xa, x, cq, ck, c0, vw, pe, deg, mask, outh, m,
                               se, su)
         ctx.inv_sqrt = inv_sqrt
+        ctx.head_fold = head_fold
         ctx.mark_non_differentiable(m, se, su)
         return outh, m, se, su
 
@@ -230,8 +338,9 @@ class FlashGraphiT(torch.autograd.Function):
         ise, qa, beta, c = bwd_row_constants(g, outh, se, su, mask)
         dxa, dcq, dvw, dck, dx = flash_bwd(
             xa, x, cq, ck, c0, vw, pe, deg, mask, ctx.inv_sqrt, g, m, ise,
-            qa, beta, c)
-        return dxa, dx, dcq, dck, dcq.sum((0, 2)), dvw, None, None, None, None
+            qa, beta, c, head_fold=ctx.head_fold)
+        return (dxa, dx, dcq, dck, dcq.sum((0, 2)), dvw, None, None, None,
+                None, None)
 
 
 def prepare(xa, x, cq, ck, c0, node_mask, pe, degree):
@@ -249,36 +358,40 @@ def prepare(xa, x, cq, ck, c0, node_mask, pe, degree):
         inv_sqrt=1.0 / math.sqrt(d // h))
 
 
-def _flash(ops, vw):
+def _flash(ops, vw, head_fold):
     return FlashGraphiT.apply(
         ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"],
         vw.to(ops["xa"].dtype).contiguous(), ops["pe"], ops["deg"],
-        ops["mask"], ops["inv_sqrt"])
+        ops["mask"], ops["inv_sqrt"], head_fold)
 
 
 def flash_graphit_attention(xa, x, cq, ck, c0, vw, node_mask, pe=None,
-                            degree=None):
+                            degree=None, head_fold: bool = False):
     """out [B, N, D] = sum_h modulated_attn_h @ vw_h.
 
     xa [B,H,N,D] = x @ Wq_h Wk_h^T, x [B,N,D], cq/ck [B,N,H] rank-1 bias
     terms, c0 [H], vw [B,H,N,D] = v_h @ Wout_h, node_mask [B,N], optional
-    pe [B,N,N] and degree [B,N]."""
+    pe [B,N,N] and degree [B,N]. head_fold: the head-folded kernels (JAX's
+    FETA_FLASH_HEAD_FOLD=1), forward and backward."""
     outh, _, _, _ = _flash(prepare(xa, x, cq, ck, c0, node_mask, pe, degree),
-                           vw)
+                           vw, head_fold)
     return outh.sum(1)       # autograd hands every head the same cotangent
 
 
 def flash_graphit_attention_heads(xa, x, cq, ck, c0, v_heads, node_mask,
                                   pe=None, degree=None,
-                                  coeff_fill: float = 1.0):
+                                  coeff_fill: float = 1.0,
+                                  head_fold: bool = False):
     """The filtered layer's attention: per-head outputs and the detached
     coefficient-head signal s[b, h, j] = sum_i gcn_norm_directed(attn)[i, j],
     with no [B, H, N, N] tensor on the CUDA route.
 
-    v_heads [B, H, N, dh] per-head values (not folded with W_out).
+    v_heads [B, H, N, dh] per-head values (not folded with W_out);
+    head_fold as in `flash_graphit_attention` (the column statistics have
+    one kernel either way, as in the JAX package).
     Returns (out_each_head [B, N, H, dh], s [B, H, N])."""
     ops = prepare(xa, x, cq, ck, c0, node_mask, pe, degree)
-    outh, m, se, su = _flash(ops, v_heads)
+    outh, m, se, su = _flash(ops, v_heads, head_fold)
     with torch.no_grad():                    # s is detached by definition
         s = attention_column_gcn_sums(m=m, se=se, su=su, fill=coeff_fill,
                                       **ops)

@@ -168,6 +168,65 @@ def test_cuda_backward_kernels_match_plain(cuda, n, pad, dv, with_mod):
         before[0] + 2, before[1] + 2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n,pad,dv,with_mod", [
+    (4, 200, 7, 8, True), (8, 256, 0, 64, True), (8, 130, 5, 8, True),
+    (2, 70, 9, 16, False), (4, 1, 0, 8, True)])
+def test_cuda_folded_kernels_match_plain_and_unfolded(cuda, h, n, pad, dv,
+                                                      with_mod):
+    """The head-folded kernels against their plain versions (the unfolded
+    kernels' own) and against the unfolded kernels, guard rows included;
+    two backward runs bit-identical; one launch per call."""
+    ops, vw = _ops(7, 2, h, n, 64, dv, pad, with_mod)
+    args = _bwd_args(ops, vw, guard_rows=min(n, 4))
+    gargs = [t.to(cuda) if torch.is_tensor(t) else t for t in args]
+    folded = (tfl.flash_fwd_hf, tfl.flash_bwd_q_hf, tfl.flash_bwd_k_hf)
+    before = [f.launches for f in folded]
+    got_f = tfl.flash_fwd_hf(*gargs[:10])
+    got_b = tfl.flash_bwd(*gargs, head_fold=True)
+    again = tfl.flash_bwd(*gargs, head_fold=True)
+    twins = tfl.flash_fwd(*gargs[:10]) + tfl.flash_bwd(*gargs)
+    torch.cuda.synchronize()
+    _close(got_f, tfl.flash_fwd_plain(*args[:10]))
+    _close(got_b, tfl.flash_bwd_plain(*args))
+    for got, twin in zip(got_f + got_b, twins):
+        np.testing.assert_allclose(got.cpu().numpy(), twin.cpu().numpy(),
+                                   **TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+    assert [f.launches for f in folded] == [before[0] + 1, before[1] + 2,
+                                            before[2] + 2]
+
+
+@pytest.mark.cuda
+def test_cuda_folded_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    ops, vw = _ops(8, 1, 9, 32, 16, 8, 3)
+    with pytest.raises(ValueError, match="9 heads > 8"):
+        tfl.flash_fwd_hf(vw=vw.to(cuda), **_to(ops, cuda))
+    ops, vw = _ops(8, 1, 2, 32, 16, 8, 3)
+    gops = _to(ops, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tfl.flash_fwd_hf(vw=vw.to(cuda).double(), **gops)
+    with pytest.raises(ValueError, match="on cuda"):
+        tfl.flash_fwd_hf(vw=vw, **gops)                 # vw on the CPU
+    with pytest.raises(ValueError, match="value width"):
+        tfl.flash_fwd_hf(vw=torch.zeros(1, 2, 32, 65, device=cuda), **gops)
+    gargs = [t.to(cuda) if torch.is_tensor(t) else t
+             for t in _bwd_args(ops, vw, guard_rows=0)]
+    for fn in (tfl.flash_bwd_q_hf, tfl.flash_bwd_k_hf):
+        bad = list(gargs)
+        bad[10] = gargs[10][..., :4].contiguous()      # g narrower than vw
+        with pytest.raises(ValueError, match="g has shape"):
+            fn(*bad)
+        bad[10] = gargs[10].double()
+        with pytest.raises(ValueError, match="float32"):
+            fn(*bad)
+        bad[10] = gargs[10].cpu()
+        with pytest.raises(ValueError, match="on cuda"):
+            fn(*bad)
+        with pytest.raises(RuntimeError, match="not differentiable"):
+            fn(*gargs[:10], gargs[10].clone().requires_grad_(), *gargs[11:])
+
+
 _SMALL = dict(in_size=3, nb_class=2, d_model=16, nb_heads=2,
               dim_feedforward=32, dropout=0.0, nb_layers=2, batch_norm=True,
               lap_pos_enc=True, lap_pos_enc_dim=4, filter_order=3, seed=5)
@@ -198,6 +257,61 @@ def test_cuda_training_step_matches_cpu(cuda):
         np.testing.assert_allclose(p.grad.cpu().numpy(),
                                    want[name].grad.numpy(), rtol=1e-3,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting,options,launches", [
+    ("fold", dict(head_fold=True), dict(flash_fwd_hf=2, colstat=2,
+                                        flash_bwd_q_hf=2, flash_bwd_k_hf=2)),
+    ("r4", dict(flash_need_heads=False),
+     dict(flash_fwd=1, flash_bwd_q=1, flash_bwd_k=1, modulation_fwd=1,
+          modulation_bwd=1))])
+def test_cuda_settings_step_and_predictor_match_cpu(cuda, monkeypatch,
+                                                    setting, options,
+                                                    launches):
+    """The small SBM model under the "fold" and "r4" settings: one
+    training step on CUDA against the CPU with exact launches and no plain
+    version on a CUDA tensor, then both served from the stepped weights."""
+    graphs = _graphs(3)
+    batch = collate_graphs(graphs[:2], max_nodes=64, node_labels=True)
+    cpu_model = DiffGraphTransformerGenGCNSBM(**_SMALL, **options,
+                                              device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(regularization=0.1, sign_flip=False)
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    wrappers = dict(flash_fwd=tfl.flash_fwd, flash_bwd_q=tfl.flash_bwd_q,
+                    flash_bwd_k=tfl.flash_bwd_k, flash_fwd_hf=tfl.flash_fwd_hf,
+                    flash_bwd_q_hf=tfl.flash_bwd_q_hf,
+                    flash_bwd_k_hf=tfl.flash_bwd_k_hf, colstat=tcs.colstat,
+                    modulation_fwd=tmod.modulation_fwd,
+                    modulation_bwd=tmod.modulation_bwd)
+    before = {k: f.launches for k, f in wrappers.items()}
+
+    def refuse(*_a, **_k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    with monkeypatch.context() as m:
+        for mod, name in ((tfl, "flash_fwd_plain"), (tfl, "flash_bwd_q_plain"),
+                          (tfl, "flash_bwd_k_plain"), (tcs, "colstat_plain"),
+                          (tmod, "modulation_fwd_plain"),
+                          (tmod, "modulation_bwd_plain")):
+            m.setattr(mod, name, refuse)
+        loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    assert {k: f.launches - before[k] for k, f in wrappers.items()} == {
+        **dict.fromkeys(wrappers, 0), **launches}, setting
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   want[name].grad.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    kw = dict(max_batch=2, node_level=True,
+              collate_kwargs={"max_nodes": 64, "node_labels": True})
+    got = Predictor(gpu_model, **kw).predict(graphs)
+    ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    for g, w in zip(got, ref):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
