@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card, at the
      slices' shapes, printing the largest absolute error, the kernel's and
      the plain version's median device milliseconds (CUDA events, each call
-     queued behind ~1 ms of device spin; see `time_ms`) and the bound:
+     queued behind ~1 ms of device spin; see `time_ms`) and the bound (the
+     two key passes, which run on the tensor cores in 3xTF32, also against
+     that arithmetic's bound, and the folded ones against the unfolded):
      the attention kernels at H=8, N=1024, D=64, value widths 64 and 8
      (B=4, the training batch, and B=8, the serving batch) and at a ragged
      N=200 with B=8 and at the ZINC batch (B=128, N=48), with padded
@@ -97,10 +99,15 @@ and on 8 random sign patterns, and prints how far float32 rounding moves
 its loss and gradients from float64 on CUDA and on the CPU; then phase
 10's parity step and one graph's served logits at N=2048 over 4 random
 patterns, with each CUDA error over the CPU float32 route's.
-`--precision` runs only a probe of phase 10's forward: each layer re-run
-from the float64 forward's inputs in float32 on the CPU, on the card and
-on the card with the plain versions (`plain_kernels`), its steps held to
-float64, then one graph's logits on each route.
+`--precision` runs only a probe of phase 10's forward and backward: each
+layer re-run from the float64 forward's inputs in float32 on the CPU, on
+the card and on the card with the plain versions (`plain_kernels`), its
+steps held to float64, then one graph's logits on each route; then each
+part of the `--rounding` parity step's backward (every layer, the
+coefficient head, the Chebyshev filter, the output maps) re-run from the
+float64 step's inputs and output cotangents on the same routes, each
+gradient held to float64, on the canonical LapPE signs and on sign
+pattern 4, and that step's gradient error under four summation orders.
 It needs one card and exits non-zero without printing a result when CUDA is
 unavailable.
 """
@@ -130,6 +137,7 @@ from feta_tmlr_tpu_torch.data.synthetic import (
     zinc_categorical_dataset,
     zinc_like_dataset,
 )
+from feta_tmlr_tpu_torch.nn import feta as feta_mod
 from feta_tmlr_tpu_torch.nn.layers import MaskedBatchNorm
 from feta_tmlr_tpu_torch.nn.models import (
     DiffGraphTransformerGenGCN,
@@ -154,6 +162,10 @@ from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
+PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
+TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
+# the key passes that run their products on the tensor cores in 3xTF32
+TENSOR_CORE_KERNELS = ("flash_bwd_k", "flash_bwd_k_hf")
 PAD_CYCLES = 2_000_000          # ~1 ms of device spin at the H100's clocks
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
 # CUDA vs the CPU path after 10 layers. Through the randomly initialised SBM
@@ -302,6 +314,10 @@ LARGE_STEP_LAUNCHES = {
 # checks of the head-folded kernels: (B, N, padding) at the training shape,
 # the serving shape and a ragged N; the JSON rows are the first shape's
 HF_SHAPES = ((1, LARGE_N, 100), (2, LARGE_N, 60), (2, 1990, 9))
+# `--precision`'s backward probe: the canonical signs and the `--rounding`
+# sign pattern on which the N=2048 step's CUDA gradients were furthest
+# from float64 against the CPU's float32 route (3.99x, PERF.md)
+PROBE_PATTERNS = (0, 4)
 
 
 def card_line() -> str:
@@ -386,6 +402,23 @@ def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_tc(flops, nbytes):
+    """The least time of the arithmetic that a 3xTF32 tensor-core kernel
+    issues (TF32_SPLIT products for each f32 one, against the TF32 peak),
+    or of its bytes: (ms, what bounds it)."""
+    t_ops, t_bytes = TF32_SPLIT * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bounds_text(t, cost):
+    """A tensor-core kernel's time against both bounds: the f32 CUDA-core
+    bound and the 3xTF32 tensor-core bound, each with its share."""
+    (b32, by32), (btc, bytc) = bound(*cost), bound_tc(*cost)
+    return (f"bound f32 {b32:.4f} ms {by32} ({100 * b32 / t:.1f} %), bound "
+            f"3xTF32 {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %)")
 
 
 def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
@@ -475,7 +508,8 @@ def bwd_inputs(seed, b, h, n, d, dv, pad, device, guard_rows=8):
 
 def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
     """Phase 3, backward: flash_bwd_q / flash_bwd_k vs their plain
-    versions; returns the JSON rows like `check_kernels`."""
+    versions, two runs of each bit-identical; returns the JSON rows like
+    `check_kernels` (the key pass's with its 3xTF32 bound too)."""
     rows = {}
     errs = {"flash_bwd_q": 0.0, "flash_bwd_k": 0.0}
     passes = {"flash_bwd_q": (fl_mod.flash_bwd_q, fl_mod.flash_bwd_q_plain),
@@ -489,26 +523,32 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                     f"with c != 0"]
             with torch.inference_mode():
                 for name, (kernel, plain) in passes.items():
-                    got, want = kernel(*args), plain(*args)
+                    got, again = kernel(*args), kernel(*args)
+                    want = plain(*args)
                     torch.cuda.synchronize()
                     outs = ("dxa", "dcq") if name.endswith("q") else (
                         "dvw", "dck", "dx")
-                    each = [max_err([g_], [w_], f"{name} {o} N={n} dv={dv}")
-                            for o, g_, w_ in zip(outs, got, want)]
+                    each = check_backward(name, got, again, want, outs,
+                                          f"N={n} dv={dv}")
                     errs[name] = max(errs[name], *each)
                     t_k = time_ms(lambda: kernel(*args))
                     t_p = time_ms(lambda: plain(*args))
-                    bnd, by = bound(*bwd_cost(b, h, n, d, dv, name[-1]))
+                    cost = bwd_cost(b, h, n, d, dv, name[-1])
+                    bnd, by = bound(*cost)
                     line.append(
                         f"{name} err " + " ".join(
                             f"{o} {e:.3e}" for o, e in zip(outs, each))
-                        + f"; {t_k:.4f} ms (plain {t_p:.4f} ms, bound "
-                        f"{bnd:.4f} ms {by})")
+                        + f"; {t_k:.4f} ms (plain {t_p:.4f} ms, " + (
+                            bounds_text(t_k, cost)
+                            if name in TENSOR_CORE_KERNELS else
+                            f"bound {bnd:.4f} ms {by}") + ")")
                     if (b, n, pad) == shapes[0] and dv == 64:
                         rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd,
                                           bound_by=by)
-            print("; ".join(line) + "; tolerance rtol 1e-4 atol 1e-5",
-                  flush=True)
+                        if name in TENSOR_CORE_KERNELS:
+                            rows[name]["bound_tc_ms"] = bound_tc(*cost)[0]
+            print("; ".join(line) + "; two runs of each bit-identical; "
+                  "tolerance rtol 1e-4 atol 1e-5", flush=True)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
     return rows
@@ -557,11 +597,16 @@ def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
                     f"{name} err " + " ".join(
                         f"{o} {e:.3e}" for o, e in zip(outs, each))
                     + f" (against the unfolded kernel {e_twin:.3e}); "
-                    f"{t_k:.4f} ms (unfolded {t_u:.4f} ms, plain {t_p:.4f} "
-                    f"ms, bound {bnd:.4f} ms {by})")
+                    f"{t_k:.4f} ms (unfolded {t_u:.4f} ms, folded/unfolded "
+                    f"{t_k / t_u:.2f}, plain {t_p:.4f} ms, " + (
+                        bounds_text(t_k, cost)
+                        if name in TENSOR_CORE_KERNELS else
+                        f"bound {bnd:.4f} ms {by}") + ")")
                 if (b, n, pad) == shapes[0] and dv == 64:
                     rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd,
                                       bound_by=by)
+                    if name in TENSOR_CORE_KERNELS:
+                        rows[name]["bound_tc_ms"] = bound_tc(*cost)[0]
             print("; ".join(line) + "; two runs of each bit-identical; "
                   "tolerance rtol 1e-4 atol 1e-5", flush=True)
     for name in rows:
@@ -1650,6 +1695,18 @@ def step_parity(initial, graphs, device, label, collate, cfg, params,
         raise AssertionError(f"CUDA gradients off the float64 step: {bad}")
 
 
+def sign_pattern(graphs, p):
+    """Copies of `graphs` with LapPE sign pattern p of `--rounding`: the
+    canonical signs for p = 0, else one random sign per LapPE column of
+    each graph in turn, drawn from np.random.default_rng(p)."""
+    gs = [copy.copy(g) for g in graphs]
+    rng = np.random.default_rng(p)
+    for g in gs if p else ():
+        g.lap_pe = g.lap_pe * rng.choice(np.float32([-1, 1]),
+                                         g.lap_pe.shape[1])
+    return gs
+
+
 def rounding_sweep(graphs, device, n_nodes, n_step, patterns,
                    settings=None):
     """`--rounding`: how far float32 rounding alone moves the SBM model's
@@ -1666,11 +1723,7 @@ def rounding_sweep(graphs, device, n_nodes, n_step, patterns,
     cfg = TrainConfig(regularization=0.1, sign_flip=False)
     worst = {r: [0.0, 0.0, 0.0] for r in ("cuda", "cpu32", "ratio")}
     for p in range(patterns + 1):
-        gs = [copy.copy(g) for g in graphs]
-        rng = np.random.default_rng(p)
-        for g in gs if p else ():
-            g.lap_pe = g.lap_pe * rng.choice(
-                np.float32([-1, 1]), g.lap_pe.shape[1])
+        gs = sign_pattern(graphs, p)
         loss, rel, _, _ = step_errors(initial, gs[:n_step], device, collate,
                                       cfg, STEP_PARAMS)
         logits = {}
@@ -1710,14 +1763,18 @@ def rounding_sweep(graphs, device, n_nodes, n_step, patterns,
 
 
 def precision_probe(device):
-    """`--precision`: where the card's float32 N=2048 forward ("fold") parts
-    from the CPU's. Each GraphiT layer is re-run from the float64 forward's
-    own inputs cast to float32, on the CPU, on the card and on the card with
-    the plain versions (`plain_kernels`), and what it computes (its
-    attention output, the FFN's two products, the layer's output) is held
-    to the float64 layer's: each step's own rounding, not what came before
-    it (max abs err / max |float64|). Then one graph's served logits on each
-    route against float64."""
+    """`--precision`: where the card's float32 N=2048 forward and backward
+    ("fold") part from the CPU's. Each GraphiT layer is re-run from the
+    float64 forward's own inputs cast to float32, on the CPU, on the card
+    and on the card with the plain versions (`plain_kernels`), and what it
+    computes (its attention output, the FFN's two products, the layer's
+    output) is held to the float64 layer's: each step's own rounding, not
+    what came before it (max abs err / max |float64|). Then one graph's
+    served logits on each route against float64. Then the backward of the
+    `--rounding` parity step (its model, one graph) on the canonical LapPE
+    signs and on the sign patterns of PROBE_PATTERNS, part by part
+    (`backward_probe`), and that step's error under four summation orders
+    (`step_spread`)."""
     graphs = make_graphs(2, LARGE_N)
     collate = dict(max_nodes=LARGE_N, node_labels=True)
     model = DiffGraphTransformerGenGCNSBM(
@@ -1769,6 +1826,206 @@ def precision_probe(device):
           f"cuda {errs['cuda']:.3e}, cuda_plain {errs['cuda_plain']:.3e}, "
           f"cpu32 {errs['cpu32']:.3e} (max |logit| {errs['scale']:.3f})",
           flush=True)
+    step_model = DiffGraphTransformerGenGCNSBM(
+        **MODEL_CFG, **LARGE_SETTINGS["fold"], seed=1, device=device)
+    cfg = TrainConfig(regularization=0.1, sign_flip=False)
+    for p in PROBE_PATTERNS:
+        label = f"N={LARGE_N} pattern {p if p else 'canonical'}"
+        one = sign_pattern(graphs, p)[:1]
+        backward_probe(step_model, one, collate, cfg, routes, label)
+        step_spread(step_model, one, device, collate, cfg, STEP_PARAMS,
+                    label)
+
+
+# what the backward probe holds to float64 in each part of the model: the
+# parameters' gradients by name (the gradients of a part's inputs are held
+# too); an encoder layer also FlashGraphiT.backward's five
+PROBE_PARAMS = {"layer": ("qkv", "out_proj_kernel", "ff1.weight",
+                          "ff2.weight"),
+                "encoder.coeff_head": ("gcn_kernel", "coeff_linear.weight"),
+                "encoder.cheb_filter": (),
+                "encoder.linear_cat": ("weight",),
+                "classifier": ("fc1.weight", "fc2.weight")}
+FLASH_GRADS = ("dxa", "dcq", "dvw", "dck", "dx")
+
+
+@contextlib.contextmanager
+def record_flash_bwd(store):
+    """FlashGraphiT.backward's gradients (dxa, dcq, dvw, dck, dx) of each
+    call appended to `store`; the computation is unchanged."""
+    inner = fl_mod.flash_bwd
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        store.append(out)
+        return out
+
+    fl_mod.flash_bwd = recording
+    try:
+        yield
+    finally:
+        fl_mod.flash_bwd = inner
+
+
+@contextlib.contextmanager
+def capture_parts(model, parts):
+    """Record, during one forward and backward of `model`, each part's
+    inputs and the cotangents of its outputs: parts[name] = dict(args,
+    kwargs, grad_in, cot). A part is a submodule by its dotted name, or
+    "encoder.cheb_filter", the Chebyshev filter function of the encoder."""
+    def record(name, args, kwargs, out):
+        keep = lambda t: t.detach().clone() if torch.is_tensor(t) else t
+        entry = dict(args=[keep(a) for a in args],
+                     kwargs={k: keep(v) for k, v in kwargs.items()},
+                     grad_in=[torch.is_tensor(a) and a.requires_grad
+                              for a in args], cot={})
+        outs = out if isinstance(out, tuple) else (out,)
+        for k, t in enumerate(outs):
+            if torch.is_tensor(t) and t.requires_grad:
+                t.register_hook(lambda g, k=k: entry["cot"].__setitem__(
+                    k, g.detach().clone()))
+        parts[name] = entry
+
+    hooks = [model.get_submodule(name).register_forward_hook(
+        lambda mod, args, kwargs, out, name=name:
+        record(name, args, kwargs, out), with_kwargs=True)
+        for name in list(parts) if name != "encoder.cheb_filter"]
+    inner = feta_mod.cheb_filter_dynamic
+
+    def cheb(*args):
+        out = inner(*args)
+        record("encoder.cheb_filter", args, {}, out)
+        return out
+
+    feta_mod.cheb_filter_dynamic = cheb
+    try:
+        yield
+    finally:
+        feta_mod.cheb_filter_dynamic = inner
+        for hk in hooks:
+            hk.remove()
+
+
+def rerun_backward(initial, name, entry, device, dtype, ctx):
+    """One part's forward and backward from the recorded inputs and
+    cotangents, cast to `dtype` on `device`, its copy of the initial
+    weights in train mode; returns its gradients (float64, CPU)."""
+    cast = lambda t: (t.to(device, dtype) if t.is_floating_point()
+                      else t.to(device)) if torch.is_tensor(t) else t
+    args = [cast(a).detach().requires_grad_() if rg else cast(a)
+            for a, rg in zip(entry["args"], entry["grad_in"])]
+    kwargs = {k: cast(v) for k, v in entry["kwargs"].items()}
+    if name == "encoder.cheb_filter":
+        fn, params = feta_mod.cheb_filter_dynamic, ()
+    else:
+        fn = copy.deepcopy(initial.get_submodule(name)).to(device, dtype)
+        fn.train()
+        params = PROBE_PARAMS["layer" if ".layers." in name else name]
+    flash = []
+    with ctx(), record_flash_bwd(flash):
+        out = fn(*args, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        cot = sorted(entry["cot"].items())
+        torch.autograd.backward([outs[k] for k, _ in cot],
+                                [cast(g) for _, g in cot])
+    grads = {f"in{k}": a.grad for k, a in enumerate(args)
+             if torch.is_tensor(a) and a.grad is not None}
+    grads.update((p, fn.get_parameter(p).grad) for p in params)
+    if flash:
+        grads.update(zip(FLASH_GRADS, flash[-1]))
+    return {k: v.detach().double().cpu() for k, v in grads.items()}
+
+
+def backward_probe(initial, graphs, collate, cfg, routes, label):
+    """Where float32 rounding enters a training step's backward. One step
+    of `initial` in float64 on the CPU (Trainer.step, so the loss is the
+    step's) records each part's inputs and output cotangents; each part's
+    backward is re-run from them on every route of `routes` ({name:
+    (device, dtype, context)}, the first the float64 reference) and each
+    gradient it produces is held to the reference route's: max abs err /
+    max |float64|, the part's own rounding, not what came before it
+    (in{k}: the gradient of the part's k-th input). The reference route's
+    parameter gradients must equal the float64 step's own. Returns
+    {part: {gradient: {route: error}}} and prints one line a part
+    with each float32 route's error and, for "cuda", its ratio to
+    "cpu32"."""
+    batch = collate_graphs(graphs, **collate)
+    model = copy.deepcopy(initial).to("cpu", torch.float64)
+    n_layers = len(model.encoder.layers)
+    names = [f"encoder.layers.{i}" for i in range(n_layers)] + [
+        "encoder.coeff_head", "encoder.cheb_filter", "encoder.linear_cat",
+        "classifier"]
+    parts = dict.fromkeys(names)
+    with capture_parts(model, parts):
+        Trainer(model, cfg).step(as_float64(batch))
+    ref, *f32 = routes
+    errs = {}
+    for name in names:
+        got = {r: rerun_backward(initial, name, parts[name], *routes[r])
+               for r in routes}
+        for g in PROBE_PARAMS["layer" if ".layers." in name else name]:
+            step = model.get_submodule(name).get_parameter(g).grad
+            if not torch.allclose(got[ref][g], step, rtol=1e-9, atol=1e-12):
+                raise AssertionError(f"backward probe: {name}.{g} re-run "
+                                     "off the float64 step's gradient")
+        # dcq is 0 in exact arithmetic (a shift of one query's scores
+        # leaves its attention row unchanged): held to max |dck|, the sum
+        # of the same ds over the other axis
+        scale = {g: float(got[ref]["dck" if g == "dcq" else g].abs().max())
+                 for g in got[ref]}
+        errs[name] = {
+            g: {r: float((got[r][g] - w).abs().max()) / max(scale[g], 1e-300)
+                for r in f32}
+            for g, w in got[ref].items()}
+        ratio = lambda e: (
+            f" (cuda/cpu32 {e['cuda'] / max(e['cpu32'], 1e-30):.2f})"
+            if "cuda" in e and "cpu32" in e else "")
+        print(f"backward {label} {name}: " + "; ".join(
+            f"{g} " + ", ".join(f"{r} {e[r]:.3e}" for r in f32) + ratio(e)
+            for g, e in errs[name].items()), flush=True)
+    return errs
+
+
+@contextlib.contextmanager
+def cpu_threads(n):
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def step_spread(initial, graphs, device, collate, cfg, params, label):
+    """How far float32 rounding alone moves the parity step's gradients
+    from float64 under four summation orders: CUDA with the kernels, CUDA
+    with their plain versions, the CPU with all its threads and with one.
+    Prints and returns each route's max over `params` of max abs err /
+    max |g| of the float64 step."""
+    batch = collate_graphs(graphs, **collate)
+
+    def grads(model, b, ctx):
+        with ctx:
+            Trainer(model, cfg).step(b)
+        return {n: model.get_parameter(n).grad.double().cpu()
+                for n in params}
+
+    ref = grads(copy.deepcopy(initial).to("cpu", torch.float64),
+                as_float64(batch), contextlib.nullcontext())
+    threads = torch.get_num_threads()
+    routes = {"cuda": (device, contextlib.nullcontext()),
+              "cuda_plain": (device, plain_kernels()),
+              f"cpu32 x{threads}": ("cpu", contextlib.nullcontext()),
+              "cpu32 x1": ("cpu", cpu_threads(1))}
+    errs = {}
+    for route, (dev, ctx) in routes.items():
+        got = grads(copy.deepcopy(initial).to(dev), batch.to(dev), ctx)
+        errs[route] = max(float((got[n] - ref[n]).abs().max())
+                          / float(ref[n].abs().max()) for n in params)
+    print(f"step spread {label}: grads max abs err / max |g| against "
+          "float64: " + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()),
+          flush=True)
+    return errs
 
 
 def profile_call(label, fn):
@@ -1871,7 +2128,9 @@ def main() -> int:
                     max_abs_err=rows[name]["max_abs_err"],
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
                     bound_ms=rows[name]["bound_ms"],
-                    bound_by=rows[name]["bound_by"], library_ms=None)
+                    bound_by=rows[name]["bound_by"], library_ms=None,
+                    **{k: rows[name][k] for k in ("bound_tc_ms",)
+                       if k in rows[name]})
                for name, (src, line) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -24,12 +24,37 @@
 //                        dx    = sum_h ds^T @ xa_h
 //
 // What bounds them on the H100: arithmetic. Per (b, h) the q pass does
-// 2·N²·(2D + DV) FMA-flops and the k pass 2·N²·(2D + 2DV), on CUDA cores in
-// full f32 (no TF32), against 67 TFLOP/s; the bytes they must move are a
-// few percent of what the card streams in that time. The design is the
-// forward's (flash_fwd.cu): 64x64 tiles, 256 threads, each thread owning
-// 4x4 register micro-tiles, operands staged transposed in shared memory
-// with a padded stride. The tile products run as one k-loop of FMAs each.
+// 2·N²·(2D + DV) flops and the k pass 2·N²·(2D + 2DV); the bytes they must
+// move are a few percent of what the card streams in that time.
+//
+// The q pass runs on CUDA cores in full f32 against 67 TFLOP/s, as the
+// forward does (flash_fwd.cu): 64x64 tiles, 256 threads, each thread
+// owning 4x4 register micro-tiles, operands staged transposed in shared
+// memory with a padded stride, each tile product one k-loop of FMAs. Such
+// a micro-tile reads 8 shared words for 16 FMAs; at 32 words a clock
+// against 128 FMAs an SM, that caps it near half the f32 peak.
+//
+// The k pass runs its four products on the tensor cores in error-
+// compensated TF32 (mma_tf32.cuh: each f32 product as three TF32 products,
+// lo·hi + hi·lo + hi·hi, f32 accumulators; float32 accuracy). One block of
+// 256 threads (8 warps) per (b, 64-key tile, h) loops over 32-query tiles,
+// which cp.async stages into a two-stage ring while the previous tile
+// computes: xa, g and pe rows of 64 floats (padded to 68, so fragment loads
+// hit distinct banks) and the six row constants. Warp w owns the 16 keys
+// 16 (w % 4) .. + 15 of every product (the mma's M): the score products
+// s^T = x xa^T and ga^T = vw g^T over its 16 queries 16 (w / 4) .. + 15
+// (K = D, DV), the elementwise ds and attn in the accumulators' registers,
+// written to shared memory as attn^T and ds^T [keys][queries], then the
+// update products dvw += attn^T g and dx_h += ds^T xa over its 32 output
+// columns 32 (w / 4) .. + 31 (K = the 32 queries), each tile's sum into a
+// fresh partial (flash_fwd.cu's note on summation order). Shared memory
+// 108 KB and 128 registers (`__launch_bounds__(256, 2)`): two blocks an
+// SM. What bounds it then is instruction issue: mma.sync's m16n8k8 TF32
+// product takes about 15 cycles of an SM sub-partition (a quarter of what
+// wgmma reaches), so the 3xTF32 products alone are near 0.4 ms at B=4,
+// N=1024, H=8, D=DV=64, and the splits, fragment loads and the
+// elementwise step issue beside them (PERF.md). The split itself is four
+// integer and float instructions (mma_tf32.cuh).
 //
 // No carry between blocks. The TPU's `_bwd_k_kernel` sums dx over heads in
 // scratch because h is its innermost sequential grid axis. GPU blocks run
@@ -44,10 +69,11 @@
 // Grids: one block per (b, query tile, h) for the q pass and per (b, key
 // tile, h) for the k pass, h fastest, so the H blocks that read the same
 // pe tile run together and find it in L2. Each block loops over the other
-// axis itself, so dcq and dck are complete inside one block (the column
-// sums reduce over the 16 thread rows in a fixed order). Ragged N: rows and
-// keys >= N contribute exactly 0 and are not stored; padded queries inside
-// N have qa = 0 and r = 0, so ds = 0 there without a special case.
+// axis itself, so dcq and dck are complete inside one block (dck sums each
+// thread's queries, then the 4 lanes of a row and the two query halves, in
+// a fixed order). Ragged N: rows and keys >= N contribute exactly 0 and
+// are not stored; padded queries inside N have qa = 0 and r = 0, so ds = 0
+// there without a special case.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
@@ -56,6 +82,7 @@
 #include <math.h>
 
 #include "graphit_tile.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -223,124 +250,236 @@ flash_bwd_q_kernel(Operands op, float* __restrict__ dxa,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The key pass on the tensor cores (the design in the note above).
+constexpr int kKT = 64;                  // keys per block
+constexpr int kQT = 32;                  // queries per tile
+constexpr int kLDT = kQT + 4;            // attn / ds tiles [kKT][kLDT]
+constexpr int kLDP = kKT + 4;            // pe tile [kQT][kLDP]
+constexpr int kNRC = 6;                  // row constants cq m ise qa beta c
+
+constexpr int kLD64 = kMaxW + 4;         // rows of 64 floats, padded
+
+struct KLayout {
+  float *xs, *vws, *ring, *ats, *dss, *cks, *dgs, *kms, *red;
+};
+
+// one ring stage: xa [kQT][kLD64], g [kQT][kLD64], pe [kQT][kLDP],
+// rc [6][kQT]
+constexpr int kStage = kQT * (2 * kLD64 + kLDP) + kNRC * kQT;
+
+__device__ __host__ inline size_t k_smem_floats() {
+  return (size_t)2 * kKT * kLD64 + 2 * kStage + 2 * (size_t)kKT * kLDT +
+         3 * kKT + 2 * kKT;
+}
+
+__device__ inline KLayout k_layout(float* smem) {
+  KLayout l;
+  l.xs = smem;                           // [kKT][kLD64] key tile (resident)
+  l.vws = l.xs + kKT * kLD64;            // [kKT][kLD64] its values
+  l.ring = l.vws + kKT * kLD64;          // 2 stages
+  l.ats = l.ring + 2 * kStage;           // [kKT][kLDT] attn^T
+  l.dss = l.ats + kKT * kLDT;            // [kKT][kLDT] ds^T
+  l.cks = l.dss + kKT * kLDT;            // [kKT]
+  l.dgs = l.cks + kKT;
+  l.kms = l.dgs + kKT;
+  l.red = l.kms + kKT;                   // [2][kKT] dck halves
+  return l;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
                    float* __restrict__ dck, float* __restrict__ dx_heads,
                    int H, int N, int D, int DV, float inv_sqrt) {
   extern __shared__ float smem[];
-  float* xT = smem;                     // [D][kLDK]   key tile (resident)
-  float* vwT = xT + D * kLDK;           // [DV][kLDK]  its values (resident)
-  float* xaT = vwT + DV * kLDK;         // [D][kLDQ]   query tile
-  float* gT = xaT + D * kLDQ;           // [DV][kLDQ]  its cotangent
-  float* ps = gT + DV * kLDQ;           // [kBQ][kLDK] pe tile, then attn
-  float* dss = ps + kBQ * kLDK;         // [kBQ][kLDK] ds; column reduction
-  float* cks = dss + kBQ * kLDK;        // [kBK]
-  float* dgs = cks + kBK;               // [kBK]
-  float* kms = dgs + kBK;               // [kBK]
-  float* cqs = kms + kBK;               // [kBQ] row constants of the tile
-  float* ms = cqs + kBQ;
-  float* ises = ms + kBQ;
-  float* qas = ises + kBQ;
-  float* betas = qas + kBQ;
-  float* cs = betas + kBQ;
+  const KLayout l = k_layout(smem);
 
-  const int nk = (N + kBK - 1) / kBK;
+  const int nk = (N + kKT - 1) / kKT;
   int bid = blockIdx.x;
   const int h = bid % H;
   bid /= H;
-  const int k0 = (bid % nk) * kBK;
+  const int k0 = (bid % nk) * kKT;
   const int b = bid / nk;
   const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
+  const int warp = tid / 32, g = tc::lane_g(), t = tc::lane_t();
+  const int kr0 = 16 * (warp % 4);       // the warp's key strip
+  const int wq = warp / 4;               // its query half / column half
 
   const size_t bh = (size_t)b * H + h;
   const float* xa_bh = op.xa + bh * N * D;
   const float* g_bh = op.g + bh * N * DV;
   const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
-  const float* deg_b = op.deg ? op.deg + (size_t)b * N : nullptr;
-  const float* mask_b = op.mask + (size_t)b * N;
+  const float* const rows[kNRC] = {op.cq, op.m, op.ise, op.qa, op.beta,
+                                   op.c};
 
-  stage_transposed(xT, kLDK, op.x + (size_t)b * N * D, k0, N, D, tid);
-  stage_transposed(vwT, kLDK, op.vw + bh * N * DV, k0, N, DV, tid);
-  const float c0h = op.c0[h];
+  // 16-byte copies where every row allows them: each thread then stages
+  // fixed chunks of rows of 64 floats, chunk i at row i / 16, column
+  // 4 (i % 16), zero beyond the width and the ragged edge
+  const bool vec_rows = tc::vec_ok(xa_bh, D, 0, 0, D) &&
+                        tc::vec_ok(g_bh, DV, 0, 0, DV);
+  bool vec_keys = N % 4 == 0 && (!pe_b || tc::vec_ok(pe_b, N, 0, k0, kKT));
+  for (int j = 0; j < kNRC; ++j)
+    vec_keys = vec_keys && tc::vec_ok(rows[j] + bh * N, 0, 0, 0, 4);
 
-  // key-major accumulators: keys ty + 16 i, columns tx + 16 j
-  float acc_v[kRows][kOut], acc_x[kRows][kOut], colsum[kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc_v[i][j] = acc_x[i][j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) colsum[j] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kBQ) {
-    __syncthreads();
-    stage_transposed(xaT, kLDQ, xa_bh, q0, N, D, tid);
-    stage_transposed(gT, kLDQ, g_bh, q0, N, DV, tid);
-    stage_keys(ps, cks, dgs, kms, pe_b, op.ck + bh * N, deg_b, mask_b, q0,
-               k0, N, tid, q0 == 0);
-    if (tid < kBQ) {
-      const int q = q0 + tid;
-      const bool in = q < N;
-      const size_t row = bh * N + q;
-      cqs[tid] = in ? op.cq[row] : 0.f;
-      ms[tid] = in ? op.m[row] : 0.f;
-      ises[tid] = in ? op.ise[row] : 0.f;
-      qas[tid] = in ? op.qa[row] : 0.f;
-      betas[tid] = in ? op.beta[row] : 0.f;
-      cs[tid] = in ? op.c[row] : 0.f;
+  // the query tile q0 into ring stage `s` (cp.async, one commit group)
+  auto issue = [&](int q0, int s) {
+    float* xst = l.ring + s * kStage;
+    float* gst = xst + kQT * kLD64;
+    float* pst = gst + kQT * kLD64;
+    float* rst = pst + kQT * kLDP;
+    if (vec_rows) {
+      for (int i = tid; i < kQT * 16; i += kThreads) {
+        const int r = i >> 4, c = (i & 15) * 4, q = q0 + r;
+        tc::cp_async16(xst + r * kLD64 + c, xa_bh + (size_t)q * D + c,
+                       q < N && c < D);
+        tc::cp_async16(gst + r * kLD64 + c, g_bh + (size_t)q * DV + c,
+                       q < N && c < DV);
+      }
+    } else {
+      tc::stage_rows(xst, kLD64, xa_bh, D, q0, kQT, N, 0, D, D, tid,
+                     kThreads);
+      tc::stage_rows(gst, kLD64, g_bh, DV, q0, kQT, N, 0, DV, DV, tid,
+                     kThreads);
     }
-    __syncthreads();
+    if (vec_keys) {
+      for (int i = tid; pe_b && i < kQT * kKT / 4; i += kThreads) {
+        const int r = i >> 4, c = (i & 15) * 4, q = q0 + r;
+        tc::cp_async16(pst + r * kLDP + c, pe_b + (size_t)q * N + k0 + c,
+                       q < N && k0 + c < N);
+      }
+      if (tid < kNRC * kQT / 4) {
+        const int j = tid / (kQT / 4), c = (tid % (kQT / 4)) * 4;
+        tc::cp_async16(rst + j * kQT + c, rows[j] + bh * N + q0 + c,
+                       q0 + c < N);
+      }
+    } else {
+      if (pe_b)
+        tc::stage_rows(pst, kLDP, pe_b, N, q0, kQT, N, k0, kKT, N, tid,
+                       kThreads);
+      for (int j = 0; j < kNRC; ++j)
+        tc::stage_rows(rst + j * kQT, kQT, rows[j] + bh * N, 0, 0, 1, 1, q0,
+                       kQT, N, tid, kThreads);
+    }
+    tc::cp_async_commit();
+  };
 
-    float s[kRows][kCols], ga[kRows][kCols];
-    tile_dot(xaT, xT, D, tx, ty, s);
-    tile_dot(gT, vwT, DV, tx, ty, ga);
+  issue(0, 0);
+  tc::stage_rows(l.xs, kLD64, op.x + (size_t)b * N * D, D, k0, kKT, N, 0, D,
+                 D, tid, kThreads);
+  tc::stage_rows(l.vws, kLD64, op.vw + bh * N * DV, DV, k0, kKT, N, 0, DV,
+                 DV, tid, kThreads);
+  tc::cp_async_commit();
+  if (tid < kKT) {
+    const int key = k0 + tid;
+    const bool in = key < N;
+    l.cks[tid] = in ? op.ck[bh * N + key] : 0.f;
+    l.dgs[tid] = in ? (op.deg ? op.deg[(size_t)b * N + key] : 1.f) : 0.f;
+    l.kms[tid] = in ? op.mask[(size_t)b * N + key] : 0.f;
+  }
+  const float c0h = op.c0[h];
+  const int D8 = (D + 7) & ~7, DV8 = (DV + 7) & ~7;
+
+  // key-major accumulators (C fragments): keys kr0 + g (+8), columns
+  // 32 wq + 8 n + 2 t (+1)
+  float acc_v[4][4] = {}, acc_x[4][4] = {}, colsum[2] = {0.f, 0.f};
+
+  const int nq = (N + kQT - 1) / kQT;
+  for (int it = 0; it < nq; ++it) {
+    const int q0 = it * kQT;
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile `it` visible; every warp done with it - 1
+    if (it + 1 < nq) issue(q0 + kQT, (it + 1) & 1);
+    const float* xas = l.ring + (it & 1) * kStage;
+    const float* gs = xas + kQT * kLD64;
+    const float* pes = gs + kQT * kLD64;
+    const float* rcs = pes + kQT * kLDP;
+
+    // s^T and ga^T: the warp's 16 keys x 16 queries (2 n-tiles each), the
+    // two products' k-steps interleaved (4 independent accumulators) and
+    // unrolled to the widest width, so loads run ahead of the mma chain
+    float s[2][4] = {}, ga[2][4] = {};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kTY * i;
+    for (int kk = 0; kk < kMaxW; kk += 8) {
+      if (kk < D8) {
+        const tc::FragA a = tc::load_a(l.xs, kLD64, kr0, kk);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + kTX * j;
-        float d = 0.f, attn = 0.f;
-        if (q0 + r < N && k0 + c < N)
-          d = grad_score(s[i][j], cqs[r], cks[c], c0h, inv_sqrt, kms[c],
-                         ms[r], ises[r], qas[r], betas[r], cs[r],
-                         ps[r * kLDK + c] * dgs[c], ga[i][j], attn);
-        colsum[j] += d;
-        ps[r * kLDK + c] = attn;  // only this thread touches (r, c)
-        dss[r * kLDK + c] = d;
+        for (int n = 0; n < 2; ++n)
+          tc::mma3(s[n], a, tc::load_b_nk(xas, kLD64, 16 * wq + 8 * n, kk));
+      }
+      if (kk < DV8) {
+        const tc::FragA a = tc::load_a(l.vws, kLD64, kr0, kk);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          tc::mma3(ga[n], a, tc::load_b_nk(gs, kLD64, 16 * wq + 8 * n, kk));
       }
     }
-    __syncthreads();  // attn and ds complete
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kl = kr0 + g + 8 * (i >> 1);
+        const int ql = 16 * wq + 8 * n + 2 * t + (i & 1);
+        float d = 0.f, attn = 0.f;
+        if (k0 + kl < N && q0 + ql < N) {
+          const float pd = (pe_b ? pes[ql * kLDP + kl] : 1.f) * l.dgs[kl];
+          d = grad_score(s[n][i], rcs[ql], l.cks[kl], c0h, inv_sqrt,
+                         l.kms[kl], rcs[kQT + ql], rcs[2 * kQT + ql],
+                         rcs[3 * kQT + ql], rcs[4 * kQT + ql],
+                         rcs[5 * kQT + ql], pd, ga[n][i], attn);
+        }
+        colsum[i >> 1] += d;
+        l.ats[kl * kLDT + ql] = attn;
+        l.dss[kl * kLDT + ql] = d;
+      }
+    __syncthreads();  // attn^T and ds^T of the tile complete
 
-    // dvw[c, v] += sum_r attn[r, c] g[r, v];  dx_h[c, k] += sum_r ds[r, c] xa[r, k]
-    add_tile_product<kBQ>(acc_v, ps, kLDK, gT, kLDQ, DV, tx, ty, kTX, kTY);
-    add_tile_product<kBQ>(acc_x, dss, kLDK, xaT, kLDQ, D, tx, ty, kTX, kTY);
-  }
-
-  // fixed-order reduction of the 16 per-thread partial column sums
-  __syncthreads();
+    // dvw[key, v] += sum_q attn^T[key, q] g[q, v] and dx_h[key, k] +=
+    // sum_q ds^T[key, q] xa[q, k]: the tile's sum into a fresh partial
+    // (flash_fwd.cu's note on summation order), one product at a time
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) dss[ty * kBK + tx + kTX * j] = colsum[j];
-  __syncthreads();
-  if (tid < kBK && k0 + tid < N) {
-    float total = 0.f;
-    for (int t = 0; t < kTY; ++t) total += dss[t * kBK + tid];
-    dck[bh * N + k0 + tid] = total;
-  }
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* at = pass ? l.dss : l.ats;
+      const float* bm = pass ? xas : gs;
+      const int w8 = pass ? D8 : DV8;
+      float part[4][4] = {};
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int key = k0 + ty + kTY * i;
-    if (key >= N) continue;
-    const size_t row = bh * N + key;
+      for (int kk = 0; kk < kQT; kk += 8) {
+        const tc::FragA a = tc::load_a(at, kLDT, kr0, kk);
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int col = tx + kTX * j;
-      if (col < DV) dvw[row * DV + col] = acc_v[i][j];
-      if (col < D) dx_heads[row * D + col] = acc_x[i][j];
+        for (int n = 0; n < 4; ++n) {
+          const int c0 = 32 * wq + 8 * n;
+          if (c0 < w8) tc::mma3(part[n], a, tc::load_b_kn(bm, kLD64, kk, c0));
+        }
+      }
+      float (&acc)[4][4] = pass ? acc_x : acc_v;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
     }
   }
+
+  // dck: each thread's column sums over its queries, then the 4 lanes of
+  // its row (fixed xor order), then the two query halves in order
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 1);
+    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 2);
+    if (t == 0) l.red[wq * kKT + kr0 + g + 8 * j] = colsum[j];
+  }
+  __syncthreads();
+  if (tid < kKT && k0 + tid < N)
+    dck[bh * N + k0 + tid] = l.red[tid] + l.red[kKT + tid];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + kr0 + g + 8 * (i >> 1);
+      const int col = 32 * wq + 8 * n + 2 * t + (i & 1);
+      if (key >= N) continue;
+      const size_t row = bh * N + key;
+      if (col < DV) dvw[row * DV + col] = acc_v[n][i];
+      if (col < D) dx_heads[row * D + col] = acc_x[n][i];
+    }
 }
 
 // dx[b, n, k] = sum_h dx_heads[b, h, n, k], heads added in order 0..H-1.
@@ -363,10 +502,7 @@ size_t smem_q(int D, int DV) {
                           (size_t)kBQ * kLDK + 3 * kBK);
 }
 
-size_t smem_k(int D, int DV) {
-  return sizeof(float) * ((size_t)(D + DV) * (kLDQ + kLDK) +
-                          2 * (size_t)kBQ * kLDK + 3 * kBK + 6 * kBQ);
-}
+size_t smem_k() { return sizeof(float) * k_smem_floats(); }
 
 bool bad_shape(int B, int H, int N, int D, int DV) {
   return B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kMaxW || DV <= 0 ||
@@ -420,12 +556,12 @@ extern "C" int feta_flash_bwd_k(const void* xa, const void* x, const void* cq,
                                 void* dx_heads, void* dx, int B, int H, int N,
                                 int D, int DV, float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_k(D, DV);
+  const size_t smem = smem_k();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nk = (N + kBK - 1) / kBK;
+  const int nk = (N + kKT - 1) / kKT;
   flash_bwd_k_kernel<<<B * H * nk, kThreads, smem, (cudaStream_t)stream>>>(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
       (float*)dvw, (float*)dck, (float*)dx_heads, H, N, D, DV, inv_sqrt);

@@ -11,7 +11,7 @@
 //   flash_fwd_hf_kernel:    outh_h, m, se, su  for every head h
 //   flash_bwd_q_hf_kernel:  dxa_h = ds_h @ x,        dcq_h = sum_j ds_h
 //   flash_bwd_k_hf_kernel:  dvw_h = attn_h^T @ g_h,  dck_h = sum_i ds_h,
-//                           dx    = sum_h ds_h^T @ xa_h
+//                           dx    = sum_h ds_h^T @ xa_h  (tensor cores)
 //
 // The difference is the work of one block: it owns one (graph, query tile)
 // or (graph, key tile) for ALL H heads. The TPU kernel loops over the heads
@@ -29,27 +29,41 @@
 // registers, so no head waits for another.
 //
 // What bounds them on the H100: arithmetic, as their twins
-// (2·N²·(D + DV) FMA-flops per (b, h) forward, 2·N²·(2D + DV) and
-// 2·N²·(2D + 2DV) for the two passes, CUDA cores in full f32 against 67
-// TFLOP/s). And parallelism: with one block per (graph, 64-row tile) the
-// folded grid would be B·N/64 blocks, 32 at the training shape (B=1,
-// N=2048) on 132 SMs. The tiles are
-// therefore 16 rows wide on the axis the block owns: B·N/16 blocks (128 at
-// B=1, N=2048; 256 at the serving B=2), each of 512 threads at H=8, the
-// same threads per SM as the unfolded grid. Each thread keeps the unfolded
-// kernels' 4x4 register micro-tiles: rows ty + 4 i of its group's 16, keys
-// or columns tx + 16 j. Shared memory (at H=8, D=DV=64): forward 222 KB
-// (16 queries x 64 keys), q pass 166 KB (16 x 32), k pass 131 KB (16 keys
-// x 16 queries): one block per SM, which the 512 threads' registers (128
-// each, `__launch_bounds__(512, 1)`) allow anyway.
+// (2·N²·(D + DV) flops per (b, h) forward, 2·N²·(2D + DV) and
+// 2·N²·(2D + 2DV) for the two passes). And parallelism: with one block per
+// (graph, 64-row tile) the folded grid would be B·N/64 blocks, 32 at the
+// training shape (B=1, N=2048) on 132 SMs.
 //
-// The k pass sums dx over the heads inside the block: each group keeps its
-// head's dx rows in registers over all query tiles, then writes them to
-// shared memory, and the block adds the H partials in the fixed order
-// 0..H-1, as flash_bwd.cu's head_sum_kernel does, with no [B, H, N, D]
-// partials in device memory and no second launch. dck sums its column over
-// the 4 row groups in a fixed order too. No float atomics anywhere: every
-// gradient is bit-identical from run to run.
+// The forward and the q pass run on CUDA cores in full f32 against 67
+// TFLOP/s. Their tiles are 16 rows wide on the axis the block owns: B·N/16
+// blocks (128 at B=1, N=2048; 256 at the serving B=2), each of 512 threads
+// at H=8, the same threads per SM as the unfolded grid. Each thread keeps
+// the unfolded kernels' 4x4 register micro-tiles: rows ty + 4 i of its
+// group's 16, keys or columns tx + 16 j. Shared memory (at H=8,
+// D=DV=64): forward 222 KB (16 queries x 64 keys), q pass 166 KB (16 x
+// 32): one block per SM, which the 512 threads' registers (128 each,
+// `__launch_bounds__(512, 1)`) allow anyway.
+//
+// The k pass runs its products on the tensor cores in error-compensated
+// TF32 (mma_tf32.cuh; the design in its section below): one block per
+// (graph, 32-key tile, query split) for all heads, two warps a head, 8-query
+// tiles staged by cp.async into a two-stage ring, 176 KB of shared memory
+// at H=8. L2 traffic: each block re-reads xa and g of all heads for the
+// queries it loops over, N·H·(D + DV)·4 = 8.4 MB a key tile at B=1,
+// N=2048, H=8, D=DV=64. With 16-key blocks over all queries that was 128
+// x 8.4 = 1.07 GB a launch; 32-key tiles read it 64 times, 537 MB, and
+// splitting each key tile's query loop over 2 blocks keeps 128 blocks on
+// 132 SMs without adding traffic (the wrapper picks the splits,
+// `k_hf_splits`: as many as keep one block an SM, at most 4). The splits'
+// partials are summed in split order by a second launch. Like its
+// unfolded twin it is bound by instruction issue: mma.sync's TF32 product
+// rate, then the splits and the fragment loads (PERF.md).
+//
+// dx sums over the heads inside the block, as one tensor-core product over
+// K = (head, query) in the fixed order of the heads: no [B, H, N, D]
+// partials in device memory and no second launch for it. dck sums each
+// column over its queries and the 4 lanes of a row in a fixed order. No
+// float atomics anywhere: every gradient is bit-identical from run to run.
 //
 // The cotangent g is per head, [B, H, N, DV]. On the unfiltered layers
 // every head gets the same g (the head sum's cotangent is expanded) and the
@@ -67,6 +81,7 @@
 #include <math.h>
 
 #include "graphit_tile.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -468,124 +483,296 @@ flash_bwd_q_hf_kernel(Operands op, float* __restrict__ dxa,
   }
 }
 
+// ---- the key pass on tensor cores (mma_tf32.cuh) ----
+//
+// One block per (graph, 32-key tile, query split) for all H heads: 64·H
+// threads, two warps per head, warp 2h + u owning head h's keys 16u ..
+// 16u + 15. The block loops over its split's 8-query tiles, staged by
+// cp.async into a two-stage ring: every head's xa and g rows, the pe tile
+// and the row constants, in rows of 64 floats (kLD64).
+//
+// Per tile, warp (h, u): the score products s^T = x xa_h^T and
+// ga^T = vw_h g_h^T (16 keys x 8 queries, one mma n-tile, K = D and DV:
+// 4 independent accumulators, the even and odd k-steps apart), the
+// elementwise ds and attn, then dvw_h += attn_h^T g_h (16 keys x DV, K =
+// the 8 queries: one k-step a column tile). dx needs the sum over heads,
+// dx = sum_h ds_h^T xa_h, which is one product over K = (head, query):
+// the block's ds^T [32 keys][H x 8] against the stage's xa rows [H x 8]
+// [D], an output tile of 16 keys x 8 columns per warp (kTPW tiles where
+// there are fewer warps than tiles), the heads added in order 0..H-1 by
+// the product's k-steps. No [H, keys, D] partials, no second pass.
+constexpr int kKT7 = 32;                 // keys per block
+constexpr int kQT7 = 8;                  // queries per tile
+constexpr int kLD64 = 68;                // rows of 64 floats, padded
+constexpr int kLDT7 = kQT7 + 4;          // a warp's attn^T [16][kLDT7]
+constexpr int kLDP7 = kKT7 + 4;          // pe tile [kQT7][kLDP7]
+constexpr int kNRC = 6;                  // row constants cq m ise qa beta c
+constexpr int kMaxSplits = 4;
+
+__device__ __host__ inline int ld_ds(int H) { return kQT7 * H + 4; }
+
+__device__ __host__ inline size_t k_stage_floats(int H) {
+  return 2 * (size_t)H * kQT7 * kLD64 + kQT7 * kLDP7 +
+         (size_t)H * kNRC * kQT7;
+}
+
+__device__ __host__ inline size_t k_smem_floats(int H) {
+  return (size_t)kKT7 * kLD64 + (size_t)H * kKT7 * kLD64 +
+         2 * k_stage_floats(H) + (size_t)2 * H * 16 * kLDT7 +
+         (size_t)kKT7 * ld_ds(H) + (size_t)H * kKT7 + 2 * kKT7;
+}
+
+template <int kTPW>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
-                      float* __restrict__ dck, float* __restrict__ dx, int H,
-                      int N, int D, int DV, float inv_sqrt) {
+                      float* __restrict__ dck, float* __restrict__ dx,
+                      float* __restrict__ scratch, int H, int N, int D,
+                      int DV, float inv_sqrt) {
   extern __shared__ float smem[];
-  float* xT = smem;                      // [D][kLD16]      key tile
-  float* vwT = xT + D * kLD16;           // [H][DV][kLD16]  its values
-  float* xaT = vwT + H * DV * kLD16;     // [H][D][kLD16]   query tiles
-  float* gT = xaT + H * D * kLD16;       // [H][DV][kLD16]  their cotangents
-  float* pds = gT + H * DV * kLD16;      // [kTile][kLD16]  pe * deg
-  float* ats = pds + kTile * kLD16;      // [H][kTile][kLD16] attn
-  float* dss = ats + H * kTile * kLD16;  // [H][kTile][kLD16] ds
-  float* rcs = dss + H * kTile * kLD16;  // [H][6][kTile] row constants
-  float* cks = rcs + H * 6 * kTile;      // [H][kTile]
-  float* kms = cks + H * kTile;          // [kTile]
+  const int stage = (int)k_stage_floats(H), ldds = ld_ds(H);
+  float* xs = smem;                       // [kKT7][kLD64]     key tile
+  float* vws = xs + kKT7 * kLD64;         // [H][kKT7][kLD64]  its values
+  float* ring = vws + H * kKT7 * kLD64;   // 2 x {xa [H x 8][kLD64],
+                                          //  g [H x 8][kLD64],
+                                          //  pe [kQT7][kLDP7], rc [H][6][8]}
+  float* ats = ring + 2 * stage;          // [2H warps][16][kLDT7] attn^T
+  float* dss = ats + 2 * H * 16 * kLDT7;  // [kKT7][H x 8 (+4)] ds^T
+  float* cks = dss + kKT7 * ldds;         // [H][kKT7]
+  float* dgs = cks + H * kKT7;            // [kKT7]
+  float* kms = dgs + kKT7;                // [kKT7]
 
-  const int nk = (N + kTile - 1) / kTile;
-  const int k0 = (blockIdx.x % nk) * kTile;
-  const int b = blockIdx.x / nk;
-  const int h = threadIdx.x / kGroup;
-  const int lt = threadIdx.x % kGroup;
-  const int tx = lt % kGX, ty = lt / kGX;
+  const int nk = (N + kKT7 - 1) / kKT7;
+  const int k0 = (blockIdx.x % nk) * kKT7;
+  const int b = blockIdx.x / nk, B = gridDim.x / nk;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, g = tc::lane_g(), t = tc::lane_t();
+  const int h = warp / 2, kr0 = 16 * (warp % 2);
 
   const size_t bh = (size_t)b * H + h;
+  const float* xa_b = op.xa + (size_t)b * H * N * D;
+  const float* g_b = op.g + (size_t)b * H * N * DV;
   const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
-  const float* deg_b = op.deg ? op.deg + (size_t)b * N : nullptr;
-  const float* mask_b = op.mask + (size_t)b * N;
-  const float* hvwT = vwT + h * DV * kLD16;
-  const float* hxaT = xaT + h * D * kLD16;
-  const float* hgT = gT + h * DV * kLD16;
-  float* hat = ats + h * kTile * kLD16;
-  float* hds = dss + h * kTile * kLD16;
-  const float* hrc = rcs + h * 6 * kTile;
-  const float* const rows[6] = {op.cq, op.m, op.ise, op.qa, op.beta, op.c};
+  float* const at_w = ats + warp * 16 * kLDT7;
 
-  stage<true>(xT, kLD16, op.x + (size_t)b * N * D, 1, k0, kTile, N, D);
-  stage<true>(vwT, kLD16, op.vw + (size_t)b * H * N * DV, H, k0, kTile, N, DV);
-  stage_key_vectors(cks, kms, op.ck + (size_t)b * H * N, mask_b, H, k0,
-                    kTile, N);
+  // 16-byte copies where every row allows them: each thread then stages
+  // fixed chunks of rows of 64 floats, chunk i at row i / 16, column
+  // 4 (i % 16), zero beyond the width and the ragged edge
+  const bool vec_rows = tc::vec_ok(xa_b, D, (size_t)N * D, 0, D) &&
+                        tc::vec_ok(g_b, DV, (size_t)N * DV, 0, DV);
+  const bool vec_keys =
+      N % 4 == 0 && (!pe_b || tc::vec_ok(pe_b, N, 0, k0, kKT7)) &&
+      tc::vec_ok(op.cq, 0, 0, 0, 4) && tc::vec_ok(op.m, 0, 0, 0, 4) &&
+      tc::vec_ok(op.ise, 0, 0, 0, 4) && tc::vec_ok(op.qa, 0, 0, 0, 4) &&
+      tc::vec_ok(op.beta, 0, 0, 0, 4) && tc::vec_ok(op.c, 0, 0, 0, 4);
+
+  auto issue = [&](int q0, int s) {
+    float* st = ring + s * stage;
+    float* pes = st + 2 * H * kQT7 * kLD64;
+    float* rcs = pes + kQT7 * kLDP7;
+    if (vec_rows) {
+      for (int i = tid; i < H * kQT7 * 16; i += nthreads) {
+        const int row = i >> 4, c = (i & 15) * 4;
+        const int hh = row >> 3, q = q0 + (row & 7);
+        const bool in = q < N;
+        tc::cp_async16(st + row * kLD64 + c,
+                       xa_b + ((size_t)hh * N + q) * D + c, in && c < D);
+        tc::cp_async16(st + (H * kQT7 + row) * kLD64 + c,
+                       g_b + ((size_t)hh * N + q) * DV + c, in && c < DV);
+      }
+    } else {
+      tc::stage_rows(st, kLD64, xa_b, D, q0, kQT7, N, 0, D, D, tid,
+                     nthreads, H, (size_t)N * D, kQT7 * kLD64);
+      tc::stage_rows(st + H * kQT7 * kLD64, kLD64, g_b, DV, q0, kQT7, N, 0,
+                     DV, DV, tid, nthreads, H, (size_t)N * DV,
+                     kQT7 * kLD64);
+    }
+    if (vec_keys) {
+      if (pe_b && tid < kQT7 * kKT7 / 4) {
+        const int r = tid >> 3, c = (tid & 7) * 4;
+        const bool in = q0 + r < N && k0 + c < N;
+        tc::cp_async16(pes + r * kLDP7 + c,
+                       pe_b + (size_t)(q0 + r) * N + k0 + c, in);
+      }
+      if (tid < H * kNRC * 2) {  // rc[hh][j][8]: two chunks a row
+        const int row = tid >> 1, c = (tid & 1) * 4;
+        const int hh = row / kNRC, j = row - hh * kNRC;
+        const float* v = j == 0 ? op.cq : j == 1 ? op.m : j == 2 ? op.ise
+                       : j == 3 ? op.qa : j == 4 ? op.beta : op.c;
+        tc::cp_async16(rcs + row * kQT7 + c,
+                       v + ((size_t)b * H + hh) * N + q0 + c, q0 + c < N);
+      }
+    } else {
+      if (pe_b)
+        tc::stage_rows(pes, kLDP7, pe_b, N, q0, kQT7, N, k0, kKT7, N, tid,
+                       nthreads);
+      const float* const rows[kNRC] = {op.cq, op.m, op.ise, op.qa, op.beta,
+                                       op.c};
+      for (int j = 0; j < kNRC; ++j)
+        tc::stage_rows(rcs + j * kQT7, kQT7, rows[j] + (size_t)b * H * N, 0,
+                       0, 1, 1, q0, kQT7, N, tid, nthreads, H, N,
+                       kNRC * kQT7);
+    }
+    tc::cp_async_commit();
+  };
+
+  // this split's query tiles
+  const int nqt = (N + kQT7 - 1) / kQT7;
+  const int it0 = split * nqt / splits, it1 = (split + 1) * nqt / splits;
+  if (it0 < it1) issue(it0 * kQT7, 0);
+  tc::stage_rows(xs, kLD64, op.x + (size_t)b * N * D, D, k0, kKT7, N, 0, D,
+                 D, tid, nthreads);
+  tc::stage_rows(vws, kLD64, op.vw + (size_t)b * H * N * DV, DV, k0, kKT7,
+                 N, 0, DV, DV, tid, nthreads, H, (size_t)N * DV,
+                 kKT7 * kLD64);
+  tc::cp_async_commit();
+  for (int i = tid; i < H * kKT7; i += nthreads) {
+    const int hh = i / kKT7, key = k0 + i % kKT7;
+    cks[i] = key < N ? op.ck[((size_t)b * H + hh) * N + key] : 0.f;
+    if (hh == 0) {
+      dgs[i] = key < N ? (op.deg ? op.deg[(size_t)b * N + key] : 1.f) : 0.f;
+      kms[i] = key < N ? op.mask[(size_t)b * N + key] : 0.f;
+    }
+  }
   const float c0h = op.c0[h];
+  const int D8 = (D + 7) & ~7, DV8 = (DV + 7) & ~7;
+  const int x_tiles = 2 * (D8 / 8);       // dx output tiles of 16 x 8
+  const float* hvw = vws + h * kKT7 * kLD64;
 
-  // key-major accumulators: keys ty + 4 i, columns tx + 16 j
-  float acc_v[kRows][kOut], acc_x[kRows][kOut], colsum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc_v[i][j] = acc_x[i][j] = 0.f;
+  // C fragments: dvw rows kr0 + g (+8), columns 8 n + 2 t (+1); dx tile
+  // warp + 2H j: keys 16 (tile % 2) + g (+8), columns 8 (tile / 2) + 2 t
+  float acc_v[8][4] = {}, acc_x[kTPW][4] = {}, colsum[2] = {0.f, 0.f};
 
-  for (int q0 = 0; q0 < N; q0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<true>(xaT, kLD16, op.xa + (size_t)b * H * N * D, H, q0, kTile, N, D);
-    stage<true>(gT, kLD16, op.g + (size_t)b * H * N * DV, H, q0, kTile, N, DV);
-    stage_pd(pds, kLD16, pe_b, deg_b, q0, kTile, k0, kTile, N);
-    for (int i = threadIdx.x; i < H * 6 * kTile; i += blockDim.x) {
-      const int hh = i / (6 * kTile), which = i / kTile % 6, r = i % kTile;
-      const int q = q0 + r;
-      rcs[i] = q < N ? rows[which][((size_t)b * H + hh) * N + q] : 0.f;
+  for (int it = it0; it < it1; ++it) {
+    const int q0 = it * kQT7;
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile `it` visible; every warp done with it - 1
+    if (it + 1 < it1) issue(q0 + kQT7, (it + 1 - it0) & 1);
+    const float* st = ring + ((it - it0) & 1) * stage;
+    const float* xas = st + h * kQT7 * kLD64;
+    const float* gs = st + (H + h) * kQT7 * kLD64;
+    const float* pes = st + 2 * H * kQT7 * kLD64;
+    const float* rcs = pes + kQT7 * kLDP7 + h * kNRC * kQT7;
+
+    float s2[2][4] = {}, ga2[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kMaxW; kk += 8) {
+      if (kk < D8)
+        tc::mma3(s2[(kk / 8) & 1], tc::load_a(xs, kLD64, kr0, kk),
+                 tc::load_b_nk(xas, kLD64, 0, kk));
+      if (kk < DV8)
+        tc::mma3(ga2[(kk / 8) & 1], tc::load_a(hvw, kLD64, kr0, kk),
+                 tc::load_b_nk(gs, kLD64, 0, kk));
     }
-    __syncthreads();
-
-    // the score tile: queries ty + 4 i, key tx
-    float s[kRows][1], ga[kRows][1];
-    micro_dot(hxaT, kLD16, xT, kLD16, D, tx, ty, s);
-    micro_dot(hgT, kLD16, hvwT, kLD16, DV, tx, ty, ga);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kGY * i;
+    for (int i = 0; i < 4; ++i) {
+      const int kl = kr0 + g + 8 * (i >> 1), ql = 2 * t + (i & 1);
       float d = 0.f, attn = 0.f;
-      if (q0 + r < N && k0 + tx < N)
-        d = grad_score(s[i][0], hrc[r], cks[h * kTile + tx], c0h, inv_sqrt,
-                       kms[tx], hrc[kTile + r], hrc[2 * kTile + r],
-                       hrc[3 * kTile + r], hrc[4 * kTile + r],
-                       hrc[5 * kTile + r], pds[r * kLD16 + tx], ga[i][0],
-                       attn);
-      colsum += d;
-      hat[r * kLD16 + tx] = attn;  // only this thread touches (r, tx)
-      hds[r * kLD16 + tx] = d;
+      if (k0 + kl < N && q0 + ql < N) {
+        const float pd = (pe_b ? pes[ql * kLDP7 + kl] : 1.f) * dgs[kl];
+        d = grad_score(s2[0][i] + s2[1][i], rcs[ql], cks[h * kKT7 + kl],
+                       c0h, inv_sqrt, kms[kl], rcs[kQT7 + ql],
+                       rcs[2 * kQT7 + ql], rcs[3 * kQT7 + ql],
+                       rcs[4 * kQT7 + ql], rcs[5 * kQT7 + ql], pd,
+                       ga2[0][i] + ga2[1][i], attn);
+      }
+      colsum[i >> 1] += d;
+      at_w[(kl - kr0) * kLDT7 + ql] = attn;
+      dss[kl * ldds + h * kQT7 + ql] = d;
     }
-    __syncthreads();  // attn and ds complete
+    __syncwarp();  // the warp's attn^T complete
 
-    // dvw[c, v] += sum_r attn[r, c] g[r, v];
-    // dx_h[c, k] += sum_r ds[r, c] xa[r, k]
-    graphit::add_tile_product<kTile>(acc_v, hat, kLD16, hgT, kLD16, DV, tx,
-                                     ty, kGX, kGY);
-    graphit::add_tile_product<kTile>(acc_x, hds, kLD16, hxaT, kLD16, D, tx,
-                                     ty, kGX, kGY);
-  }
+    // dvw[key, v] += sum_q attn^T[key, q] g[q, v]: each column tile's sum
+    // over the tile's 8 queries is one k-step into a fresh partial, then
+    // added to the running sum (flash_fwd.cu's note on summation order)
+    const tc::FragA fa = tc::load_a(at_w, kLDT7, 0, 0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (8 * n < DV8) {
+        float part[4] = {};
+        tc::mma3(part, fa, tc::load_b_kn(gs, kLD64, 0, 8 * n));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc_v[n][i] += part[i];
+      }
+    __syncthreads();  // every head's ds^T complete
 
-  // dvw rows of this head to device memory; each head's dx rows
-  // and the column sums of ds to shared memory, over the query tiles and
-  // the attn tiles, which nobody reads any more
-  __syncthreads();
-  float* part = xaT;                     // [H][kTile][D]
-  float* red = ats;                      // [H][kGY][kGX]
+    // dx[key, k] += sum_(h, q) ds^T[key, (h, q)] xa[(h, q), k]: K = the
+    // heads in order, 8 queries each; the tile's sum into a fresh partial
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int kl = ty + kGY * i, key = k0 + kl;
+    for (int j = 0; j < kTPW; ++j) {
+      const int tile = warp + 2 * H * j;
+      if (tile >= x_tiles) continue;
+      float part2[2][4] = {};
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int col = tx + kGX * j;
-      if (col < DV && key < N) dvw[(bh * N + key) * DV + col] = acc_v[i][j];
-      if (col < D) part[(h * kTile + kl) * D + col] = acc_x[i][j];
+      for (int hh = 0; hh < kMaxHeads; ++hh)
+        if (hh < H)
+          tc::mma3(part2[hh & 1], tc::load_a(dss, ldds, 16 * (tile & 1),
+                                             kQT7 * hh),
+                   tc::load_b_kn(st, kLD64, kQT7 * hh, 8 * (tile >> 1)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc_x[j][i] += part2[0][i] + part2[1][i];
     }
   }
-  red[(h * kGY + ty) * kGX + tx] = colsum;
-  __syncthreads();
-  if (ty == 0 && k0 + tx < N) {  // dck: the 4 row groups in a fixed order
-    float total = 0.f;
-    for (int t = 0; t < kGY; ++t) total += red[(h * kGY + t) * kGX + tx];
-    dck[bh * N + k0 + tx] = total;
+  tc::cp_async_wait_all();  // the key tile, where the split had no tile
+
+  // outputs: to dvw / dck / dx, or with several splits to this split's
+  // partials in `scratch` ([splits][dvw | dck | dx], summed afterwards)
+  const size_t n_dvw = (size_t)B * H * N * DV, n_dck = (size_t)B * H * N;
+  if (splits > 1) {
+    float* base = scratch + (size_t)split * (n_dvw + n_dck + (size_t)B * N * D);
+    dvw = base;
+    dck = base + n_dvw;
+    dx = base + n_dvw + n_dck;
   }
-  // dx[key, col] = sum_h part[h, key, col], heads added in order 0..H-1
-  for (int i = threadIdx.x; i < kTile * D; i += blockDim.x) {
-    const int kl = i / D, col = i % D;
-    if (k0 + kl >= N) continue;
+  // dck: each thread's column sums over its queries, then the 4 lanes of
+  // its row in a fixed xor order; each warp owns its keys of its head
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 1);
+    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 2);
+    const int key = k0 + kr0 + g + 8 * j;
+    if (t == 0 && key < N) dck[bh * N + key] = colsum[j];
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + kr0 + g + 8 * (i >> 1);
+      const int col = 8 * n + 2 * t + (i & 1);
+      if (col < DV && key < N) dvw[(bh * N + key) * DV + col] = acc_v[n][i];
+    }
+#pragma unroll
+  for (int j = 0; j < kTPW; ++j) {
+    const int tile = warp + 2 * H * j;
+    if (tile >= x_tiles) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + 16 * (tile & 1) + g + 8 * (i >> 1);
+      const int col = 8 * (tile >> 1) + 2 * t + (i & 1);
+      if (col < D && key < N)
+        dx[((size_t)b * N + key) * D + col] = acc_x[j][i];
+    }
+  }
+}
+
+// out[i] = sum_s parts[s * stride + i] over the splits in order, for the
+// three outputs of flash_bwd_k_hf_kernel laid out one after the other
+__global__ void sum_splits_kernel(const float* __restrict__ parts,
+                                  float* __restrict__ dvw,
+                                  float* __restrict__ dck,
+                                  float* __restrict__ dx, size_t n_dvw,
+                                  size_t n_dck, size_t n_dx, int splits) {
+  const size_t stride = n_dvw + n_dck + n_dx;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < stride;
+       i += (size_t)gridDim.x * blockDim.x) {
     float total = 0.f;
-    for (int hh = 0; hh < H; ++hh) total += part[(hh * kTile + kl) * D + col];
-    dx[((size_t)b * N + k0 + kl) * D + col] = total;
+    for (int s = 0; s < splits; ++s) total += parts[s * stride + i];
+    if (i < n_dvw)
+      dvw[i] = total;
+    else if (i < n_dvw + n_dck)
+      dck[i - n_dvw] = total;
+    else
+      dx[i - n_dvw - n_dck] = total;
   }
 }
 
@@ -603,12 +790,7 @@ size_t smem_q(int H, int D, int DV) {
           (size_t)H * kTile * kLDQ + (size_t)H * kQK + kQK);
 }
 
-size_t smem_k(int H, int D, int DV) {
-  return sizeof(float) *
-         ((size_t)(D + H * DV + H * D + H * DV) * kLD16 +
-          (size_t)kTile * kLD16 + 2 * (size_t)H * kTile * kLD16 +
-          (size_t)H * 6 * kTile + (size_t)H * kTile + kTile);
-}
+size_t smem_k(int H) { return sizeof(float) * k_smem_floats(H); }
 
 bool bad_shape(int B, int H, int N, int D, int DV) {
   return B <= 0 || H <= 0 || H > kMaxHeads || N <= 0 || D <= 0 ||
@@ -675,6 +857,9 @@ extern "C" int feta_flash_bwd_q_hf(const void* xa, const void* x,
   return (int)cudaGetLastError();
 }
 
+// With splits > 1 the query loop is split over that many blocks per key
+// tile; `scratch` holds splits x (B*H*N*DV + B*H*N + B*N*D) floats of
+// partials, summed in split order by a second launch (unused at 1).
 extern "C" int feta_flash_bwd_k_hf(const void* xa, const void* x,
                                    const void* cq, const void* ck,
                                    const void* c0, const void* vw,
@@ -683,18 +868,36 @@ extern "C" int feta_flash_bwd_k_hf(const void* xa, const void* x,
                                    const void* m, const void* ise,
                                    const void* qa, const void* beta,
                                    const void* c, void* dvw, void* dck,
-                                   void* dx, int B, int H, int N, int D,
-                                   int DV, float inv_sqrt, void* stream) {
-  if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_k(H, D, DV);
+                                   void* dx, void* scratch, int B, int H,
+                                   int N, int D, int DV, int splits,
+                                   float inv_sqrt, void* stream) {
+  if (bad_shape(B, H, N, D, DV) || splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // dx output tiles (2 x D8 / 8) over the 2H warps: kTPW a warp
+  const int tiles = 2 * ((D + 7) / 8), per = (tiles + 2 * H - 1) / (2 * H);
+  auto kernel = per <= 1   ? flash_bwd_k_hf_kernel<1>
+                : per <= 2 ? flash_bwd_k_hf_kernel<2>
+                : per <= 4 ? flash_bwd_k_hf_kernel<4>
+                           : flash_bwd_k_hf_kernel<8>;
+  const size_t smem = smem_k(H);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_k_hf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nk = (N + kTile - 1) / kTile;
-  flash_bwd_k_hf_kernel<<<B * nk, kGroup * H, smem, (cudaStream_t)stream>>>(
+  const int nk = (N + kKT7 - 1) / kKT7;
+  kernel<<<dim3(B * nk, splits), kGroup * H, smem, (cudaStream_t)stream>>>(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
-      (float*)dvw, (float*)dck, (float*)dx, H, N, D, DV, inv_sqrt);
+      (float*)dvw, (float*)dck, (float*)dx, (float*)scratch, H, N, D, DV,
+      inv_sqrt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const size_t n_dvw = (size_t)B * H * N * DV, n_dck = (size_t)B * H * N;
+  const size_t n_dx = (size_t)B * N * D, total = n_dvw + n_dck + n_dx;
+  const int blocks = (int)((total + 255) / 256);
+  sum_splits_kernel<<<blocks < 4096 ? blocks : 4096, 256, 0,
+                      (cudaStream_t)stream>>>(
+      (const float*)scratch, (float*)dvw, (float*)dck, (float*)dx, n_dvw,
+      n_dck, n_dx, splits);
   return (int)cudaGetLastError();
 }
 

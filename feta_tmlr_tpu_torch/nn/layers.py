@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from feta_tmlr_tpu_torch.ops.cheb import node_matmul
 from feta_tmlr_tpu_torch.ops.kernels.flash_attention import (
     flash_graphit_attention,
     flash_graphit_attention_heads,
@@ -187,14 +188,18 @@ class GraphiTEncoderLayer(nn.Module):
         v_nhd = torch.einsum("bnd,dhe->bnhe", x, wv) + bv    # [B,N,H,dh]
 
         impl = self.attention_impl
-        vw = lambda: torch.einsum("bmhe,hef->bhmf", v_nhd,
-                                  self.out_proj_kernel.reshape(h, dh, d))
+        # the output projection's weight gradient reduces over the B·N
+        # rows: node_matmul takes it in blocks (ops/cheb.py's note)
+        vw = lambda: node_matmul(v_nhd.transpose(1, 2),
+                                 self.out_proj_kernel.reshape(h, dh, d))
+        project = lambda heads: (node_matmul(heads.reshape(b, n, d),
+                                             self.out_proj_kernel)
+                                 + self.out_proj_bias)
         if need_heads and impl == "flash" and self.flash_need_heads:
             out_each_head, s = flash_graphit_attention_heads(
                 xa, x, c_q, c_k, c_0, v_nhd.transpose(1, 2), node_mask,
                 pe=pe, degree=degree, head_fold=self.head_fold)
-            attn_out = (out_each_head.reshape(b, n, d) @ self.out_proj_kernel
-                        + self.out_proj_bias)
+            attn_out = project(out_each_head)
             attn = AttnColStats(s=s)
         elif not need_heads and impl != "modulation":
             kw = {} if impl == "fused" else {"head_fold": self.head_fold}
@@ -214,8 +219,7 @@ class GraphiTEncoderLayer(nn.Module):
             if need_heads:
                 heads = torch.einsum("bhqk,bkhd->bhqd", attn, v_nhd)
                 out_each_head = heads.transpose(1, 2)        # [B,N,H,dh]
-                attn_out = (out_each_head.reshape(b, n, d)
-                            @ self.out_proj_kernel + self.out_proj_bias)
+                attn_out = project(out_each_head)
             else:
                 attn_out = torch.einsum("bhnm,bhmf->bnf", attn,
                                         vw()) + self.out_proj_bias

@@ -9,8 +9,11 @@ Kernels:
                        `_bwd_q_kernel_hf` and `_bwd_k_kernel_hf`: the same
                        three functions, one block per (graph, tile) for all
                        heads (the JAX package's FETA_FLASH_HEAD_FOLD=1).
-Their source notes say what bounds them (f32 arithmetic on CUDA cores) and
-how the design answers that.
+Their source notes say what bounds them and how the design answers that:
+the forwards and query passes take their products on CUDA cores in f32,
+the key passes on the tensor cores in error-compensated TF32
+(`csrc/mma_tf32.cuh`: three TF32 products per f32 product, float32
+accuracy).
 
 `flash_fwd`, `flash_bwd_q`, `flash_bwd_k` and their folded twins
 `flash_fwd_hf`, `flash_bwd_q_hf`, `flash_bwd_k_hf` are the wrappers: on a
@@ -59,6 +62,7 @@ class _Kernel(NamedTuple):
     n_ptrs: int                  # the entry point's pointer arguments
     dx_scratch: bool = False     # the k pass writes one dx partial a head
     max_heads: Optional[int] = None
+    splits: bool = False         # the folded k pass splits its query loop
 
 
 # wrapper name -> its kernel; the folded kernels run the heads side by side
@@ -71,8 +75,10 @@ _SYMBOLS = {
                             max_heads=8),
     "flash_bwd_q_hf": _Kernel("flash_hf", "feta_flash_bwd_q_hf", 17,
                               max_heads=8),
-    "flash_bwd_k_hf": _Kernel("flash_hf", "feta_flash_bwd_k_hf", 18,
-                              max_heads=8)}
+    "flash_bwd_k_hf": _Kernel("flash_hf", "feta_flash_bwd_k_hf", 19,
+                              max_heads=8, splits=True)}
+K_HF_KEYS = 32        # keys per block of the folded k pass
+K_HF_MAX_SPLITS = 4
 _fns = {}
 
 
@@ -81,7 +87,8 @@ def _kernel(name):
     if name not in _fns:
         k = _SYMBOLS[name]
         lib = build.load(k.source)
-        _fns[name] = (lib, bind(lib, k.symbol, k.n_ptrs, 5))
+        _fns[name] = (lib, bind(lib, k.symbol, k.n_ptrs,
+                                6 if k.splits else 5))
     return _fns[name]
 
 
@@ -220,9 +227,21 @@ def _launch_bwd_q(name, *args):
     return dxa, dcq
 
 
+def k_hf_splits(device, b, n):
+    """Blocks per key tile of the folded k pass, each over its share of
+    the query tiles: as many as keep the B * ceil(N / 32) key tiles times
+    the splits within one block per SM (its shared memory allows one), at
+    most K_HF_MAX_SPLITS. 2 at the training shape B=1, N=2048 on 132 SMs:
+    128 blocks, and no more L2 traffic than one block per key tile."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = b * -(-n // K_HF_KEYS)
+    return max(1, min(K_HF_MAX_SPLITS, sms // tiles))
+
+
 def _launch_bwd_k(name, *args):
     """The k pass; the unfolded kernel takes one dx partial per head as
-    scratch, the folded one sums the heads itself."""
+    scratch, the folded one sums the heads itself and takes the partials
+    of its query splits as scratch where it splits."""
     b, h, n, d, dv = _check_bwd(name, *args)
     xa, inv_sqrt = args[0], args[9]
     lib, fn = _kernel(name)
@@ -230,11 +249,18 @@ def _launch_bwd_k(name, *args):
     dvw = torch.empty((b, h, n, dv), dtype=torch.float32, device=dev)
     dck = torch.empty((b, h, n), dtype=torch.float32, device=dev)
     dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
-    scratch = [torch.empty((b, h, n, d), dtype=torch.float32, device=dev)
-               ] if _SYMBOLS[name].dx_scratch else []
+    f32 = dict(dtype=torch.float32, device=dev)
+    if _SYMBOLS[name].dx_scratch:
+        outs = (dvw, dck, torch.empty((b, h, n, d), **f32), dx)
+        ints = ()
+    else:
+        splits = k_hf_splits(dev, b, n)
+        parts = (torch.empty((splits * (b * h * n * (dv + 1) + b * n * d),),
+                             **f32) if splits > 1 else None)
+        outs, ints = (dvw, dck, dx, parts), (splits,)
     err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
-             ptr(dvw), ptr(dck), *(ptr(t) for t in scratch), ptr(dx), b, h,
-             n, d, dv, float(inv_sqrt), stream_ptr(dev))
+             *(ptr(t) for t in outs), b, h, n, d, dv, *ints,
+             float(inv_sqrt), stream_ptr(dev))
     check_launch(lib, err, name)
     return dvw, dck, dx
 
@@ -284,9 +310,10 @@ def flash_bwd_k_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
                    ise, qa, beta, c):
     """Head-folded key pass (`csrc/flash_hf.cu`, TPU `_bwd_k_kernel_hf`):
     the same function as `flash_bwd_k`, so its plain version is
-    `flash_bwd_k_plain`; one block per (graph, 16-key tile) for all heads
-    (H <= 8), which sums dx over the heads itself in a fixed order: one
-    launch, no per-head partials."""
+    `flash_bwd_k_plain`; one block per (graph, 32-key tile, query split)
+    for all heads (H <= 8), which sums dx over the heads itself in a fixed
+    order, no per-head partials; with several splits (`k_hf_splits`) a
+    second launch adds their partials in order."""
     args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
             beta, c)
     if not cuda_or_plain("flash_bwd_k_hf", xa):
