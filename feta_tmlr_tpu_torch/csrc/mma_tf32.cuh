@@ -92,10 +92,12 @@ struct FragB {
 // in the mma's accumulator over many k-steps, it moved the key passes'
 // gradients an order of magnitude further from float64 than the CPU's
 // float32 does (`chip_smoke.py --precision`, PERF.md); with a fresh
-// fragment for each k-step, dx and dck round like the CPU's; dvw stays up
-// to an order of magnitude off on some layers, likely because the tensor
-// cores align a k-step's 8 products before they add them and attn (which
-// carries pe·deg) spreads those over orders of magnitude.
+// fragment for each k-step, they come near the CPU's. What remains on some
+// layers (dvw up to an order of magnitude) is the recomputed score: the
+// forwards take s as an FMA chain on CUDA cores and their row statistics
+// m and se normalise exp(s - m), so a score recomputed here, a few ulp
+// off theirs, skews its row's attn. A forward on this header's score
+// product, taken in the same order, would remove it (PERF.md).
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
   float p[4] = {};
