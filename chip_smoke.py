@@ -164,7 +164,8 @@ PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
-# the key passes that run their products on the tensor cores in 3xTF32
+# the key passes, which take their score on the CUDA cores (the forwards'
+# FMA chain) and their other three products on the tensor cores in 3xTF32
 TENSOR_CORE_KERNELS = ("flash_bwd_k", "flash_bwd_k_hf")
 PAD_CYCLES = 2_000_000          # ~1 ms of device spin at the H100's clocks
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
@@ -404,21 +405,30 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_tc(flops, nbytes):
-    """The least time of the arithmetic that a 3xTF32 tensor-core kernel
-    issues (TF32_SPLIT products for each f32 one, against the TF32 peak),
-    or of its bytes: (ms, what bounds it)."""
-    t_ops, t_bytes = TF32_SPLIT * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+def bound_tc(flops, nbytes, fma_flops):
+    """The least time of the arithmetic that a key pass issues: `fma_flops`
+    (the score) as f32 FMAs on the CUDA cores and the rest as TF32_SPLIT
+    TF32 products for each f32 one on the tensor cores, the two units side
+    by side; or of its bytes: (ms, what bounds it)."""
+    t_ops = max(fma_flops / PEAK_F32_FLOPS,
+                TF32_SPLIT * (flops - fma_flops) / PEAK_TF32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def bounds_text(t, cost):
-    """A tensor-core kernel's time against both bounds: the f32 CUDA-core
-    bound and the 3xTF32 tensor-core bound, each with its share."""
-    (b32, by32), (btc, bytc) = bound(*cost), bound_tc(*cost)
-    return (f"bound f32 {b32:.4f} ms {by32} ({100 * b32 / t:.1f} %), bound "
-            f"3xTF32 {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %)")
+def k_pass_bounds(t, b, h, n, d, dv):
+    """A key pass's bounds: the arithmetic it issues (`bound_tc`), which
+    is its `bound_ms`, and all of it as f32 FMAs on the CUDA cores; the
+    fields of its JSON row and the text with each share of time `t`."""
+    cost = bwd_cost(b, h, n, d, dv, "k")
+    (b32, by32) = bound(*cost)
+    (btc, bytc) = bound_tc(*cost, 2.0 * b * h * n * n * d)
+    text = (f"bound {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %; CUDA-core "
+            f"score, 3xTF32 tensor-core products), f32 CUDA cores only "
+            f"{b32:.4f} ms {by32} ({100 * b32 / t:.1f} %)")
+    return dict(bound_ms=btc, bound_by=bytc, bound_tc_ms=btc,
+                bound_f32_ms=b32), text
 
 
 def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
@@ -533,20 +543,17 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                     errs[name] = max(errs[name], *each)
                     t_k = time_ms(lambda: kernel(*args))
                     t_p = time_ms(lambda: plain(*args))
-                    cost = bwd_cost(b, h, n, d, dv, name[-1])
-                    bnd, by = bound(*cost)
+                    bnd, by = bound(*bwd_cost(b, h, n, d, dv, name[-1]))
+                    row, text = dict(bound_ms=bnd, bound_by=by), (
+                        f"bound {bnd:.4f} ms {by}")
+                    if name in TENSOR_CORE_KERNELS:
+                        row, text = k_pass_bounds(t_k, b, h, n, d, dv)
                     line.append(
                         f"{name} err " + " ".join(
                             f"{o} {e:.3e}" for o, e in zip(outs, each))
-                        + f"; {t_k:.4f} ms (plain {t_p:.4f} ms, " + (
-                            bounds_text(t_k, cost)
-                            if name in TENSOR_CORE_KERNELS else
-                            f"bound {bnd:.4f} ms {by}") + ")")
+                        + f"; {t_k:.4f} ms (plain {t_p:.4f} ms, {text})")
                     if (b, n, pad) == shapes[0] and dv == 64:
-                        rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd,
-                                          bound_by=by)
-                        if name in TENSOR_CORE_KERNELS:
-                            rows[name]["bound_tc_ms"] = bound_tc(*cost)[0]
+                        rows[name] = dict(ms=t_k, plain_ms=t_p, **row)
             print("; ".join(line) + "; two runs of each bit-identical; "
                   "tolerance rtol 1e-4 atol 1e-5", flush=True)
     for name in rows:
@@ -593,20 +600,18 @@ def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
                                      for f in (kernel, twin, plain))
                 errs[name] = max(errs[name], *each)
                 bnd, by = bound(*cost)
+                row, text = dict(bound_ms=bnd, bound_by=by), (
+                    f"bound {bnd:.4f} ms {by}")
+                if name in TENSOR_CORE_KERNELS:
+                    row, text = k_pass_bounds(t_k, b, h, n, d, dv)
                 line.append(
                     f"{name} err " + " ".join(
                         f"{o} {e:.3e}" for o, e in zip(outs, each))
                     + f" (against the unfolded kernel {e_twin:.3e}); "
                     f"{t_k:.4f} ms (unfolded {t_u:.4f} ms, folded/unfolded "
-                    f"{t_k / t_u:.2f}, plain {t_p:.4f} ms, " + (
-                        bounds_text(t_k, cost)
-                        if name in TENSOR_CORE_KERNELS else
-                        f"bound {bnd:.4f} ms {by}") + ")")
+                    f"{t_k / t_u:.2f}, plain {t_p:.4f} ms, {text})")
                 if (b, n, pad) == shapes[0] and dv == 64:
-                    rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bnd,
-                                      bound_by=by)
-                    if name in TENSOR_CORE_KERNELS:
-                        rows[name]["bound_tc_ms"] = bound_tc(*cost)[0]
+                    rows[name] = dict(ms=t_k, plain_ms=t_p, **row)
             print("; ".join(line) + "; two runs of each bit-identical; "
                   "tolerance rtol 1e-4 atol 1e-5", flush=True)
     for name in rows:
@@ -2129,7 +2134,8 @@ def main() -> int:
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
                     bound_ms=rows[name]["bound_ms"],
                     bound_by=rows[name]["bound_by"], library_ms=None,
-                    **{k: rows[name][k] for k in ("bound_tc_ms",)
+                    **{k: rows[name][k]
+                       for k in ("bound_tc_ms", "bound_f32_ms")
                        if k in rows[name]})
                for name, (src, line) in meta.items()]
     print(json.dumps({"kernels": kernels}))

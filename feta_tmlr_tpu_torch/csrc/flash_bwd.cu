@@ -378,9 +378,13 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   const float c0h = op.c0[h];
   const int D8 = (D + 7) & ~7, DV8 = (DV + 7) & ~7;
 
-  // key-major accumulators (C fragments): keys kr0 + g (+8), columns
-  // 32 wq + 8 n + 2 t (+1)
-  float acc_v[4][4] = {}, acc_x[4][4] = {}, colsum[2] = {0.f, 0.f};
+  // the update products: warp (up, kh, ch) takes keys 32 kh .. + 31 (two
+  // m-tiles) and columns 32 ch .. + 31 (four n-tiles) of dvw (up = 0) or
+  // dx_h (up = 1); its accumulators are C fragments, keys 32 kh + 16 mt +
+  // g (+8), columns 32 ch + 8 n + 2 t (+1)
+  const int up = warp >> 2, kh = (warp >> 1) & 1, ch = warp & 1;
+  const int w8 = up ? D8 : DV8;
+  float acc[2][4][4] = {}, colsum[2] = {0.f, 0.f};
 
   const int nq = (N + kQT - 1) / kQT;
   for (int it = 0; it < nq; ++it) {
@@ -393,23 +397,36 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     const float* pes = gs + kQT * kLD64;
     const float* rcs = pes + kQT * kLDP;
 
-    // s^T and ga^T: the warp's 16 keys x 16 queries (2 n-tiles each), the
-    // two products' k-steps interleaved (4 independent accumulators) and
-    // unrolled to the widest width, so loads run ahead of the mma chain
+    // The warp's 16 keys x 16 queries: s^T as the forward's FMA chain
+    // (graphit_tile.cuh's dot4) at the thread's C-fragment positions, keys
+    // kr0 + g (+8) and queries 16 wq + 8 n + 2 t (+1), so that exp(s - m)
+    // / se is the forward's own; ga^T = vw g^T on the tensor cores (2
+    // n-tiles, K = DV). The two interleave, CUDA cores beside tensor cores.
     float s[2][4] = {}, ga[2][4] = {};
+    const float* krow = l.xs + (kr0 + g) * kLD64;
+    const float* qrow = xas + (16 * wq + 2 * t) * kLD64;
 #pragma unroll
     for (int kk = 0; kk < kMaxW; kk += 8) {
-      if (kk < D8) {
-        const tc::FragA a = tc::load_a(l.xs, kLD64, kr0, kk);
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-          tc::mma3(s[n], a, tc::load_b_nk(xas, kLD64, 16 * wq + 8 * n, kk));
-      }
       if (kk < DV8) {
         const tc::FragA a = tc::load_a(l.vws, kLD64, kr0, kk);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
           tc::mma3(ga[n], a, tc::load_b_nk(gs, kLD64, 16 * wq + 8 * n, kk));
+      }
+      if (kk < D8) {
+#pragma unroll
+        for (int k = kk; k < kk + 8; k += 4) {
+          const float4 kv[2] = {ld4(krow + k), ld4(krow + 8 * kLD64 + k)};
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int f = 0; f < 2; ++f) {
+              const float4 qv = ld4(qrow + (8 * n + f) * kLD64 + k);
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                s[n][2 * e + f] = dot4(qv, kv[e], s[n][2 * e + f]);
+            }
+        }
       }
     }
 #pragma unroll
@@ -432,30 +449,33 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
       }
     __syncthreads();  // attn^T and ds^T of the tile complete
 
-    // dvw[key, v] += sum_q attn^T[key, q] g[q, v] and dx_h[key, k] +=
-    // sum_q ds^T[key, q] xa[q, k]: the tile's sum into a fresh partial
-    // (flash_fwd.cu's note on summation order), one product at a time
+    // dvw[key, v] += sum_q attn^T[key, q] g[q, v] or dx_h[key, k] +=
+    // sum_q ds^T[key, q] xa[q, k], K = the tile's 32 queries: the tile's
+    // sum into a fresh partial (flash_fwd.cu's note on summation order);
+    // each B fragment serves both m-tiles
+    const float* at = up ? l.dss : l.ats;
+    const float* bm = up ? xas : gs;
+    float part[2][4][4] = {};
 #pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {
-      const float* at = pass ? l.dss : l.ats;
-      const float* bm = pass ? xas : gs;
-      const int w8 = pass ? D8 : DV8;
-      float part[4][4] = {};
+    for (int kk = 0; kk < kQT; kk += 8) {
+      const tc::FragA a0 = tc::load_a(at, kLDT, 32 * kh, kk);
+      const tc::FragA a1 = tc::load_a(at, kLDT, 32 * kh + 16, kk);
 #pragma unroll
-      for (int kk = 0; kk < kQT; kk += 8) {
-        const tc::FragA a = tc::load_a(at, kLDT, kr0, kk);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int c0 = 32 * wq + 8 * n;
-          if (c0 < w8) tc::mma3(part[n], a, tc::load_b_kn(bm, kLD64, kk, c0));
+      for (int n = 0; n < 4; ++n) {
+        const int c0 = 32 * ch + 8 * n;
+        if (c0 < w8) {
+          const tc::FragB bf = tc::load_b_kn(bm, kLD64, kk, c0);
+          tc::mma3(part[0][n], a0, bf);
+          tc::mma3(part[1][n], a1, bf);
         }
       }
-      float (&acc)[4][4] = pass ? acc_x : acc_v;
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
-    }
+        for (int i = 0; i < 4; ++i) acc[mt][n][i] += part[mt][n][i];
   }
 
   // dck: each thread's column sums over its queries, then the 4 lanes of
@@ -469,17 +489,19 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   __syncthreads();
   if (tid < kKT && k0 + tid < N)
     dck[bh * N + k0 + tid] = l.red[tid] + l.red[kKT + tid];
+  float* const out = up ? dx_heads : dvw;
+  const int width = up ? D : DV;
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + kr0 + g + 8 * (i >> 1);
-      const int col = 32 * wq + 8 * n + 2 * t + (i & 1);
-      if (key >= N) continue;
-      const size_t row = bh * N + key;
-      if (col < DV) dvw[row * DV + col] = acc_v[n][i];
-      if (col < D) dx_heads[row * D + col] = acc_x[n][i];
-    }
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 32 * kh + 16 * mt + g + 8 * (i >> 1);
+        const int col = 32 * ch + 8 * n + 2 * t + (i & 1);
+        if (key < N && col < width)
+          out[(bh * N + key) * width + col] = acc[mt][n][i];
+      }
 }
 
 // dx[b, n, k] = sum_h dx_heads[b, h, n, k], heads added in order 0..H-1.

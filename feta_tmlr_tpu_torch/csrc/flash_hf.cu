@@ -85,8 +85,10 @@
 
 namespace {
 
+using graphit::dot4;
 using graphit::grad_score;
 using graphit::kEps;
+using graphit::ld4;
 using graphit::score;
 
 constexpr int kGX = 16;                   // lanes along keys / columns
@@ -654,15 +656,31 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
     const float* pes = st + 2 * H * kQT7 * kLD64;
     const float* rcs = pes + kQT7 * kLDP7 + h * kNRC * kQT7;
 
-    float s2[2][4] = {}, ga2[2][4] = {};
+    // s^T as the forward's FMA chain (graphit_tile.cuh's dot4; the
+    // forward's micro_dot) at the thread's C-fragment positions, keys
+    // kr0 + g (+8) and queries 2 t (+1); ga^T = vw_h g_h^T on the tensor
+    // cores (even and odd k-steps in two accumulators)
+    float s[4] = {}, ga2[2][4] = {};
+    const float* krow = xs + (kr0 + g) * kLD64;
+    const float* qrow = xas + 2 * t * kLD64;
 #pragma unroll
     for (int kk = 0; kk < kMaxW; kk += 8) {
-      if (kk < D8)
-        tc::mma3(s2[(kk / 8) & 1], tc::load_a(xs, kLD64, kr0, kk),
-                 tc::load_b_nk(xas, kLD64, 0, kk));
       if (kk < DV8)
         tc::mma3(ga2[(kk / 8) & 1], tc::load_a(hvw, kLD64, kr0, kk),
                  tc::load_b_nk(gs, kLD64, 0, kk));
+      if (kk < D8) {
+#pragma unroll
+        for (int k = kk; k < kk + 8; k += 4) {
+          const float4 kv[2] = {ld4(krow + k), ld4(krow + 8 * kLD64 + k)};
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const float4 qv = ld4(qrow + f * kLD64 + k);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s[2 * e + f] = dot4(qv, kv[e], s[2 * e + f]);
+          }
+        }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -670,11 +688,10 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
       float d = 0.f, attn = 0.f;
       if (k0 + kl < N && q0 + ql < N) {
         const float pd = (pe_b ? pes[ql * kLDP7 + kl] : 1.f) * dgs[kl];
-        d = grad_score(s2[0][i] + s2[1][i], rcs[ql], cks[h * kKT7 + kl],
-                       c0h, inv_sqrt, kms[kl], rcs[kQT7 + ql],
-                       rcs[2 * kQT7 + ql], rcs[3 * kQT7 + ql],
-                       rcs[4 * kQT7 + ql], rcs[5 * kQT7 + ql], pd,
-                       ga2[0][i] + ga2[1][i], attn);
+        d = grad_score(s[i], rcs[ql], cks[h * kKT7 + kl], c0h, inv_sqrt,
+                       kms[kl], rcs[kQT7 + ql], rcs[2 * kQT7 + ql],
+                       rcs[3 * kQT7 + ql], rcs[4 * kQT7 + ql],
+                       rcs[5 * kQT7 + ql], pd, ga2[0][i] + ga2[1][i], attn);
       }
       colsum[i >> 1] += d;
       at_w[(kl - kr0) * kLDT7 + ql] = attn;

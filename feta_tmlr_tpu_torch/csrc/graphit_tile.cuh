@@ -1,7 +1,7 @@
 // Score tiles of GraphiT attention, shared by flash_fwd.cu, flash_bwd.cu,
 // colstat.cu and flash_hf.cu (which uses only the score functions); the
-// key passes take only `score` / `grad_score` (their products run on the
-// tensor cores, mma_tf32.cuh).
+// key passes take `dot4`, `score` and `grad_score` (their other products
+// run on the tensor cores, mma_tf32.cuh).
 //
 // One 256-thread block works on a 64-query x 64-key tile. Thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows ty + 16 i and key columns
@@ -63,6 +63,21 @@ __device__ __forceinline__ void tile_dot(const float* xaT, const float* xT,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
+}
+
+// s + q·k over four consecutive k, one FMA at a time in order: called for
+// k = 0, 4, ... from s = 0 it is `tile_dot`'s chain (and flash_hf.cu's
+// `micro_dot`'s) bit for bit, so a backward pass that recomputes the score
+// with it gets the forward's score exactly (columns past D must be zero).
+__device__ __forceinline__ float dot4(float4 q, float4 k, float s) {
+  s = fmaf(q.x, k.x, s);
+  s = fmaf(q.y, k.y, s);
+  s = fmaf(q.z, k.z, s);
+  return fmaf(q.w, k.w, s);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float score(float dot, float cq, float ck,

@@ -79,6 +79,18 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d = a·b, into a fresh accumulator (C = 0)
+__device__ __forceinline__ void mma_fresh(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
 struct FragA {
   uint32_t hi[4], lo[4];
 };
@@ -92,16 +104,15 @@ struct FragB {
 // in the mma's accumulator over many k-steps, it moved the key passes'
 // gradients an order of magnitude further from float64 than the CPU's
 // float32 does (`chip_smoke.py --precision`, PERF.md); with a fresh
-// fragment for each k-step, they come near the CPU's. What remains on some
-// layers (dvw up to an order of magnitude) is the recomputed score: the
-// forwards take s as an FMA chain on CUDA cores and their row statistics
-// m and se normalise exp(s - m), so a score recomputed here, a few ulp
-// off theirs, skews its row's attn. A forward on this header's score
-// product, taken in the same order, would remove it (PERF.md).
+// fragment for each k-step, they come near the CPU's. The key passes do
+// not take their score s from here: the forwards' row statistics m and se
+// normalise exp(s - m) for their own FMA-chain score, and a score a few
+// ulp off theirs skews its row's attn (dvw up to an order of magnitude
+// further from float64, PERF.md), so the passes repeat that chain.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
-  float p[4] = {};
-  mma(p, a.lo, b.hi);
+  float p[4];
+  mma_fresh(p, a.lo, b.hi);
   mma(p, a.hi, b.lo);
   mma(p, a.hi, b.hi);
 #pragma unroll

@@ -78,7 +78,11 @@ class NodeMatmul(torch.autograd.Function):
 
 def node_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with every contraction over the node axis in blocks of
-    NODE_BLOCK rows, forward and backward."""
+    NODE_BLOCK rows, forward and backward. Where no contraction is longer
+    than one block (small graphs, as ZINC's), it is the plain product with
+    autograd's own backward: one op, no pads or reshapes."""
+    if max(a.shape[-2], a.shape[-1], b.shape[-1]) <= NODE_BLOCK:
+        return a @ b
     return NodeMatmul.apply(a, b)
 
 

@@ -11,7 +11,8 @@ Kernels:
                        heads (the JAX package's FETA_FLASH_HEAD_FOLD=1).
 Their source notes say what bounds them and how the design answers that:
 the forwards and query passes take their products on CUDA cores in f32,
-the key passes on the tensor cores in error-compensated TF32
+the key passes their score likewise (the forwards' FMA chain, bit for bit)
+and their other products on the tensor cores in error-compensated TF32
 (`csrc/mma_tf32.cuh`: three TF32 products per f32 product, float32
 accuracy).
 

@@ -224,9 +224,10 @@ def test_backward_probe_float32_against_float64(setting):
 @pytest.mark.parametrize("m,k,n", [(48, 64, 8), (200, 200, 8),
                                    (2048, 2048, 8)])
 def test_node_matmul_matches_float64(m, k, n):
-    """The blocked product: forward and both gradients equal the plain
+    """The node product: forward and both gradients equal the plain
     product in float64, and in float32 each lies within the kernels'
-    tolerance of float64, the broadcast Lhat [B, 1, N, N] included."""
+    tolerance of float64, the broadcast Lhat [B, 1, N, N] included (the
+    first case, within one block, takes the plain product)."""
     rng = np.random.default_rng(m + k)
     a64 = torch.from_numpy(rng.standard_normal((2, 1, m, k)) / np.sqrt(k))
     b64 = torch.from_numpy(rng.standard_normal((2, 3, k, n)))
