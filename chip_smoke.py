@@ -12,8 +12,9 @@ Phases (any failure raises and the script exits non-zero):
      slices' shapes, printing the largest absolute error, the kernel's and
      the plain version's median device milliseconds (CUDA events, each call
      queued behind ~1 ms of device spin; see `time_ms`) and the bound (the
-     two key passes, which run on the tensor cores in 3xTF32, also against
-     that arithmetic's bound, and the folded ones against the unfolded):
+     four backward passes, which run on the tensor cores in 3xTF32, also
+     against that arithmetic's bound, and the folded ones against the
+     unfolded):
      the attention kernels at H=8, N=1024, D=64, value widths 64 and 8
      (B=4, the training batch, and B=8, the serving batch) and at a ragged
      N=200 with B=8 and at the ZINC batch (B=128, N=48), with padded
@@ -164,9 +165,11 @@ PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
-# the key passes, which take their score on the CUDA cores (the forwards'
-# FMA chain) and their other three products on the tensor cores in 3xTF32
-TENSOR_CORE_KERNELS = ("flash_bwd_k", "flash_bwd_k_hf")
+# the backward passes, which take their score on the CUDA cores (the
+# forwards' FMA chain) and their other products (the query passes two, the
+# key passes three) on the tensor cores in 3xTF32
+TENSOR_CORE_KERNELS = ("flash_bwd_q", "flash_bwd_k", "flash_bwd_q_hf",
+                       "flash_bwd_k_hf")
 PAD_CYCLES = 2_000_000          # ~1 ms of device spin at the H100's clocks
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
 # CUDA vs the CPU path after 10 layers. Through the randomly initialised SBM
@@ -406,10 +409,10 @@ def bound(flops, nbytes):
 
 
 def bound_tc(flops, nbytes, fma_flops):
-    """The least time of the arithmetic that a key pass issues: `fma_flops`
-    (the score) as f32 FMAs on the CUDA cores and the rest as TF32_SPLIT
-    TF32 products for each f32 one on the tensor cores, the two units side
-    by side; or of its bytes: (ms, what bounds it)."""
+    """The least time of the arithmetic that a backward pass issues:
+    `fma_flops` (the score) as f32 FMAs on the CUDA cores and the rest as
+    TF32_SPLIT TF32 products for each f32 one on the tensor cores, the two
+    units side by side; or of its bytes: (ms, what bounds it)."""
     t_ops = max(fma_flops / PEAK_F32_FLOPS,
                 TF32_SPLIT * (flops - fma_flops) / PEAK_TF32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
@@ -417,11 +420,12 @@ def bound_tc(flops, nbytes, fma_flops):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k_pass_bounds(t, b, h, n, d, dv):
-    """A key pass's bounds: the arithmetic it issues (`bound_tc`), which
-    is its `bound_ms`, and all of it as f32 FMAs on the CUDA cores; the
-    fields of its JSON row and the text with each share of time `t`."""
-    cost = bwd_cost(b, h, n, d, dv, "k")
+def pass_bounds(t, b, h, n, d, dv, which):
+    """A backward pass's bounds (`which`: "q" or "k"): the arithmetic it
+    issues (`bound_tc`), which is its `bound_ms`, and all of it as f32 FMAs
+    on the CUDA cores; the fields of its JSON row and the text with each
+    share of time `t`."""
+    cost = bwd_cost(b, h, n, d, dv, which)
     (b32, by32) = bound(*cost)
     (btc, bytc) = bound_tc(*cost, 2.0 * b * h * n * n * d)
     text = (f"bound {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %; CUDA-core "
@@ -519,7 +523,7 @@ def bwd_inputs(seed, b, h, n, d, dv, pad, device, guard_rows=8):
 def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
     """Phase 3, backward: flash_bwd_q / flash_bwd_k vs their plain
     versions, two runs of each bit-identical; returns the JSON rows like
-    `check_kernels` (the key pass's with its 3xTF32 bound too)."""
+    `check_kernels` (with the bound of their 3xTF32 arithmetic too)."""
     rows = {}
     errs = {"flash_bwd_q": 0.0, "flash_bwd_k": 0.0}
     passes = {"flash_bwd_q": (fl_mod.flash_bwd_q, fl_mod.flash_bwd_q_plain),
@@ -547,7 +551,8 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                     row, text = dict(bound_ms=bnd, bound_by=by), (
                         f"bound {bnd:.4f} ms {by}")
                     if name in TENSOR_CORE_KERNELS:
-                        row, text = k_pass_bounds(t_k, b, h, n, d, dv)
+                        row, text = pass_bounds(t_k, b, h, n, d, dv,
+                                                name[-1])
                     line.append(
                         f"{name} err " + " ".join(
                             f"{o} {e:.3e}" for o, e in zip(outs, each))
@@ -603,7 +608,8 @@ def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
                 row, text = dict(bound_ms=bnd, bound_by=by), (
                     f"bound {bnd:.4f} ms {by}")
                 if name in TENSOR_CORE_KERNELS:
-                    row, text = k_pass_bounds(t_k, b, h, n, d, dv)
+                    row, text = pass_bounds(t_k, b, h, n, d, dv,
+                                            name.split("_")[2])
                 line.append(
                     f"{name} err " + " ".join(
                         f"{o} {e:.3e}" for o, e in zip(outs, each))
@@ -1779,7 +1785,9 @@ def precision_probe(device):
     `--rounding` parity step (its model, one graph) on the canonical LapPE
     signs and on the sign patterns of PROBE_PATTERNS, part by part
     (`backward_probe`), and that step's error under four summation orders
-    (`step_spread`)."""
+    (`step_spread`). The "r4" setting's filtered layer (the score route:
+    its products over the keys in blocks, `ops/cheb.py`) is probed beside
+    it, forward and backward."""
     graphs = make_graphs(2, LARGE_N)
     collate = dict(max_nodes=LARGE_N, node_labels=True)
     model = DiffGraphTransformerGenGCNSBM(
@@ -1799,29 +1807,16 @@ def precision_probe(device):
               "cpu32": ("cpu", torch.float32, contextlib.nullcontext),
               "cuda": (device, torch.float32, contextlib.nullcontext),
               "cuda_plain": (device, torch.float32, plain_kernels)}
-    f32 = list(routes)[1:]
-    steps = ("attention", "ff1", "ff2", "out")
-    for i, (args, kwargs) in enumerate(layer_inputs):
-        got = {}
-        for route, (dev, dtype, ctx) in routes.items():
-            layer = copy.deepcopy(model.encoder.layers[i]).to(dev, dtype)
-            seen = []   # what the dropouts see: attn_out, relu(ff1), ff2
-            layer.dropout.register_forward_hook(
-                lambda mod, a, out: seen.append(out))
-            cast = [t.to(dev, dtype) if torch.is_tensor(t)
-                    and t.is_floating_point() else
-                    t.to(dev) if torch.is_tensor(t) else t for t in args]
-            with torch.inference_mode(), ctx():
-                out = layer(*cast, **kwargs)[0]
-            got[route] = [t.double().cpu() for t in seen + [out]]
-        errs = {r: [float((g - w).abs().max() / w.abs().max())
-                    for g, w in zip(got[r], got["cpu64"])] for r in f32}
-        ratio = [c / max(q, 1e-30) for c, q in zip(errs["cuda"],
-                                                   errs["cpu32"])]
-        print(f"precision N={LARGE_N} layer {i}: " + "; ".join(
-            f"{st} " + ", ".join(f"{r} {errs[r][k]:.3e}" for r in f32)
-            + f" (cuda/cpu32 {ratio[k]:.2f})"
-            for k, st in enumerate(steps)), flush=True)
+    for i, inputs in enumerate(layer_inputs):
+        layer_probe(model.encoder.layers[i], inputs, routes,
+                    f"precision N={LARGE_N} layer {i}")
+    # the "r4" filtered layer (the last) from the same float64 inputs
+    r4_kw = dict(**MODEL_CFG, **LARGE_SETTINGS["r4"], device=device)
+    model_r4 = DiffGraphTransformerGenGCNSBM(**r4_kw, seed=0)
+    model_r4.load_state_dict(model.state_dict())
+    last = len(layer_inputs) - 1
+    layer_probe(model_r4.encoder.layers[last], layer_inputs[last], routes,
+                f"precision N={LARGE_N} r4 filtered layer {last}")
     pred = Predictor(model, device=device, max_batch=2, node_level=True,
                      collate_kwargs=collate)
     errs = logits_errors(model, graphs, collate,
@@ -1834,12 +1829,48 @@ def precision_probe(device):
     step_model = DiffGraphTransformerGenGCNSBM(
         **MODEL_CFG, **LARGE_SETTINGS["fold"], seed=1, device=device)
     cfg = TrainConfig(regularization=0.1, sign_flip=False)
+    step_r4 = DiffGraphTransformerGenGCNSBM(**r4_kw, seed=1)
     for p in PROBE_PATTERNS:
         label = f"N={LARGE_N} pattern {p if p else 'canonical'}"
         one = sign_pattern(graphs, p)[:1]
         backward_probe(step_model, one, collate, cfg, routes, label)
+        backward_probe(step_r4, one, collate, cfg, routes, f"{label} r4",
+                       names=[f"encoder.layers.{last}"])
         step_spread(step_model, one, device, collate, cfg, STEP_PARAMS,
                     label)
+
+
+def layer_probe(layer, inputs, routes, label):
+    """One GraphiT layer re-run from float64 inputs (args, kwargs) on each
+    route of `routes` (the first the float64 reference): what it computes
+    (its attention output, the FFN's two products, its output) against
+    the reference, max abs err / max |float64|, with each "cuda" error
+    over "cpu32"'s."""
+    args, kwargs = inputs
+    f32 = list(routes)[1:]
+    steps = ("attention", "ff1", "ff2", "out")
+    got = {}
+    for route, (dev, dtype, ctx) in routes.items():
+        mod = copy.deepcopy(layer).to(dev, dtype)
+        seen = []   # what the dropouts see: attn_out, relu(ff1), ff2
+        mod.dropout.register_forward_hook(
+            lambda m, a, out: seen.append(out))
+        cast = [t.to(dev, dtype) if torch.is_tensor(t)
+                and t.is_floating_point() else
+                t.to(dev) if torch.is_tensor(t) else t for t in args]
+        with torch.inference_mode(), ctx():
+            out = mod(*cast, **kwargs)[0]
+        got[route] = [t.double().cpu() for t in seen + [out]]
+    ref = list(routes)[0]
+    errs = {r: [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got[r], got[ref])] for r in f32}
+    ratio = [c / max(q, 1e-30) for c, q in zip(errs["cuda"],
+                                               errs["cpu32"])]
+    print(f"{label}: " + "; ".join(
+        f"{st} " + ", ".join(f"{r} {errs[r][k]:.3e}" for r in f32)
+        + f" (cuda/cpu32 {ratio[k]:.2f})"
+        for k, st in enumerate(steps)), flush=True)
+    return errs
 
 
 # what the backward probe holds to float64 in each part of the model: the
@@ -1877,19 +1908,24 @@ def capture_parts(model, parts):
     """Record, during one forward and backward of `model`, each part's
     inputs and the cotangents of its outputs: parts[name] = dict(args,
     kwargs, grad_in, cot). A part is a submodule by its dotted name, or
-    "encoder.cheb_filter", the Chebyshev filter function of the encoder."""
+    "encoder.cheb_filter", the Chebyshev filter function of the encoder.
+    The part hands on views of its outputs, whose hooks see only the
+    cotangent from outside it (the "r4" filtered layer returns its
+    attention, which it also multiplies by v itself)."""
     def record(name, args, kwargs, out):
         keep = lambda t: t.detach().clone() if torch.is_tensor(t) else t
         entry = dict(args=[keep(a) for a in args],
                      kwargs={k: keep(v) for k, v in kwargs.items()},
                      grad_in=[torch.is_tensor(a) and a.requires_grad
                               for a in args], cot={})
-        outs = out if isinstance(out, tuple) else (out,)
+        outs = list(out) if isinstance(out, tuple) else [out]
         for k, t in enumerate(outs):
             if torch.is_tensor(t) and t.requires_grad:
-                t.register_hook(lambda g, k=k: entry["cot"].__setitem__(
-                    k, g.detach().clone()))
+                outs[k] = t.view_as(t)
+                outs[k].register_hook(lambda g, k=k: entry["cot"].
+                                      __setitem__(k, g.detach().clone()))
         parts[name] = entry
+        return tuple(outs) if isinstance(out, tuple) else outs[0]
 
     hooks = [model.get_submodule(name).register_forward_hook(
         lambda mod, args, kwargs, out, name=name:
@@ -1898,9 +1934,7 @@ def capture_parts(model, parts):
     inner = feta_mod.cheb_filter_dynamic
 
     def cheb(*args):
-        out = inner(*args)
-        record("encoder.cheb_filter", args, {}, out)
-        return out
+        return record("encoder.cheb_filter", args, {}, inner(*args))
 
     feta_mod.cheb_filter_dynamic = cheb
     try:
@@ -1941,7 +1975,8 @@ def rerun_backward(initial, name, entry, device, dtype, ctx):
     return {k: v.detach().double().cpu() for k, v in grads.items()}
 
 
-def backward_probe(initial, graphs, collate, cfg, routes, label):
+def backward_probe(initial, graphs, collate, cfg, routes, label,
+                   names=None):
     """Where float32 rounding enters a training step's backward. One step
     of `initial` in float64 on the CPU (Trainer.step, so the loss is the
     step's) records each part's inputs and output cotangents; each part's
@@ -1953,11 +1988,11 @@ def backward_probe(initial, graphs, collate, cfg, routes, label):
     parameter gradients must equal the float64 step's own. Returns
     {part: {gradient: {route: error}}} and prints one line a part
     with each float32 route's error and, for "cuda", its ratio to
-    "cpu32"."""
+    "cpu32". `names` picks the parts (default: every one)."""
     batch = collate_graphs(graphs, **collate)
     model = copy.deepcopy(initial).to("cpu", torch.float64)
     n_layers = len(model.encoder.layers)
-    names = [f"encoder.layers.{i}" for i in range(n_layers)] + [
+    names = names or [f"encoder.layers.{i}" for i in range(n_layers)] + [
         "encoder.coeff_head", "encoder.cheb_filter", "encoder.linear_cat",
         "classifier"]
     parts = dict.fromkeys(names)
@@ -2112,10 +2147,10 @@ def main() -> int:
     pallas = "feta_tmlr_tpu/ops/pallas/"
     meta = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:95"),
             "colstat": ("colstat.cu", "flash_attention.py:776"),
-            "flash_bwd_q": ("flash_bwd.cu", "flash_attention.py:528"),
+            "flash_bwd_q": ("bwd_q.cuh", "flash_attention.py:528"),
             "flash_bwd_k": ("flash_bwd.cu", "flash_attention.py:556"),
             "flash_fwd_hf": ("flash_hf.cu", "flash_attention.py:163"),
-            "flash_bwd_q_hf": ("flash_hf.cu", "flash_attention.py:268"),
+            "flash_bwd_q_hf": ("bwd_q.cuh", "flash_attention.py:268"),
             "flash_bwd_k_hf": ("flash_hf.cu", "flash_attention.py:310"),
             "fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:58"),
             "fused_mlp_bwd": ("fused_mlp.cu", "fused_mlp.py:70"),

@@ -27,22 +27,20 @@
 // 2·N²·(2D + DV) flops and the k pass 2·N²·(2D + 2DV); the bytes they must
 // move are a few percent of what the card streams in that time.
 //
-// The q pass runs on CUDA cores in full f32 against 67 TFLOP/s, as the
-// forward does (flash_fwd.cu): 64x64 tiles, 256 threads, each thread
-// owning 4x4 register micro-tiles, operands staged transposed in shared
-// memory with a padded stride, each tile product one k-loop of FMAs. Such
-// a micro-tile reads 8 shared words for 16 FMAs; at 32 words a clock
-// against 128 FMAs an SM, that caps it near half the f32 peak.
+// The q pass is bwd_q.cuh's kernel on the unfolded grid (its note): one
+// block of 8 warps per (b, 64-query tile, h) over 32-key tiles, the score
+// as the forwards' FMA chain, ga and dxa on the tensor cores in 3xTF32.
 //
-// The k pass runs its four products on the tensor cores in error-
-// compensated TF32 (mma_tf32.cuh: each f32 product as three TF32 products,
-// lo·hi + hi·lo + hi·hi, f32 accumulators; float32 accuracy). One block of
+// The k pass takes its score as the forwards' FMA chain on the CUDA cores
+// and its other three products on the tensor cores in error-compensated
+// TF32 (mma_tf32.cuh: each f32 product as three TF32 products, lo·hi +
+// hi·lo + hi·hi, f32 accumulators; float32 accuracy). One block of
 // 256 threads (8 warps) per (b, 64-key tile, h) loops over 32-query tiles,
 // which cp.async stages into a two-stage ring while the previous tile
 // computes: xa, g and pe rows of 64 floats (padded to 68, so fragment loads
 // hit distinct banks) and the six row constants. Warp w owns the 16 keys
-// 16 (w % 4) .. + 15 of every product (the mma's M): the score products
-// s^T = x xa^T and ga^T = vw g^T over its 16 queries 16 (w / 4) .. + 15
+// 16 (w % 4) .. + 15 of every product (the mma's M): the score s^T = x
+// xa^T and the product ga^T = vw g^T over its 16 queries 16 (w / 4) .. + 15
 // (K = D, DV), the elementwise ds and attn in the accumulators' registers,
 // written to shared memory as attn^T and ds^T [keys][queries], then the
 // update products dvw += attn^T g and dx_h += ds^T xa over its 32 output
@@ -70,10 +68,10 @@
 // tile, h) for the k pass, h fastest, so the H blocks that read the same
 // pe tile run together and find it in L2. Each block loops over the other
 // axis itself, so dcq and dck are complete inside one block (dck sums each
-// thread's queries, then the 4 lanes of a row and the two query halves, in
-// a fixed order). Ragged N: rows and keys >= N contribute exactly 0 and
-// are not stored; padded queries inside N have qa = 0 and r = 0, so ds = 0
-// there without a special case.
+// thread's queries tile by tile into a graphit::RunSum, then the 4 lanes
+// of a row and the two query halves, in a fixed order). Ragged N: rows and
+// keys >= N contribute exactly 0 and are not stored; padded queries inside
+// N have qa = 0 and r = 0, so ds = 0 there without a special case.
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
@@ -81,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bwd_q.cuh"
 #include "graphit_tile.cuh"
 #include "mma_tf32.cuh"
 
@@ -89,166 +88,6 @@ namespace {
 using namespace graphit;
 
 constexpr int kMaxW = 64;           // D and DV at most 64
-constexpr int kOut = kMaxW / kTX;   // output columns per thread
-
-__device__ __forceinline__ void stage_keys(float* ps, float* cks, float* dgs,
-                                           float* kms, const float* pe_b,
-                                           const float* ck_bh,
-                                           const float* deg_b,
-                                           const float* mask_b, int q0,
-                                           int k0, int N, int tid,
-                                           bool stage_key_vectors) {
-  for (int i = tid; i < kBQ * kBK; i += kThreads) {
-    const int r = i / kBK, c = i % kBK, q = q0 + r, key = k0 + c;
-    float p = 0.f;
-    if (q < N && key < N) p = pe_b ? pe_b[(size_t)q * N + key] : 1.f;
-    ps[r * kLDK + c] = p;
-  }
-  if (stage_key_vectors && tid < kBK) {
-    const int key = k0 + tid;
-    const bool in = key < N;
-    cks[tid] = in ? ck_bh[key] : 0.f;
-    dgs[tid] = in ? (deg_b ? deg_b[key] : 1.f) : 0.f;
-    kms[tid] = in ? mask_b[key] : 0.f;
-  }
-}
-
-struct Operands {
-  const float *xa, *x, *cq, *ck, *c0, *vw, *pe, *deg, *mask, *g;
-  const float *m, *ise, *qa, *beta, *c;
-};
-
-// At most 128 registers, so that two 256-thread blocks share an SM (84 KB
-// of shared memory each). Left free, ptxas takes 151 and fits only one
-// block, which ran slower on the H100 than this cap with its 12-byte spill
-// (PERF.md).
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_q_kernel(Operands op, float* __restrict__ dxa,
-                   float* __restrict__ dcq, int H, int N, int D, int DV,
-                   float inv_sqrt) {
-  extern __shared__ float smem[];
-  float* xaT = smem;                    // [D][kLDQ]   query tile
-  float* gT = xaT + D * kLDQ;           // [DV][kLDQ]  its cotangent
-  float* xT = gT + DV * kLDQ;           // [D][kLDK]   key tile
-  float* vwT = xT + D * kLDK;           // [DV][kLDK]  its values
-  float* ps = vwT + DV * kLDK;          // [kBQ][kLDK] pe tile, then ds
-  float* cks = ps + kBQ * kLDK;         // [kBK]
-  float* dgs = cks + kBK;               // [kBK]
-  float* kms = dgs + kBK;               // [kBK]
-
-  const int nq = (N + kBQ - 1) / kBQ;
-  int bid = blockIdx.x;
-  const int h = bid % H;
-  bid /= H;
-  const int q0 = (bid % nq) * kBQ;
-  const int b = bid / nq;
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
-
-  const size_t bh = (size_t)b * H + h;
-  const float* x_b = op.x + (size_t)b * N * D;
-  const float* vw_bh = op.vw + bh * N * DV;
-  const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
-  const float* deg_b = op.deg ? op.deg + (size_t)b * N : nullptr;
-  const float* mask_b = op.mask + (size_t)b * N;
-  const float* ck_bh = op.ck + bh * N;
-
-  stage_transposed(xaT, kLDQ, op.xa + bh * N * D, q0, N, D, tid);
-  stage_transposed(gT, kLDQ, op.g + bh * N * DV, q0, N, DV, tid);
-  float cq_r[kRows], m_r[kRows], ise_r[kRows], qa_r[kRows], beta_r[kRows],
-      c_r[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int q = q0 + ty + kTY * i;
-    const bool in = q < N;
-    const size_t row = bh * N + q;
-    cq_r[i] = in ? op.cq[row] : 0.f;
-    m_r[i] = in ? op.m[row] : 0.f;
-    ise_r[i] = in ? op.ise[row] : 0.f;
-    qa_r[i] = in ? op.qa[row] : 0.f;
-    beta_r[i] = in ? op.beta[row] : 0.f;
-    c_r[i] = in ? op.c[row] : 0.f;
-  }
-  const float c0h = op.c0[h];
-
-  float acc[kRows][kOut], dsum[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    dsum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_transposed(xT, kLDK, x_b, k0, N, D, tid);
-    stage_transposed(vwT, kLDK, vw_bh, k0, N, DV, tid);
-    stage_keys(ps, cks, dgs, kms, pe_b, ck_bh, deg_b, mask_b, q0, k0, N,
-               tid, true);
-    __syncthreads();
-
-    float s[kRows][kCols], ga[kRows][kCols];
-    tile_dot(xaT, xT, D, tx, ty, s);
-    tile_dot(gT, vwT, DV, tx, ty, ga);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kTY * i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + kTX * j;
-        float d = 0.f, attn = 0.f;
-        if (q0 + r < N && k0 + c < N)
-          d = grad_score(s[i][j], cq_r[i], cks[c], c0h, inv_sqrt, kms[c],
-                         m_r[i], ise_r[i], qa_r[i], beta_r[i], c_r[i],
-                         ps[r * kLDK + c] * dgs[c], ga[i][j], attn);
-        dsum[i] += d;
-        ps[r * kLDK + c] = d;  // only this thread touches (r, c)
-      }
-    }
-    __syncthreads();  // ds complete
-
-    // dxa[r, k] += sum_c ds[r, c] * x[c, k]; x read from its transposed
-    // tile; the tile's sum into a fresh partial (flash_fwd.cu's note)
-    float part[kRows][kOut] = {};
-    for (int c = 0; c < kBK; ++c) {
-      float p[kRows], xv[kOut];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = ps[(ty + kTY * i) * kLDK + c];
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int k = tx + kTX * j;
-        xv[j] = k < D ? xT[k * kLDK + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          part[i][j] = fmaf(p[i], xv[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) acc[i][j] += part[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    // the 16 threads sharing row r are 16 consecutive lanes of a warp
-#pragma unroll
-    for (int off = kTX / 2; off > 0; off >>= 1)
-      dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], off);
-    const int q = q0 + ty + kTY * i;
-    if (q >= N) continue;
-    const size_t row = bh * N + q;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int k = tx + kTX * j;
-      if (k < D) dxa[row * D + k] = acc[i][j];
-    }
-    if (tx == 0) dcq[row] = dsum[i];
-  }
-}
 
 // The key pass on the tensor cores (the design in the note above).
 constexpr int kKT = 64;                  // keys per block
@@ -384,7 +223,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   // g (+8), columns 32 ch + 8 n + 2 t (+1)
   const int up = warp >> 2, kh = (warp >> 1) & 1, ch = warp & 1;
   const int w8 = up ? D8 : DV8;
-  float acc[2][4][4] = {}, colsum[2] = {0.f, 0.f};
+  float acc[2][4][4] = {};
+  RunSum colsum[2];
 
   const int nq = (N + kQT - 1) / kQT;
   for (int it = 0; it < nq; ++it) {
@@ -402,16 +242,37 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     // kr0 + g (+8) and queries 16 wq + 8 n + 2 t (+1), so that exp(s - m)
     // / se is the forward's own; ga^T = vw g^T on the tensor cores (2
     // n-tiles, K = DV). The two interleave, CUDA cores beside tensor cores.
-    float s[2][4] = {}, ga[2][4] = {};
+    // Where DV rounds to 8 (the filtered layer's per-head values) ga is
+    // one k-step, whose tensor-core rounding, summed over 2048 queries,
+    // put dck at 1.61x the CPU's error (PERF.md): there ga is an FMA chain
+    // too.
+    float s[2][4] = {}, ga[2][4] = {}, tile[2] = {0.f, 0.f};
     const float* krow = l.xs + (kr0 + g) * kLD64;
     const float* qrow = xas + (16 * wq + 2 * t) * kLD64;
 #pragma unroll
     for (int kk = 0; kk < kMaxW; kk += 8) {
-      if (kk < DV8) {
+      if (kk < DV8 && DV8 > 8) {
         const tc::FragA a = tc::load_a(l.vws, kLD64, kr0, kk);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
           tc::mma3(ga[n], a, tc::load_b_nk(gs, kLD64, 16 * wq + 8 * n, kk));
+      }
+      if (kk == 0 && DV8 == 8) {   // ga as an FMA chain
+        const float* vrow = l.vws + (kr0 + g) * kLD64;
+        const float* grow = gs + (16 * wq + 2 * t) * kLD64;
+#pragma unroll
+        for (int k = 0; k < 8; k += 4) {
+          const float4 vv[2] = {ld4(vrow + k), ld4(vrow + 8 * kLD64 + k)};
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int f = 0; f < 2; ++f) {
+              const float4 gq = ld4(grow + (8 * n + f) * kLD64 + k);
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                ga[n][2 * e + f] = dot4(gq, vv[e], ga[n][2 * e + f]);
+            }
+        }
       }
       if (kk < D8) {
 #pragma unroll
@@ -443,10 +304,12 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
                          rcs[3 * kQT + ql], rcs[4 * kQT + ql],
                          rcs[5 * kQT + ql], pd, ga[n][i], attn);
         }
-        colsum[i >> 1] += d;
+        tile[i >> 1] += d;
         l.ats[kl * kLDT + ql] = attn;
         l.dss[kl * kLDT + ql] = d;
       }
+    colsum[0].add(tile[0], it);
+    colsum[1].add(tile[1], it);
     __syncthreads();  // attn^T and ds^T of the tile complete
 
     // dvw[key, v] += sum_q attn^T[key, q] g[q, v] or dx_h[key, k] +=
@@ -478,13 +341,15 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
         for (int i = 0; i < 4; ++i) acc[mt][n][i] += part[mt][n][i];
   }
 
-  // dck: each thread's column sums over its queries, then the 4 lanes of
-  // its row (fixed xor order), then the two query halves in order
+  // dck: each thread's column sums over its queries (tile by tile), then
+  // the 4 lanes of its row (fixed xor order), then the two query halves in
+  // order
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 1);
-    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 2);
-    if (t == 0) l.red[wq * kKT + kr0 + g + 8 * j] = colsum[j];
+    float v = colsum[j].sum();
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (t == 0) l.red[wq * kKT + kr0 + g + 8 * j] = v;
   }
   __syncthreads();
   if (tid < kKT && k0 + tid < N)
@@ -519,28 +384,11 @@ __global__ void head_sum_kernel(const float* __restrict__ dx_heads,
   }
 }
 
-size_t smem_q(int D, int DV) {
-  return sizeof(float) * ((size_t)(D + DV) * (kLDQ + kLDK) +
-                          (size_t)kBQ * kLDK + 3 * kBK);
-}
-
 size_t smem_k() { return sizeof(float) * k_smem_floats(); }
 
 bool bad_shape(int B, int H, int N, int D, int DV) {
   return B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kMaxW || DV <= 0 ||
          DV > kMaxW;
-}
-
-Operands operands(const void* xa, const void* x, const void* cq,
-                  const void* ck, const void* c0, const void* vw,
-                  const void* pe, const void* deg, const void* mask,
-                  const void* g, const void* m, const void* ise,
-                  const void* qa, const void* beta, const void* c) {
-  return Operands{(const float*)xa,   (const float*)x,   (const float*)cq,
-                  (const float*)ck,   (const float*)c0,  (const float*)vw,
-                  (const float*)pe,   (const float*)deg, (const float*)mask,
-                  (const float*)g,    (const float*)m,   (const float*)ise,
-                  (const float*)qa,   (const float*)beta, (const float*)c};
 }
 
 }  // namespace
@@ -555,16 +403,10 @@ extern "C" int feta_flash_bwd_q(const void* xa, const void* x, const void* cq,
                                 int H, int N, int D, int DV, float inv_sqrt,
                                 void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_q(D, DV);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nq = (N + kBQ - 1) / kBQ;
-  flash_bwd_q_kernel<<<B * H * nq, kThreads, smem, (cudaStream_t)stream>>>(
+  return bwdq::launch<false>(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
-      (float*)dxa, (float*)dcq, H, N, D, DV, inv_sqrt);
-  return (int)cudaGetLastError();
+      (float*)dxa, (float*)dcq, B, H, N, D, DV, inv_sqrt,
+      (cudaStream_t)stream);
 }
 
 // dx_heads is scratch of B*H*N*D floats that the caller allocates.

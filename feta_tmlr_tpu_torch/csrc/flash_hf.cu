@@ -34,18 +34,23 @@
 // (graph, 64-row tile) the folded grid would be B·N/64 blocks, 32 at the
 // training shape (B=1, N=2048) on 132 SMs.
 //
-// The forward and the q pass run on CUDA cores in full f32 against 67
-// TFLOP/s. Their tiles are 16 rows wide on the axis the block owns: B·N/16
-// blocks (128 at B=1, N=2048; 256 at the serving B=2), each of 512 threads
-// at H=8, the same threads per SM as the unfolded grid. Each thread keeps
-// the unfolded kernels' 4x4 register micro-tiles: rows ty + 4 i of its
-// group's 16, keys or columns tx + 16 j. Shared memory (at H=8,
-// D=DV=64): forward 222 KB (16 queries x 64 keys), q pass 166 KB (16 x
-// 32): one block per SM, which the 512 threads' registers (128 each,
-// `__launch_bounds__(512, 1)`) allow anyway.
+// The forward runs on CUDA cores in full f32 against 67 TFLOP/s. Its
+// tiles are 16 rows wide on the axis the block owns: B·N/16 blocks (128 at
+// B=1, N=2048; 256 at the serving B=2), each of 512 threads at H=8, the
+// same threads per SM as the unfolded grid. Each thread keeps the unfolded
+// kernels' 4x4 register micro-tiles: rows ty + 4 i of its group's 16, keys
+// or columns tx + 16 j. Shared memory (at H=8, D=DV=64): 222 KB (16
+// queries x 64 keys): one block per SM, which the 512 threads' registers
+// (128 each, `__launch_bounds__(512, 1)`) allow anyway.
 //
-// The k pass runs its products on the tensor cores in error-compensated
-// TF32 (mma_tf32.cuh; the design in its section below): one block per
+// The q pass is bwd_q.cuh's kernel on the folded grid (its note): one block
+// per (graph, 16-query tile) for all heads, two warps a head over 32-key
+// tiles, the score as the forward's FMA chain, ga and dxa on the tensor
+// cores in 3xTF32; 184 KB of shared memory at H=8, one block per SM.
+//
+// The k pass takes its score as the forward's FMA chain and its other
+// products on the tensor cores in error-compensated TF32 (mma_tf32.cuh;
+// the design in its section below): one block per
 // (graph, 32-key tile, query split) for all heads, two warps a head, 8-query
 // tiles staged by cp.async into a two-stage ring, 176 KB of shared memory
 // at H=8. L2 traffic: each block re-reads xa and g of all heads for the
@@ -62,8 +67,9 @@
 // dx sums over the heads inside the block, as one tensor-core product over
 // K = (head, query) in the fixed order of the heads: no [B, H, N, D]
 // partials in device memory and no second launch for it. dck sums each
-// column over its queries and the 4 lanes of a row in a fixed order. No
-// float atomics anywhere: every gradient is bit-identical from run to run.
+// column over its queries tile by tile into a graphit::RunSum, then the 4
+// lanes of a row, in a fixed order. No float atomics anywhere: every
+// gradient is bit-identical from run to run.
 //
 // The cotangent g is per head, [B, H, N, DV]. On the unfiltered layers
 // every head gets the same g (the head sum's cotangent is expanded) and the
@@ -80,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bwd_q.cuh"
 #include "graphit_tile.cuh"
 #include "mma_tf32.cuh"
 
@@ -89,6 +96,9 @@ using graphit::dot4;
 using graphit::grad_score;
 using graphit::kEps;
 using graphit::ld4;
+using graphit::Operands;
+using graphit::operands;
+using graphit::RunSum;
 using graphit::score;
 
 constexpr int kGX = 16;                   // lanes along keys / columns
@@ -101,15 +111,9 @@ constexpr int kOut = kMaxW / kGX;         // output columns per thread
 constexpr int kRows = 4;                  // rows per thread: 16-row tiles
 constexpr int kTile = kGY * kRows;        // 16
 constexpr int kLD16 = kTile + 1;          // padded strides
-// forward: 16 queries x 64 keys; q pass: 16 x 32; k pass: 16 keys x 16
+// forward: 16 queries x 64 keys
 constexpr int kFK = 64, kLDF = kFK + 1;
 constexpr int kFC = kFK / kGX;         // key columns per thread, forward
-constexpr int kQK = 32, kLDQ = kQK + 1;
-
-struct Operands {
-  const float *xa, *x, *cq, *ck, *c0, *vw, *pe, *deg, *mask, *g;
-  const float *m, *ise, *qa, *beta, *c;
-};
 
 constexpr int kBatch = 4;   // float4 loads in flight per thread, staging
 
@@ -358,133 +362,6 @@ flash_fwd_hf_kernel(Operands op, float* __restrict__ outh,
   }
 }
 
-constexpr int kQC = kQK / kGX;  // key columns per thread in the q pass
-
-__global__ void __launch_bounds__(kMaxThreads, 1)
-flash_bwd_q_hf_kernel(Operands op, float* __restrict__ dxa,
-                      float* __restrict__ dcq, int H, int N, int D, int DV,
-                      float inv_sqrt) {
-  extern __shared__ float smem[];
-  float* xaT = smem;                     // [H][D][kLD16]   query tiles
-  float* gT = xaT + H * D * kLD16;       // [H][DV][kLD16]  their cotangents
-  float* xT = gT + H * DV * kLD16;       // [D][kLDQ]       key tile
-  float* vwT = xT + D * kLDQ;            // [H][DV][kLDQ]   its values
-  float* pds = vwT + H * DV * kLDQ;      // [kTile][kLDQ]   pe * deg
-  float* dss = pds + kTile * kLDQ;       // [H][kTile][kLDQ] ds
-  float* cks = dss + H * kTile * kLDQ;   // [H][kQK]
-  float* kms = cks + H * kQK;            // [kQK]
-
-  const int nq = (N + kTile - 1) / kTile;
-  const int q0 = (blockIdx.x % nq) * kTile;
-  const int b = blockIdx.x / nq;
-  const int h = threadIdx.x / kGroup;
-  const int lt = threadIdx.x % kGroup;
-  const int tx = lt % kGX, ty = lt / kGX;
-
-  const size_t bh = (size_t)b * H + h;
-  const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
-  const float* deg_b = op.deg ? op.deg + (size_t)b * N : nullptr;
-  const float* mask_b = op.mask + (size_t)b * N;
-  const float* hxaT = xaT + h * D * kLD16;
-  const float* hgT = gT + h * DV * kLD16;
-  const float* hvwT = vwT + h * DV * kLDQ;
-  float* hds = dss + h * kTile * kLDQ;
-  const float* hck = cks + h * kQK;
-
-  stage<true>(xaT, kLD16, op.xa + (size_t)b * H * N * D, H, q0, kTile, N, D);
-  stage<true>(gT, kLD16, op.g + (size_t)b * H * N * DV, H, q0, kTile, N, DV);
-  float cq_r[kRows], m_r[kRows], ise_r[kRows], qa_r[kRows], beta_r[kRows],
-      c_r[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int q = q0 + ty + kGY * i;
-    const bool in = q < N;
-    const size_t row = bh * N + q;
-    cq_r[i] = in ? op.cq[row] : 0.f;
-    m_r[i] = in ? op.m[row] : 0.f;
-    ise_r[i] = in ? op.ise[row] : 0.f;
-    qa_r[i] = in ? op.qa[row] : 0.f;
-    beta_r[i] = in ? op.beta[row] : 0.f;
-    c_r[i] = in ? op.c[row] : 0.f;
-  }
-  const float c0h = op.c0[h];
-
-  float acc[kRows][kOut], dsum[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    dsum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += kQK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<true>(xT, kLDQ, op.x + (size_t)b * N * D, 1, k0, kQK, N, D);
-    stage<true>(vwT, kLDQ, op.vw + (size_t)b * H * N * DV, H, k0, kQK, N, DV);
-    stage_pd(pds, kLDQ, pe_b, deg_b, q0, kTile, k0, kQK, N);
-    stage_key_vectors(cks, kms, op.ck + (size_t)b * H * N, mask_b, H, k0,
-                      kQK, N);
-    __syncthreads();
-
-    float s[kRows][kQC], ga[kRows][kQC];
-    micro_dot(hxaT, kLD16, xT, kLDQ, D, tx, ty, s);
-    micro_dot(hgT, kLD16, hvwT, kLDQ, DV, tx, ty, ga);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kGY * i;
-#pragma unroll
-      for (int j = 0; j < kQC; ++j) {
-        const int c = tx + kGX * j;
-        float d = 0.f, attn = 0.f;
-        if (q0 + r < N && k0 + c < N)
-          d = grad_score(s[i][j], cq_r[i], hck[c], c0h, inv_sqrt, kms[c],
-                         m_r[i], ise_r[i], qa_r[i], beta_r[i], c_r[i],
-                         pds[r * kLDQ + c], ga[i][j], attn);
-        dsum[i] += d;
-        hds[r * kLDQ + c] = d;  // only this thread touches (r, c)
-      }
-    }
-    __syncthreads();  // ds complete
-
-    // dxa[r, k] += sum_c ds[r, c] * x[c, k]; x read from its transposed
-    // tile; the tile's sum into a fresh partial (flash_fwd.cu's note)
-    float part[kRows][kOut] = {};
-    for (int c = 0; c < kQK; ++c) {
-      float p[kRows], xv[kOut];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = hds[(ty + kGY * i) * kLDQ + c];
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int k = tx + kGX * j;
-        xv[j] = k < D ? xT[k * kLDQ + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          part[i][j] = fmaf(p[i], xv[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) acc[i][j] += part[i][j];
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float total = row_sum(dsum[i]);
-    const int q = q0 + ty + kGY * i;
-    if (q >= N) continue;
-    const size_t row = bh * N + q;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int k = tx + kGX * j;
-      if (k < D) dxa[row * D + k] = acc[i][j];
-    }
-    if (tx == 0) dcq[row] = total;
-  }
-}
-
 // ---- the key pass on tensor cores (mma_tf32.cuh) ----
 //
 // One block per (graph, 32-key tile, query split) for all H heads: 64·H
@@ -643,7 +520,8 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
 
   // C fragments: dvw rows kr0 + g (+8), columns 8 n + 2 t (+1); dx tile
   // warp + 2H j: keys 16 (tile % 2) + g (+8), columns 8 (tile / 2) + 2 t
-  float acc_v[8][4] = {}, acc_x[kTPW][4] = {}, colsum[2] = {0.f, 0.f};
+  float acc_v[8][4] = {}, acc_x[kTPW][4] = {};
+  RunSum colsum[2];
 
   for (int it = it0; it < it1; ++it) {
     const int q0 = it * kQT7;
@@ -659,15 +537,31 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
     // s^T as the forward's FMA chain (graphit_tile.cuh's dot4; the
     // forward's micro_dot) at the thread's C-fragment positions, keys
     // kr0 + g (+8) and queries 2 t (+1); ga^T = vw_h g_h^T on the tensor
-    // cores (even and odd k-steps in two accumulators)
-    float s[4] = {}, ga2[2][4] = {};
+    // cores (even and odd k-steps in two accumulators), or as an FMA chain
+    // where DV rounds to 8 (flash_bwd.cu's k pass says why)
+    float s[4] = {}, ga2[2][4] = {}, tile[2] = {0.f, 0.f};
     const float* krow = xs + (kr0 + g) * kLD64;
     const float* qrow = xas + 2 * t * kLD64;
 #pragma unroll
     for (int kk = 0; kk < kMaxW; kk += 8) {
-      if (kk < DV8)
+      if (kk < DV8 && DV8 > 8)
         tc::mma3(ga2[(kk / 8) & 1], tc::load_a(hvw, kLD64, kr0, kk),
                  tc::load_b_nk(gs, kLD64, 0, kk));
+      if (kk == 0 && DV8 == 8) {   // ga as an FMA chain
+        const float* vrow = hvw + (kr0 + g) * kLD64;
+        const float* grow = gs + 2 * t * kLD64;
+#pragma unroll
+        for (int k = 0; k < 8; k += 4) {
+          const float4 vv[2] = {ld4(vrow + k), ld4(vrow + 8 * kLD64 + k)};
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            const float4 gq = ld4(grow + f * kLD64 + k);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              ga2[0][2 * e + f] = dot4(gq, vv[e], ga2[0][2 * e + f]);
+          }
+        }
+      }
       if (kk < D8) {
 #pragma unroll
         for (int k = kk; k < kk + 8; k += 4) {
@@ -693,10 +587,12 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
                        rcs[3 * kQT7 + ql], rcs[4 * kQT7 + ql],
                        rcs[5 * kQT7 + ql], pd, ga2[0][i] + ga2[1][i], attn);
       }
-      colsum[i >> 1] += d;
+      tile[i >> 1] += d;
       at_w[(kl - kr0) * kLDT7 + ql] = attn;
       dss[kl * ldds + h * kQT7 + ql] = d;
     }
+    colsum[0].add(tile[0], it - it0);
+    colsum[1].add(tile[1], it - it0);
     __syncwarp();  // the warp's attn^T complete
 
     // dvw[key, v] += sum_q attn^T[key, q] g[q, v]: each column tile's sum
@@ -741,14 +637,16 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
     dck = base + n_dvw;
     dx = base + n_dvw + n_dck;
   }
-  // dck: each thread's column sums over its queries, then the 4 lanes of
-  // its row in a fixed xor order; each warp owns its keys of its head
+  // dck: each thread's column sums over its queries (tile by tile), then
+  // the 4 lanes of its row in a fixed xor order; each warp owns its keys
+  // of its head
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 1);
-    colsum[j] += __shfl_xor_sync(0xffffffffu, colsum[j], 2);
+    float v = colsum[j].sum();
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
     const int key = k0 + kr0 + g + 8 * j;
-    if (t == 0 && key < N) dck[bh * N + key] = colsum[j];
+    if (t == 0 && key < N) dck[bh * N + key] = v;
   }
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -800,30 +698,11 @@ size_t smem_fwd(int H, int D, int DV) {
           (size_t)H * kFK + kFK);
 }
 
-size_t smem_q(int H, int D, int DV) {
-  return sizeof(float) *
-         ((size_t)H * (D + DV) * kLD16 + (size_t)D * kLDQ +
-          (size_t)H * DV * kLDQ + (size_t)kTile * kLDQ +
-          (size_t)H * kTile * kLDQ + (size_t)H * kQK + kQK);
-}
-
 size_t smem_k(int H) { return sizeof(float) * k_smem_floats(H); }
 
 bool bad_shape(int B, int H, int N, int D, int DV) {
   return B <= 0 || H <= 0 || H > kMaxHeads || N <= 0 || D <= 0 ||
          D > kMaxW || DV <= 0 || DV > kMaxW;
-}
-
-Operands operands(const void* xa, const void* x, const void* cq,
-                  const void* ck, const void* c0, const void* vw,
-                  const void* pe, const void* deg, const void* mask,
-                  const void* g, const void* m, const void* ise,
-                  const void* qa, const void* beta, const void* c) {
-  return Operands{(const float*)xa,   (const float*)x,   (const float*)cq,
-                  (const float*)ck,   (const float*)c0,  (const float*)vw,
-                  (const float*)pe,   (const float*)deg, (const float*)mask,
-                  (const float*)g,    (const float*)m,   (const float*)ise,
-                  (const float*)qa,   (const float*)beta, (const float*)c};
 }
 
 }  // namespace
@@ -862,16 +741,10 @@ extern "C" int feta_flash_bwd_q_hf(const void* xa, const void* x,
                                    int B, int H, int N, int D, int DV,
                                    float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_q(H, D, DV);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_q_hf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nq = (N + kTile - 1) / kTile;
-  flash_bwd_q_hf_kernel<<<B * nq, kGroup * H, smem, (cudaStream_t)stream>>>(
+  return bwdq::launch<true>(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
-      (float*)dxa, (float*)dcq, H, N, D, DV, inv_sqrt);
-  return (int)cudaGetLastError();
+      (float*)dxa, (float*)dcq, B, H, N, D, DV, inv_sqrt,
+      (cudaStream_t)stream);
 }
 
 // With splits > 1 the query loop is split over that many blocks per key

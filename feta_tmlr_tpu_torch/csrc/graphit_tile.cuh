@@ -1,7 +1,7 @@
 // Score tiles of GraphiT attention, shared by flash_fwd.cu, flash_bwd.cu,
 // colstat.cu and flash_hf.cu (which uses only the score functions); the
-// key passes take `dot4`, `score` and `grad_score` (their other products
-// run on the tensor cores, mma_tf32.cuh).
+// backward passes take `dot4`, `score`, `grad_score`, their `Operands` and
+// `RunSum` (their other products run on the tensor cores, mma_tf32.cuh).
 //
 // One 256-thread block works on a 64-query x 64-key tile. Thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows ty + 16 i and key columns
@@ -98,5 +98,45 @@ __device__ __forceinline__ float grad_score(float dot, float cq, float ck,
   const float du = ga * km * qa - beta;
   return a * (du * pd - c) * inv_sqrt;
 }
+
+// The backward passes' operands (flash_bwd.cu's note): the forward's, the
+// per-head cotangent g and the row statistics and constants.
+struct Operands {
+  const float *xa, *x, *cq, *ck, *c0, *vw, *pe, *deg, *mask, *g;
+  const float *m, *ise, *qa, *beta, *c;
+};
+
+inline Operands operands(const void* xa, const void* x, const void* cq,
+                         const void* ck, const void* c0, const void* vw,
+                         const void* pe, const void* deg, const void* mask,
+                         const void* g, const void* m, const void* ise,
+                         const void* qa, const void* beta, const void* c) {
+  return Operands{(const float*)xa,   (const float*)x,   (const float*)cq,
+                  (const float*)ck,   (const float*)c0,  (const float*)vw,
+                  (const float*)pe,   (const float*)deg, (const float*)mask,
+                  (const float*)g,    (const float*)m,   (const float*)ise,
+                  (const float*)qa,   (const float*)beta, (const float*)c};
+}
+
+// A thread's sum over the tiles of a block's loop in a bounded order (dcq
+// in the query passes, dck in the key passes): each tile's partial, a
+// fresh sum of the tile's terms, joins a run of kRunTiles tiles, and each
+// complete run joins the total. One f32 chain over every term of 2048
+// queries put dck at 1.8x the CPU float32 route's error (PERF.md); here
+// the longest chain is kRunTiles partials, or N / (tile * kRunTiles) runs.
+constexpr int kRunTiles = 8;
+
+struct RunSum {
+  float total = 0.f, run = 0.f;
+  // `tile`: the partial's index in the loop, 0, 1, ...
+  __device__ __forceinline__ void add(float partial, int tile) {
+    run += partial;
+    if (tile % kRunTiles == kRunTiles - 1) {
+      total += run;
+      run = 0.f;
+    }
+  }
+  __device__ __forceinline__ float sum() const { return total + run; }
+};
 
 }  // namespace graphit

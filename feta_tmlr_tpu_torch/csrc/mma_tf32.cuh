@@ -1,6 +1,7 @@
 // Float32 tile products on the H100's tensor cores, error-compensated
 // ("3xTF32"), and the asynchronous staging that feeds them. Shared by the
-// backward key passes of flash_bwd.cu and flash_hf.cu.
+// backward passes: the key passes of flash_bwd.cu and flash_hf.cu and the
+// query passes' body bwd_q.cuh.
 //
 // Arithmetic. `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` multiplies
 // TF32 operands (8 explicit mantissa bits dropped to 10: about three decimal
@@ -104,9 +105,9 @@ struct FragB {
 // in the mma's accumulator over many k-steps, it moved the key passes'
 // gradients an order of magnitude further from float64 than the CPU's
 // float32 does (`chip_smoke.py --precision`, PERF.md); with a fresh
-// fragment for each k-step, they come near the CPU's. The key passes do
-// not take their score s from here: the forwards' row statistics m and se
-// normalise exp(s - m) for their own FMA-chain score, and a score a few
+// fragment for each k-step, they come near the CPU's. The backward passes
+// do not take their score s from here: the forwards' row statistics m and
+// se normalise exp(s - m) for their own FMA-chain score, and a score a few
 // ulp off theirs skews its row's attn (dvw up to an order of magnitude
 // further from float64, PERF.md), so the passes repeat that chain.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,

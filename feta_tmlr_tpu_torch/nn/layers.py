@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from feta_tmlr_tpu_torch.ops.cheb import node_matmul
+from feta_tmlr_tpu_torch.ops.cheb import head_sum_matmul, node_matmul
 from feta_tmlr_tpu_torch.ops.kernels.flash_attention import (
     flash_graphit_attention,
     flash_graphit_attention_heads,
@@ -181,11 +181,14 @@ class GraphiTEncoderLayer(nn.Module):
         wq, wk, wv = wqkv[:, 0], wqkv[:, 1], wqkv[:, 2]      # [d, h, dh]
         bq, bk, bv = bqkv[0], bqkv[1], bqkv[2]               # [h, dh]
         a_mix = torch.einsum("dhe,ghe->hdg", wq, wk)         # [h, d, d]
-        xa = torch.einsum("bnd,hdg->bhng", x, a_mix)
-        c_q = torch.einsum("bnd,dhe,he->bnh", x, wq, bk)    # q-side bias
-        c_k = torch.einsum("bmd,dhe,he->bmh", x, wk, bq)
+        # the input projections' weight gradients reduce over the B·N rows:
+        # node_matmul takes them in blocks (ops/cheb.py's note)
+        xa = node_matmul(x[:, None], a_mix)                  # [B,H,N,d]
+        c_q = node_matmul(x, torch.einsum("dhe,he->dh", wq, bk))  # [B,N,H]
+        c_k = node_matmul(x, torch.einsum("dhe,he->dh", wk, bq))
         c_0 = torch.einsum("he,he->h", bq, bk)
-        v_nhd = torch.einsum("bnd,dhe->bnhe", x, wv) + bv    # [B,N,H,dh]
+        v_nhd = node_matmul(x, wv.reshape(d, h * dh)).reshape(
+            b, n, h, dh) + bv                                 # [B,N,H,dh]
 
         impl = self.attention_impl
         # the output projection's weight gradient reduces over the B·N
@@ -209,20 +212,21 @@ class GraphiTEncoderLayer(nn.Module):
                              degree=degree, **kw) + self.out_proj_bias
             attn = out_each_head = None
         else:
-            # the score route: a plain product, then the modulation kernel
-            scores = (torch.einsum("bhng,bmg->bhnm", xa, x)
+            # the score route: a plain product, then the modulation kernel;
+            # the products whose sums run over the nodes (the scores'
+            # gradients, attn @ v) in blocks (ops/cheb.py's note)
+            scores = (node_matmul(xa, x[:, None].transpose(-1, -2))
                       + c_q.transpose(1, 2)[:, :, :, None]
                       + c_k.transpose(1, 2)[:, :, None, :]
                       + c_0[None, :, None, None]) / math.sqrt(dh)
             attn = fused_modulated_attention(scores, node_mask, pe=pe,
                                              degree=degree)
             if need_heads:
-                heads = torch.einsum("bhqk,bkhd->bhqd", attn, v_nhd)
+                heads = node_matmul(attn, v_nhd.transpose(1, 2))
                 out_each_head = heads.transpose(1, 2)        # [B,N,H,dh]
                 attn_out = project(out_each_head)
             else:
-                attn_out = torch.einsum("bhnm,bhmf->bnf", attn,
-                                        vw()) + self.out_proj_bias
+                attn_out = head_sum_matmul(attn, vw()) + self.out_proj_bias
                 out_each_head = None
 
         x = self._norm(self.norm1, x + self.dropout(attn_out), node_mask)

@@ -15,7 +15,9 @@ a float32 product over N = 2048 in one accumulator, in order, and rounded
 --precision`, PERF.md). `node_matmul` takes every contraction over the node
 axis in blocks of NODE_BLOCK rows, each block's product (a plain
 `torch.matmul`) a fresh partial, the partials summed after: the same
-function, and the same summation order on every device.
+function, and the same summation order on every device. The GraphiT
+layer's score route (`nn/layers.py`) takes its products over the keys and
+queries through the same blocks (`node_matmul`, `head_sum_matmul`).
 """
 
 from __future__ import annotations
@@ -84,6 +86,17 @@ def node_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if max(a.shape[-2], a.shape[-1], b.shape[-1]) <= NODE_BLOCK:
         return a @ b
     return NodeMatmul.apply(a, b)
+
+
+def head_sum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_h a[:, h] @ b[:, h]: a [B, H, M, K], b [B, H, K, F] -> [B, M, F].
+    Where K fits one block, one product over (head, K) as before; else
+    each head's product over K through `node_matmul`, then the sum over
+    the heads (a contraction of H·K terms would otherwise be one cuBLAS
+    sum)."""
+    if a.shape[-1] <= NODE_BLOCK:
+        return torch.einsum("bhnm,bhmf->bnf", a, b)
+    return node_matmul(a, b).sum(1)
 
 
 def cheb_filter_dynamic(x: torch.Tensor, lhat: torch.Tensor,

@@ -8,11 +8,13 @@ Kernels:
   `csrc/flash_hf.cu`   the head-folded counterparts of `_fwd_kernel_hf`,
                        `_bwd_q_kernel_hf` and `_bwd_k_kernel_hf`: the same
                        three functions, one block per (graph, tile) for all
-                       heads (the JAX package's FETA_FLASH_HEAD_FOLD=1).
+                       heads (the JAX package's FETA_FLASH_HEAD_FOLD=1);
+  `csrc/bwd_q.cuh`     the query passes' one kernel body, which both
+                       sources launch, each on its own grid.
 Their source notes say what bounds them and how the design answers that:
-the forwards and query passes take their products on CUDA cores in f32,
-the key passes their score likewise (the forwards' FMA chain, bit for bit)
-and their other products on the tensor cores in error-compensated TF32
+the forwards take their products on CUDA cores in f32, the backward
+passes their score likewise (the forwards' FMA chain, bit for bit) and
+their other products on the tensor cores in error-compensated TF32
 (`csrc/mma_tf32.cuh`: three TF32 products per f32 product, float32
 accuracy).
 
@@ -297,7 +299,9 @@ def flash_bwd_q_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
     """Head-folded query pass (`csrc/flash_hf.cu`, TPU `_bwd_q_kernel_hf`):
     the same function as `flash_bwd_q`, so its plain version is
     `flash_bwd_q_plain`; one block per (graph, 16-query tile) for all
-    heads (H <= 8)."""
+    heads (H <= 8). It runs `flash_bwd_q`'s kernel body
+    (`csrc/bwd_q.cuh`) on the folded grid, so the two agree bit for
+    bit."""
     args = (xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise, qa,
             beta, c)
     if not cuda_or_plain("flash_bwd_q_hf", xa):

@@ -149,16 +149,19 @@ def _bwd_args(ops, vw, guard_rows=4):
             *consts)
 
 
-# the key pass's tensor-core tiles (64 keys x 32-query tiles) at their
-# edges: D and DV not multiples of 8, N below one key tile and one past a
-# key or a query tile, H of 1, 3 and 8, the ZINC batch (B=128, N=48)
+# the passes' tensor-core tiles (key pass: 64 keys x 32-query tiles; query
+# pass: 64 queries in strips of 16 x 32-key tiles) at their edges: D and DV
+# not multiples of 8, N below one tile and one past a key or a query tile,
+# H of 1, 3 and 8, the ZINC batch (B=128, N=48), the N=2048 training shape
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,n,pad,d,dv,with_mod", [
     (2, 4, 200, 7, 64, 8, True), (2, 4, 256, 0, 64, 64, True),
     (2, 4, 70, 9, 64, 16, False), (2, 4, 1, 0, 64, 8, True),
     (2, 3, 100, 5, 20, 12, True), (1, 1, 13, 2, 20, 12, True),
     (2, 8, 65, 0, 64, 64, True), (2, 8, 33, 1, 64, 8, True),
-    (128, 8, 48, 11, 64, 64, True), (128, 8, 48, 11, 64, 8, True)])
+    (128, 8, 48, 11, 64, 64, True), (128, 8, 48, 11, 64, 8, True),
+    (2, 8, 257, 3, 64, 64, True), (1, 3, 257, 4, 20, 12, True),
+    (1, 8, 2048, 100, 64, 64, True)])
 def test_cuda_backward_kernels_match_plain(cuda, b, h, n, pad, d, dv,
                                            with_mod):
     ops, vw = _ops(7, b, h, n, d, dv, pad, with_mod)
@@ -176,8 +179,9 @@ def test_cuda_backward_kernels_match_plain(cuda, b, h, n, pad, d, dv,
 
 
 # the folded key pass's tiles (32 keys x 8-query tiles, the query loop
-# split over 1-4 blocks) at their edges, as above; B=1 at N=2048 and
-# N=257 take 2 and 4 splits on a 132-SM card
+# split over 1-4 blocks) and the folded query pass's (one 16-query strip a
+# head x 32-key tiles) at their edges, as above; B=1 at N=2048 and N=257
+# take 2 and 4 key-pass splits on a 132-SM card
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,n,pad,d,dv,with_mod", [
     (2, 4, 200, 7, 64, 8, True), (2, 8, 256, 0, 64, 64, True),
@@ -186,15 +190,20 @@ def test_cuda_backward_kernels_match_plain(cuda, b, h, n, pad, d, dv,
     (1, 1, 13, 2, 20, 12, True), (2, 8, 31, 0, 64, 64, True),
     (2, 8, 33, 1, 64, 64, True), (1, 8, 9, 0, 64, 8, True),
     (1, 8, 2048, 100, 64, 64, True), (1, 3, 257, 4, 20, 12, True),
-    (128, 8, 48, 11, 64, 64, True)])
+    (128, 8, 48, 11, 64, 64, True), (128, 8, 48, 11, 64, 8, True),
+    (2, 8, 65, 0, 64, 64, True), (2, 6, 100, 5, 64, 16, True),
+    (2, 5, 70, 3, 40, 24, True)])
 def test_cuda_folded_kernels_match_plain_and_unfolded(cuda, b, h, n, pad, d,
                                                       dv, with_mod):
     """The head-folded kernels against their plain versions (the unfolded
     kernels' own) and against the unfolded kernels, guard rows included;
-    two backward runs bit-identical; one launch per call. Folded and
-    unfolded agree within the kernels' tolerance, not bit for bit: their
-    tiles, and so their sums, differ (the key passes: 8 against 32
-    queries a fresh partial, and the folded pass's query splits)."""
+    two backward runs bit-identical; one launch per call. The query
+    passes are one kernel body on two grids (`csrc/bwd_q.cuh`), each
+    16-query strip summed alike, so folded and unfolded agree bit for
+    bit; the other kernels agree within the kernels' tolerance, not bit
+    for bit: their tiles, and so their sums, differ (the key passes: 8
+    against 32 queries a fresh partial, and the folded pass's query
+    splits)."""
     ops, vw = _ops(7, b, h, n, d, dv, pad, with_mod)
     args = _bwd_args(ops, vw, guard_rows=min(n, 4))
     gargs = [t.to(cuda) if torch.is_tensor(t) else t for t in args]
@@ -211,6 +220,7 @@ def test_cuda_folded_kernels_match_plain_and_unfolded(cuda, b, h, n, pad, d,
         np.testing.assert_allclose(got.cpu().numpy(), twin.cpu().numpy(),
                                    **TOL)
     assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+    assert all(torch.equal(a, b) for a, b in zip(got_b[:2], twins[4:6]))
     assert [f.launches for f in folded] == [before[0] + 1, before[1] + 2,
                                             before[2] + 2]
 

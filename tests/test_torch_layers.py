@@ -261,6 +261,80 @@ def test_graphit_layer_grads_match_jax(need_heads, jax_flash_path):
                                    err_msg=name, **tol)
 
 
+def test_r4_filtered_layer_blocked_products_match_jax_and_float64(
+        jax_flash_path, monkeypatch):
+    """The "r4" setting's filtered layer (flash_need_heads=False: the score
+    route, its products over the nodes in blocks of NODE_BLOCK,
+    `ops/cheb.py`) at N = 96 > NODE_BLOCK: outputs, per-head outputs and
+    train-mode gradients w.r.t. every parameter and the input against the
+    JAX layer on its score route (FETA_FLASH_NEED_HEADS=0, the modulation
+    kernel interpreted), at rtol 2e-4 / atol 2e-5 forward and rtol 1e-3 /
+    atol 1e-5 gradients as above; and the same float32 layer against
+    itself in float64 within 1e-5 of each tensor's largest entry."""
+    monkeypatch.setenv("FETA_FLASH_NEED_HEADS", "0")
+    x, mask, pe, deg = _layer_inputs(seed=19, n=96, pad=7)
+    rng = np.random.default_rng(20)
+    layer = jlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, True)
+    jx, jpe_, jmask, jdeg = (jnp.asarray(a) for a in (x, pe, mask, deg))
+    variables = dict(layer.init(jax.random.key(0), jx, jpe_, jmask, jdeg))
+    variables["params"] = jax.tree.map(       # non-zero biases
+        lambda p: p + 0.05 * rng.standard_normal(p.shape).astype(np.float32),
+        variables["params"])
+    g_out = rng.standard_normal(x.shape).astype(np.float32)
+    g_heads = rng.standard_normal((2, 96, 2, 8)).astype(np.float32)
+
+    def jforward(params, xin):
+        (out, _, heads), _ = layer.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            xin, jpe_, jmask, jdeg, deterministic=False, need_heads=True,
+            mutable=["batch_stats"])
+        return out, heads
+
+    def jloss(params, xin):
+        out, heads = jforward(params, xin)
+        return (out * g_out).sum() + (heads * g_heads).sum()
+
+    w_out, w_heads = jforward(variables["params"], jx)
+    w_params, w_x = jax.grad(jloss, argnums=(0, 1))(variables["params"], jx)
+
+    def port_run(dtype):
+        port = from_flax(_np_tree(variables), tlayers.GraphiTEncoderLayer(
+            16, 2, 32, 0.0, True, flash_need_heads=False)).to(dtype)
+        port.train()
+        tx = _t(x).to(dtype).requires_grad_()
+        out, _, heads = port(tx, *(_t(a).to(dtype) for a in (pe, mask, deg)),
+                             need_heads=True)
+        ((out * _t(g_out).to(dtype)).sum()
+         + (heads * _t(g_heads).to(dtype)).sum()).backward()
+        grads = {n: p.grad for n, p in port.named_parameters()}
+        return out.detach(), heads.detach(), tx.grad, grads
+
+    out, heads, dx, grads = port_run(torch.float32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(w_out), **LAYER_TOL)
+    np.testing.assert_allclose(heads.numpy(), np.asarray(w_heads),
+                               **LAYER_TOL)
+    tol = dict(rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(w_x), **tol)
+    want = from_flax({"params": _np_tree(w_params),
+                      "batch_stats": _np_tree(variables["batch_stats"])},
+                     tlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, True))
+    want = dict(want.named_parameters())
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].detach().numpy(),
+                                   err_msg=name, **tol)
+    ref = port_run(torch.float64)
+    pairs = [("out", out, ref[0]), ("heads", heads, ref[1]),
+             ("dx", dx, ref[2])] + [(n, grads[n], ref[3][n]) for n in grads]
+    for name, got, w in pairs:
+        # a bias that batch norm cancels has a gradient of 0 in exact
+        # arithmetic, float32 rounding all there is of it: held to the
+        # input gradient's scale
+        scale = float(w.abs().max())
+        if scale < 1e-9:
+            scale = float(ref[2].abs().max())
+        assert float((got.double() - w).abs().max()) <= 1e-5 * scale, name
+
+
 def _grad_fn_names(t):
     seen, todo, names = set(), [t.grad_fn], set()
     while todo:

@@ -1,7 +1,8 @@
-"""The arithmetic of the tensor-core key passes, and the backward probe.
+"""The arithmetic of the tensor-core backward passes, and the backward probe.
 
-The backward key passes (`csrc/flash_bwd.cu`, `csrc/flash_hf.cu`) take
-their products on the H100's tensor cores in error-compensated TF32
+The backward passes (`csrc/flash_bwd.cu`, `csrc/flash_hf.cu`, the query
+passes' shared body `csrc/bwd_q.cuh`) take their products other than the
+score on the H100's tensor cores in error-compensated TF32
 (`csrc/mma_tf32.cuh`): each f32 operand is split into
 hi = cvt.rna.tf32.f32(a) and lo = cvt.rna.tf32.f32(a - hi), each product
 is lo·hi + hi·lo + hi·hi into a fresh f32 fragment, one 8-deep k-step at
@@ -17,7 +18,16 @@ shapes, and held to float64:
   8- to 64-row fresh partials: within the kernels' tolerance (rtol 1e-4,
   atol 1e-5) of float64, and within 4x of the plain f32 product's error;
 - witnesses: one TF32 product, or the split with any one of its three
-  terms dropped, misses that tolerance.
+  terms dropped, misses that tolerance;
+- the query passes' whole tile arithmetic (`q_pass_emulated`): the score
+  as the forwards' FMA chain, ga and ds·x in 3xTF32 with a fresh fragment
+  per k-step and a fresh partial per 32-key tile, dcq in per-tile partials
+  summed in runs (`graphit::RunSum`), then over a row's 4 lanes and the
+  strip's two warps: within the kernels' tolerance of float64 and of
+  `flash_bwd_q_plain`;
+- the bounded partial sums of dcq and dck over 2048 rows: no further from
+  float64 than the one f32 chain per thread that the earlier kernels took,
+  and near the CPU float32 route's own sum.
 
 Also: `chip_smoke.backward_probe` (`--precision`'s backward) at a small
 size on the CPU, float32 against float64, and the blocked node products of
@@ -34,6 +44,8 @@ import chip_smoke
 from feta_tmlr_tpu_torch.data.synthetic import sbm_like_dataset
 from feta_tmlr_tpu_torch.nn.models import DiffGraphTransformerGenGCNSBM
 from feta_tmlr_tpu_torch.ops import cheb
+from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
+from feta_tmlr_tpu_torch.ops.kernels.common import NEG_INF
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig
 
 KERNEL_TOL = chip_smoke.KERNEL_TOL          # rtol 1e-4, atol 1e-5
@@ -186,6 +198,181 @@ def test_split_without_a_term_misses_the_kernel_tolerance(terms):
     assert not (tile_ok and sum_ok)
 
 
+# ------------------------------------------------------ the query passes
+
+STRIP, KEYS, RUN_TILES = 16, 32, 8      # bwd_q.cuh, graphit::RunSum
+
+
+def fma_chain(a, b):
+    """sum_k a[..., k] b[..., k] as the forwards' FMA chain: from 0, k in
+    order, each step a·b + s rounded once to f32 (here the exact float64
+    product and sum, then f32): the score that the kernels' dot4 repeats."""
+    s = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1])
+    for k in range(a.shape[-1]):
+        s = (s.double() + a[..., k].double() * b[..., k].double()).float()
+    return s
+
+
+def run_sum(parts):
+    """graphit::RunSum over a thread's per-tile partials (a list of f32
+    tensors): each joins a run of RUN_TILES tiles, each complete run the
+    total; the total and the open run added last."""
+    total = run = torch.zeros_like(parts[0])
+    for i, p in enumerate(parts):
+        run = run + p
+        if i % RUN_TILES == RUN_TILES - 1:
+            total, run = total + run, torch.zeros_like(run)
+    return total + run
+
+
+def lane_sum(v):
+    """The 4 lanes t of a row after __shfl_xor 1 then 2, as lane 0 holds
+    it: (v0 + v1) + (v2 + v3)."""
+    return (v[0] + v[1]) + (v[2] + v[3])
+
+
+def warp_keys(u, t):
+    """The keys of a 32-key tile whose ds thread t of warp half u holds,
+    in the order it adds them (n-tile 0 then 1, columns 2t then 2t + 1)."""
+    return [16 * u + 2 * t, 16 * u + 2 * t + 1, 16 * u + 8 + 2 * t,
+            16 * u + 9 + 2 * t]
+
+
+def q_pass_emulated(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
+                    ise, qa, beta, c):
+    """flash_bwd_q's and flash_bwd_q_hf's arithmetic (bwd_q.cuh: both grids
+    compute each 16-query strip alike) in torch: (dxa, dcq)."""
+    b_, h_, n, d = xa.shape
+    dv = vw.shape[-1]
+    np_ = -(-n // KEYS) * KEYS
+    pad = lambda t, dims: torch.nn.functional.pad(t, dims)
+    w8 = lambda w: -(-w // 8) * 8
+    # the staged tiles: rows past N and columns past the width are zero
+    xa_p = pad(xa, (0, w8(d) - d, 0, np_ - n))
+    x_p = pad(x, (0, w8(d) - d, 0, np_ - n))
+    g_p = pad(g, (0, w8(dv) - dv, 0, np_ - n))
+    vw_p = pad(vw, (0, w8(dv) - dv, 0, np_ - n))
+    dot = fma_chain(xa_p[:, :, :, None, :], x_p[:, None, None, :, :])
+    km = pad(mask, (0, np_ - n))
+    row = lambda t: pad(t, (0, np_ - n))[..., :, None]
+    s = torch.where(km[:, None, None, :] > 0,
+                    (dot + row(cq) + pad(ck, (0, np_ - n))[..., None, :]
+                     + c0[None, :, None, None]) * inv_sqrt,
+                    torch.full_like(dot, NEG_INF))
+    pd = torch.ones((b_, 1, np_, np_))
+    if pe is not None:
+        pd = pd * pad(pe, (0, np_ - n, 0, np_ - n))[:, None]
+    if deg is not None:
+        pd = pd * pad(deg, (0, np_ - n))[:, None, None, :]
+    valid = torch.zeros(np_, dtype=torch.bool)
+    valid[:n] = True
+    valid = valid[:, None] & valid[None, :]
+    dxa = torch.zeros((b_, h_, np_, w8(d)))
+    dcq = torch.zeros((b_, h_, np_))
+    for bi in range(b_):
+        for hi in range(h_):
+            for q0 in range(0, np_, STRIP):
+                qs = slice(q0, q0 + STRIP)
+                acc = torch.zeros((STRIP, w8(d)))
+                parts = {(u, t): [] for u in range(2) for t in range(4)}
+                for k0 in range(0, np_, KEYS):
+                    ks = slice(k0, k0 + KEYS)
+                    ga = mma_product(g_p[bi, hi, qs].contiguous(),
+                                     vw_p[bi, hi, ks].T.contiguous())
+                    a = torch.exp(s[bi, hi, qs, ks]
+                                  - row(m)[bi, hi, qs]) * row(ise)[bi, hi, qs]
+                    kmt = km[bi, None, ks]
+                    du = ga * kmt * row(qa)[bi, hi, qs] - row(beta)[bi, hi, qs]
+                    ds = a * (du * pd[bi, 0, qs, ks]
+                              - row(c)[bi, hi, qs]) * inv_sqrt
+                    ds = torch.where(valid[qs, ks], ds, torch.zeros_like(ds))
+                    for (u, t), lst in parts.items():
+                        p = torch.zeros(STRIP)
+                        for j in warp_keys(u, t):
+                            p = p + ds[:, j]
+                        lst.append(p)
+                    acc = acc + mma_product(ds, x_p[bi, ks].contiguous())
+                halves = [lane_sum([run_sum(parts[u, t]) for t in range(4)])
+                          for u in range(2)]
+                dxa[bi, hi, qs] = acc
+                dcq[bi, hi, qs] = halves[0] + halves[1]
+    return dxa[:, :, :n, :d], dcq[:, :, :n]
+
+
+@pytest.mark.parametrize("b,h,n,pad,d,dv", [
+    (2, 2, 70, 5, 20, 12), (1, 2, 64, 0, 64, 64), (2, 3, 33, 1, 16, 8)])
+def test_q_pass_tiles_keep_f32_accuracy(b, h, n, pad, d, dv):
+    """The query passes' tile arithmetic, emulated, on `bwd_inputs`'
+    operands (guard rows included), against float64 and the plain f32
+    version, within the kernels' tolerance; dxa within 4x of the plain
+    version's own error."""
+    args, _, _ = chip_smoke.bwd_inputs(b + n + dv, b, h, n, d, dv, pad,
+                                       torch.device("cpu"),
+                                       guard_rows=min(n, 4))
+    got = q_pass_emulated(*args)
+    want = tfl.flash_bwd_q_plain(*[t.double() if torch.is_tensor(t) else t
+                                   for t in args])
+    plain = tfl.flash_bwd_q_plain(*args)
+    for gt, w, p in zip(got, want, plain):
+        assert torch.allclose(gt.double(), w, **KERNEL_TOL)
+        assert torch.allclose(gt, p, **KERNEL_TOL)
+    assert err(got[0], want[0]) <= 4 * err(plain[0], want[0])
+
+
+def thread_sums(v, tile, keys, halves, runs):
+    """A row's sum over the v's last axis as a backward pass takes it:
+    thread t of each warp half u adds its keys(u, t) of each `tile`-term
+    tile, either all into one f32 chain (the earlier kernels) or into a
+    fresh partial per tile summed in runs (`run_sum`); then the 4 lanes
+    (`lane_sum`) and the halves in order."""
+    out = None
+    for u in range(halves):
+        lanes = []
+        for t in range(4):
+            chain, parts = torch.zeros(v.shape[0]), []
+            for k0 in range(0, v.shape[1], tile):
+                p = torch.zeros(v.shape[0])
+                for j in keys(u, t):
+                    if runs:
+                        p = p + v[:, k0 + j]
+                    else:
+                        chain = chain + v[:, k0 + j]
+                parts.append(p)
+            lanes.append(run_sum(parts) if runs else chain)
+        total = lane_sum(lanes)
+        out = total if out is None else out + total
+    return out
+
+
+@pytest.mark.parametrize("pass_", ["q", "k", "k_hf"])
+def test_bounded_partials_over_2048_rows_match_the_cpu_sum(pass_):
+    """dcq (query passes: 32-key tiles) and dck (key passes: 32-query
+    tiles; the folded key pass: 8-query tiles, 2 of its terms a thread
+    each, its query loop split in two and the splits added in order) over
+    2048 ds-like terms (mixed signs, heavy-tailed), 256 rows: the bounded
+    partials no further from float64 than one chain per thread, in max and
+    mean, and their mean error within 1.5x of torch's own float32 sum on
+    the CPU (the route `--precision` holds the card to)."""
+    rng = np.random.default_rng(len(pass_))
+    w = rng.exponential(1.0, (256, 2048)) ** 2
+    v = torch.from_numpy(rng.standard_normal((256, 2048)) * w * 0.015
+                         ).float()
+    want = v.double().sum(1)
+    if pass_ == "k_hf":
+        fold = lambda u, t: [2 * t, 2 * t + 1]
+        sums = lambda runs: sum(
+            (thread_sums(v[:, i:i + 1024], 8, fold, 1, runs)
+             for i in (0, 1024)), torch.zeros(256))
+    else:
+        sums = lambda runs: thread_sums(v, 32, warp_keys, 2, runs)
+    errs = {k: (got.double() - want).abs() for k, got in
+            (("runs", sums(True)), ("chain", sums(False)),
+             ("cpu", v.sum(1)))}
+    assert errs["runs"].max() <= errs["chain"].max()
+    assert errs["runs"].mean() <= errs["chain"].mean()
+    assert errs["runs"].mean() <= 1.5 * errs["cpu"].mean()
+
+
 def _probe_graphs(n_graphs, n_nodes):
     graphs = sbm_like_dataset(seed=2, n_graphs=n_graphs, n_nodes=n_nodes)
     for g in graphs:
@@ -245,6 +432,33 @@ def test_node_matmul_matches_float64(m, k, n):
     got32 = run(cheb.node_matmul, a64.float(), b64.float(), g64.float())
     for w, g64_, g32 in zip(want, got64, got32):
         assert g64_.shape == w.shape
+        scale = float(w.abs().max())
+        assert float((g64_ - w).abs().max()) <= 1e-12 * scale
+        assert float((g32.double() - w).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("k", [48, 200])
+def test_head_sum_matmul_matches_float64(k):
+    """sum_h a_h @ b_h (the score route's attn @ vw, need_heads off): the
+    forward and both gradients equal the einsum in float64, and in float32
+    lie within the kernels' tolerance of float64 (K = 48: the einsum
+    itself; K = 200: per-head blocked products, then the head sum)."""
+    rng = np.random.default_rng(k)
+    a64 = torch.from_numpy(rng.random((2, 3, 40, k)) / k)
+    b64 = torch.from_numpy(rng.standard_normal((2, 3, k, 16)))
+    g64 = torch.from_numpy(rng.standard_normal((2, 40, 16)))
+
+    def run(fn, a, b, g):
+        a = a.clone().requires_grad_()
+        b = b.clone().requires_grad_()
+        out = fn(a, b)
+        return (out.detach(), *torch.autograd.grad(out, (a, b), g))
+
+    want = run(lambda a, b: torch.einsum("bhnm,bhmf->bnf", a, b),
+               a64, b64, g64)
+    got64 = run(cheb.head_sum_matmul, a64, b64, g64)
+    got32 = run(cheb.head_sum_matmul, a64.float(), b64.float(), g64.float())
+    for w, g64_, g32 in zip(want, got64, got32):
         scale = float(w.abs().max())
         assert float((g64_ - w).abs().max()) <= 1e-12 * scale
         assert float((g32.double() - w).abs().max()) <= 1e-5 * scale
