@@ -165,11 +165,9 @@ PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
-# the backward passes, which take their score on the CUDA cores (the
-# forwards' FMA chain) and their other products (the query passes two, the
-# key passes three) on the tensor cores in 3xTF32
-TENSOR_CORE_KERNELS = ("flash_bwd_q", "flash_bwd_k", "flash_bwd_q_hf",
-                       "flash_bwd_k_hf")
+# the folded kernels that run their unfolded twin's body on another grid
+# (csrc/fwd.cuh, csrc/bwd_q.cuh) and so must give its bits
+BIT_EQUAL_TWINS = ("flash_fwd_hf", "flash_bwd_q_hf")
 PAD_CYCLES = 2_000_000          # ~1 ms of device spin at the H100's clocks
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
 # CUDA vs the CPU path after 10 layers. Through the randomly initialised SBM
@@ -409,7 +407,7 @@ def bound(flops, nbytes):
 
 
 def bound_tc(flops, nbytes, fma_flops):
-    """The least time of the arithmetic that a backward pass issues:
+    """The least time of the arithmetic that a flash kernel issues:
     `fma_flops` (the score) as f32 FMAs on the CUDA cores and the rest as
     TF32_SPLIT TF32 products for each f32 one on the tensor cores, the two
     units side by side; or of its bytes: (ms, what bounds it)."""
@@ -420,12 +418,14 @@ def bound_tc(flops, nbytes, fma_flops):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def pass_bounds(t, b, h, n, d, dv, which):
-    """A backward pass's bounds (`which`: "q" or "k"): the arithmetic it
-    issues (`bound_tc`), which is its `bound_ms`, and all of it as f32 FMAs
-    on the CUDA cores; the fields of its JSON row and the text with each
-    share of time `t`."""
-    cost = bwd_cost(b, h, n, d, dv, which)
+def pass_bounds(t, cost, b, h, n, d):
+    """A flash kernel's bounds from its (flops, bytes) `cost`. Each takes
+    its score (2·B·H·N²·D of the flops) on the CUDA cores as one FMA chain
+    and its other products (the forwards one, the query passes two, the key
+    passes three) on the tensor cores in 3xTF32: the bound of what it
+    issues (`bound_tc`), which is its `bound_ms`, beside all of it as f32
+    FMAs on the CUDA cores; the fields of its JSON row and the text with
+    each share of time `t`."""
     (b32, by32) = bound(*cost)
     (btc, bytc) = bound_tc(*cost, 2.0 * b * h * n * n * d)
     text = (f"bound {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %; CUDA-core "
@@ -436,8 +436,9 @@ def pass_bounds(t, b, h, n, d, dv, which):
 
 
 def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
-    """Phase 3: each kernel vs its plain version; returns the JSON rows
-    (numbers of the first shape at dv=64, errors over all shapes)."""
+    """Phase 3: each kernel vs its plain version, two runs of the
+    forward bit-identical; returns the JSON rows (numbers of the first
+    shape at dv=64, errors over all shapes)."""
     rows = {}
     errs = {"flash_fwd": 0.0, "colstat": 0.0}
     for b, n, pad in shapes:
@@ -446,9 +447,12 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                                        device)
             with torch.inference_mode():
                 got = fl_mod.flash_fwd(vw=vw, **ops)
+                again = fl_mod.flash_fwd(vw=vw, **ops)
                 want = fl_mod.flash_fwd_plain(vw=vw, **ops)
                 torch.cuda.synchronize()
-                e1 = max_err(got, want, f"flash_fwd N={n} dv={dv}")
+                e1 = max(check_outputs("flash_fwd", got, again, want,
+                                        ("outh", "m", "se", "su"),
+                                        f"N={n} dv={dv}"))
                 stats = dict(m=want[1], se=want[2], su=want[3])
                 wq = torch.rand(want[2].shape, device=device,
                                 generator=torch.Generator(device).manual_seed(n))
@@ -466,16 +470,17 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                                                            wq=wq))
             errs["flash_fwd"] = max(errs["flash_fwd"], e1)
             errs["colstat"] = max(errs["colstat"], e2)
-            fb, fby = bound(*flash_cost(b, h, n, d, dv))
+            f_row, f_text = pass_bounds(t_k, flash_cost(b, h, n, d, dv), b,
+                                        h, n, d)
             cb, cby = bound(*colstat_cost(b, h, n, d))
             print(f"kernel check B={b} H={h} N={n} D={d} dv={dv} pad~{pad}: "
                   f"flash_fwd err {e1:.3e} {t_k:.4f} ms (plain {t_p:.4f} ms,"
-                  f" bound {fb:.4f} ms {fby}); colstat err {e2:.3e} "
+                  f" {f_text}); colstat err {e2:.3e} "
                   f"{c_k:.4f} ms (plain {c_p:.4f} ms, bound {cb:.4f} ms "
-                  f"{cby}); tolerance rtol 1e-4 atol 1e-5", flush=True)
+                  f"{cby}); flash_fwd's two runs bit-identical; tolerance "
+                  f"rtol 1e-4 atol 1e-5", flush=True)
             if (b, n, pad) == shapes[0] and dv == 64:
-                rows["flash_fwd"] = dict(ms=t_k, plain_ms=t_p, bound_ms=fb,
-                                         bound_by=fby)
+                rows["flash_fwd"] = dict(ms=t_k, plain_ms=t_p, **f_row)
                 rows["colstat"] = dict(ms=c_k, plain_ms=c_p, bound_ms=cb,
                                        bound_by=cby)
     for name in rows:
@@ -523,7 +528,7 @@ def bwd_inputs(seed, b, h, n, d, dv, pad, device, guard_rows=8):
 def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
     """Phase 3, backward: flash_bwd_q / flash_bwd_k vs their plain
     versions, two runs of each bit-identical; returns the JSON rows like
-    `check_kernels` (with the bound of their 3xTF32 arithmetic too)."""
+    `check_kernels`."""
     rows = {}
     errs = {"flash_bwd_q": 0.0, "flash_bwd_k": 0.0}
     passes = {"flash_bwd_q": (fl_mod.flash_bwd_q, fl_mod.flash_bwd_q_plain),
@@ -542,17 +547,13 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                     torch.cuda.synchronize()
                     outs = ("dxa", "dcq") if name.endswith("q") else (
                         "dvw", "dck", "dx")
-                    each = check_backward(name, got, again, want, outs,
-                                          f"N={n} dv={dv}")
+                    each = check_outputs(name, got, again, want, outs,
+                                         f"N={n} dv={dv}")
                     errs[name] = max(errs[name], *each)
                     t_k = time_ms(lambda: kernel(*args))
                     t_p = time_ms(lambda: plain(*args))
-                    bnd, by = bound(*bwd_cost(b, h, n, d, dv, name[-1]))
-                    row, text = dict(bound_ms=bnd, bound_by=by), (
-                        f"bound {bnd:.4f} ms {by}")
-                    if name in TENSOR_CORE_KERNELS:
-                        row, text = pass_bounds(t_k, b, h, n, d, dv,
-                                                name[-1])
+                    row, text = pass_bounds(
+                        t_k, bwd_cost(b, h, n, d, dv, name[-1]), b, h, n, d)
                     line.append(
                         f"{name} err " + " ".join(
                             f"{o} {e:.3e}" for o, e in zip(outs, each))
@@ -569,8 +570,9 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
 def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
     """Phase 3, head-folded kernels: each against its plain version (the
     unfolded kernel's: the same function) and against its unfolded CUDA
-    twin, on the backward's guard-row operands; two runs of each
-    bit-identical. Returns the JSON rows (the first shape at dv=64)."""
+    twin, bit for bit where it runs the twin's body (`BIT_EQUAL_TWINS`),
+    on the backward's guard-row operands; two runs of each bit-identical.
+    Returns the JSON rows (the first shape at dv=64)."""
     rows = {}
     errs = dict.fromkeys(("flash_fwd_hf", "flash_bwd_q_hf", "flash_bwd_k_hf"),
                          0.0)
@@ -598,18 +600,17 @@ def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
                     got, again, unf = kernel(*a), kernel(*a), twin(*a)
                     want = plain(*a)
                     torch.cuda.synchronize()
-                    each = check_backward(name, got, again, want, outs, tag)
+                    each = check_outputs(name, got, again, want, outs, tag)
                     e_twin = max_err(got, unf, f"{name} against the unfolded "
                                      f"kernel {tag}")
+                    if name in BIT_EQUAL_TWINS and not all(
+                            map(torch.equal, got, unf)):
+                        raise AssertionError(f"{name} {tag}: not bit-equal "
+                                             f"to the unfolded kernel")
                     t_k, t_u, t_p = (time_ms(lambda f=f: f(*a))
                                      for f in (kernel, twin, plain))
                 errs[name] = max(errs[name], *each)
-                bnd, by = bound(*cost)
-                row, text = dict(bound_ms=bnd, bound_by=by), (
-                    f"bound {bnd:.4f} ms {by}")
-                if name in TENSOR_CORE_KERNELS:
-                    row, text = pass_bounds(t_k, b, h, n, d, dv,
-                                            name.split("_")[2])
+                row, text = pass_bounds(t_k, cost, b, h, n, d)
                 line.append(
                     f"{name} err " + " ".join(
                         f"{o} {e:.3e}" for o, e in zip(outs, each))
@@ -774,8 +775,9 @@ def fused_cost(b, h, n, d, which):
                    + 2 * b * h * n + b * h))
 
 
-def check_backward(name, got, again, want, outs, tag):
-    """Errors of each output; raise unless two runs are bit-identical."""
+def check_outputs(name, got, again, want, outs, tag):
+    """Errors of each output of a kernel (forward or backward); raise
+    unless two runs are bit-identical."""
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name} {tag}: two runs differ")
     return [max_err([g_], [w_], f"{name} {o} {tag}")
@@ -802,8 +804,8 @@ def check_modulation(device, h=8, shapes=MOD_SHAPES):
             torch.cuda.synchronize()
             tag = f"B={b} N={n}"
             e_f = max_err([got_f], [plain_f()], f"modulation_fwd {tag}")
-            (e_b,) = check_backward("modulation_bwd", [got_b], [again],
-                                    [plain_b()], ("ds",), tag)
+            (e_b,) = check_outputs("modulation_bwd", [got_b], [again],
+                                   [plain_b()], ("ds",), tag)
             pd = pe[0, :4] * deg[0]
             n_guard = int((pd.sum(-1) == 0).sum())
             times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
@@ -849,8 +851,8 @@ def check_fused_attention(device, h=8, d=64, shapes=FUSED_SHAPES):
             torch.cuda.synchronize()
             tag = f"B={b} N={n}"
             e_f = max_err([got_f], [plain_f()], f"fused_attn_fwd {tag}")
-            each = check_backward("fused_attn_bwd", got_b, again, plain_b(),
-                                  outs, tag)
+            each = check_outputs("fused_attn_bwd", got_b, again, plain_b(),
+                                 outs, tag)
             times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
         errs["fused_attn_fwd"] = max(errs["fused_attn_fwd"], e_f)
         errs["fused_attn_bwd"] = max(errs["fused_attn_bwd"], *each)
@@ -1792,9 +1794,15 @@ def precision_probe(device):
     collate = dict(max_nodes=LARGE_N, node_labels=True)
     model = DiffGraphTransformerGenGCNSBM(
         **MODEL_CFG, **LARGE_SETTINGS["fold"], seed=0, device=device)
-    calibrate_batch_norm(model, collate_graphs(graphs[:2], **collate), device)
-    one = collate_graphs(graphs[:1], **collate)
+    # batch norm set by the float64 forward, so that every layer's inputs
+    # are the same whatever kernels the card runs (`kernel_ab.py
+    # --precision` compares kernel trees)
     ref_model = copy.deepcopy(model).to("cpu", torch.float64)
+    calibrate_batch_norm(ref_model, as_float64(
+        collate_graphs(graphs[:2], **collate)), "cpu")
+    model.load_state_dict(ref_model.state_dict())
+    model.eval()
+    one = collate_graphs(graphs[:1], **collate)
     layer_inputs = []
     hooks = [layer.register_forward_hook(
         lambda mod, args, kwargs, out: layer_inputs.append((args, kwargs)),
@@ -2145,11 +2153,11 @@ def main() -> int:
     runs += large_slice(device, card, profile=profile)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"
-    meta = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:95"),
+    meta = {"flash_fwd": ("fwd.cuh", "flash_attention.py:95"),
             "colstat": ("colstat.cu", "flash_attention.py:776"),
             "flash_bwd_q": ("bwd_q.cuh", "flash_attention.py:528"),
             "flash_bwd_k": ("flash_bwd.cu", "flash_attention.py:556"),
-            "flash_fwd_hf": ("flash_hf.cu", "flash_attention.py:163"),
+            "flash_fwd_hf": ("fwd.cuh", "flash_attention.py:163"),
             "flash_bwd_q_hf": ("bwd_q.cuh", "flash_attention.py:268"),
             "flash_bwd_k_hf": ("flash_hf.cu", "flash_attention.py:310"),
             "fused_mlp_fwd": ("fused_mlp.cu", "fused_mlp.py:58"),

@@ -8,15 +8,7 @@
 // with ds recomputed from the forward's row statistics (the formulas are in
 // flash_bwd.cu's note and graphit_tile.cuh's `grad_score`).
 //
-// Strips. A block owns S strips of 16 queries, a strip being one head's 16
-// consecutive queries, and loops over the keys in 32-key tiles:
-//   unfolded: one block per (b, 64-query tile, h), h fastest so that the H
-//     blocks reading one pe tile meet in L2; its S = 4 strips are head h's
-//     queries 16 s .. 16 s + 15 of the tile;
-//   folded:   one block per (b, 16-query tile) for all H <= 8 heads; strip
-//     s is head s's 16 queries, and the heads share the staged x, pe, deg
-//     and key mask (the TPU's reason to fold).
-// Two warps a strip, warp 2 s + u, 8 warps (unfolded) or 2H (folded).
+// Strips, grids and staging: strips.cuh. Two warps a strip, warp 2 s + u.
 //
 // Per key tile, warp (s, u), the mma's M the strip's 16 queries:
 //   1. keys 16 u .. 16 u + 15 (two n-tiles): the score s as the forwards'
@@ -36,15 +28,14 @@
 // At the end dcq adds the 4 lanes of a row (fixed xor order), then the
 // strip's two warps in order. No float atomics: bit-identical runs.
 //
-// Staging, by cp.async. Once: the strips' xa and g rows [16 S][kLD]. Per key
-// tile, a two-stage ring {x [32][kLD], pe [P][kLDP], ck [V][32], deg [32],
-// key mask [32]} (P = 64 query rows unfolded, 16 folded; V = 1 head
-// unfolded, H folded): tile t + 1 loads while tile t computes. vw [V][32]
-// [kLD] has one buffer, refilled for tile t + 1 after phase 1 of tile t
-// and landing during its phase 2: a second one would take the folded block
-// past the SM's 227 KB at H=8. Shared memory at D = DV = 64: unfolded
-// 91,904 bytes (two blocks an SM, 128 registers a thread), folded 183,808
-// bytes at H=8 (one block of 16 warps an SM).
+// Staging (strips.cuh). Once: the strips' xa and g rows [16 S][kLD]. Per
+// key tile, a two-stage ring of the tile's x, pe, ck, deg and key mask:
+// tile t + 1 loads while tile t computes. vw [V][32][kLD] has one buffer,
+// refilled for tile t + 1 after phase 1 of tile t and landing during its
+// phase 2: a second one would take the folded block past the SM's 227 KB
+// at H=8. Shared memory at D = DV = 64: unfolded 91,904 bytes (two blocks
+// an SM, 128 registers a thread), folded 183,808 bytes at H=8 (one block
+// of 16 warps an SM).
 //
 // What bounds it: instruction issue and mma.sync's TF32 rate. A warp's
 // tile is 512 score FMAs beside 96 TF32 mma.sync (48 a product) and their
@@ -60,61 +51,18 @@
 
 #include "graphit_tile.cuh"
 #include "mma_tf32.cuh"
+#include "strips.cuh"
 
 namespace bwdq {
 
-constexpr int kKeys = 32;          // keys per tile
-constexpr int kStrip = 16;         // queries per strip
-constexpr int kLD = 68;            // rows of up to 64 floats, padded
+using namespace strips;
+
 constexpr int kLDS = kKeys + 4;    // ds [query][key]: A loads conflict-free
-constexpr int kLDP = kKeys + 8;    // pe [query][key]: float2 reads
-constexpr int kMaxW = 64;
-constexpr int kUnfoldedStrips = 4;
-constexpr int kMaxHeads = 8;
-
-struct Shape {
-  int S, P, V;   // strips, staged pe rows, staged vw / ck heads
-};
-
-__host__ __device__ inline Shape shape(bool fold, int H) {
-  return fold ? Shape{H, kStrip, H}
-              : Shape{kUnfoldedStrips, kUnfoldedStrips * kStrip, 1};
-}
-
-__host__ __device__ inline int stage_floats(Shape sh) {
-  return kKeys * kLD + sh.P * kLDP + (sh.V + 2) * kKeys;
-}
 
 __host__ __device__ inline size_t smem_floats(Shape sh) {
   const size_t rows = (size_t)sh.S * kStrip;
-  return 2 * rows * kLD + rows * kLDS + (size_t)sh.V * kKeys * kLD +
-         2 * (size_t)stage_floats(sh) + 2 * rows;
-}
-
-// cp.async of `rows` rows of width w <= 64 into dst [rows][kLD], columns w
-// .. 63 zero: row r from src_row(r), or all zero where that is nullptr.
-// 16 bytes a copy where `vec` (w and the rows' offsets multiples of 4
-// floats), chunk i at row i / 16, columns 4 (i % 16) .. + 3; else 4 bytes.
-template <class Src>
-__device__ __forceinline__ void stage_rows64(float* dst, int rows, int w,
-                                             bool vec, Src src_row,
-                                             const float* dummy) {
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  if (vec) {
-    for (int i = tid; i < rows * 16; i += nthreads) {
-      const int r = i >> 4, c = (i & 15) * 4;
-      const float* p = src_row(r);
-      const bool valid = p != nullptr && c < w;
-      tc::cp_async16(dst + r * kLD + c, valid ? p + c : dummy, valid);
-    }
-  } else {
-    for (int i = tid; i < rows * kMaxW; i += nthreads) {
-      const int r = i >> 6, c = i & (kMaxW - 1);
-      const float* p = src_row(r);
-      const bool valid = p != nullptr && c < w;
-      tc::cp_async4(dst + r * kLD + c, valid ? p + c : dummy, valid);
-    }
-  }
+  return 2 * rows * kLD + rows * kLDS + vw_floats(sh) +
+         2 * (size_t)key_floats(sh) + 2 * rows;
 }
 
 template <bool kFold>
@@ -125,117 +73,27 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
              float inv_sqrt) {
   extern __shared__ float smem[];
   const Shape sh = shape(kFold, H);
-  const int rows = sh.S * kStrip, stage = stage_floats(sh);
+  const int rows = sh.S * kStrip, stage = key_floats(sh);
   float* xas = smem;                     // [16 S][kLD]  the strips' xa
   float* gs = xas + rows * kLD;          // [16 S][kLD]  their cotangents
   float* dss = gs + rows * kLD;          // [16 S][kLDS] ds of the tile
   float* vws = dss + rows * kLDS;        // [V][32][kLD] its values
-  float* ring = vws + sh.V * kKeys * kLD;
+  float* ring = vws + vw_floats(sh);
   float* red = ring + 2 * stage;         // [2][16 S]    dcq of each warp
 
-  // the block's queries and heads
-  int bid = blockIdx.x, hb = 0, q0;
-  if (kFold) {
-    const int nq = (N + kStrip - 1) / kStrip;
-    q0 = (bid % nq) * kStrip;
-    bid /= nq;
-  } else {
-    const int nq = (N + kUnfoldedStrips * kStrip - 1) /
-                   (kUnfoldedStrips * kStrip);
-    hb = bid % H;
-    bid /= H;
-    q0 = (bid % nq) * kUnfoldedStrips * kStrip;
-    bid /= nq;
-  }
-  const int b = bid;
-  // strip s: head, first query
-  auto head = [&](int s) { return kFold ? s : hb; };
-  auto first = [&](int s) { return kFold ? q0 : q0 + kStrip * s; };
-
+  const Block blk = block_of<kFold>(H, N);
   const int tid = threadIdx.x, warp = tid / 32;
   const int g = tc::lane_g(), t = tc::lane_t();
   const int s = warp >> 1, u = warp & 1;
-  const int hs = head(s), qs0 = first(s);
-  const size_t bhs = (size_t)b * H + hs;
-  const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
-  const float* dummy = op.x;
+  const int hs = blk.head(s), qs0 = blk.first(s);
+  const size_t bhs = (size_t)blk.b * H + hs;
+  const float* pe_b = op.pe ? op.pe + (size_t)blk.b * N * N : nullptr;
 
-  // the query side, once
-  {
-    auto row_of = [&](const float* base, int w) {
-      return [=](int r) -> const float* {
-        const int sr = r >> 4, q = first(sr) + (r & 15);
-        return q < N ? base + (((size_t)b * H + head(sr)) * N + q) * w
-                     : nullptr;
-      };
-    };
-    const bool vx = D % 4 == 0 && reinterpret_cast<size_t>(op.xa) % 16 == 0;
-    const bool vg = DV % 4 == 0 && reinterpret_cast<size_t>(op.g) % 16 == 0;
-    stage_rows64(xas, rows, D, vx, row_of(op.xa, D), dummy);
-    stage_rows64(gs, rows, DV, vg, row_of(op.g, DV), dummy);
-  }
-
-  const bool vec_x =
-      D % 4 == 0 && reinterpret_cast<size_t>(op.x) % 16 == 0;
-  const bool vec_vw =
-      DV % 4 == 0 && reinterpret_cast<size_t>(op.vw) % 16 == 0;
-  const bool vec_pe =
-      pe_b && N % 4 == 0 && reinterpret_cast<size_t>(op.pe) % 16 == 0;
-
-  // tile k0's x, pe, ck, deg and key mask into ring stage `st`
-  auto issue_keys = [&](int k0, int st) {
-    float* xst = ring + st * stage;
-    float* pst = xst + kKeys * kLD;
-    float* vst = pst + sh.P * kLDP;     // ck [V][32], deg [32], mask [32]
-    stage_rows64(
-        xst, kKeys, D, vec_x,
-        [=](int r) -> const float* {
-          return k0 + r < N ? op.x + ((size_t)b * N + k0 + r) * D : nullptr;
-        },
-        dummy);
-    if (pe_b) {
-      if (vec_pe) {
-        for (int i = tid; i < sh.P * kKeys / 4; i += blockDim.x) {
-          const int r = i >> 3, c = (i & 7) * 4, q = q0 + r;
-          const bool valid = q < N && k0 + c < N;
-          tc::cp_async16(pst + r * kLDP + c,
-                         valid ? pe_b + (size_t)q * N + k0 + c : dummy,
-                         valid);
-        }
-      } else {
-        for (int i = tid; i < sh.P * kKeys; i += blockDim.x) {
-          const int r = i >> 5, c = i & (kKeys - 1), q = q0 + r;
-          const bool valid = q < N && k0 + c < N;
-          tc::cp_async4(pst + r * kLDP + c,
-                        valid ? pe_b + (size_t)q * N + k0 + c : dummy,
-                        valid);
-        }
-      }
-    }
-    for (int i = tid; i < (sh.V + 2) * kKeys; i += blockDim.x) {
-      const int j = i >> 5, key = k0 + (i & (kKeys - 1));
-      const float* src = j < sh.V ? op.ck + ((size_t)b * H + head(j)) * N
-                         : j == sh.V ? op.deg + (size_t)b * N
-                                     : op.mask + (size_t)b * N;
-      const bool valid = key < N && (j != sh.V || op.deg);
-      tc::cp_async4(vst + i, valid ? src + key : dummy, valid);
-    }
-  };
-  // tile k0's vw rows of every staged head
-  auto issue_vw = [&](int k0) {
-    stage_rows64(
-        vws, sh.V * kKeys, DV, vec_vw,
-        [=](int r) -> const float* {
-          const int key = k0 + (r & (kKeys - 1));
-          return key < N ? op.vw + (((size_t)b * H + head(r >> 5)) * N +
-                                    key) * DV
-                         : nullptr;
-        },
-        dummy);
-  };
-
-  issue_keys(0, 0);
-  issue_vw(0);
+  // the query side, once; then key tile 0 and its values
+  stage_strips(xas, blk, sh, op.xa, D, H, N, op.x);
+  stage_strips(gs, blk, sh, op.g, DV, H, N, op.x);
+  stage_keys(ring, blk, sh, op, 0, H, N, D);
+  stage_vw(vws, blk, sh, op, 0, H, N, DV);
   tc::cp_async_commit();
 
   // the row constants of the thread's queries qs0 + g (+8)
@@ -265,7 +123,8 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
     tc::cp_async_wait_all();
     __syncthreads();  // tile `it` visible; every warp done with it - 1
     if (it + 1 < nt) {
-      issue_keys(k0 + kKeys, (it + 1) & 1);
+      stage_keys(ring + ((it + 1) & 1) * stage, blk, sh, op, k0 + kKeys, H,
+                 N, D);
       tc::cp_async_commit();
     }
     const float* xst = ring + (it & 1) * stage;
@@ -337,7 +196,7 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
     dsum[1].add(tile[1], it);
     __syncthreads();  // every strip's ds complete; vw no longer read
     if (it + 1 < nt) {
-      issue_vw(k0 + kKeys);
+      stage_vw(vws, blk, sh, op, k0 + kKeys, H, N, DV);
       tc::cp_async_commit();
     }
 
@@ -377,9 +236,10 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
   }
   __syncthreads();
   for (int r = tid; r < rows; r += blockDim.x) {
-    const int sr = r >> 4, q = first(sr) + (r & 15);
+    const int sr = r >> 4, q = blk.first(sr) + (r & 15);
     if (q < N)
-      dcq[((size_t)b * H + head(sr)) * N + q] = red[r] + red[rows + r];
+      dcq[((size_t)blk.b * H + blk.head(sr)) * N + q] =
+          red[r] + red[rows + r];
   }
 }
 
@@ -393,9 +253,7 @@ int launch(graphit::Operands op, float* dxa, float* dcq, int B, int H,
       bwd_q_kernel<kFold>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tile = kFold ? kStrip : kUnfoldedStrips * kStrip;
-  const int blocks = B * ((N + tile - 1) / tile) * (kFold ? 1 : H);
-  bwd_q_kernel<kFold><<<blocks, 64 * sh.S, smem, stream>>>(
+  bwd_q_kernel<kFold><<<blocks(kFold, B, H, N), 64 * sh.S, smem, stream>>>(
       op, dxa, dcq, H, N, D, DV, inv_sqrt);
   return (int)cudaGetLastError();
 }

@@ -8,45 +8,39 @@
 // its unfolded twin computes (flash_fwd.cu, flash_bwd.cu; the formulas are
 // in their notes and in graphit_tile.cuh's `score` / `grad_score`):
 //
-//   flash_fwd_hf_kernel:    outh_h, m, se, su  for every head h
-//   flash_bwd_q_hf_kernel:  dxa_h = ds_h @ x,        dcq_h = sum_j ds_h
-//   flash_bwd_k_hf_kernel:  dvw_h = attn_h^T @ g_h,  dck_h = sum_i ds_h,
-//                           dx    = sum_h ds_h^T @ xa_h  (tensor cores)
+//   forward (fwd.cuh):     outh_h, m, se, su  for every head h
+//   q pass (bwd_q.cuh):    dxa_h = ds_h @ x,        dcq_h = sum_j ds_h
+//   flash_bwd_k_hf_kernel: dvw_h = attn_h^T @ g_h,  dck_h = sum_i ds_h,
+//                          dx    = sum_h ds_h^T @ xa_h  (tensor cores)
 //
 // The difference is the work of one block: it owns one (graph, query tile)
 // or (graph, key tile) for ALL H heads. The TPU kernel loops over the heads
-// inside the program; here the heads run side by side, one group of 64
-// threads (two warps) per head, H <= 8 groups in a block of 64·H threads.
-// Per tile of the other axis the block stages what the heads share once:
-// the x tile, the pe·deg tile and the key mask (the TPU's reason to fold);
-// each group stages nothing of its own but reads its head's xa, vw, g and
-// row constants from the block's shared tiles.
+// inside the program; here the heads run side by side, two warps per head,
+// H <= 8 heads in a block of 64·H threads. Per tile of the other axis the
+// block stages what the heads share once: the x tile, the pe tile, deg and
+// the key mask (the TPU's reason to fold); each head's xa, vw, g and row
+// constants are staged beside them.
 //
 // Order: key tile outer, heads side by side inner. The other order (head
 // outer, key tile inner) keeps one head's state but would read the pe tile
 // once per head and leave a block working on one head at a time; the
-// side-by-side order keeps every head's running state in its own group's
+// side-by-side order keeps every head's running state in its own warps'
 // registers, so no head waits for another.
 //
-// What bounds them on the H100: arithmetic, as their twins
-// (2·N²·(D + DV) flops per (b, h) forward, 2·N²·(2D + DV) and
-// 2·N²·(2D + 2DV) for the two passes). And parallelism: with one block per
-// (graph, 64-row tile) the folded grid would be B·N/64 blocks, 32 at the
-// training shape (B=1, N=2048) on 132 SMs.
+// What bounds them on the H100: instruction issue, as their twins (the
+// score's FMAs on the CUDA cores beside 3xTF32 products; 2·N²·(D + DV)
+// flops per (b, h) forward, 2·N²·(2D + DV) and 2·N²·(2D + 2DV) for the two
+// passes). And parallelism: with one block per (graph, 64-row tile) the
+// folded grid would be B·N/64 blocks, 32 at the training shape (B=1,
+// N=2048) on 132 SMs.
 //
-// The forward runs on CUDA cores in full f32 against 67 TFLOP/s. Its
-// tiles are 16 rows wide on the axis the block owns: B·N/16 blocks (128 at
-// B=1, N=2048; 256 at the serving B=2), each of 512 threads at H=8, the
-// same threads per SM as the unfolded grid. Each thread keeps the unfolded
-// kernels' 4x4 register micro-tiles: rows ty + 4 i of its group's 16, keys
-// or columns tx + 16 j. Shared memory (at H=8, D=DV=64): 222 KB (16
-// queries x 64 keys): one block per SM, which the 512 threads' registers
-// (128 each, `__launch_bounds__(512, 1)`) allow anyway.
-//
-// The q pass is bwd_q.cuh's kernel on the folded grid (its note): one block
-// per (graph, 16-query tile) for all heads, two warps a head over 32-key
-// tiles, the score as the forward's FMA chain, ga and dxa on the tensor
-// cores in 3xTF32; 184 KB of shared memory at H=8, one block per SM.
+// The forward and the q pass are fwd.cuh's and bwd_q.cuh's bodies on the
+// folded grid (strips.cuh): one block per (graph, 16-query tile) for all
+// heads, B·N/16 blocks (128 at B=1, N=2048; 256 at the serving B=2), two
+// warps a head over 32-key tiles, the score as one FMA chain, P·V (the
+// forward), ga and dxa (the q pass) on the tensor cores in 3xTF32; 199 KB
+// and 184 KB of shared memory at H=8, one block per SM. Each computes
+// every 16-query strip as its unfolded launch does, bit for bit.
 //
 // The k pass takes its score as the forward's FMA chain and its other
 // products on the tensor cores in error-compensated TF32 (mma_tf32.cuh;
@@ -87,6 +81,7 @@
 #include <math.h>
 
 #include "bwd_q.cuh"
+#include "fwd.cuh"
 #include "graphit_tile.cuh"
 #include "mma_tf32.cuh"
 
@@ -94,273 +89,15 @@ namespace {
 
 using graphit::dot4;
 using graphit::grad_score;
-using graphit::kEps;
 using graphit::ld4;
 using graphit::Operands;
 using graphit::operands;
 using graphit::RunSum;
-using graphit::score;
 
-constexpr int kGX = 16;                   // lanes along keys / columns
-constexpr int kGY = 4;                    // lanes along rows
-constexpr int kGroup = kGX * kGY;         // threads of one head
+constexpr int kGroup = 64;                // threads of one head: two warps
 constexpr int kMaxHeads = 8;
 constexpr int kMaxThreads = kGroup * kMaxHeads;
 constexpr int kMaxW = 64;                 // D and DV at most 64
-constexpr int kOut = kMaxW / kGX;         // output columns per thread
-constexpr int kRows = 4;                  // rows per thread: 16-row tiles
-constexpr int kTile = kGY * kRows;        // 16
-constexpr int kLD16 = kTile + 1;          // padded strides
-// forward: 16 queries x 64 keys
-constexpr int kFK = 64, kLDF = kFK + 1;
-constexpr int kFC = kFK / kGX;         // key columns per thread, forward
-
-constexpr int kBatch = 4;   // float4 loads in flight per thread, staging
-
-// Copies the `rows` rows (from row0) of every head's [N, w] slab of `src`
-// (H slabs; H = 1 for an operand without heads: pass the graph's base
-// pointer) into shared memory, zero beyond the ragged edge N:
-//   kTransposed: dst[(h * w + k) * ld + r],
-//   natural:     dst[(h * rows + r) * w + k].
-// A block staging alone on its SM waits for these loads, so each thread
-// keeps kBatch 16-byte loads in flight before it stores any (4-byte loads
-// one at a time where w or the pointer does not allow 16 bytes).
-template <bool kTransposed>
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
-                                      int H, int row0, int rows, int N,
-                                      int w) {
-  const int vec = (w % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0)
-                      ? 4 : 1;
-  const int wv = w / vec, per = rows * wv, total = H * per;
-  for (int base = threadIdx.x; base < total; base += blockDim.x * kBatch) {
-    float v[kBatch][4];
-    int at[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int i = base + u * blockDim.x;
-      at[u] = -1;
-      if (i >= total) continue;
-      const int h = i / per, rest = i - h * per, r = rest / wv;
-      const int k = (rest - r * wv) * vec, row = row0 + r;
-      at[u] = kTransposed ? (h * w + k) * ld + r : (h * rows + r) * w + k;
-      const float* p = src + ((size_t)h * N + row) * w + k;
-      if (row >= N) {
-        v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0.f;
-      } else if (vec == 4) {
-        const float4 q = *reinterpret_cast<const float4*>(p);
-        v[u][0] = q.x, v[u][1] = q.y, v[u][2] = q.z, v[u][3] = q.w;
-      } else {
-        v[u][0] = *p;
-      }
-    }
-    const int step = kTransposed ? ld : 1;
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      if (at[u] < 0) continue;
-      dst[at[u]] = v[u][0];
-      if (vec == 4) {
-        dst[at[u] + step] = v[u][1];
-        dst[at[u] + 2 * step] = v[u][2];
-        dst[at[u] + 3 * step] = v[u][3];
-      }
-    }
-  }
-}
-
-// pd[r * ld + c] = pe[q0 + r, k0 + c] * deg[k0 + c] (1 where absent), zero
-// beyond the ragged edge.
-__device__ __forceinline__ void stage_pd(float* pd, int ld, const float* pe_b,
-                                         const float* deg_b, int q0, int nr,
-                                         int k0, int nc, int N) {
-  for (int i = threadIdx.x; i < nr * nc; i += blockDim.x) {
-    const int r = i / nc, c = i % nc, q = q0 + r, key = k0 + c;
-    float p = 0.f;
-    if (q < N && key < N)
-      p = (pe_b ? pe_b[(size_t)q * N + key] : 1.f) *
-          (deg_b ? deg_b[key] : 1.f);
-    pd[r * ld + c] = p;
-  }
-}
-
-// ck of every head and the key mask for keys k0 .. k0 + nc - 1.
-__device__ __forceinline__ void stage_key_vectors(float* cks, float* kms,
-                                                  const float* ck_b,
-                                                  const float* mask_b, int H,
-                                                  int k0, int nc, int N) {
-  for (int i = threadIdx.x; i < H * nc; i += blockDim.x) {
-    const int h = i / nc, key = k0 + i % nc;
-    cks[i] = key < N ? ck_b[(size_t)h * N + key] : 0.f;
-    if (h == 0) kms[i] = key < N ? mask_b[key] : 0.f;
-  }
-}
-
-// s[i][j] = sum_k aT[k * lda + ty + 4 i] * bT[k * ldb + tx + 16 j]
-template <int R, int C>
-__device__ __forceinline__ void micro_dot(const float* aT, int lda,
-                                          const float* bT, int ldb, int K,
-                                          int tx, int ty, float (&s)[R][C]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) s[i][j] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    float a[R], b[C];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = aT[k * lda + ty + kGY * i];
-#pragma unroll
-    for (int j = 0; j < C; ++j) b[j] = bT[k * ldb + tx + kGX * j];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// the 16 threads of a row are 16 consecutive lanes of one warp
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = kGX / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kMaxThreads, 1)
-flash_fwd_hf_kernel(Operands op, float* __restrict__ outh,
-                    float* __restrict__ m_out, float* __restrict__ se_out,
-                    float* __restrict__ su_out, int H, int N, int D, int DV,
-                    float inv_sqrt) {
-  extern __shared__ float smem[];
-  float* xaT = smem;                     // [H][D][kLD16]   query tiles
-  float* xT = xaT + H * D * kLD16;       // [D][kLDF]       key tile
-  float* vws = xT + D * kLDF;            // [H][kFK][DV]    its values
-  float* pds = vws + H * kFK * DV;       // [kTile][kLDF]   pe * deg
-  float* ps = pds + kTile * kLDF;        // [H][kTile][kLDF] P
-  float* cks = ps + H * kTile * kLDF;    // [H][kFK]
-  float* kms = cks + H * kFK;            // [kFK]
-
-  const int nq = (N + kTile - 1) / kTile;
-  const int q0 = (blockIdx.x % nq) * kTile;
-  const int b = blockIdx.x / nq;
-  const int h = threadIdx.x / kGroup;
-  const int lt = threadIdx.x % kGroup;
-  const int tx = lt % kGX, ty = lt / kGX;
-
-  const size_t bh = (size_t)b * H + h;
-  const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
-  const float* deg_b = op.deg ? op.deg + (size_t)b * N : nullptr;
-  const float* mask_b = op.mask + (size_t)b * N;
-  const float* hxaT = xaT + h * D * kLD16;
-  const float* hvw = vws + h * kFK * DV;
-  float* hps = ps + h * kTile * kLDF;
-  const float* hck = cks + h * kFK;
-
-  stage<true>(xaT, kLD16, op.xa + (size_t)b * H * N * D, H, q0, kTile, N, D);
-  float cqr[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int q = q0 + ty + kGY * i;
-    cqr[i] = q < N ? op.cq[bh * N + q] : 0.f;
-  }
-  const float c0h = op.c0[h];
-
-  float m_r[kRows], se_r[kRows], su_r[kRows], scale_r[kRows];
-  float acc[kRows][kOut];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m_r[i] = -INFINITY;
-    se_r[i] = su_r[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < N; k0 += kFK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<true>(xT, kLDF, op.x + (size_t)b * N * D, 1, k0, kFK, N, D);
-    stage<false>(vws, 0, op.vw + (size_t)b * H * N * DV, H, k0, kFK, N, DV);
-    stage_pd(pds, kLDF, pe_b, deg_b, q0, kTile, k0, kFK, N);
-    stage_key_vectors(cks, kms, op.ck + (size_t)b * H * N, mask_b, H, k0,
-                      kFK, N);
-    __syncthreads();
-
-    float s[kRows][kFC];
-    micro_dot(hxaT, kLD16, xT, kLDF, D, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + kGY * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kFC; ++j) {
-        const int c = tx + kGX * j;
-        float v = score(s[i][j], cqr[i], hck[c], c0h, inv_sqrt, kms[c]);
-        if (k0 + c >= N) v = -INFINITY;  // beyond the ragged edge
-        s[i][j] = v;
-        mx = fmaxf(mx, v);
-      }
-#pragma unroll
-      for (int off = kGX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_r[i], mx);
-      const float scale = expf(m_r[i] - m_new);  // 0 on the first tile
-      float es = 0.f, ws = 0.f;
-#pragma unroll
-      for (int j = 0; j < kFC; ++j) {
-        const int c = tx + kGX * j;
-        const float e = expf(s[i][j] - m_new);
-        const float w = e * pds[r * kLDF + c];
-        es += e;
-        ws += w;
-        hps[r * kLDF + c] = w * kms[c];  // only this thread touches (r, c)
-      }
-      se_r[i] = se_r[i] * scale + row_sum(es);
-      su_r[i] = su_r[i] * scale + row_sum(ws);
-      m_r[i] = m_new;
-      scale_r[i] = scale;
-    }
-    __syncthreads();  // P complete
-
-    float part[kRows][kOut] = {};  // this key tile's P·V
-    for (int c = 0; c < kFK; ++c) {
-      float p[kRows], vv[kOut];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = hps[(ty + kGY * i) * kLDF + c];
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int v = tx + kGX * j;
-        vv[j] = v < DV ? hvw[c * DV + v] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          part[i][j] = fmaf(p[i], vv[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kOut; ++j)
-        acc[i][j] = fmaf(acc[i][j], scale_r[i], part[i][j]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int q = q0 + ty + kGY * i;
-    if (q >= N) continue;
-    const float se = se_r[i], su = su_r[i];
-    const float div = fabsf(su / se) > kEps ? su : se;
-    const float qm = mask_b[q];
-    const size_t row = bh * N + q;
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int v = tx + kGX * j;
-      if (v < DV) outh[row * DV + v] = acc[i][j] / div * qm;
-    }
-    if (tx == 0) {
-      m_out[row] = m_r[i];
-      se_out[row] = se;
-      su_out[row] = su;
-    }
-  }
-}
 
 // ---- the key pass on tensor cores (mma_tf32.cuh) ----
 //
@@ -534,8 +271,8 @@ flash_bwd_k_hf_kernel(Operands op, float* __restrict__ dvw,
     const float* pes = st + 2 * H * kQT7 * kLD64;
     const float* rcs = pes + kQT7 * kLDP7 + h * kNRC * kQT7;
 
-    // s^T as the forward's FMA chain (graphit_tile.cuh's dot4; the
-    // forward's micro_dot) at the thread's C-fragment positions, keys
+    // s^T as the forward's FMA chain (graphit_tile.cuh's dot4, as fwd.cuh
+    // takes it) at the thread's C-fragment positions, keys
     // kr0 + g (+8) and queries 2 t (+1); ga^T = vw_h g_h^T on the tensor
     // cores (even and odd k-steps in two accumulators), or as an FMA chain
     // where DV rounds to 8 (flash_bwd.cu's k pass says why)
@@ -691,13 +428,6 @@ __global__ void sum_splits_kernel(const float* __restrict__ parts,
   }
 }
 
-size_t smem_fwd(int H, int D, int DV) {
-  return sizeof(float) *
-         ((size_t)H * D * kLD16 + (size_t)D * kLDF + (size_t)H * kFK * DV +
-          (size_t)kTile * kLDF + (size_t)H * kTile * kLDF +
-          (size_t)H * kFK + kFK);
-}
-
 size_t smem_k(int H) { return sizeof(float) * k_smem_floats(H); }
 
 bool bad_shape(int B, int H, int N, int D, int DV) {
@@ -716,18 +446,11 @@ extern "C" int feta_flash_fwd_hf(const void* xa, const void* x,
                                  int D, int DV, float inv_sqrt,
                                  void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_fwd(H, D, DV);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_hf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nq = (N + kTile - 1) / kTile;
-  flash_fwd_hf_kernel<<<B * nq, kGroup * H, smem, (cudaStream_t)stream>>>(
+  return fwd::launch<true>(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, nullptr, nullptr,
                nullptr, nullptr, nullptr, nullptr),
-      (float*)outh, (float*)m, (float*)se, (float*)su, H, N, D, DV,
-      inv_sqrt);
-  return (int)cudaGetLastError();
+      (float*)outh, (float*)m, (float*)se, (float*)su, B, H, N, D, DV,
+      inv_sqrt, (cudaStream_t)stream);
 }
 
 extern "C" int feta_flash_bwd_q_hf(const void* xa, const void* x,

@@ -1,9 +1,10 @@
-// Score tiles of GraphiT attention, shared by flash_fwd.cu, flash_bwd.cu,
-// colstat.cu and flash_hf.cu (which uses only the score functions); the
-// backward passes take `dot4`, `score`, `grad_score`, their `Operands` and
-// `RunSum` (their other products run on the tensor cores, mma_tf32.cuh).
+// Score tiles of GraphiT attention. colstat.cu takes the SIMT tile below
+// (`stage_transposed`, `tile_dot`); the forwards' body fwd.cuh and the
+// backward passes (flash_bwd.cu, flash_hf.cu, bwd_q.cuh) take `dot4`,
+// `score`, `Operands` and, backward, `grad_score` and `RunSum` (their other
+// products run on the tensor cores, mma_tf32.cuh).
 //
-// One 256-thread block works on a 64-query x 64-key tile. Thread
+// colstat.cu's 256-thread block works on a 64-query x 64-key tile. Thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows ty + 16 i and key columns
 // tx + 16 j (i, j < 4): the 16 threads of a row are 16 consecutive lanes
 // of one warp, so a row reduction is four __shfl_xor_sync steps.
@@ -66,9 +67,10 @@ __device__ __forceinline__ void tile_dot(const float* xaT, const float* xT,
 }
 
 // s + q·k over four consecutive k, one FMA at a time in order: called for
-// k = 0, 4, ... from s = 0 it is `tile_dot`'s chain (and flash_hf.cu's
-// `micro_dot`'s) bit for bit, so a backward pass that recomputes the score
-// with it gets the forward's score exactly (columns past D must be zero).
+// k = 0, 4, ... from s = 0 it is `tile_dot`'s chain bit for bit. The
+// forwards (fwd.cuh) take their score from it, so colstat.cu and a backward
+// pass that recomputes the score get the forward's score exactly (columns
+// past D must be zero).
 __device__ __forceinline__ float dot4(float4 q, float4 k, float s) {
   s = fmaf(q.x, k.x, s);
   s = fmaf(q.y, k.y, s);

@@ -1,7 +1,7 @@
 // Float32 tile products on the H100's tensor cores, error-compensated
 // ("3xTF32"), and the asynchronous staging that feeds them. Shared by the
-// backward passes: the key passes of flash_bwd.cu and flash_hf.cu and the
-// query passes' body bwd_q.cuh.
+// forwards' body fwd.cuh (P·V), the key passes of flash_bwd.cu and
+// flash_hf.cu and the query passes' body bwd_q.cuh.
 //
 // Arithmetic. `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` multiplies
 // TF32 operands (8 explicit mantissa bits dropped to 10: about three decimal
@@ -120,6 +120,15 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
   for (int i = 0; i < 4; ++i) d[i] += p[i];
 }
 
+// d = a·b in 3xTF32 where d is fresh (zero): mma3 without the add, the
+// same bits
+__device__ __forceinline__ void mma3_fresh(float (&d)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_fresh(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
 __device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
 
@@ -151,6 +160,32 @@ __device__ __forceinline__ FragB load_b_kn(const float* B, int ld, int k0,
                                            int n0) {
   const float* p = B + (k0 + lane_t()) * ld + n0 + lane_g();
   const Split s0 = split(p[0]), s1 = split(p[4 * ld]);
+  return FragB{{s0.hi, s1.hi}, {s0.lo, s1.lo}};
+}
+
+// A product whose A is a C fragment's 16 x 8 tile (the forward's P, kept in
+// registers): A's column t taken as the tile's column 2 t and column t + 4
+// as 2 t + 1, so that a0..a3 = c0, c2, c1, c3. The depth of B must be
+// permuted alike (`load_b_kn_pairs`); the product is the same sum.
+__device__ __forceinline__ FragA frag_a_from_c(const float (&c)[4]) {
+  const float v[4] = {c[0], c[2], c[1], c[3]};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Split s = split(v[i]);
+    f.hi[i] = s.hi;
+    f.lo[i] = s.lo;
+  }
+  return f;
+}
+
+// B columns n0 .. n0 + 7 from a tile stored [k][n], depth k0 .. k0 + 7 in
+// `frag_a_from_c`'s order: b0 row k0 + 2 t, b1 row k0 + 2 t + 1 (with a
+// row stride of 68, 32 distinct banks each)
+__device__ __forceinline__ FragB load_b_kn_pairs(const float* B, int ld,
+                                                 int k0, int n0) {
+  const float* p = B + (k0 + 2 * lane_t()) * ld + n0 + lane_g();
+  const Split s0 = split(p[0]), s1 = split(p[ld]);
   return FragB{{s0.hi, s1.hi}, {s0.lo, s1.lo}};
 }
 

@@ -9,13 +9,14 @@ Kernels:
                        `_bwd_q_kernel_hf` and `_bwd_k_kernel_hf`: the same
                        three functions, one block per (graph, tile) for all
                        heads (the JAX package's FETA_FLASH_HEAD_FOLD=1);
-  `csrc/bwd_q.cuh`     the query passes' one kernel body, which both
-                       sources launch, each on its own grid.
+  `csrc/fwd.cuh`,      the forwards' and the query passes' kernel bodies,
+  `csrc/bwd_q.cuh`     each launched by both sources on their own grids
+                       (`csrc/strips.cuh`).
 Their source notes say what bounds them and how the design answers that:
-the forwards take their products on CUDA cores in f32, the backward
-passes their score likewise (the forwards' FMA chain, bit for bit) and
-their other products on the tensor cores in error-compensated TF32
-(`csrc/mma_tf32.cuh`: three TF32 products per f32 product, float32
+every kernel takes its score on the CUDA cores as one f32 FMA chain (the
+forwards', which the backward passes repeat bit for bit) and its other
+products (the forwards' P·V) on the tensor cores in error-compensated
+TF32 (`csrc/mma_tf32.cuh`: three TF32 products per f32 product, float32
 accuracy).
 
 `flash_fwd`, `flash_bwd_q`, `flash_bwd_k` and their folded twins
@@ -120,8 +121,8 @@ def _launch_fwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     dv = vw.shape[-1]
     check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[("vw", vw, (b, h, n, dv))])
-    if dv > 64:
-        raise ValueError(f"{name}: value width {dv} > 64")
+    if d > 64 or dv > 64:
+        raise ValueError(f"{name}: width {d} or value width {dv} > 64")
     _check_heads(name, h)
     lib, fn = _kernel(name)
     outh = torch.empty((b, h, n, dv), dtype=torch.float32, device=xa.device)
@@ -135,8 +136,9 @@ def _launch_fwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
 
 
 def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
-    """Online-softmax GraphiT forward (operand layout in `common`; vw is
-    [B, H, N, dv] with dv <= 64). Returns (outh, m, se, su)."""
+    """Online-softmax GraphiT forward (operand layout in `common`; xa is
+    [B, H, N, D] and vw [B, H, N, dv] with D, dv <= 64). Returns (outh, m,
+    se, su)."""
     if not cuda_or_plain("flash_fwd", xa):
         return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
     out = _launch_fwd("flash_fwd", xa, x, cq, ck, c0, vw, pe, deg, mask,
@@ -148,8 +150,9 @@ def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
 def flash_fwd_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     """Head-folded forward (`csrc/flash_hf.cu`, TPU `_fwd_kernel_hf`): the
     same function as `flash_fwd`, so its plain version is
-    `flash_fwd_plain`; one block per (graph, 16-query tile) for all heads
-    (H <= 8)."""
+    `flash_fwd_plain`; `csrc/fwd.cuh`'s body, as `flash_fwd`'s, on one
+    block per (graph, 16-query tile) for all heads (H <= 8), so it returns
+    `flash_fwd`'s bits."""
     if not cuda_or_plain("flash_fwd_hf", xa):
         return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
     out = _launch_fwd("flash_fwd_hf", xa, x, cq, ck, c0, vw, pe, deg, mask,

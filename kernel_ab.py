@@ -1,29 +1,34 @@
-"""A/B of the backward passes across kernel source trees, on one card.
+"""A/B of the flash kernels across kernel source trees, on one card.
 
-  python3 kernel_ab.py DIR [DIR ...]           time the four passes
-  python3 kernel_ab.py --check DIR             build facts and edge checks
+  python3 kernel_ab.py DIR [DIR ...]           time the forwards and passes
+  python3 kernel_ab.py --check DIR [DIR ...]   build facts and edge checks
   python3 kernel_ab.py --dck DV DIR [DIR ...]  the key passes' errors
   python3 kernel_ab.py --precision DIR         chip_smoke.py --precision
 
 Each DIR holds a copy of `feta_tmlr_tpu_torch/csrc` (a variant, edited or
 taken from another commit). The default mode builds every variant's
-`flash_bwd` and `flash_hf` libraries side by side (their file names carry
-the source hash, so variants do not overwrite each other), then times the
-query passes `flash_bwd_q` and `flash_bwd_q_hf` and the key passes
-`flash_bwd_k` and `flash_bwd_k_hf` at the training paths' shapes with
-chip_smoke's `time_ms` (device ms, median of 25 calls) in two rounds, the
-second in reverse order. Each variant is held to its pass's plain version
-within chip_smoke's KERNEL_TOL and compared bit for bit with the first
-variant. It prints the card's name and power limit, then one line per
-variant and shape: `AB <variant> <kernel> B= N= dv=: <ms round 1> <ms
-round 2>`. Compare variants only within one run.
+`flash_fwd`, `flash_bwd` and `flash_hf` libraries side by side (their file
+names carry the source hash, so variants do not overwrite each other),
+then times the forwards `flash_fwd` and `flash_fwd_hf`, the query passes
+`flash_bwd_q` and `flash_bwd_q_hf` and the key passes `flash_bwd_k` and
+`flash_bwd_k_hf` at the main paths' shapes (SBM at N=1024, the ZINC batch,
+SBM at N=2048) with chip_smoke's `time_ms` (device ms, median of 25 calls)
+in two rounds, the second in reverse order. Each variant is held to its
+kernel's plain version within chip_smoke's KERNEL_TOL and compared bit for
+bit with the first variant. It prints the card's name and power limit,
+then one line per variant and shape: `AB <variant> <kernel> B= N= dv=: <ms
+round 1> <ms round 2>`. Compare variants only within one run.
 
 `--check` prints each kernel's registers and spills (`nvcc -Xptxas -v`)
 and its count of `HMMA.1688.F32.TF32` (`cuobjdump -sass` of a cubin),
-then holds each backward pass to its plain version at the tiles' edge
-shapes (where it misses, the indices of the misses), two runs
-bit-identical, the folded query pass bit-equal to the unfolded one, and
-times the passes at N >= 1024 (median of 10). `--dck` prints each key
+then holds each forward and backward pass to its plain version at the
+tiles' edge shapes (where it misses, the indices of the misses), two runs
+bit-identical, the folded forward and query pass bit-equal to the unfolded
+ones, and times them at N >= 1024 (median of 10). With more than one DIR,
+the first is the reference (the parent tree's `csrc`) and each other DIR
+is checked, its forwards' row maximum m held bit-equal to the reference's
+unfolded forward's at every forward shape: m is a max of the score, so a
+forward that keeps the score's FMA chain keeps it. `--dck` prints each key
 pass's max abs error of dvw, dck and dx over max |float64| against the CPU
 float32 route's on the same inputs, over 6 seeds at B=1, H=8, N=2048,
 D=64 and value width DV, with the max and mean of the ratios. `--precision`
@@ -42,12 +47,14 @@ import torch
 import chip_smoke as cs
 from chip_smoke import bwd_inputs, build, fl_mod, time_ms
 
-# (kernel, B, N, padding, dv): each unfolded pass at the SBM N=1024 batch
-# and the ZINC batch, each folded pass at the N=2048 training shape
-SHAPES = tuple((f"flash_bwd_{p}", *shape) for p in ("q", "k") for shape in (
-    (4, 1024, 60, 64), (4, 1024, 60, 8), (128, 48, 11, 64),
-    (128, 48, 11, 8))) + tuple(
-        (f"flash_bwd_{p}_hf", 1, 2048, 100, dv) for p in ("q", "k")
+# (kernel, B, N, padding, dv): each unfolded kernel at the SBM N=1024 batch
+# and the ZINC batch, each folded one at the N=2048 training shape, and the
+# unfolded forward at N=2048 too (the `stream` and `r4` settings)
+SHAPES = tuple((f"flash_{p}", *shape) for p in ("fwd", "bwd_q", "bwd_k")
+               for shape in ((4, 1024, 60, 64), (4, 1024, 60, 8),
+                             (128, 48, 11, 64), (128, 48, 11, 8))) + (
+    ("flash_fwd", 1, 2048, 100, 64),) + tuple(
+        (f"flash_{p}_hf", 1, 2048, 100, dv) for p in ("fwd", "bwd_q", "bwd_k")
         for dv in (64, 8))
 # `--check`: (kernel, B, H, N, padding, D, dv) at the tiles' edges
 EDGES = tuple(("flash_bwd_q", *e) for e in (
@@ -64,7 +71,17 @@ EDGES = tuple(("flash_bwd_q", *e) for e in (
     ("flash_bwd_k", 2, 3, 100, 5, 20, 12),
     ("flash_bwd_k_hf", 1, 8, 2048, 100, 64, 64),
     ("flash_bwd_k_hf", 1, 3, 257, 4, 20, 12))
-LIBS = ("flash_bwd", "flash_hf")
+# the forwards, each shape through both (B, H, N, padding, D, dv): chip_smoke's
+# CHECK_SHAPES and HF_SHAPES at dv 64 and 8, then the 16-query strips' and
+# 32-key tiles' edges: N of 1, 13, 65, 200, 257 and 1990, D = 20 with
+# dv = 12, H of 1 and 3
+FWD_EDGES = tuple((b, 8, n, pad, 64, dv)
+                  for b, n, pad in cs.CHECK_SHAPES + cs.HF_SHAPES
+                  for dv in (64, 8)) + (
+    (2, 4, 1, 0, 64, 8), (1, 1, 13, 2, 20, 12), (2, 3, 65, 0, 64, 64),
+    (2, 3, 200, 7, 20, 12), (1, 3, 257, 4, 20, 12), (1, 1, 1990, 9, 64, 8),
+    (2, 8, 33, 1, 64, 8))
+LIBS = ("flash_fwd", "flash_bwd", "flash_hf")
 
 
 def use(src: Path) -> None:
@@ -90,13 +107,20 @@ def build_all(dirs) -> None:
 
 
 def plain_of(name):
-    return (fl_mod.flash_bwd_q_plain if "_q" in name
+    return (fl_mod.flash_fwd_plain if "fwd" in name
+            else fl_mod.flash_bwd_q_plain if "_q" in name
             else fl_mod.flash_bwd_k_plain)
 
 
+def operands(name, args):
+    """A kernel's operands of `bwd_inputs`' (a forward takes the first 10)."""
+    return args[:10] if "fwd" in name else args
+
+
 def ab(dirs, dev) -> int:
-    inputs = {s: bwd_inputs(s[1] + s[2] + s[4] + 1, s[1], 8, s[2], 64, s[4],
-                            s[3], dev)[0] for s in SHAPES}
+    inputs = {s: operands(s[0], bwd_inputs(s[1] + s[2] + s[4] + 1, s[1], 8,
+                                           s[2], 64, s[4], s[3], dev)[0])
+              for s in SHAPES}
     times, first = {}, {}
     for rnd, order in enumerate((dirs, dirs[::-1])):
         for d in order:
@@ -159,44 +183,80 @@ def build_facts(src: Path) -> None:
             print(f"sass {name}: {fn} HMMA.1688.F32.TF32 {n}")
 
 
-def check(src: Path, dev) -> int:
+def misses(got, want):
+    """Each output's max error against the plain version and, where one
+    misses KERNEL_TOL, the indices of the misses: (texts, failures)."""
+    msg, bad = [], 0
+    for o, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs()
+        ok = bool(torch.isfinite(g).all()) and torch.allclose(
+            g, w, **cs.KERNEL_TOL)
+        msg.append(f"out{o} max err {float(err.max()):.3e}")
+        if ok:
+            continue
+        bad += 1
+        miss = (err > cs.KERNEL_TOL["atol"] + cs.KERNEL_TOL["rtol"]
+                * w.abs()) | ~torch.isfinite(g)
+        at = miss.nonzero()
+        msg.append(f"MISS {len(at)} of {miss.numel()}, first at "
+                   f"{at[:8].tolist()}, each axis's indices "
+                   + str([sorted(set(at[:, i].tolist()))[:16]
+                          for i in range(at.shape[1])]))
+    return msg, bad
+
+
+def edge_inputs(cache, shape, dev):
+    """`bwd_inputs`' operands at (B, H, N, padding, D, dv), made once."""
+    if shape not in cache:
+        b, h, n, pad, d, dv = shape
+        cache[shape] = bwd_inputs(b + n + dv + 1, b, h, n, d, dv, pad, dev,
+                                  guard_rows=min(n, 8))[0]
+    return cache[shape]
+
+
+def reference_m(ref: Path, dev):
+    """The reference tree's unfolded forward's m at each FWD_EDGES shape."""
+    use(ref)
+    cache = {}
+    with torch.inference_mode():
+        return {e: fl_mod.flash_fwd(*edge_inputs(cache, e, dev)[:10])[1]
+                for e in FWD_EDGES}
+
+
+def check(src: Path, dev, ref_m=None) -> int:
     build_facts(src)
     use(src)
-    bad = 0
-    for name, b, h, n, pad, d, dv in EDGES:
-        args, _, _ = bwd_inputs(b + n + dv + 1, b, h, n, d, dv, pad, dev,
-                                guard_rows=min(n, 8))
+    bad, cache = 0, {}
+    twins = {"flash_bwd_q_hf": fl_mod.flash_bwd_q,
+             "flash_fwd_hf": fl_mod.flash_fwd}
+    cases = EDGES + tuple((name, *e) for e in FWD_EDGES
+                          for name in ("flash_fwd", "flash_fwd_hf"))
+    for name, *shape in cases:
+        b, h, n, pad, d, dv = shape
+        args = operands(name, edge_inputs(cache, tuple(shape), dev))
         fn = getattr(fl_mod, name)
         with torch.inference_mode():
             got, again = fn(*args), fn(*args)
             want = plain_of(name)(*args)
-            twin = fl_mod.flash_bwd_q(*args) if name.endswith("q_hf") else ()
+            twin = twins[name](*args) if name in twins else ()
             torch.cuda.synchronize()
         msg = [f"bit-identical {all(map(torch.equal, got, again))}"]
         bad += not all(map(torch.equal, got, again))
         if twin:
             equal = all(map(torch.equal, got, twin))
-            msg.append(f"bit-equal to the unfolded pass {equal}")
+            msg.append(f"bit-equal to the unfolded kernel {equal}")
             bad += not equal
-        for o, (g, w) in enumerate(zip(got, want)):
-            err = (g - w).abs()
-            ok = bool(torch.isfinite(g).all()) and torch.allclose(
-                g, w, **cs.KERNEL_TOL)
-            msg.append(f"out{o} max err {float(err.max()):.3e}")
-            if ok:
-                continue
-            bad += 1
-            miss = (err > cs.KERNEL_TOL["atol"] + cs.KERNEL_TOL["rtol"]
-                    * w.abs()) | ~torch.isfinite(g)
-            at = miss.nonzero()
-            msg.append(f"MISS {len(at)} of {miss.numel()}, first at "
-                       f"{at[:8].tolist()}, each axis's indices "
-                       + str([sorted(set(at[:, i].tolist()))[:16]
-                              for i in range(at.shape[1])]))
+        if ref_m is not None and "fwd" in name:
+            equal = torch.equal(got[1], ref_m[tuple(shape)])
+            msg.append(f"m bit-equal to the reference's {equal}")
+            bad += not equal
+        text, n_bad = misses(got, want)
+        bad += n_bad
         t = time_ms(lambda: fn(*args), reps=10) if n >= 1024 else None
-        print(f"{name} B={b} H={h} N={n} D={d} dv={dv}: " + "; ".join(msg)
+        print(f"{name} B={b} H={h} N={n} D={d} dv={dv}: "
+              + "; ".join(msg + text)
               + (f"; {t:.4f} ms" if t is not None else ""), flush=True)
-    print(f"check: {bad} failures")
+    print(f"check {src}: {bad} failures")
     return 1 if bad else 0
 
 
@@ -243,8 +303,12 @@ def main(argv) -> int:
         sys.argv = ["chip_smoke.py", "--precision"]
         return cs.main()
     if argv[0] == "--check":
-        build_all([Path(argv[1])])
-        return check(Path(argv[1]), dev)
+        dirs = [Path(a) for a in argv[1:]]
+        build_all(dirs)
+        if len(dirs) == 1:
+            return check(dirs[0], dev)
+        ref_m = reference_m(dirs[0], dev)
+        return max([check(d, dev, ref_m) for d in dirs[1:]])
     if argv[0] == "--dck":
         dirs = [Path(a) for a in argv[2:]]
         build_all(dirs)

@@ -197,13 +197,13 @@ def test_cuda_folded_kernels_match_plain_and_unfolded(cuda, b, h, n, pad, d,
                                                       dv, with_mod):
     """The head-folded kernels against their plain versions (the unfolded
     kernels' own) and against the unfolded kernels, guard rows included;
-    two backward runs bit-identical; one launch per call. The query
-    passes are one kernel body on two grids (`csrc/bwd_q.cuh`), each
-    16-query strip summed alike, so folded and unfolded agree bit for
-    bit; the other kernels agree within the kernels' tolerance, not bit
-    for bit: their tiles, and so their sums, differ (the key passes: 8
-    against 32 queries a fresh partial, and the folded pass's query
-    splits)."""
+    two backward runs bit-identical; one launch per call. The forwards
+    and the query passes are each one kernel body on two grids
+    (`csrc/fwd.cuh`, `csrc/bwd_q.cuh`), each 16-query strip summed alike,
+    so folded and unfolded agree bit for bit; the key passes agree within
+    the kernels' tolerance, not bit for bit: their tiles, and so their
+    sums, differ (8 against 32 queries a fresh partial, and the folded
+    pass's query splits)."""
     ops, vw = _ops(7, b, h, n, d, dv, pad, with_mod)
     args = _bwd_args(ops, vw, guard_rows=min(n, 4))
     gargs = [t.to(cuda) if torch.is_tensor(t) else t for t in args]
@@ -220,9 +220,40 @@ def test_cuda_folded_kernels_match_plain_and_unfolded(cuda, b, h, n, pad, d,
         np.testing.assert_allclose(got.cpu().numpy(), twin.cpu().numpy(),
                                    **TOL)
     assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+    assert all(torch.equal(a, b) for a, b in zip(got_f, twins[:4]))
     assert all(torch.equal(a, b) for a, b in zip(got_b[:2], twins[4:6]))
     assert [f.launches for f in folded] == [before[0] + 1, before[1] + 2,
                                             before[2] + 2]
+
+
+# the forwards' tiles (strips of 16 queries, 32-key tiles of which each of a
+# strip's two warps takes 16 keys) at their edges: N of 1 (one key), 13
+# (within warp 0's keys), 65 (one past a query and a key tile), 200 and
+# 1990 (ragged), D = 20 with dv = 12, H of 1 and 3
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,pad,d,dv,with_mod", [
+    (2, 1, 1, 0, 64, 8, True), (1, 3, 13, 2, 20, 12, True),
+    (2, 3, 65, 0, 64, 64, True), (2, 1, 200, 7, 20, 12, False),
+    (1, 8, 1990, 9, 64, 8, True), (2, 3, 48, 11, 64, 64, True),
+    (1, 1, 33, 1, 20, 12, True)])
+def test_cuda_forwards_at_the_tiles_edges(cuda, b, h, n, pad, d, dv,
+                                          with_mod):
+    """Both forwards against the plain version, bit-equal to each other
+    (outh, m, se, su) and bit-identical from run to run, one launch a
+    call."""
+    ops, vw = _ops(11, b, h, n, d, dv, pad, with_mod)
+    args = (ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"], vw,
+            ops["pe"], ops["deg"], ops["mask"], ops["inv_sqrt"])
+    gargs = [t.to(cuda) if torch.is_tensor(t) else t for t in args]
+    before = tfl.flash_fwd.launches, tfl.flash_fwd_hf.launches
+    got, again = tfl.flash_fwd(*gargs), tfl.flash_fwd(*gargs)
+    folded = tfl.flash_fwd_hf(*gargs)
+    torch.cuda.synchronize()
+    _close(got, tfl.flash_fwd_plain(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, folded))
+    assert (tfl.flash_fwd.launches, tfl.flash_fwd_hf.launches) == (
+        before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda

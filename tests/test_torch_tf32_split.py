@@ -27,7 +27,16 @@ shapes, and held to float64:
   `flash_bwd_q_plain`;
 - the bounded partial sums of dcq and dck over 2048 rows: no further from
   float64 than the one f32 chain per thread that the earlier kernels took,
-  and near the CPU float32 route's own sum.
+  and near the CPU float32 route's own sum;
+- the forwards' whole tile arithmetic (`fwd_emulated`, `csrc/fwd.cuh`):
+  the score as the FMA chain, the online softmax per warp and 16 keys of a
+  32-key tile, P·V in 3xTF32 with a fresh fragment per k-step and a fresh
+  partial per tile, the running sums in runs of 8 tiles, the lane order of
+  se and su and the join of a strip's two warps: within the kernels'
+  tolerance of float64, of
+  `flash_fwd_plain` and of the JAX package's `_call_fwd` (Pallas in
+  interpret mode), its m equal bit for bit to the row maximum of the FMA
+  chain's scores.
 
 Also: `chip_smoke.backward_probe` (`--precision`'s backward) at a small
 size on the CPU, float32 against float64, and the blocked node products of
@@ -40,7 +49,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+
 import chip_smoke
+from feta_tmlr_tpu.ops.pallas import flash_attention as jfl
 from feta_tmlr_tpu_torch.data.synthetic import sbm_like_dataset
 from feta_tmlr_tpu_torch.nn.models import DiffGraphTransformerGenGCNSBM
 from feta_tmlr_tpu_torch.ops import cheb
@@ -371,6 +384,182 @@ def test_bounded_partials_over_2048_rows_match_the_cpu_sum(pass_):
     assert errs["runs"].max() <= errs["chain"].max()
     assert errs["runs"].mean() <= errs["chain"].mean()
     assert errs["runs"].mean() <= 1.5 * errs["cpu"].mean()
+
+
+# ------------------------------------------------------------ the forwards
+
+def fma(a, b, c):
+    """fmaf elementwise: a·b + c rounded once to f32 (the exact float64
+    product and sum, then f32)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def fwd_emulated(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
+    """flash_fwd's and flash_fwd_hf's arithmetic (fwd.cuh: both grids
+    compute each 16-query strip alike) in torch: (outh, m, se, su). Warp u
+    of a strip takes keys 16 u .. 16 u + 15 of each 32-key tile (none where
+    they all lie past N) and keeps its own running max and sums (se, su,
+    acc) in runs: each tile's partial joins the open run, and every
+    RUN_TILES tiles the run joins the total, rescaled from the max of the
+    total's last join. The two warps join at the end, warp 0's side
+    first."""
+    b_, h_, n, d = xa.shape
+    dv = vw.shape[-1]
+    np_ = -(-n // KEYS) * KEYS
+    pad = lambda t, dims: torch.nn.functional.pad(t, dims)
+    w8 = lambda w: -(-w // 8) * 8
+    xa_p = pad(xa, (0, w8(d) - d, 0, np_ - n))
+    x_p = pad(x, (0, w8(d) - d, 0, np_ - n))
+    vw_p = pad(vw, (0, w8(dv) - dv, 0, np_ - n))
+    dot = fma_chain(xa_p[:, :, :, None, :], x_p[:, None, None, :, :])
+    km = pad(mask, (0, np_ - n))
+    s = torch.where(km[:, None, None, :] > 0,
+                    (dot + pad(cq, (0, np_ - n))[..., :, None]
+                     + pad(ck, (0, np_ - n))[..., None, :]
+                     + c0[None, :, None, None]) * inv_sqrt,
+                    torch.full_like(dot, NEG_INF))
+    s[..., n:] = -torch.inf                    # keys past N never enter m
+    pd = torch.ones((b_, 1, np_, np_))
+    if pe is not None:
+        pd = pd * pad(pe, (0, np_ - n, 0, np_ - n))[:, None]
+    if deg is not None:
+        pd = pd * pad(deg, (0, np_ - n))[:, None, None, :]
+    qmask = pad(mask, (0, np_ - n))
+    outh = torch.zeros((b_, h_, np_, dv))
+    stats = torch.zeros((3, b_, h_, np_))
+    for bi in range(b_):
+        for hi in range(h_):
+            for q0 in range(0, np_, STRIP):
+                qs = slice(q0, q0 + STRIP)
+                warps = []
+                for u in range(2):
+                    m = m_run = torch.full((STRIP,), -torch.inf)
+                    se, su = torch.zeros(STRIP), torch.zeros(STRIP)
+                    acc = torch.zeros((STRIP, w8(dv)))
+                    tot = [torch.zeros_like(se), torch.zeros_like(su),
+                           torch.zeros_like(acc)]
+
+                    def join():
+                        # 1 where nothing changed or no key was seen
+                        c = torch.where(m_run == m, torch.ones_like(m),
+                                        torch.exp(m_run - m))
+                        tot[0] = fma(tot[0], c, se)
+                        tot[1] = fma(tot[1], c, su)
+                        tot[2] = fma(tot[2], c[:, None], acc)
+                        return (m, torch.zeros_like(se), torch.zeros_like(su),
+                                torch.zeros_like(acc))
+
+                    for k0 in range(0, np_, KEYS):
+                        if k0 + 16 * u >= n:
+                            continue
+                        ks = slice(k0 + 16 * u, k0 + 16 * u + 16)
+                        sc = s[bi, hi, qs, ks]
+                        m_new = torch.maximum(m, sc.amax(1))
+                        scale = torch.exp(m - m_new)
+                        e = torch.exp(sc - m_new[:, None])
+                        w = e * pd[bi, 0, qs, ks]
+                        p = w * km[bi, ks]
+                        lanes = [[torch.zeros(STRIP), torch.zeros(STRIP)]
+                                 for _ in range(4)]
+                        for t in range(4):
+                            for j in warp_keys(0, t):
+                                lanes[t][0] = lanes[t][0] + e[:, j]
+                                lanes[t][1] = lanes[t][1] + w[:, j]
+                        se = fma(se, scale, lane_sum([v[0] for v in lanes]))
+                        su = fma(su, scale, lane_sum([v[1] for v in lanes]))
+                        part = mma_product(p.contiguous(),
+                                           vw_p[bi, hi, ks].contiguous())
+                        acc = fma(acc, scale[:, None], part)
+                        m = m_new
+                        if (k0 // KEYS) % RUN_TILES == RUN_TILES - 1:
+                            m_run, se, su, acc = join()
+                    join()
+                    warps.append((m, *tot))
+                (m0, se0, su0, acc0), (m1, se1, su1, acc1) = warps
+                m_all = torch.maximum(m0, m1)
+                a0, a1 = torch.exp(m0 - m_all), torch.exp(m1 - m_all)
+                se_all = fma(se0, a0, se1 * a1)
+                su_all = fma(su0, a0, su1 * a1)
+                div = torch.where((su_all / se_all).abs() > 1e-9, su_all,
+                                  se_all)
+                out = fma(acc0, a0[:, None], acc1 * a1[:, None])
+                outh[bi, hi, qs] = (out / div[:, None]
+                                    * qmask[bi, qs, None])[:, :dv]
+                stats[:, bi, hi, qs] = torch.stack((m_all, se_all, su_all))
+    return (outh[:, :, :n], *stats[:, :, :, :n])
+
+
+def _fwd_case(seed, b, h, n, pad, d, dv, with_mod):
+    """Public-layout numpy operands (graph i loses its last pad + i nodes
+    to padding), as `chip_smoke.attention_inputs` makes them, except that
+    the key bias ck rises along the keys, so that each row's running max
+    moves on in every tile and every run."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    mask = np.ones((b, n), bool)
+    for i in range(b):
+        mask[i, n - pad - i:] = False
+    pe = (rng.random((b, n, n)) * mask[:, :, None]
+          * mask[:, None, :]).astype(np.float32)
+    deg = (rng.random((b, n)) * mask).astype(np.float32)
+    rise = np.linspace(0.0, 8.0, n, dtype=np.float32)[None, :, None]
+    return dict(xa=0.3 * f(b, h, n, d), x=0.3 * f(b, n, d), cq=f(b, n, h),
+                ck=f(b, n, h) + rise, c0=f(h), vw=f(b, h, n, dv), mask=mask,
+                pe=pe if with_mod else None, deg=deg if with_mod else None)
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(jfl.pl, "pallas_call",
+                        lambda *a, **k: orig(*a, interpret=True, **k))
+
+
+# (B, H, N, padding, D, dv, pe and deg, JAX block): ragged N past one
+# 32-key tile with D = 20 and dv = 12; the ZINC "flash" route's N = 48
+# (warp 1 idle on the last tile) at dv 8, the filtered layer's width; N =
+# 56 without pe or deg (warp 1 half past N); N = 13, within one warp's keys;
+# N = 300, past a run of 8 tiles
+@pytest.mark.parametrize("b,h,n,pad,d,dv,with_mod,block", [
+    (2, 2, 70, 5, 20, 12, True, 10), (2, 2, 48, 3, 64, 8, True, 16),
+    (1, 3, 56, 0, 16, 64, False, 8), (1, 1, 13, 2, 20, 8, True, 13),
+    (1, 1, 300, 7, 16, 8, True, 60)])
+def test_fwd_tiles_keep_f32_accuracy(b, h, n, pad, d, dv, with_mod, block,
+                                     interpret_mode):
+    """The forwards' tile arithmetic, emulated, against float64, the plain
+    f32 version and the JAX package's `_call_fwd` within the kernels'
+    tolerance (outh, m, se, su); its m is the row maximum of the FMA
+    chain's scores, bit for bit: the m that colstat and the backward
+    passes normalise their recomputed scores by."""
+    case = _fwd_case(b + n + dv, b, h, n, pad, d, dv, with_mod)
+    t = lambda k: None if case[k] is None else torch.from_numpy(case[k])
+    ops = tfl.prepare(t("xa"), t("x"), t("cq"), t("ck"), t("c0"),
+                      t("mask"), t("pe"), t("deg"))
+    args = (ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"], t("vw"),
+            ops["pe"], ops["deg"], ops["mask"], ops["inv_sqrt"])
+    got = fwd_emulated(*args)
+    want = tfl.flash_fwd_plain(*[a.double() if torch.is_tensor(a) else a
+                                 for a in args])
+    plain = tfl.flash_fwd_plain(*args)
+    j = {k: None if v is None else jnp.asarray(v) for k, v in case.items()}
+    prep = jfl._prepare(j["xa"], j["x"], j["cq"], j["ck"], j["c0"],
+                        j["mask"], j["pe"], j["deg"], None)
+    pe_a, deg_a, qm, kmask, inv_sqrt, cq_k, ck_k, c0_k = prep
+    jax_out = jfl._call_fwd(j["xa"], j["x"], cq_k, ck_k, c0_k, j["vw"], pe_a,
+                            deg_a, qm, kmask, inv_sqrt, block, block)
+    jax_out = [torch.from_numpy(np.array(jax_out[0]))] + [
+        torch.from_numpy(np.array(v))[..., 0] for v in jax_out[1:]]
+    for gt, w, p, jx in zip(got, want, plain, jax_out):
+        assert torch.allclose(gt.double(), w, **KERNEL_TOL)
+        assert torch.allclose(gt, p, **KERNEL_TOL)
+        assert torch.allclose(gt, jx, **KERNEL_TOL)
+    xa, x = ops["xa"], ops["x"]
+    s = (fma_chain(xa[:, :, :, None, :], x[:, None, None, :, :])
+         + ops["cq"][..., None] + ops["ck"][..., None, :]
+         + ops["c0"][None, :, None, None]) * ops["inv_sqrt"]
+    s = torch.where(ops["mask"][:, None, None, :] > 0, s,
+                    torch.full_like(s, NEG_INF))
+    assert torch.equal(got[1], s.amax(-1))
 
 
 def _probe_graphs(n_graphs, n_nodes):
