@@ -1,7 +1,7 @@
 // Float32 tile products on the H100's tensor cores, error-compensated
 // ("3xTF32"), and the asynchronous staging that feeds them. Shared by the
 // forwards' body fwd.cuh (P·V), the key passes of flash_bwd.cu and
-// flash_hf.cu and the query passes' body bwd_q.cuh.
+// flash_hf.cu, the query passes' body bwd_q.cuh and fused_attention.cu.
 //
 // Arithmetic. `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` multiplies
 // TF32 operands (8 explicit mantissa bits dropped to 10: about three decimal
@@ -147,6 +147,23 @@ __device__ __forceinline__ FragA load_a(const float* A, int ld, int row0,
   return f;
 }
 
+// A rows row0 .. row0 + 15, columns k0 .. k0 + 7 of the transpose of a tile
+// stored [k][m], A(m, k) = At[k * ld + m] (fused_attention.cu's attn^T and
+// ds^T); with ld 8 or 24 more than a multiple of 32, 32 distinct banks
+__device__ __forceinline__ FragA load_a_t(const float* At, int ld, int row0,
+                                          int k0) {
+  const float* p = At + (k0 + lane_t()) * ld + row0 + lane_g();
+  const float v[4] = {p[0], p[8], p[4 * ld], p[4 * ld + 8]};
+  FragA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Split s = split(v[i]);
+    f.hi[i] = s.hi;
+    f.lo[i] = s.lo;
+  }
+  return f;
+}
+
 // B columns n0 .. n0 + 7, depth k0 .. k0 + 7, from a tile stored [n][k]
 __device__ __forceinline__ FragB load_b_nk(const float* Bt, int ld, int n0,
                                            int k0) {
@@ -213,6 +230,13 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most `kPending` of the thread's newest commit groups are
+// still in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Whether `stage_rows` may copy 16 bytes at a time from `src`.

@@ -12,7 +12,7 @@ FETA_PALLAS_IMPL, and its dispatch with the Pallas kernels on):
   "modulation"  every layer computes its scores [B, H, N, N] with a plain
                 product and runs the modulation kernel on them
                 (`ops/kernels/modulation.py`);
-  "fused"       unfiltered layers through the single-block fused kernels
+  "fused"       unfiltered layers through the fused attention kernels
                 (`ops/kernels/fused_attention.py`, N <= 128); the filtered
                 layer as under "modulation".
 

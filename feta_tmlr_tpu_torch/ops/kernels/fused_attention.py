@@ -1,16 +1,16 @@
-"""Single-block fused GraphiT attention for small graphs, forward and
-backward.
+"""Fused GraphiT attention for small graphs, forward and backward.
 
 Kernels: `csrc/fused_attention.cu`, the H100 counterparts of the TPU
 kernels `feta_tmlr_tpu/ops/pallas/fused_attention.py::_fwd_kernel` and
 `::_bwd_kernel`. They compute the function of the online-softmax kernels
 (`flash_attention.py`), out [B, N, D] = sum_h modulated_attn_h @ vw_h, but
-hold a query's whole key row in shared memory: the softmax is exact with no
-rescaling, the head sums (out, dx) are taken in a block that loops over the
-heads, and the column sums of the backward (dvw, dck, dx) in the one block
-per graph that holds the whole [N, N] tile, with no atomics. The source
-note says what bounds them (f32 arithmetic on CUDA cores) and their limits:
-N <= `MAX_NODES` (shared memory) and D <= 64.
+hold a query's whole key row in one warp's registers, so the softmax is
+exact with no rescaling. Each graph is one thread-block cluster of
+`cluster_size(H)` CTAs, each CTA a group of heads and each warp 16
+queries; every product but the score runs on the tensor cores in 3xTF32,
+and the head sums (out, dx) are taken across the cluster's CTAs in rank
+order through distributed shared memory, with no atomics. The source note
+says what bounds them and their limits: N <= `MAX_NODES` and D <= 64.
 
 `fused_attn_fwd` and `fused_attn_bwd` are the wrappers: on a CUDA tensor
 each launches its kernel and counts the launch in its `launches` attribute;
@@ -43,9 +43,18 @@ from feta_tmlr_tpu_torch.ops.kernels.modulation import (
     modulation_fwd_plain,
 )
 
-MAX_NODES = 128     # the backward's [N, N] tiles in 227 KB of shared memory
-MAX_WIDTH = 64      # D: the register tiles cover 64 columns
+MAX_NODES = 128     # a key row in a warp's registers; the backward's tiles
+MAX_WIDTH = 64      # D: the staged rows hold 64 columns
+MAX_CLUSTER = 8     # the portable thread-block cluster size
 _fns = {}
+
+
+def cluster_size(h: int) -> int:
+    """CTAs of a graph's cluster for H heads, as the kernels launch them:
+    the largest divisor of H that is at most `MAX_CLUSTER`; each CTA takes
+    H / C consecutive heads (H = 8: one head a CTA; a prime H > 8: one CTA
+    of all heads)."""
+    return max(c for c in range(1, MAX_CLUSTER + 1) if h % c == 0)
 
 
 def _kernel(name):
@@ -81,9 +90,10 @@ def _check(name, xa, x, cq, ck, c0, vw, pe, deg, mask, extra=()):
                    extra=[("vw", vw, (b, h, n, d)), *extra],
                    entry="fused_graphit_attention (FusedGraphiT)")
     if n > MAX_NODES:
-        raise ValueError(f"{name}: N={n} > {MAX_NODES}; the single-block "
-                         "kernels hold a graph's [N, N] tiles in shared "
-                         "memory (the flash route takes any N)")
+        raise ValueError(f"{name}: N={n} > {MAX_NODES}; the fused kernels "
+                         "hold a query's key row in registers and a graph's "
+                         "[N, N] tiles in shared memory (the flash route "
+                         "takes any N)")
     if d > MAX_WIDTH:
         raise ValueError(f"{name}: D={d} > {MAX_WIDTH}")
     return b, h, n, d

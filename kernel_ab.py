@@ -1,9 +1,13 @@
-"""A/B of the flash kernels across kernel source trees, on one card.
+"""A/B of the attention kernels across kernel source trees, on one card.
 
   python3 kernel_ab.py DIR [DIR ...]           time the forwards and passes
   python3 kernel_ab.py --check DIR [DIR ...]   build facts and edge checks
   python3 kernel_ab.py --dck DV DIR [DIR ...]  the key passes' errors
   python3 kernel_ab.py --precision DIR         chip_smoke.py --precision
+  python3 kernel_ab.py --fused [--check] DIR [DIR ...]
+                                               the same for the fused pair
+  python3 kernel_ab.py --fused --times DIR [DIR ...]
+                                               its times alone, and bits
 
 Each DIR holds a copy of `feta_tmlr_tpu_torch/csrc` (a variant, edited or
 taken from another commit). The default mode builds every variant's
@@ -33,6 +37,20 @@ pass's max abs error of dvw, dck and dx over max |float64| against the CPU
 float32 route's on the same inputs, over 6 seeds at B=1, H=8, N=2048,
 D=64 and value width DV, with the max and mean of the ratios. `--precision`
 runs chip_smoke's precision probe on DIR's kernels.
+
+`--fused` takes the fused attention pair (`fused_attention.cu`) instead of
+the flash kernels: it times `fused_attn_fwd` and `fused_attn_bwd` at the
+ZINC batch (B=128, N=48) and at B=32, N=128 (H=8, D=64), held to plain and
+compared bit for bit with the first variant, in two rounds (`AB` lines as
+above); with `--check`, each DIR's registers, spills and HMMA count of the
+fused library, `cudaOccupancyMaxActiveClusters` of both kernels at those
+two shapes (where the library exports it), and both kernels against plain
+at the clusters' and strips' edges (H of 1, 3, 8, 12, 13; N of 1, 16, 17,
+48, 128; D = 20), guard rows in each, two backward runs bit-identical.
+`--fused --times` times the pair without holding it to plain (a variant
+with a phase removed computes wrong outputs), then says whether each tree
+gives the first tree's bits at H of 8, 12, 13 and N of 1, 17, 48, 128.
+`--check` without `--fused` runs the flash checks, then the fused ones.
 """
 
 from __future__ import annotations
@@ -42,10 +60,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import ctypes
+
 import torch
 
 import chip_smoke as cs
-from chip_smoke import bwd_inputs, build, fl_mod, time_ms
+from chip_smoke import bwd_inputs, build, fa_mod, fl_mod, time_ms
 
 # (kernel, B, N, padding, dv): each unfolded kernel at the SBM N=1024 batch
 # and the ZINC batch, each folded one at the N=2048 training shape, and the
@@ -82,6 +102,14 @@ FWD_EDGES = tuple((b, 8, n, pad, 64, dv)
     (2, 3, 200, 7, 20, 12), (1, 3, 257, 4, 20, 12), (1, 1, 1990, 9, 64, 8),
     (2, 8, 33, 1, 64, 8))
 LIBS = ("flash_fwd", "flash_bwd", "flash_hf")
+FUSED_LIBS = ("fused_attention",)
+# `--fused --check`: (B, H, N, padding, D): clusters of 8, 1, 3, 6 (two
+# heads a CTA) and 1 (13 heads in one CTA); N of 1, 16, 17 (past one
+# strip), 48 and 128; D = 20 (the K edge); then the A/B shapes
+FUSED_EDGES = ((2, 8, 48, 5, 64), (2, 1, 17, 2, 64), (2, 3, 16, 0, 20),
+               (2, 12, 128, 9, 64), (2, 13, 48, 3, 20), (3, 8, 1, 0, 64),
+               (2, 8, 128, 17, 20), (3, 3, 128, 0, 64), (2, 1, 1, 0, 20)) + \
+    tuple((b, 8, n, pad, 64) for b, n, pad in cs.FUSED_SHAPES)
 
 
 def use(src: Path) -> None:
@@ -89,15 +117,16 @@ def use(src: Path) -> None:
     build.CSRC = src
     build._libs.clear()
     fl_mod._fns.clear()
+    fa_mod._fns.clear()
 
 
-def build_all(dirs) -> None:
+def build_all(dirs, libs=LIBS) -> None:
     """One nvcc per distinct library of the variants, all started
     together."""
     started, seen = [], set()
     for d in dirs:
         use(d)
-        for name in LIBS:
+        for name in libs:
             path = build._lib_path(name)
             started.append((name, None if path in seen else
                             build._start(name)))
@@ -150,13 +179,13 @@ def ab(dirs, dev) -> int:
     return 0
 
 
-def build_facts(src: Path) -> None:
+def build_facts(src: Path, libs=LIBS) -> None:
     """Registers and spills per kernel, and its HMMA.1688.F32.TF32
-    count, for both libraries of `src`."""
+    count, for each library of `src`."""
     out_dir = build.BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = Path(build._nvcc())
-    for name in LIBS:
+    for name in libs:
         cubin = out_dir / f"{name}-check.cubin"
         res = subprocess.run(
             [str(nvcc), *build.NVCC_FLAGS[:4], "-cubin",
@@ -260,6 +289,146 @@ def check(src: Path, dev, ref_m=None) -> int:
     return 1 if bad else 0
 
 
+def fused_pair(args, g):
+    """Both fused kernels' outputs on `fused_inputs`' operands, the
+    backward twice: ([out, dxa, dx, dcq, dck, dc0, dvw], the second
+    backward's)."""
+    ops, vw = args
+    fwd = fa_mod.fused_attn_fwd(vw=vw, **ops)
+    bwd = fa_mod.fused_attn_bwd(vw=vw, g=g, **ops)
+    return [fwd, *bwd], list(fa_mod.fused_attn_bwd(vw=vw, g=g, **ops))
+
+
+def fused_plain(args, g):
+    ops, vw = args
+    return [fa_mod.fused_attn_fwd_plain(vw=vw, **ops),
+            *fa_mod.fused_attn_bwd_plain(vw=vw, g=g, **ops)]
+
+
+def fused_case(shape, dev):
+    b, h, n, pad, d = shape
+    ops, vw, g = cs.fused_inputs(b + n + d, b, h, n, d, pad, dev)
+    return (ops, vw), g
+
+
+def ab_fused(dirs, dev) -> int:
+    shapes = [(b, 8, n, pad, 64) for b, n, pad in cs.FUSED_SHAPES]
+    inputs = {s: fused_case(s, dev) for s in shapes}
+    times, first = {}, {}
+    for rnd, order in enumerate((dirs, dirs[::-1])):
+        for d in order:
+            use(d)
+            for s in shapes:
+                (ops, vw), g = inputs[s]
+                fns = {"fused_attn_fwd":
+                       lambda: fa_mod.fused_attn_fwd(vw=vw, **ops),
+                       "fused_attn_bwd":
+                       lambda: fa_mod.fused_attn_bwd(vw=vw, g=g, **ops)}
+                with torch.inference_mode():
+                    for name, fn in fns.items():
+                        times.setdefault((d.name, name, s), []).append(
+                            time_ms(fn))
+                    if rnd:
+                        continue
+                    got, _ = fused_pair(*inputs[s])
+                    want = fused_plain(*inputs[s])
+                    for gt, w in zip(got, want):
+                        torch.testing.assert_close(gt, w, **cs.KERNEL_TOL)
+                    if s not in first:
+                        first[s] = (d.name, [t.clone() for t in got])
+                    else:
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, first[s][1]))
+                        print(f"{d.name} fused pair B={s[0]} N={s[2]} "
+                              f"bit-equal to {first[s][0]}: {same}",
+                              flush=True)
+    for (name, kern, s), ts in times.items():
+        print(f"AB {name:12s} {kern:15s} B={s[0]:3d} N={s[2]:4d} "
+              f"D={s[4]:2d}: " + " ".join(f"{t:.4f}" for t in ts))
+    return 0
+
+
+def times_fused(dirs, dev) -> int:
+    shapes = [(b, 8, n, pad, 64) for b, n, pad in cs.FUSED_SHAPES]
+    inputs = {s: fused_case(s, dev) for s in shapes}
+    times = {}
+    for order in (dirs, dirs[::-1]):
+        for d in order:
+            use(d)
+            for s in shapes:
+                (ops, vw), g = inputs[s]
+                with torch.inference_mode():
+                    times.setdefault((d.name, "fwd", s), []).append(time_ms(
+                        lambda: fa_mod.fused_attn_fwd(vw=vw, **ops)))
+                    times.setdefault((d.name, "bwd", s), []).append(time_ms(
+                        lambda: fa_mod.fused_attn_bwd(vw=vw, g=g, **ops)))
+    for (name, kern, s), ts in times.items():
+        print(f"T {name:8s} {kern} B={s[0]:3d} N={s[2]:3d}: "
+              + " ".join(f"{t:.4f}" for t in ts), flush=True)
+    for b, n, pad in cs.FUSED_SHAPES + ((2, 17, 2), (2, 1, 0)):
+        for h in (8, 12, 13):
+            args, g = fused_case((b, h, n, pad, 64), dev)
+            outs = []
+            for d in dirs:
+                use(d)
+                with torch.inference_mode():
+                    outs.append(fused_pair(args, g)[0])
+            for d, got in zip(dirs[1:], outs[1:]):
+                print(f"bits {d.name} B={b} H={h} N={n}: equal to "
+                      f"{dirs[0].name} {all(map(torch.equal, got, outs[0]))}",
+                      flush=True)
+    return 0
+
+
+def fused_occupancy(src: Path) -> None:
+    """cudaOccupancyMaxActiveClusters of both fused kernels at the A/B
+    shapes, where `src`'s library exports it."""
+    use(src)
+    lib = build.load("fused_attention")
+    if not hasattr(lib, "feta_fused_attn_max_clusters"):
+        print(f"occupancy {src}: no cluster launch in this library")
+        return
+    fn = lib.feta_fused_attn_max_clusters
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    for b, n, _ in cs.FUSED_SHAPES:
+        c = fa_mod.cluster_size(8)
+        print(f"occupancy {src.name} B={b} H=8 N={n} D=64: clusters of {c}, "
+              f"at most {fn(0, b, 8, n, 64)} (forward) and "
+              f"{fn(1, b, 8, n, 64)} (backward) active at once, "
+              f"{b} launched", flush=True)
+
+
+def check_fused(src: Path, dev) -> int:
+    build_facts(src, FUSED_LIBS)
+    fused_occupancy(src)
+    use(src)
+    bad = 0
+    lib = build.load("fused_attention")
+    if hasattr(lib, "feta_fused_attn_cluster"):
+        lib.feta_fused_attn_cluster.argtypes = [ctypes.c_int]
+        wrong = [h for h in range(1, 17) if lib.feta_fused_attn_cluster(h)
+                 != fa_mod.cluster_size(h)]
+        print(f"cluster sizes of H = 1 .. 16 as cluster_size: {not wrong}")
+        bad += bool(wrong)
+    for shape in FUSED_EDGES:
+        b, h, n, pad, d = shape
+        args, g = fused_case(shape, dev)
+        with torch.inference_mode():
+            got, again = fused_pair(args, g)
+            want = fused_plain(args, g)
+            torch.cuda.synchronize()
+        same = all(map(torch.equal, got[1:], again))
+        bad += not same
+        text, n_bad = misses(got, want)
+        bad += n_bad
+        print(f"fused pair B={b} H={h} N={n} D={d} (clusters of "
+              f"{fa_mod.cluster_size(h)}): bwd bit-identical {same}; "
+              + "; ".join(text), flush=True)
+    print(f"check fused {src}: {bad} failures")
+    return 1 if bad else 0
+
+
 def dck(dv: int, dirs, dev) -> int:
     err = lambda got, want: float((got.double().cpu() - want).abs().max()
                                   / want.abs().max())
@@ -298,17 +467,28 @@ def main(argv) -> int:
         return 1
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    if argv[0] == "--fused":
+        mode = argv[1] if argv[1] in ("--check", "--times") else None
+        dirs = [Path(a) for a in argv[1 + bool(mode):]]
+        build_all(dirs, FUSED_LIBS)
+        if mode == "--check":
+            return max(check_fused(d, dev) for d in dirs)
+        if mode == "--times":
+            return times_fused(dirs, dev)
+        return ab_fused(dirs, dev)
     if argv[0] == "--precision":
         build.CSRC = Path(argv[1])
         sys.argv = ["chip_smoke.py", "--precision"]
         return cs.main()
     if argv[0] == "--check":
         dirs = [Path(a) for a in argv[1:]]
-        build_all(dirs)
+        build_all(dirs, LIBS + FUSED_LIBS)
         if len(dirs) == 1:
-            return check(dirs[0], dev)
-        ref_m = reference_m(dirs[0], dev)
-        return max([check(d, dev, ref_m) for d in dirs[1:]])
+            flash = check(dirs[0], dev)
+        else:
+            ref_m = reference_m(dirs[0], dev)
+            flash = max([check(d, dev, ref_m) for d in dirs[1:]])
+        return max(flash, *(check_fused(d, dev) for d in dirs))
     if argv[0] == "--dck":
         dirs = [Path(a) for a in argv[2:]]
         build_all(dirs)

@@ -519,11 +519,19 @@ def test_cuda_modulation_matches_plain(cuda, b, n, pad, with_mod):
         before[0] + 1, before[1] + 2)
 
 
+# (B, H, N, padding, D, pe and deg): the ZINC widths at H = 8 (clusters
+# of 8); H = 1, 3 and 12 (clusters of 1, 3 and 6, two heads a CTA) at N of
+# 1, 16, 17 (past one strip), 48 and 128 (the largest), D = 20 (the K
+# edge); guard rows wherever pe is given
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,pad,d,with_mod", [
-    (3, 48, 7, 64, True), (2, 128, 0, 16, False), (2, 77, 5, 40, True)])
-def test_cuda_fused_attention_matches_plain(cuda, b, n, pad, d, with_mod):
-    ops, vw = _ops(11, b, 8, n, d, d, pad, with_mod)
+@pytest.mark.parametrize("b,h,n,pad,d,with_mod", [
+    (3, 8, 48, 7, 64, True), (2, 8, 128, 0, 16, False),
+    (2, 8, 77, 5, 40, True), (2, 1, 48, 5, 64, True), (2, 3, 17, 2, 20, True),
+    (2, 12, 128, 9, 64, True), (2, 1, 1, 0, 20, True),
+    (2, 3, 16, 0, 64, True), (2, 12, 17, 3, 20, True),
+    (2, 3, 128, 17, 20, True), (2, 12, 48, 7, 20, True)])
+def test_cuda_fused_attention_matches_plain(cuda, b, h, n, pad, d, with_mod):
+    ops, vw = _ops(11, b, h, n, d, d, pad, with_mod)
     if with_mod:
         ops["pe"][1, :3] = 0.0
     g = torch.from_numpy(np.random.default_rng(12).standard_normal(
@@ -540,6 +548,15 @@ def test_cuda_fused_attention_matches_plain(cuda, b, n, pad, d, with_mod):
     assert all(torch.equal(x, y) for x, y in zip(got_b, again))
     assert (tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches) == (
         before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_attention_clusters_as_cluster_size(cuda):
+    """The kernels' launcher groups a graph's heads into as many CTAs as
+    the wrapper's `cluster_size` says, for H = 1 .. 16."""
+    lib, _ = tfa._kernel("fwd")
+    assert [lib.feta_fused_attn_cluster(h) for h in range(1, 17)] == [
+        tfa.cluster_size(h) for h in range(1, 17)]
 
 
 @pytest.mark.cuda

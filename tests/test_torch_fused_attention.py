@@ -1,4 +1,4 @@
-"""The port's single-block fused attention wrappers vs the JAX package, on
+"""The port's fused attention wrappers vs the JAX package, on
 the CPU.
 
 On CPU tensors `fused_attn_fwd` / `fused_attn_bwd` run their plain
