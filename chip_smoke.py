@@ -166,6 +166,16 @@ PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
+# 32-bit integer instructions: 64 a clock and SM (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz
+# (the clock at which the f32 peak above is 132 x 128 x 2 x 1.98e9), the
+# multiplies on the FMA pipe, the others on the INT32 lanes
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# the dropout keep bit of one (row, unit) (`Dropout::keep_scale`,
+# csrc/fused_mlp.cu), counted from the SASS by `kernel_ab.py --mlp
+# --check`: its integer multiplies and its other instructions
+HASH_IMAD_OPS = 2
+HASH_ALU_OPS = 9
 # the folded kernels that run their unfolded twin's body on another grid
 # (csrc/fwd.cuh, csrc/bwd_q.cuh) and so must give its bits
 BIT_EQUAL_TWINS = ("flash_fwd_hf", "flash_bwd_q_hf")
@@ -179,9 +189,10 @@ KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
 # the CPU's float32 route; the ZINC and SAN models' errors stay near 1e-5
 # and are held to float32
 SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
-# the fused attention kernels' outputs against a float64 run of the plain
-# version: each within this multiple of the CPU float32 route's own error
-# (a tolerance check alone let a kernel output through at 17.7x, PERF.md)
+# the fused attention kernels', colstat's and the fused MLP backward's
+# outputs against a float64 run of the plain version: each within this
+# multiple of the CPU float32 route's own error (a tolerance check alone
+# let a kernel output through at 17.7x, PERF.md)
 FUSED_CPU32_FACTOR = 2
 # one training step on CUDA (float32) vs the CPU route in float64: loss
 # within rtol 1e-5; each named gradient within 1e-2 of its largest entry.
@@ -437,14 +448,43 @@ def pass_bounds(t, cost, b, h, n, d):
     text = (f"bound {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %; CUDA-core "
             f"score, 3xTF32 tensor-core products), f32 CUDA cores only "
             f"{b32:.4f} ms {by32} ({100 * b32 / t:.1f} %)")
-    return dict(bound_ms=btc, bound_by=bytc, bound_tc_ms=btc,
-                bound_f32_ms=b32), text
+    return dict(bound_ms=btc, bound_by=bytc, bound_f32_ms=b32), text
+
+
+def colstat_args(ops, stats, wq):
+    """colstat's operands as one list (`cpu32_ratios`' layout)."""
+    return [ops[k] for k in ("xa", "x", "cq", "ck", "c0", "pe", "deg",
+                             "mask", "inv_sqrt")] + [
+        stats["m"], stats["se"], stats["su"], wq]
+
+
+def check_colstat(ops, stats, wq, tag):
+    """colstat against its plain version with wq absent and given, two runs
+    bit-identical, each output's error from float64 within
+    FUSED_CPU32_FACTOR of the CPU float32 route's: (max abs error, text of
+    the ratios)."""
+    err, texts = 0.0, []
+    plain = lambda a: cs_mod.colstat_plain(*a[:12], wq=a[12])
+    for w in (None, wq):
+        name = f"colstat {tag} wq={'dis' if w is not None else 1}"
+        with torch.inference_mode():
+            got = cs_mod.colstat(**ops, **stats, wq=w)
+            again = cs_mod.colstat(**ops, **stats, wq=w)
+            err = max(err, *check_outputs(
+                name, got, again, cs_mod.colstat_plain(**ops, **stats, wq=w),
+                ("colsum", "diag"), tag))
+        texts.append(cpu32_ratios(got, plain, ("colsum", "diag"),
+                                  colstat_args(ops, stats, w), name))
+    return err, " / ".join(texts)
 
 
 def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
     """Phase 3: each kernel vs its plain version, two runs of the
-    forward bit-identical; returns the JSON rows (numbers of the first
-    shape at dv=64, errors over all shapes)."""
+    forward and of colstat bit-identical, colstat's error from float64
+    within 2x the CPU float32 route's (colstat does not read vw: each dv
+    gives it another draw of the inputs); then colstat at the `fold`
+    step's B=1, N=2048; returns the JSON rows (numbers of the first shape
+    at dv=64, errors over all shapes)."""
     rows = {}
     errs = {"flash_fwd": 0.0, "colstat": 0.0}
     for b, n, pad in shapes:
@@ -462,12 +502,8 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                 stats = dict(m=want[1], se=want[2], su=want[3])
                 wq = torch.rand(want[2].shape, device=device,
                                 generator=torch.Generator(device).manual_seed(n))
-                e2 = 0.0
-                for w in (None, wq):
-                    e2 = max(e2, max_err(
-                        cs_mod.colstat(**ops, **stats, wq=w),
-                        cs_mod.colstat_plain(**ops, **stats, wq=w),
-                        f"colstat N={n} wq={'dis' if w is not None else 1}"))
+            e2, r2 = check_colstat(ops, stats, wq, f"B={b} N={n} dv={dv}")
+            with torch.inference_mode():
                 torch.cuda.synchronize()
                 t_k = time_ms(lambda: fl_mod.flash_fwd(vw=vw, **ops))
                 t_p = time_ms(lambda: fl_mod.flash_fwd_plain(vw=vw, **ops))
@@ -483,12 +519,33 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                   f"flash_fwd err {e1:.3e} {t_k:.4f} ms (plain {t_p:.4f} ms,"
                   f" {f_text}); colstat err {e2:.3e} "
                   f"{c_k:.4f} ms (plain {c_p:.4f} ms, bound {cb:.4f} ms "
-                  f"{cby}); flash_fwd's two runs bit-identical; tolerance "
-                  f"rtol 1e-4 atol 1e-5", flush=True)
+                  f"{cby}); flash_fwd's and colstat's two runs "
+                  f"bit-identical; tolerance rtol 1e-4 atol 1e-5; colstat's "
+                  f"error from float64 over the CPU float32 route's (wq 1 / "
+                  f"wq): {r2} (at most {FUSED_CPU32_FACTOR})", flush=True)
             if (b, n, pad) == shapes[0] and dv == 64:
                 rows["flash_fwd"] = dict(ms=t_k, plain_ms=t_p, **f_row)
                 rows["colstat"] = dict(ms=c_k, plain_ms=c_p, bound_ms=cb,
                                        bound_by=cby)
+    b, n, pad = HF_SHAPES[0]
+    ops, vw = attention_inputs(b + n, b, h, n, d, 8, pad, device)
+    with torch.inference_mode():
+        _, m, se, su = fl_mod.flash_fwd_plain(vw=vw, **ops)
+    stats = dict(m=m, se=se, su=su)
+    wq = torch.rand(se.shape, device=device,
+                    generator=torch.Generator(device).manual_seed(n))
+    e2, r2 = check_colstat(ops, stats, wq, f"B={b} N={n}")
+    errs["colstat"] = max(errs["colstat"], e2)
+    with torch.inference_mode():
+        c_k = time_ms(lambda: cs_mod.colstat(**ops, **stats, wq=wq))
+        c_p = time_ms(lambda: cs_mod.colstat_plain(**ops, **stats, wq=wq))
+    cb, cby = bound(*colstat_cost(b, h, n, d))
+    print(f"colstat check B={b} H={h} N={n} D={d} pad~{pad} (the fold "
+          f"step's shape): err {e2:.3e} {c_k:.4f} ms (plain {c_p:.4f} ms, "
+          f"bound {cb:.4f} ms {cby}); two runs bit-identical; tolerance rtol "
+          f"1e-4 atol 1e-5; error from float64 over the CPU float32 "
+          f"route's (wq 1 / wq): {r2} (at most {FUSED_CPU32_FACTOR})",
+          flush=True)
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
     return rows
@@ -667,6 +724,37 @@ def mlp_cost(r, din, f, dout, which):
             4.0 * (r * din + weights + r * dout + r * din + weights + dout))
 
 
+def mlp_bounds(r, din, f, dout, rate, which):
+    """A fused-MLP kernel's two bounds, (JSON fields, text): all of its
+    products as f32 FMAs on the CUDA cores (`bound`), and the bound of
+    what it issues, its `bound_ms`, the pipes side by side: the forward's
+    products as f32 FMAs on the FMA pipe, which also takes the keep bit's
+    HASH_IMAD_OPS multiplies per (row, unit); the backward's in 3xTF32 at
+    the TF32 peak beside the multiplies at the INT32 rate; the keep bit's
+    HASH_ALU_OPS other instructions on the INT32 lanes (the hash only at
+    rate > 0); or its bytes."""
+    flops, nbytes = mlp_cost(r, din, f, dout, which)
+    b32, by32 = bound(flops, nbytes)
+    hashes = r * f if rate > 0 else 0
+    t_imad = HASH_IMAD_OPS * hashes / PEAK_INT32_OPS
+    t_alu = HASH_ALU_OPS * hashes / PEAK_INT32_OPS
+    if which == "fwd":      # an FMA is 2 flops, a multiply one FMA slot
+        t_mul = max((flops + 2 * HASH_IMAD_OPS * hashes) / PEAK_F32_FLOPS,
+                    t_imad)
+    else:
+        t_mul = max(TF32_SPLIT * flops / PEAK_TF32_FLOPS, t_imad)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(t_mul, t_alu)
+    issued = max(t_ops, t_bytes) * 1e3
+    by = "bytes" if t_bytes > t_ops else "operations"
+    text = (f"bound {issued:.4f} ms {by} (" + (
+        "f32 FMAs and the hash's multiplies" if which == "fwd"
+        else "3xTF32 products") + f" {t_mul * 1e3:.4f}, the hash's "
+        f"multiplies {t_imad * 1e3:.4f}, its INT32 instructions "
+        f"{t_alu * 1e3:.4f}), f32 CUDA cores only {b32:.4f} ms {by32}")
+    return dict(bound_ms=issued, bound_by=by, bound_f32_ms=b32), text
+
+
 def mlp_masks(device, seed, rate, rows, units=64):
     """The keep masks the kernels apply, read back exactly: with x = 0 and
     b1 = 1 every unit is live with h = scale, so w2 = I makes the
@@ -713,22 +801,26 @@ def check_fused_mlp(device, shapes=MLP_SHAPES, seed=7):
                     raise AssertionError(f"fused_mlp_bwd {tag}: two runs "
                                          "differ")
                 times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
+            ratios = cpu32_ratios(
+                got_b, lambda a: fm_mod.fused_mlp_bwd_plain(*a, rate, seed),
+                ("dx", "dW1", "db1", "dW2", "db2"), [x, w1, b1, w2, g],
+                f"fused_mlp_bwd R={r} rate={rate}")
             errs["fused_mlp_fwd"] = max(errs["fused_mlp_fwd"], e_f)
             errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], e_b)
-            bf = bound(*mlp_cost(r, din, f, dout, "fwd"))
-            bb = bound(*mlp_cost(r, din, f, dout, "bwd"))
+            jf, tf = mlp_bounds(r, din, f, dout, rate, "fwd")
+            jb, tb = mlp_bounds(r, din, f, dout, rate, "bwd")
             print(f"fused-MLP check R={r} d_in={din} F={f} d_out={dout} "
                   f"rate={rate}: fwd err {e_f:.3e} {times[0]:.4f} ms (plain "
-                  f"{times[2]:.4f} ms, bound {bf[0]:.4f} ms {bf[1]}); bwd err "
-                  f"{e_b:.3e} {times[1]:.4f} ms (plain {times[3]:.4f} ms, "
-                  f"bound {bb[0]:.4f} ms {bb[1]}); two bwd runs bit-identical;"
-                  f" tolerance rtol 1e-4 atol 1e-5", flush=True)
+                  f"{times[2]:.4f} ms, {tf}); bwd err {e_b:.3e} "
+                  f"{times[1]:.4f} ms (plain {times[3]:.4f} ms, {tb}); two "
+                  f"bwd runs bit-identical; tolerance rtol 1e-4 atol 1e-5; "
+                  f"bwd error from float64 over the CPU float32 route's: "
+                  f"{ratios} (at most {FUSED_CPU32_FACTOR})", flush=True)
             if (r, din, f, dout) == shapes[0] and rate > 0:
-                for name, t_k, t_p, (b_ms, by) in (
-                        ("fused_mlp_fwd", times[0], times[2], bf),
-                        ("fused_mlp_bwd", times[1], times[3], bb)):
-                    rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                                      bound_by=by)
+                for name, t_k, t_p, j in (
+                        ("fused_mlp_fwd", times[0], times[2], jf),
+                        ("fused_mlp_bwd", times[1], times[3], jb)):
+                    rows[name] = dict(ms=t_k, plain_ms=t_p, **j)
     keep_f, keep_b = mlp_masks(device, seed, 0.1, shapes[0][0])
     want = fm_mod.dropout_keep(seed, shapes[0][0], 64, 0.1, device)
     frac = float(keep_f.float().mean())
@@ -2228,9 +2320,8 @@ def main() -> int:
                     ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
                     bound_ms=rows[name]["bound_ms"],
                     bound_by=rows[name]["bound_by"], library_ms=None,
-                    **{k: rows[name][k]
-                       for k in ("bound_tc_ms", "bound_f32_ms")
-                       if k in rows[name]})
+                    **{k: v for k, v in rows[name].items()
+                       if k == "bound_f32_ms"})
                for name, (src, line) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -27,39 +27,84 @@
 // own PRNG bits cannot be reproduced here; its tests hold the mask to the
 // same invariants instead.
 //
-// What bounds it on the H100: f32 arithmetic on the CUDA cores. At the SAN
-// eigen-PE head's shape (R = 40,960 rows, din = dout = 8, F = 2048) the
-// forward is 2·R·F·(din + dout) = 2.68 GFLOP against ~3 MB of operands
-// (0.040 ms at 67 TFLOP/s); the backward's five products are 6.71 GFLOP.
+// Widths: din and dout are zero-padded to D, the bucket 8/16/32/64 of
+// max(din, dout) (a template parameter), so any width up to 64 runs; F is
+// any size and R may be ragged (rows >= R load zeros and store nothing).
 //
-// Design.
-//  - Widths: din and dout are zero-padded in registers to D, the bucket
-//    8/16/32/64 of max(din, dout) (a template parameter), so any width up
-//    to 64 runs; F is any size and R may be ragged (rows >= R load zeros
-//    and store nothing).
-//  - Forward (`fwd_kernel<D, RT>`): a block of 256 threads owns 32·RT rows;
-//    lane l holds rows l, l + 32, ... and their x and y partials in
-//    registers. W1, b1 and W2 are staged through shared memory in chunks of
-//    2048 / D hidden units (~17 KB), and the eight warps split each chunk's
-//    units, so every warp reads one unit's weights at a time (a broadcast)
-//    and F is split across threads, not looped by one thread per row. The
-//    eight per-warp y partials of a row are added in warp order at the end:
-//    160 rows per block would give 1.2 blocks per SM at R = 40,960; 128 rows
-//    per block give 320 blocks.
-//  - Backward, three launches per call:
-//    1. `bwd_dx_kernel<D, RT>`: the forward's layout; recomputes pre and
-//       g W2^T per (row, unit) and accumulates dx per row in registers,
-//       warps added in order at the end.
-//    2. `bwd_dw_kernel<D, JT>`: one block per (slab of 256·JT hidden units,
-//       split of rows). Each thread owns JT units and keeps their W1/W2
-//       columns and their dW1/db1/dW2 sums in registers while it walks the
-//       split's rows (staged 32 at a time in shared memory and read as
-//       broadcasts), so the sums over rows need no reduction across
-//       threads. Each split writes one partial of all weight gradients.
-//    3. `sum_kernel`: adds the splits' partials in split order.
-//    No float atomics anywhere: the gradients are bit-identical from run to
-//    run on one card. The price of the two layouts is recompute: the
-//    backward does 7 of the 5 minimal products (pre and g W2^T twice).
+// Forward (`fwd_kernel<D, RT>`), f32 FMAs on the CUDA cores: a block of 256
+// threads owns 32·RT rows; lane l holds rows l, l + 32, ... and their x and
+// y partials in registers. W1, b1 and W2 are staged through shared memory
+// in chunks of 2048 / D hidden units (~17 KB), and the eight warps split
+// each chunk's units, so every warp reads one unit's weights at a time (a
+// broadcast). The eight per-warp y partials of a row are added in warp
+// order at the end. At the SAN eigen-PE head's shape (R = 40,960 rows,
+// din = dout = 8, F = 2048) it is 2·R·F·(din + dout) = 2.68 GFLOP against
+// ~3 MB of operands (0.040 ms at 67 TFLOP/s; with dropout 0.045, the
+// keep bit's IMADs beside the FMAs and its other instructions on the
+// INT32 lanes, as below).
+//
+// Backward (`bwd_kernel<D>`), one pass on the tensor cores, then
+// `finish_kernel`. The grid is (slab of U hidden units, split of rows); U =
+// 256 at D = 8 (two 16-unit m-tiles a warp), else 128. Each block holds
+// its slab's W1, W2 and b1 in shared memory while it walks its split's
+// rows in tiles of 32 (16 at D >= 32), which cp.async stages into a
+// two-stage ring (x and g rows, stride D + 4). The units lie on the mma's
+// M and the rows on its N ("transposed"), so that every product has a K
+// or an N of the width, which m16n8k8's k = n = 8 fits:
+//   pre^T = W1^T x^T + b1 and dhd^T = W2 g^T (K = din, dout): the weights
+//     are the A operand, the same for every row: at D = 8 they are split
+//     into TF32 hi and lo once per block and kept in registers;
+//   relu, the keep bit (one hash per (row, unit)), hd = relu(pre) * scale
+//     and dh = (pre > 0) dhd * scale in the C fragments' registers: pre,
+//     g W2^T and the keep bit are computed once per (row, unit), where the
+//     earlier kernel's two layouts computed them twice (7 products for 5);
+//   dW1^T += dh^T x and dW2 += hd^T g (K = 8 rows per k-step): the A
+//     operands straight from the C fragments (mma_tf32.cuh's
+//     frag_a_from_c, as the forward attention's P·V), no transpose;
+//   db1 as the fragments' row sums; db2 as a column sum of g by slab 0;
+//   dx = dh W1^T, which does not fit the orientation: each warp writes its
+//     dh tile [16 rows][its units] to its own shared memory, and takes its
+//     units' share of dx on the tensor cores (M = 16 rows, K = its units,
+//     N = din); the eight warps' shares are added in warp order after a
+//     barrier, one partial per slab, [n_slabs, R, din].
+// Every product is 3xTF32 (mma_tf32.cuh: lo·hi + hi·lo + hi·hi, float32
+// accuracy) with a fresh fragment per k-step added on the CUDA cores. The
+// sums over rows are taken in a fixed order: dW's each 8-row k-step's
+// fragment into a run of 64 rows, each run into the block's total (kept in
+// shared memory); db1's and db2's a fresh partial per tile (a thread's
+// rows in order), the tiles in runs of 8, each run into the total; one
+// total per split. `finish_kernel` then adds the splits' weight gradients
+// and the slabs' dx partials in index order in runs of 8 (db1 summed in
+// runs of 2 tiles and then in one chain over 32 splits read 2.2x the CPU
+// float32 route's error from float64 at R = 40,960). No
+// float atomics anywhere: the gradients are bit-identical from run to run
+// on one card. Two launches per call.
+//
+// What bounds the backward on the H100 at R = 40,960, din = dout = 8,
+// F = 2048: its five products are 6.71 GFLOP, 0.100 ms as f32 FMAs at
+// 67 TFLOP/s. What it issues is bound by mma.sync: each f32 product is
+// three m16n8k8 TF32 products, about 15 cycles of an SM sub-partition
+// each (flash_bwd.cu's note), so the four products with K or N of the
+// width, 7.86 M mma.sync, take 0.112 ms, and dx's share 1.97 M more
+// (0.140 ms in all); beside them the keep bit's 84 M hashes
+// (`Dropout::keep_scale`: 2 IMAD on the FMA pipe and 9 instructions on
+// the 64 INT32 lanes an SM, 4 LOP3, 3 SHF, ISETP and FSEL in its SASS,
+// kernel_ab.py --mlp --check) take 0.045 ms of the INT32 lanes. Its
+// bytes (the dx and split partials included) take about 0.01 ms.
+// wgmma's TF32 m64nNk8 tile would lower the tensor-core floor about 4x.
+// Measured on the H100 (kernel_ab.py --mlp): about 0.28 ms at rate 0.1,
+// 0.22 at rate 0 (the three launches before, 0.45 and 0.31). What holds
+// it is issue: beside 60 mma.sync a warp per 16 rows it issues the
+// operand splits (4 instructions a value), the hash and the elementwise
+// step, and each 3xTF32 product is three dependent mma.sync. So the
+// independent products of an n-tile are issued step by step together
+// (`mma3_4`: pre and g W2^T of both m-tiles, then dW1 and dW2 of both;
+// `mma3_2` for dx's k-steps), the same bits, 0.31 -> 0.28 ms. Slower, on
+// the same card: dx as CUDA-core FMAs joined by shuffles (1.34x), one or
+// four m-tiles a warp, 64-row tiles, g W2^T as an FMA chain, a
+// double-buffered dx with one barrier a tile. Registers (`-Xptxas -v`):
+// bwd_kernel<8> 128 and <16> 120, no spill; <32> and <64> 128 with 496
+// and 2372 bytes of spill (one m-tile a warp, the weights loaded per use).
 //
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launches.
@@ -67,11 +112,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kStageRows = 32;  // rows staged per step of bwd_dw_kernel
 
 __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16;
@@ -91,10 +137,12 @@ struct Dropout {
   __device__ __forceinline__ uint32_t row_key(int row) const {
     return mix32(seed_key ^ (uint32_t)row);
   }
-  // scale of hidden unit j in the row whose key is rk
-  __device__ __forceinline__ float scale(uint32_t rk, int j) const {
-    if (!on) return 1.f;
+  // scale of hidden unit j in the row whose key is rk, with dropout on
+  __device__ __forceinline__ float keep_scale(uint32_t rk, int j) const {
     return mix32(rk ^ (uint32_t)j) < threshold ? inv_keep : 0.f;
+  }
+  __device__ __forceinline__ float scale(uint32_t rk, int j) const {
+    return on ? keep_scale(rk, j) : 1.f;
   }
 };
 
@@ -195,180 +243,6 @@ fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-// dx = (((g W2^T) * scale * (pre > 0)) W1^T for 32·RT rows per block.
-template <int D, int RT>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ g, float* __restrict__ dx, int R,
-              int din, int F, int dout, Dropout drop) {
-  constexpr int FC = chunk_units<D>();
-  constexpr int ROWS = 32 * RT;
-  extern __shared__ float smem[];
-  float* w1s = smem;
-  float* w2s = w1s + FC * D;
-  float* b1s = w2s + FC * D;
-  float* red = b1s + FC;        // [kWarps][ROWS][D] per-warp dx partials
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * ROWS;
-
-  float xr[RT][D], gr[RT][D], acc[RT][D];
-  uint32_t rk[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int row = r0 + lane + 32 * i;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      xr[i][k] = (row < R && k < din) ? x[(size_t)row * din + k] : 0.f;
-      gr[i][k] = (row < R && k < dout) ? g[(size_t)row * dout + k] : 0.f;
-      acc[i][k] = 0.f;
-    }
-    rk[i] = drop.row_key(row);
-  }
-
-  for (int c0 = 0; c0 < F; c0 += FC) {
-    __syncthreads();
-    stage_weights<D>(w1s, w2s, b1s, w1, b1, w2, c0, din, F, dout, tid);
-    __syncthreads();
-    const int nj = min(FC, F - c0);
-    for (int jj = warp; jj < nj; jj += kWarps) {
-      const float* w1j = w1s + jj * D;
-      const float* w2j = w2s + jj * D;
-      const float bj = b1s[jj];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        float pre = bj, dhd = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          pre = fmaf(xr[i][k], w1j[k], pre);
-          dhd = fmaf(gr[i][k], w2j[k], dhd);
-        }
-        const float dh =
-            pre > 0.f ? dhd * drop.scale(rk[i], c0 + jj) : 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc[i][k] = fmaf(dh, w1j[k], acc[i][k]);
-      }
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      red[(warp * ROWS + lane + 32 * i) * D + k] = acc[i][k];
-  __syncthreads();
-  for (int idx = tid; idx < ROWS * D; idx += kThreads) {
-    const int rl = idx / D, k = idx % D, row = r0 + rl;
-    if (row < R && k < din) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[(w * ROWS + rl) * D + k];
-      dx[(size_t)row * din + k] = s;
-    }
-  }
-}
-
-// Weight-gradient partials of one (slab of 256·JT units, split of rows).
-// part[split] holds [dW1 din·F | db1 F | dW2 F·dout | db2 dout].
-template <int D, int JT>
-__global__ void __launch_bounds__(kThreads, 2)
-bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ g, float* __restrict__ part, int R,
-              int din, int F, int dout, int rows_per_split, Dropout drop) {
-  __shared__ float xs[kStageRows * D];
-  __shared__ float gs[kStageRows * D];
-  const int tid = threadIdx.x;
-  const int slab = blockIdx.x, split = blockIdx.y;
-  const size_t E = (size_t)din * F + F + (size_t)F * dout + dout;
-  float* out = part + split * E;
-
-  int jd[JT];
-  float w1r[JT][D], w2r[JT][D], b1r[JT];
-  float aw1[JT][D], aw2[JT][D], ab1[JT];
-#pragma unroll
-  for (int u = 0; u < JT; ++u) {
-    const int j = slab * kThreads * JT + tid + kThreads * u;
-    jd[u] = j;
-    const bool in = j < F;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      w1r[u][k] = (in && k < din) ? w1[(size_t)k * F + j] : 0.f;
-      w2r[u][k] = (in && k < dout) ? w2[(size_t)j * dout + k] : 0.f;
-      aw1[u][k] = 0.f;
-      aw2[u][k] = 0.f;
-    }
-    b1r[u] = in ? b1[j] : 0.f;
-    ab1[u] = 0.f;
-  }
-  float ab2 = 0.f;  // db2[tid] for tid < dout, slab 0
-
-  const int rbeg = split * rows_per_split;
-  const int rend = min(R, rbeg + rows_per_split);
-  for (int t0 = rbeg; t0 < rend; t0 += kStageRows) {
-    __syncthreads();
-    for (int idx = tid; idx < kStageRows * D; idx += kThreads) {
-      const int row = t0 + idx / D, k = idx % D;
-      xs[idx] = (row < rend && k < din) ? x[(size_t)row * din + k] : 0.f;
-      gs[idx] = (row < rend && k < dout) ? g[(size_t)row * dout + k] : 0.f;
-    }
-    __syncthreads();
-    const int nr = min(kStageRows, rend - t0);
-    for (int rl = 0; rl < nr; ++rl) {
-      const uint32_t rk = drop.row_key(t0 + rl);
-      float xv[D], gv[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        xv[k] = xs[rl * D + k];
-        gv[k] = gs[rl * D + k];
-      }
-#pragma unroll
-      for (int u = 0; u < JT; ++u) {
-        float pre = b1r[u], dhd = 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          pre = fmaf(xv[k], w1r[u][k], pre);
-          dhd = fmaf(gv[k], w2r[u][k], dhd);
-        }
-        const float scale = drop.scale(rk, jd[u]);
-        const float hd = fmaxf(pre, 0.f) * scale;
-        const float dh = pre > 0.f ? dhd * scale : 0.f;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          aw1[u][k] = fmaf(xv[k], dh, aw1[u][k]);
-          aw2[u][k] = fmaf(hd, gv[k], aw2[u][k]);
-        }
-        ab1[u] += dh;
-      }
-      if (slab == 0 && tid < dout) ab2 += gs[rl * D + tid];
-    }
-  }
-
-#pragma unroll
-  for (int u = 0; u < JT; ++u) {
-    const int j = jd[u];
-    if (j >= F) continue;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      if (k < din) out[(size_t)k * F + j] = aw1[u][k];
-      if (k < dout) out[(size_t)din * F + F + (size_t)j * dout + k] = aw2[u][k];
-    }
-    out[(size_t)din * F + j] = ab1[u];
-  }
-  if (slab == 0 && tid < dout)
-    out[(size_t)din * F + F + (size_t)F * dout + tid] = ab2;
-}
-
-// grads[e] = sum over splits, in split order, of part[split][e].
-__global__ void sum_kernel(const float* __restrict__ part,
-                           float* __restrict__ grads, int E, int n_splits) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int sp = 0; sp < n_splits; ++sp) s += part[(size_t)sp * E + e];
-  grads[e] = s;
-}
-
 int width_bucket(int din, int dout) {
   const int d = din > dout ? din : dout;
   if (d <= 0) return 0;
@@ -378,8 +252,6 @@ int width_bucket(int din, int dout) {
   if (d <= 64) return 64;
   return 0;
 }
-
-constexpr int dw_units(int D) { return D == 8 ? 2 : 1; }
 
 Dropout make_dropout(int on, unsigned seed, unsigned threshold,
                      float inv_keep) {
@@ -403,52 +275,438 @@ cudaError_t launch_fwd(const float* x, const float* w1, const float* b1,
   return cudaGetLastError();
 }
 
-template <int D, int RT>
+// ------------------------------------------------------------- backward
+
+// Two products in 3xTF32, their tensor-core steps interleaved so that one
+// product's step issues while the other's is in flight (mma3's three are
+// dependent, and the asm is volatile, so the compiler keeps this order):
+// each result is mma3's, added to d0 and then to d1 (which may be the
+// same accumulator).
+__device__ __forceinline__ void mma3_2(float (&d0)[4], const tc::FragA& a0,
+                                       const tc::FragB& b0, float (&d1)[4],
+                                       const tc::FragA& a1,
+                                       const tc::FragB& b1) {
+  float p0[4], p1[4];
+  tc::mma_fresh(p0, a0.lo, b0.hi);
+  tc::mma_fresh(p1, a1.lo, b1.hi);
+  tc::mma(p0, a0.hi, b0.lo);
+  tc::mma(p1, a1.hi, b1.lo);
+  tc::mma(p0, a0.hi, b0.hi);
+  tc::mma(p1, a1.hi, b1.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d0[i] += p0[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d1[i] += p1[i];
+}
+
+// The same for four products.
+__device__ __forceinline__ void mma3_4(
+    float (&d0)[4], const tc::FragA& a0, const tc::FragB& b0,
+    float (&d1)[4], const tc::FragA& a1, const tc::FragB& b1,
+    float (&d2)[4], const tc::FragA& a2, const tc::FragB& b2,
+    float (&d3)[4], const tc::FragA& a3, const tc::FragB& b3) {
+  float p0[4], p1[4], p2[4], p3[4];
+  tc::mma_fresh(p0, a0.lo, b0.hi);
+  tc::mma_fresh(p1, a1.lo, b1.hi);
+  tc::mma_fresh(p2, a2.lo, b2.hi);
+  tc::mma_fresh(p3, a3.lo, b3.hi);
+  tc::mma(p0, a0.hi, b0.lo);
+  tc::mma(p1, a1.hi, b1.lo);
+  tc::mma(p2, a2.hi, b2.lo);
+  tc::mma(p3, a3.hi, b3.lo);
+  tc::mma(p0, a0.hi, b0.hi);
+  tc::mma(p1, a1.hi, b1.hi);
+  tc::mma(p2, a2.hi, b2.hi);
+  tc::mma(p3, a3.hi, b3.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    d0[i] += p0[i];
+    d1[i] += p1[i];
+    d2[i] += p2[i];
+    d3[i] += p3[i];
+  }
+}
+
+constexpr int kRunRows = 64;   // rows per run of the dW sums over rows
+constexpr int kRunTerms = 8;  // terms per run: db1, db2 tiles; splits, slabs
+
+template <int D>
+struct Bwd {
+  static constexpr int MT = D == 8 ? 2 : 1;     // 16-unit m-tiles a warp
+  static constexpr int U = kWarps * 16 * MT;    // units of a slab
+  static constexpr int KT = D / 8;              // k-steps (n-tiles) of a width
+  static constexpr bool kRegW = D == 8;         // weight fragments in registers
+  static constexpr int RT = D <= 16 ? 32 : 16;  // rows per tile
+  static constexpr int kRun = kRunRows / RT;    // tiles per run
+  static constexpr int LDX = D + 4;             // x, g and W2 rows
+  static constexpr int LDW = U + 8;             // W1 rows [din][U]
+  static constexpr int LDH = 16 * MT + 4;       // a warp's dh [16][LDH]
+  // a thread's totals: dW1^T and dW2 C fragments, db1 of its two units
+  static constexpr int kTot = 2 * MT * KT * 4 + 2 * MT;
+  static constexpr size_t smem_floats() {
+    return (size_t)D * LDW + U * LDX + U + 2 * 2 * RT * LDX +
+           kWarps * 16 * LDH + kWarps * RT * LDX + kThreads * kTot;
+  }
+};
+
+// One (slab, split) of the backward: the split's dx partial of the slab
+// and its weight-gradient partial, part[split] = [dW1 din·F | db1 F |
+// dW2 F·dout | db2 dout] (the slab's units; db2 by slab 0).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+           const float* __restrict__ b1, const float* __restrict__ w2,
+           const float* __restrict__ g, float* __restrict__ part,
+           float* __restrict__ dx_part, int R, int din, int F, int dout,
+           int rows_per_split, Dropout drop) {
+  using C = Bwd<D>;
+  constexpr int MT = C::MT, KT = C::KT, U = C::U, RT = C::RT;
+  constexpr int LDX = C::LDX, LDW = C::LDW, LDH = C::LDH;
+  extern __shared__ float smem[];
+  float* w1s = smem;                        // [D][LDW]  W1[k, j0 + u]
+  float* w2s = w1s + D * LDW;               // [U][LDX]  W2[j0 + u, o]
+  float* b1s = w2s + U * LDX;               // [U]
+  float* ring = b1s + U;                    // 2 x {x [RT][LDX], g [RT][LDX]}
+  float* dhs = ring + 4 * RT * LDX;         // [kWarps][16][LDH]
+  float* dxs = dhs + kWarps * 16 * LDH;     // [kWarps][RT][LDX]
+  float* tots = dxs + kWarps * RT * LDX;    // [kTot][kThreads]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g8 = tc::lane_g(), t = tc::lane_t();
+  const int slab = blockIdx.x, split = blockIdx.y;
+  const int j0 = slab * U;                  // the slab's first unit
+  const int u0 = 16 * MT * warp;            // the warp's first unit in it
+  const int rbeg = split * rows_per_split;
+  const int rend = min(R, rbeg + rows_per_split);
+  const int ntiles = rend > rbeg ? (rend - rbeg + RT - 1) / RT : 0;
+  const int din8 = tc::round8(din), dout8 = tc::round8(dout);
+  float* dh_w = dhs + warp * 16 * LDH;
+  float* tot = tots + tid;                  // slot s at tot[s * kThreads]
+
+  auto issue = [&](int r0, int s) {
+    float* xst = ring + s * 2 * RT * LDX;
+    tc::stage_rows(xst, LDX, x, din, r0, RT, rend, 0, din, din, tid,
+                   kThreads);
+    tc::stage_rows(xst + RT * LDX, LDX, g, dout, r0, RT, rend, 0, dout, dout,
+                   tid, kThreads);
+    tc::cp_async_commit();
+  };
+  if (ntiles > 0) issue(rbeg, 0);
+  tc::stage_rows(w1s, LDW, w1, F, 0, din8, din, j0, U, F, tid, kThreads);
+  tc::stage_rows(w2s, LDX, w2, dout, j0, U, F, 0, dout, dout, tid, kThreads);
+  tc::stage_rows(b1s, U, b1, 0, 0, 1, 1, j0, U, F, tid, kThreads);
+  tc::cp_async_commit();
+  for (int s = 0; s < C::kTot; ++s) tot[s * kThreads] = 0.f;
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  // The weights' fragments: pre's A (W1^T, units x din), dhd's A (W2,
+  // units x dout) and dx's B (W1 as units x din). At D = 8 split once.
+  tc::FragA aw1_r[C::kRegW ? MT : 1], aw2_r[C::kRegW ? MT : 1];
+  if constexpr (C::kRegW) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      aw1_r[mt] = tc::load_a_t(w1s, LDW, u0 + 16 * mt, 0);
+      aw2_r[mt] = tc::load_a(w2s, LDX, u0 + 16 * mt, 0);
+    }
+  }
+  auto aw1 = [&](int mt, int ks) {
+    if constexpr (C::kRegW) return aw1_r[mt];
+    else return tc::load_a_t(w1s, LDW, u0 + 16 * mt, 8 * ks);
+  };
+  auto aw2 = [&](int mt, int ks) {
+    if constexpr (C::kRegW) return aw2_r[mt];
+    else return tc::load_a(w2s, LDX, u0 + 16 * mt, 8 * ks);
+  };
+  float b1r[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) b1r[mt][e] = b1s[u0 + 16 * mt + g8 + 8 * e];
+
+  // the runs: dW1^T [mt][n-tile of din], dW2 [mt][n-tile of dout] in
+  // C-fragment order, db1 [mt][unit g, g + 8]; db2 (slab 0, tid < dout)
+  float w1run[MT][KT][4] = {}, w2run[MT][KT][4] = {}, b1run[MT][2] = {};
+  float b2run = 0.f, b2tot = 0.f;
+  const bool has_b2 = slab == 0 && tid < dout;
+  auto flush = [&]() {   // the dW runs into the totals
+    int s = 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tot[s++ * kThreads] += w1run[mt][c][i];
+          tot[s++ * kThreads] += w2run[mt][c][i];
+          w1run[mt][c][i] = w2run[mt][c][i] = 0.f;
+        }
+  };
+  auto flush_bias = [&]() {   // the db1 and db2 runs into the totals
+    int s = 2 * MT * KT * 4;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        tot[s++ * kThreads] += b1run[mt][e];
+        b1run[mt][e] = 0.f;
+      }
+    b2tot += b2run;
+    b2run = 0.f;
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int r0 = rbeg + it * RT;
+    tc::cp_async_wait_all();
+    __syncthreads();  // tile `it` visible; every warp done with it - 1
+    if (it + 1 < ntiles) issue(r0 + RT, (it + 1) & 1);
+    const float* xs = ring + (it & 1) * 2 * RT * LDX;
+    const float* gs = xs + RT * LDX;
+    float b1tile[MT][2] = {};   // db1: the tile's rows, a fresh partial
+
+#pragma unroll 1
+    for (int h16 = 0; h16 < RT; h16 += 16) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n0 = h16 + 8 * q;       // the n-tile's first row
+        tc::FragB bx[KT], bg[KT];
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks) {
+          if (8 * ks < din8) bx[ks] = tc::load_b_nk(xs, LDX, n0, 8 * ks);
+          if (8 * ks < dout8) bg[ks] = tc::load_b_nk(gs, LDX, n0, 8 * ks);
+        }
+        // dW's B operands, the n-tile's x and g rows (K = its 8 rows)
+        tc::FragB px[KT], pg[KT];
+#pragma unroll
+        for (int c = 0; c < KT; ++c) {
+          if (8 * c < din8) px[c] = tc::load_b_kn_pairs(xs, LDX, n0, 8 * c);
+          if (8 * c < dout8) pg[c] = tc::load_b_kn_pairs(gs, LDX, n0, 8 * c);
+        }
+        uint32_t rk[2] = {0u, 0u};
+        if (drop.on) {
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+            rk[f] = drop.row_key(r0 + n0 + 2 * t + f);
+        }
+        // pre^T and dhd^T of units u0 + 16 mt + g (+8), rows n0 + 2t (+1);
+        // independent products issued together (mma3_4 / mma3_2)
+        float pre[MT][4], dhd[MT][4] = {};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pre[mt][i] = b1r[mt][i >> 1];
+        if constexpr (MT == 2) {   // D = 8: one k-step
+          mma3_4(pre[0], aw1(0, 0), bx[0], dhd[0], aw2(0, 0), bg[0], pre[1],
+                 aw1(1, 0), bx[0], dhd[1], aw2(1, 0), bg[0]);
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < KT; ++ks) {
+            if (8 * ks < din8 && 8 * ks < dout8)
+              mma3_2(pre[0], aw1(0, ks), bx[ks], dhd[0], aw2(0, ks), bg[ks]);
+            else if (8 * ks < din8) tc::mma3(pre[0], aw1(0, ks), bx[ks]);
+            else if (8 * ks < dout8) tc::mma3(dhd[0], aw2(0, ks), bg[ks]);
+          }
+        }
+        tc::FragA adh[MT], ahd[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float dh[4], hd[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int u = u0 + 16 * mt + g8 + 8 * (i >> 1);
+            const float scale = drop.scale(rk[i & 1], j0 + u);
+            hd[i] = fmaxf(pre[mt][i], 0.f) * scale;
+            dh[i] = pre[mt][i] > 0.f ? dhd[mt][i] * scale : 0.f;
+            b1tile[mt][i >> 1] += dh[i];
+            dh_w[(8 * q + 2 * t + (i & 1)) * LDH + 16 * mt + g8 +
+                 8 * (i >> 1)] = dh[i];
+          }
+          adh[mt] = tc::frag_a_from_c(dh);
+          ahd[mt] = tc::frag_a_from_c(hd);
+        }
+        if constexpr (MT == 2) {
+          mma3_4(w1run[0][0], adh[0], px[0], w2run[0][0], ahd[0], pg[0],
+                 w1run[1][0], adh[1], px[0], w2run[1][0], ahd[1], pg[0]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < KT; ++c) {
+            if (8 * c < din8 && 8 * c < dout8)
+              mma3_2(w1run[0][c], adh[0], px[c], w2run[0][c], ahd[0], pg[c]);
+            else if (8 * c < din8) tc::mma3(w1run[0][c], adh[0], px[c]);
+            else if (8 * c < dout8) tc::mma3(w2run[0][c], ahd[0], pg[c]);
+          }
+        }
+      }
+      __syncwarp();  // the warp's dh of these 16 rows complete
+      // the warp's share of dx for rows h16 .. h16 + 15: M = rows, K = its
+      // 16 MT units, N = din, two k-steps issued together
+      float dxw[KT][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 2 * MT; ks += 2) {
+        const tc::FragA a0 = tc::load_a(dh_w, LDH, 0, 8 * ks);
+        const tc::FragA a1 = tc::load_a(dh_w, LDH, 0, 8 * ks + 8);
+#pragma unroll
+        for (int c = 0; c < KT; ++c)
+          if (8 * c < din8)
+            mma3_2(dxw[c], a0, tc::load_b_nk(w1s, LDW, 8 * c, u0 + 8 * ks),
+                   dxw[c], a1,
+                   tc::load_b_nk(w1s, LDW, 8 * c, u0 + 8 * ks + 8));
+      }
+      float* dxo = dxs + (warp * RT + h16) * LDX;
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dxo[(g8 + 8 * (i >> 1)) * LDX + 8 * c + 2 * t + (i & 1)] =
+              dxw[c][i];
+      __syncwarp();  // dh_w read before the next rows overwrite it
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) b1run[mt][e] += b1tile[mt][e];
+    if (has_b2) {  // db2: the tile's column sum of g
+      float p = 0.f;
+      for (int r = 0; r < RT; ++r) p += gs[r * LDX + tid];
+      b2run += p;
+    }
+    if (it % C::kRun == C::kRun - 1) flush();
+    if (it % kRunTerms == kRunTerms - 1) flush_bias();
+
+    __syncthreads();  // the eight warps' dx shares of the tile complete
+    for (int idx = tid; idx < RT * din; idx += kThreads) {
+      const int r = idx / din, c = idx - r * din, row = r0 + r;
+      if (row >= rend) break;
+      float v = dxs[r * LDX + c];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += dxs[(w * RT + r) * LDX + c];
+      dx_part[((size_t)slab * R + row) * din + c] = v;
+    }
+  }
+  flush();
+  flush_bias();
+
+  // the totals out: each thread's C fragments, db1 over the 4 lanes of a
+  // unit (xor 1, then 2)
+  float* out = part + (size_t)split * ((size_t)din * F + F + (size_t)F * dout +
+                                       dout);
+  int s = 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < KT; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = j0 + u0 + 16 * mt + g8 + 8 * (i >> 1);
+        const int col = 8 * c + 2 * t + (i & 1);
+        const float v1 = tot[s++ * kThreads], v2 = tot[s++ * kThreads];
+        if (j < F && col < din) out[(size_t)col * F + j] = v1;
+        if (j < F && col < dout)
+          out[(size_t)din * F + F + (size_t)j * dout + col] = v2;
+      }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = tot[s++ * kThreads];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int j = j0 + u0 + 16 * mt + g8 + 8 * e;
+      if (t == 0 && j < F) out[(size_t)din * F + j] = v;
+    }
+  if (has_b2) out[(size_t)din * F + F + (size_t)F * dout + tid] = b2tot;
+}
+
+// p[0] + p[stride] + ... + p[(n - 1) stride] in index order, in runs of
+// kRunTerms terms, each run into the total (graphit::RunSum's order).
+__device__ float run_sum(const float* __restrict__ p, size_t stride, int n) {
+  float total = 0.f, run = 0.f;
+  for (int i = 0; i < n; ++i) {
+    run += p[(size_t)i * stride];
+    if (i % kRunTerms == kRunTerms - 1) {
+      total += run;
+      run = 0.f;
+    }
+  }
+  return total + run;
+}
+
+// grads[e] = the splits' part[split][e] added in split order, in runs
+// (e < E); dx[i] = the slabs' dx_part[slab][i] added so in slab order.
+__global__ void finish_kernel(const float* __restrict__ part,
+                              float* __restrict__ grads, int E, int n_splits,
+                              const float* __restrict__ dx_part,
+                              float* __restrict__ dx, size_t RD,
+                              int n_slabs) {
+  const size_t total = (size_t)E + RD;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    if (i < (size_t)E)
+      grads[i] = run_sum(part + i, E, n_splits);
+    else
+      dx[i - E] = run_sum(dx_part + (i - E), RD, n_slabs);
+  }
+}
+
+int bwd_units(int D) {
+  switch (D) {
+    case 8: return Bwd<8>::U;
+    case 16: return Bwd<16>::U;
+    case 32: return Bwd<32>::U;
+    default: return Bwd<64>::U;
+  }
+}
+
+// Rows per split: n_splits splits cover R in whole runs of kRunRows.
+int rows_per_split(int R, int n_splits) {
+  const int rows = (R + n_splits - 1) / n_splits;
+  return (rows + kRunRows - 1) / kRunRows * kRunRows;
+}
+
+template <int D>
 cudaError_t launch_bwd(const float* x, const float* w1, const float* b1,
                        const float* w2, const float* g, float* dx,
-                       float* part, float* grads, int R, int din, int F,
-                       int dout, int n_splits, Dropout drop,
+                       float* part, float* grads, float* dx_part, int R,
+                       int din, int F, int dout, int n_splits, Dropout drop,
                        cudaStream_t stream) {
-  const size_t smem = rowblock_smem<D, RT>();
+  const size_t smem = sizeof(float) * Bwd<D>::smem_floats();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dx_kernel<D, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (R + 32 * RT - 1) / (32 * RT);
-  bwd_dx_kernel<D, RT><<<blocks, kThreads, smem, stream>>>(
-      x, w1, b1, w2, g, dx, R, din, F, dout, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int JT = dw_units(D);
-  const int slabs = (F + kThreads * JT - 1) / (kThreads * JT);
-  const int rows_per_split = (R + n_splits - 1) / n_splits;
-  bwd_dw_kernel<D, JT><<<dim3(slabs, n_splits), kThreads, 0, stream>>>(
-      x, w1, b1, w2, g, part, R, din, F, dout, rows_per_split, drop);
+  const int slabs = (F + Bwd<D>::U - 1) / Bwd<D>::U;
+  bwd_kernel<D><<<dim3(slabs, n_splits), kThreads, smem, stream>>>(
+      x, w1, b1, w2, g, part, dx_part, R, din, F, dout,
+      rows_per_split(R, n_splits), drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const int E = din * F + F + F * dout + dout;
-  sum_kernel<<<(E + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      part, grads, E, n_splits);
+  const size_t total = (size_t)E + (size_t)R * din;
+  const size_t blocks = (total + kThreads - 1) / kThreads;
+  finish_kernel<<<blocks < 4096 ? (int)blocks : 4096, kThreads, 0,
+                  stream>>>(part, grads, E, n_splits, dx_part, dx,
+                            (size_t)R * din, slabs);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Number of row splits of the backward's weight-gradient pass (the wrapper
-// allocates that many partials of din·F + F + F·dout + dout floats): about
-// two blocks per SM in all, and at least kStageRows rows per split.
-extern "C" int feta_fused_mlp_bwd_splits(int R, int din, int F, int dout,
-                                         int n_sm) {
+// The backward's grid: returns the number of row splits (the wrapper
+// allocates that many weight-gradient partials of din·F + F + F·dout + dout
+// floats), about two blocks per SM in all, whole runs of kRunRows rows per
+// split; writes the number of slabs of hidden units (that many dx partials
+// of R·din floats) to *n_slabs. Both are 0 for shapes the kernel rejects.
+extern "C" int feta_fused_mlp_bwd_grid(int R, int din, int F, int dout,
+                                       int n_sm, int* n_slabs) {
   const int D = width_bucket(din, dout);
-  if (D == 0 || R <= 0 || F <= 0 || n_sm <= 0) return 0;
-  const int units = kThreads * dw_units(D);
-  const int slabs = (F + units - 1) / units;
-  int splits = (2 * n_sm + slabs - 1) / slabs;
-  const int most = (R + kStageRows - 1) / kStageRows;
-  if (splits > most) splits = most;
-  return splits < 1 ? 1 : splits;
+  *n_slabs = 0;
+  if (D == 0 || F <= 0 || R <= 0 || n_sm <= 0) return 0;
+  const int slabs = (F + bwd_units(D) - 1) / bwd_units(D);
+  const int want = (2 * n_sm + slabs - 1) / slabs;
+  const int rows = rows_per_split(R, want);
+  *n_slabs = slabs;
+  return (R + rows - 1) / rows;
 }
 
 extern "C" int feta_fused_mlp_fwd(const void* x, const void* w1,
@@ -486,8 +744,8 @@ extern "C" int feta_fused_mlp_fwd(const void* x, const void* w1,
 extern "C" int feta_fused_mlp_bwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* g, void* dx, void* part,
-                                  void* grads, int R, int din, int F,
-                                  int dout, int n_splits, int drop_on,
+                                  void* grads, void* dx_part, int R, int din,
+                                  int F, int dout, int n_splits, int drop_on,
                                   unsigned seed, unsigned threshold,
                                   float inv_keep, void* stream) {
   const int D = width_bucket(din, dout);
@@ -502,20 +760,21 @@ extern "C" int feta_fused_mlp_bwd(const void* x, const void* w1,
   auto* dxf = (float*)dx;
   auto* pf = (float*)part;
   auto* gr = (float*)grads;
+  auto* dp = (float*)dx_part;
   auto s = (cudaStream_t)stream;
   switch (D) {
     case 8:
-      return (int)launch_bwd<8, 2>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, R, din,
-                                   F, dout, n_splits, drop, s);
+      return (int)launch_bwd<8>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
+                                din, F, dout, n_splits, drop, s);
     case 16:
-      return (int)launch_bwd<16, 1>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, R,
-                                    din, F, dout, n_splits, drop, s);
+      return (int)launch_bwd<16>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
+                                 din, F, dout, n_splits, drop, s);
     case 32:
-      return (int)launch_bwd<32, 1>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, R,
-                                    din, F, dout, n_splits, drop, s);
+      return (int)launch_bwd<32>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
+                                 din, F, dout, n_splits, drop, s);
     default:
-      return (int)launch_bwd<64, 1>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, R,
-                                    din, F, dout, n_splits, drop, s);
+      return (int)launch_bwd<64>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
+                                 din, F, dout, n_splits, drop, s);
   }
 }
 

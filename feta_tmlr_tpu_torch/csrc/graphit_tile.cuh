@@ -1,15 +1,10 @@
-// Score tiles of GraphiT attention. colstat.cu takes the SIMT tile below
-// (`stage_transposed`, `tile_dot`); the forwards' body fwd.cuh and the
-// backward passes (flash_bwd.cu, flash_hf.cu, bwd_q.cuh) take `dot4`,
-// `score`, `Operands` and, backward, `grad_score` and `RunSum` (their other
-// products run on the tensor cores, mma_tf32.cuh).
-//
-// colstat.cu's 256-thread block works on a 64-query x 64-key tile. Thread
-// (tx, ty) = (tid % 16, tid / 16) owns rows ty + 16 i and key columns
-// tx + 16 j (i, j < 4): the 16 threads of a row are 16 consecutive lanes
-// of one warp, so a row reduction is four __shfl_xor_sync steps.
-// Operands are staged transposed in shared memory with a stride of 65, so
-// the warp's reads along the tile are conflict-free.
+// Score tiles of GraphiT attention. The forwards' body fwd.cuh, colstat.cu
+// and the backward passes (flash_bwd.cu, flash_hf.cu, bwd_q.cuh) take
+// `dot4` and `score`, colstat and the backward passes `RunSum`, the
+// backward passes `Operands` and `grad_score` (their other products run on
+// the tensor cores, mma_tf32.cuh).
+// Each computes its score at the mma C-fragment positions as one FMA chain
+// over k in order, so every kernel gets the forward's score bit for bit.
 //
 // The score of query i and key j is the JAX package's `_score_block`:
 //   s = (xa_h[i] . x[j] + cq[i] + ck[j] + c0) * inv_sqrt,
@@ -21,56 +16,15 @@
 
 namespace graphit {
 
-constexpr int kBQ = 64;            // query rows per tile
-constexpr int kBK = 64;            // key columns per tile
-constexpr int kTX = 16;
-constexpr int kTY = 16;
-constexpr int kThreads = kTX * kTY;
-constexpr int kRows = kBQ / kTY;   // rows per thread
-constexpr int kCols = kBK / kTX;   // key columns per thread
-constexpr int kLDQ = kBQ + 1;      // padded strides
-constexpr int kLDK = kBK + 1;
+constexpr int kThreads = 256;      // the key passes' and colstat's blocks
 constexpr float kMaskedScore = -1e30f;
 constexpr float kEps = 1e-9f;
-static_assert(kBQ == kBK, "stage_transposed stages square tiles");
-
-// dst[k * ld + r] = src[(row0 + r) * D + k] for the kBQ rows of a tile,
-// zero beyond the ragged edge N.
-__device__ __forceinline__ void stage_transposed(float* dst, int ld,
-                                                 const float* src, int row0,
-                                                 int N, int D, int tid) {
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, k = i % D, row = row0 + r;
-    dst[k * ld + r] = row < N ? src[(size_t)row * D + k] : 0.f;
-  }
-}
-
-// s[i][j] = xa_h[row ty + 16 i] . x[key tx + 16 j] from the staged tiles.
-__device__ __forceinline__ void tile_dot(const float* xaT, const float* xT,
-                                         int D, int tx, int ty,
-                                         float (&s)[kRows][kCols]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-  for (int k = 0; k < D; ++k) {
-    float a[kRows], b[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) a[i] = xaT[k * kLDQ + ty + kTY * i];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) b[j] = xT[k * kLDK + tx + kTX * j];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
 
 // s + q·k over four consecutive k, one FMA at a time in order: called for
-// k = 0, 4, ... from s = 0 it is `tile_dot`'s chain bit for bit. The
-// forwards (fwd.cuh) take their score from it, so colstat.cu and a backward
-// pass that recomputes the score get the forward's score exactly (columns
-// past D must be zero).
+// k = 0, 4, ... from s = 0 it is the score's FMA chain. The forwards
+// (fwd.cuh) take their score from it, so colstat.cu and a backward pass
+// that recomputes the score get the forward's score exactly (columns past
+// D must be zero).
 __device__ __forceinline__ float dot4(float4 q, float4 k, float s) {
   s = fmaf(q.x, k.x, s);
   s = fmaf(q.y, k.y, s);

@@ -4,9 +4,11 @@ Kernel: `csrc/colstat.cu`, the H100 counterpart of the TPU kernel
 `feta_tmlr_tpu/ops/pallas/flash_attention.py::_colstat_kernel`. It
 recomputes attention tiles from the forward kernel's row statistics and
 sums columns weighted per query row; its source note says what bounds it
-(f32 arithmetic, about 2·B·H·N²·D flops per launch) and how the design
-answers that (one block per key tile loops over every query tile: no
-atomics, deterministic sums).
+(the score's f32 FMAs, 2·B·H·N²·D flops per launch) and how the design
+answers that (the key passes' geometry: one block per key tile loops over
+every query tile through a cp.async ring, the score as the forwards' FMA
+chain at the mma C-fragment positions; no atomics, sums in a fixed
+order).
 
 `colstat` is the wrapper: on a CUDA tensor it launches the kernel and
 counts the launch in `colstat.launches`; on a CPU tensor it runs

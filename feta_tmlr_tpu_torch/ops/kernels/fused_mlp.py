@@ -3,18 +3,20 @@
 Kernels: `csrc/fused_mlp.cu`, the H100 counterparts of the TPU kernels
 `feta_tmlr_tpu/ops/pallas/fused_mlp.py::_fwd_kernel` and `::_bwd_kernel`.
 Neither writes the [R, F] hidden field to device memory; the backward
-recomputes it from x. The source note says what bounds them (f32
-arithmetic, 2·R·F·(d_in + d_out) flops forward) and how the design answers
-that (F split across a block's warps, weight gradients summed per row split
-and then in split order, no atomics).
+recomputes it from x. The source note says what bounds them (the forward's
+f32 FMAs; the backward's 3xTF32 products at mma.sync's rate, beside the
+dropout hash) and how the designs answer that (the forward splits F across
+a block's warps; the backward is one pass on the tensor cores per slab of
+hidden units and split of rows, computing pre, g @ w2.T and the keep bit
+once per (row, unit); sums in a fixed order, no atomics).
 
 `fused_mlp_fwd` and `fused_mlp_bwd` are the wrappers: on a CUDA tensor each
-launches its kernel and counts the launch in its `launches` attribute (the
-backward's one call is three launches: dx, weight-gradient partials, their
-sum); on a CPU tensor each runs its plain version (`fused_mlp_plain`,
-`fused_mlp_bwd_plain`). There is no other route and no fallback.
-`FusedMLP` is the `torch.autograd.Function` that ties them together, and
-`fused_mlp` the entry point.
+launches its kernel and counts the call in its `launches` attribute (the
+backward's one call is two launches: the pass, then the sum of its split
+and slab partials); on a CPU tensor each runs its plain version
+(`fused_mlp_plain`, `fused_mlp_bwd_plain`). There is no other route and no
+fallback. `FusedMLP` is the `torch.autograd.Function` that ties them
+together, and `fused_mlp` the entry point.
 
 Dropout: the keep bit of (row r, hidden unit j) is a hash of (seed, r, j)
 below `keep_threshold(rate)`, the same bits in the kernel and in
@@ -46,15 +48,16 @@ _fns = {}
 
 
 def _kernel(name):
-    """(lib, bound C function) for "fwd", "bwd" or "splits"."""
+    """(lib, bound C function) for "fwd", "bwd" or "grid"."""
     if not _fns:
         lib = build.load("fused_mlp")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         sigs = {"fwd": ("feta_fused_mlp_fwd",
                         [p] * 6 + [i] * 5 + [u, u, ctypes.c_float, p]),
                 "bwd": ("feta_fused_mlp_bwd",
-                        [p] * 8 + [i] * 6 + [u, u, ctypes.c_float, p]),
-                "splits": ("feta_fused_mlp_bwd_splits", [i] * 5)}
+                        [p] * 9 + [i] * 6 + [u, u, ctypes.c_float, p]),
+                "grid": ("feta_fused_mlp_bwd_grid",
+                         [i] * 5 + [ctypes.POINTER(i)])}
         for key, (sym, argtypes) in sigs.items():
             fn = getattr(lib, sym)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -201,24 +204,29 @@ fused_mlp_fwd.launches = 0
 def fused_mlp_bwd(x, w1, b1, w2, g, rate: float = 0.0,
                   seed: Optional[int] = None):
     """(dx, dw1, db1, dw2, db2) of `fused_mlp_fwd` for the cotangent g
-    [R, d_out]. One call is three launches from `csrc/fused_mlp.cu`: dx,
-    the weight-gradient partials of each row split, and their sum."""
+    [R, d_out]. One call is two launches from `csrc/fused_mlp.cu`: the pass
+    over every (slab of hidden units, split of rows), which writes a dx
+    partial per slab and a weight-gradient partial per split, then their
+    sums in slab and split order."""
     if not cuda_or_plain("fused_mlp_bwd", x):
         return fused_mlp_bwd_plain(x, w1, b1, w2, g, rate, seed)
     seed = _check_seed(rate, seed)
     r, din, f, dout = _check("fused_mlp_bwd", x, w1, b1, w2,
                              [("g", g, (x.shape[0], w2.shape[1]))])
     dev = x.device
-    _, splits_fn = _kernel("splits")
+    _, grid_fn = _kernel("grid")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = splits_fn(r, din, f, dout, n_sm)
+    n_slabs = ctypes.c_int(0)
+    n_splits = grid_fn(r, din, f, dout, n_sm, ctypes.byref(n_slabs))
+    n_slabs = n_slabs.value
     e = din * f + f + f * dout + dout
     dx = torch.empty((r, din), dtype=torch.float32, device=dev)
     part = torch.empty((n_splits, e), dtype=torch.float32, device=dev)
     grads = torch.empty((e,), dtype=torch.float32, device=dev)
+    dx_part = torch.empty((n_slabs, r, din), dtype=torch.float32, device=dev)
     lib, fn = _kernel("bwd")
     err = fn(ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(g), ptr(dx), ptr(part),
-             ptr(grads), r, din, f, dout, n_splits,
+             ptr(grads), ptr(dx_part), r, din, f, dout, n_splits,
              *_dropout_args(rate, seed), stream_ptr(dev))
     check_launch(lib, err, "fused_mlp_bwd")
     fused_mlp_bwd.launches += 1

@@ -8,6 +8,10 @@
                                                the same for the fused pair
   python3 kernel_ab.py --fused --times DIR [DIR ...]
                                                its times alone, and bits
+  python3 kernel_ab.py --colstat [--check | --times] DIR [DIR ...]
+  python3 kernel_ab.py --mlp [--check | --times] DIR [DIR ...]
+                                               the same for colstat and
+                                               the fused MLP's backward
 
 Each DIR holds a copy of `feta_tmlr_tpu_torch/csrc` (a variant, edited or
 taken from another commit). The default mode builds every variant's
@@ -51,6 +55,37 @@ at the clusters' and strips' edges (H of 1, 3, 8, 12, 13; N of 1, 16, 17,
 with a phase removed computes wrong outputs), then says whether each tree
 gives the first tree's bits at H of 8, 12, 13 and N of 1, 17, 48, 128.
 `--check` without `--fused` runs the flash checks, then the fused ones.
+
+`--colstat` times `colstat` (wq absent and given, the two launches of
+`attention_column_gcn_sums`) at the main paths' shapes: SBM at N=1024
+(B=4), the `fold` step's B=1, N=2048, the ZINC batch (B=128, N=48) and
+B=8, N=200; held to plain, compared bit for bit with the first tree, two
+rounds. With `--check`: registers and spills of each tree's library, then
+every tree against plain at N of 1, 17, 48, 64, 65, 200 and 2048 (H 8 and
+3, D 64 and 20, pe and deg absent or given, wq absent or given, guard
+rows), two runs bit-identical; exp(s - m) <= 1 with m from the tree's own
+unfolded forward: with se = su = 1 and a one-hot wq, colsum is a row of
+exp(s - m), whose maximum must be exactly 1; and (with more than one DIR)
+the diagonal bit-equal to the first tree's, whose score is the same FMA
+chain. `--times` times the trees without checks. Without `--check` each
+tree's registers and spills are printed first.
+
+`--mlp` times `fused_mlp_bwd` at the SAN head's 40,960 rows (d 8, F 2048,
+dropout 0.1 and 0) and at 10,007 rows, held to plain and compared with the
+first tree, two rounds, and prints each output's error from float64 over
+the CPU float32 route's. With `--check`: registers, spills and HMMA count
+of `fused_mlp`; the dropout keep bit's instructions per (row, unit) by
+pipe (`hash_sass`: the SASS of a probe kernel that calls the tree's
+`Dropout::keep_scale`, less the same kernel without it), the counts that
+chip_smoke's HASH_IMAD_OPS and HASH_ALU_OPS take; then each tree against plain at R of 1, 31 and 10,007,
+every width bucket (d 8, 16, 32, 64 and mixed widths), F of 520 (not a
+multiple of a slab) and 2048, dropout 0 and 0.1, two runs bit-identical,
+the dropout masks bit-equal to `dropout_keep`, and pre exact on the dyadic
+inputs: with g one-hot on 8 rows, dW2 holds those rows' relu(pre) * scale,
+equal bit for bit to the float64 value. `--times` times the trees without
+checks (variants with a phase removed). The parent's `fused_mlp` (three
+launches, no `feta_fused_mlp_bwd_grid`) is called through its own C
+interface.
 """
 
 from __future__ import annotations
@@ -66,6 +101,8 @@ import torch
 
 import chip_smoke as cs
 from chip_smoke import bwd_inputs, build, fa_mod, fl_mod, time_ms
+from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
+from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as fm_mod
 
 # (kernel, B, N, padding, dv): each unfolded kernel at the SBM N=1024 batch
 # and the ZINC batch, each folded one at the N=2048 training shape, and the
@@ -118,6 +155,8 @@ def use(src: Path) -> None:
     build._libs.clear()
     fl_mod._fns.clear()
     fa_mod._fns.clear()
+    fm_mod._fns.clear()
+    cs_mod._fn = None
 
 
 def build_all(dirs, libs=LIBS) -> None:
@@ -210,6 +249,85 @@ def build_facts(src: Path, libs=LIBS) -> None:
                 counts[fn] += 1
         for fn, n in counts.items():
             print(f"sass {name}: {fn} HMMA.1688.F32.TF32 {n}")
+
+
+# The dropout keep bit of one (row, unit) of a tree's fused_mlp.cu
+# (`Dropout::keep_scale`: the hash, its compare and the select) in a probe
+# kernel on a loaded row key and unit; its base adds the two values
+# instead. Their loads and stores are the same, so their SASS differ by the
+# keep bit's instructions less the base's one FADD.
+HASH_PROBE = r"""
+#include "{src}"
+__global__ void keep_probe(const uint2* in, float* out, Dropout drop) {{
+  const uint2 v = in[threadIdx.x];
+  out[threadIdx.x] = drop.keep_scale(v.x, (int)v.y);
+}}
+__global__ void base_probe(const uint2* in, float* out, Dropout drop) {{
+  const uint2 v = in[threadIdx.x];
+  out[threadIdx.x] = __uint_as_float(v.x) + __uint_as_float(v.y);
+}}
+"""
+# opcodes (with their first modifier) that sm_90 issues to the FMA pipe
+# (integer multiplies) and to the INT32 lanes; the hash makes no address
+# and moves nothing, so ADDRESS (64-bit addresses, moves) is left out
+FMA_PIPE = ("IMAD", "IMAD.HI", "IMUL")
+ALU_PIPE = ("LOP3.LUT", "SHF.R", "SHF.L", "IADD3", "ISETP.GE", "ISETP.GT",
+            "ISETP.LT", "ISETP.LE", "ISETP.NE", "ISETP.EQ", "SEL", "FSEL",
+            "PRMT", "IMNMX", "VIADD", "PLOP3.LUT")
+ADDRESS = ("LEA", "LEA.HI", "IMAD.WIDE", "IMAD.MOV", "MOV", "IMAD.SHL",
+           "IMAD.IADD")
+
+
+def sass_opcodes(cubin: Path, nvcc: Path, names) -> dict:
+    """{function: {opcode and its first modifier: count}} of the cubin's
+    functions whose names hold one of `names`; prints their SASS."""
+    sass = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass",
+                           str(cubin)], capture_output=True, text=True,
+                          check=True).stdout
+    ops, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((n for n in names if n in m.group(1)), None)
+            if fn:
+                ops[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*(?:\.[A-Z][A-Z0-9_]*)?)", line)
+        if fn and m and m.group(1) != "NOP":
+            ops[fn][m.group(1)] = ops[fn].get(m.group(1), 0) + 1
+            print(f"sass {fn}: {line.split(';')[0].strip()}")
+    return ops
+
+
+def hash_sass(src: Path) -> None:
+    """The keep bit's instructions per (row, unit), from the SASS of
+    HASH_PROBE: each opcode's count in keep_probe less base_probe, summed
+    by pipe (FMA_PIPE, ALU_PIPE, other: the base's FADD), ADDRESS left
+    out."""
+    out_dir = build.BUILD_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = Path(build._nvcc())
+    probe = out_dir / f"hash_probe-{src.name}.cu"
+    probe.write_text(HASH_PROBE.format(
+        src=(src / "fused_mlp.cu").resolve()))
+    cubin = probe.with_suffix(".cubin")
+    subprocess.run([str(nvcc), *build.NVCC_FLAGS[:4], "-cubin", "-o",
+                    str(cubin), str(probe)], check=True)
+    ops = sass_opcodes(cubin, nvcc, ("keep_probe", "base_probe"))
+    keep, base = ops["keep_probe"], ops["base_probe"]
+    diff = {o: keep.get(o, 0) - base.get(o, 0) for o in {*keep, *base}}
+    diff = {o: n for o, n in sorted(diff.items()) if n}
+    by = {"FMA pipe": 0, "INT32 lanes": 0, "other": 0}
+    for o, n in diff.items():
+        if o not in ADDRESS:
+            by["FMA pipe" if o in FMA_PIPE else "INT32 lanes"
+               if o in ALU_PIPE else "other"] += n
+    print(f"sass hash {src.name}: keep bit per (row, unit) "
+          + ", ".join(f"{k} {n}" for k, n in by.items()) + " ("
+          + " ".join(f"{o} {n:+d}" for o, n in diff.items()) + "); "
+          "keep_probe " + " ".join(f"{o} {n}" for o, n in sorted(
+              keep.items())), flush=True)
 
 
 def misses(got, want):
@@ -461,6 +579,282 @@ def dck(dv: int, dirs, dev) -> int:
     return 0
 
 
+
+# ------------------------------------------------------------- colstat
+
+# (B, N, padding) of the A/B: SBM at N=1024 (B=4), the `fold` step's N=2048,
+# the ZINC batch and a ragged N=200
+COLSTAT_SHAPES = ((4, 1024, 60), (1, 2048, 100), (128, 48, 11), (8, 200, 9))
+# `--colstat --check`: (B, H, N, padding, D, pe given, deg given)
+COLSTAT_EDGES = ((2, 8, 1, 0, 64, True, True), (2, 3, 17, 2, 20, True, True),
+                 (128, 8, 48, 11, 64, True, True),
+                 (2, 8, 64, 0, 64, False, True),
+                 (2, 3, 65, 1, 64, True, True), (8, 8, 200, 9, 64, True, True),
+                 (2, 3, 130, 5, 20, True, False),
+                 (2, 8, 1024, 60, 64, False, False),
+                 (1, 8, 2048, 100, 64, True, True))
+
+
+def colstat_inputs(seed, b, h, n, d, pad, dev, pe=True, deg=True):
+    """colstat's operands: the attention inputs with pe zero on graph 0's
+    first 4 query rows (the |su/se| <= 1e-9 branch), the plain forward's
+    row statistics, a random wq, and vw for the forward."""
+    ops, vw = cs.attention_inputs(seed, b, h, n, d, 8, pad, dev)
+    ops["pe"][0, :4] = 0.0
+    ops["pe"] = ops["pe"] if pe else None
+    ops["deg"] = ops["deg"] if deg else None
+    _, m, se, su = fl_mod.flash_fwd_plain(vw=vw, **ops)
+    wq = torch.rand(se.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+    return ops, dict(m=m, se=se, su=su), wq, vw
+
+
+def ab_colstat(dirs, dev, checks=True) -> int:
+    inputs = {s: colstat_inputs(sum(s), s[0], 8, s[1], 64, s[2], dev)
+              for s in COLSTAT_SHAPES}
+    times, first = {}, {}
+    for rnd, order in enumerate((dirs, dirs[::-1])):
+        for d in order:
+            use(d)
+            for s in COLSTAT_SHAPES:
+                ops, stats, wq, _ = inputs[s]
+                with torch.inference_mode():
+                    for w, tag in ((None, "wq=1"), (wq, "wq")):
+                        fn = lambda: cs_mod.colstat(**ops, **stats, wq=w)
+                        times.setdefault((d.name, tag, s), []).append(
+                            time_ms(fn))
+                        if rnd or not checks:
+                            continue
+                        got = fn()
+                        want = cs_mod.colstat_plain(**ops, **stats, wq=w)
+                        for g_, w_ in zip(got, want):
+                            torch.testing.assert_close(g_, w_,
+                                                       **cs.KERNEL_TOL)
+                        key = (tag, s)
+                        if key not in first:
+                            first[key] = (d.name, [t.clone() for t in got])
+                        else:
+                            print(f"{d.name} colstat {tag} B={s[0]} N={s[1]}"
+                                  f" bit-equal to {first[key][0]}: colsum "
+                                  f"{torch.equal(got[0], first[key][1][0])}"
+                                  f", diag "
+                                  f"{torch.equal(got[1], first[key][1][1])}",
+                                  flush=True)
+    for (name, tag, s), ts in times.items():
+        print(f"AB {name:12s} colstat {tag:5s} B={s[0]:3d} N={s[1]:4d}: "
+              + " ".join(f"{t:.4f}" for t in ts))
+    return 0
+
+
+def exp_bound(ops, vw, dev):
+    """Rows of exp(s - m) from the current tree's colstat, m from its own
+    unfolded forward: se = su = 1, pe and deg absent and wq one-hot at row
+    i make colsum[b, h] = exp(s[i, :] - m[i]) * kmask. Returns the number
+    of rows checked and of rows whose maximum is not exactly 1 or that
+    exceed 1 anywhere."""
+    _, m, _, _ = fl_mod.flash_fwd(vw=vw, **ops)
+    plain_ops = dict(ops, pe=None, deg=None)
+    ones = torch.ones_like(m)
+    mask = ops["mask"]
+    n = mask.shape[1]
+    checked = bad = 0
+    for i in sorted({0, n // 2, n - 1}):
+        wq = torch.zeros_like(m)
+        wq[:, :, i] = 1.0
+        row, _ = cs_mod.colstat(**plain_ops, m=m, se=ones, su=ones, wq=wq)
+        real = mask[:, i] > 0
+        for b in real.nonzero().flatten().tolist():
+            r = row[b]                                   # [H, N]
+            checked += r.shape[0]
+            bad += int(((r.amax(-1) != 1.0) | (r > 1.0).any(-1)).sum())
+    return checked, bad
+
+
+def check_colstat(dirs, dev) -> int:
+    bad = 0
+    ref = {}
+    for d in dirs:
+        build_facts(d, ("colstat",))
+        use(d)
+        for e in COLSTAT_EDGES:
+            b, h, n, pad, dd, pe, deg = e
+            ops, stats, wq, vw = colstat_inputs(b + n + dd, b, h, n, dd, pad,
+                                                dev, pe, deg)
+            msg = []
+            with torch.inference_mode():
+                for w, tag in ((None, "wq=1"), (wq, "wq")):
+                    got = cs_mod.colstat(**ops, **stats, wq=w)
+                    again = cs_mod.colstat(**ops, **stats, wq=w)
+                    want = cs_mod.colstat_plain(**ops, **stats, wq=w)
+                    torch.cuda.synchronize()
+                    same = all(map(torch.equal, got, again))
+                    bad += not same
+                    text, n_bad = misses(got, want)
+                    bad += n_bad
+                    msg.append(f"{tag}: bit-identical {same}; "
+                               + "; ".join(text))
+                    if (e, tag) not in ref:
+                        ref[e, tag] = (d.name, got[1].clone())
+                    else:
+                        equal = torch.equal(got[1], ref[e, tag][1])
+                        bad += not equal
+                        msg.append(f"diag bit-equal to {ref[e, tag][0]}'s "
+                                   f"{equal}")
+                checked, n_exp = exp_bound(ops, vw, dev)
+            bad += n_exp
+            print(f"colstat {d.name} B={b} H={h} N={n} pad~{pad} D={dd} "
+                  f"pe={pe} deg={deg}: " + "; ".join(msg)
+                  + f"; exp(s - m) <= 1 with maximum exactly 1 on "
+                  f"{checked - n_exp} of {checked} rows", flush=True)
+    print(f"check colstat: {bad} failures")
+    return 1 if bad else 0
+
+
+# ------------------------------------------------------- fused MLP backward
+
+# (rows, d_in, F, d_out, rate) of the A/B
+MLP_AB = ((cs.SAN_ROWS, 8, 2048, 8, 0.1), (cs.SAN_ROWS, 8, 2048, 8, 0.0),
+          (10007, 8, 2048, 8, 0.1))
+# `--mlp --check`: every width bucket, F not a multiple of a slab
+MLP_EDGES = ((1, 8, 520, 8, 0.1), (31, 8, 2048, 8, 0.0),
+             (10007, 8, 2048, 8, 0.1), (257, 3, 100, 5, 0.3),
+             (300, 16, 520, 16, 0.1), (31, 12, 2048, 16, 0.0),
+             (1000, 32, 520, 32, 0.1), (10007, 20, 520, 8, 0.1),
+             (500, 64, 520, 64, 0.1), (64, 40, 70, 64, 0.0),
+             (1, 64, 2048, 64, 0.0))
+
+
+def mlp_bwd(x, w1, b1, w2, g, rate, seed):
+    """fused_mlp_bwd through the current tree's library: the wrapper, or
+    for a library without `feta_fused_mlp_bwd_grid` (the parent's three
+    launches) its own C interface."""
+    lib = build.load("fused_mlp")
+    if hasattr(lib, "feta_fused_mlp_bwd_grid"):
+        return fm_mod.fused_mlp_bwd(x, w1, b1, w2, g, rate, seed)
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn, splits = lib.feta_fused_mlp_bwd, lib.feta_fused_mlp_bwd_splits
+    fn.argtypes = [p] * 8 + [i] * 6 + [u, u, ctypes.c_float, p]
+    splits.argtypes = [i] * 5
+    r, din = x.shape
+    f, dout = w2.shape
+    n_splits = splits(r, din, f, dout, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    e = din * f + f + f * dout + dout
+    dx = torch.empty((r, din), device=x.device)
+    part = torch.empty((n_splits, e), device=x.device)
+    grads = torch.empty((e,), device=x.device)
+    err = fn(*(t.data_ptr() for t in (x, w1, b1, w2, g, dx, part, grads)),
+             r, din, f, dout, n_splits, *fm_mod._dropout_args(rate, seed),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_mlp_bwd (parent interface): {err}")
+    dw1, db1, dw2, db2 = grads.split([din * f, f, f * dout, dout])
+    return dx, dw1.view(din, f), db1, dw2.view(f, dout), db2
+
+
+def cpu32_text(got, want, cpu):
+    """Each output's max abs error from the float64 outputs `want` over
+    the CPU float32 route's `cpu` (chip_smoke.cpu32_ratios' statistic)."""
+    outs = ("dx", "dW1", "db1", "dW2", "db2")
+    e = lambda a, w: float((a.cpu().double() - w.cpu()).abs().max())
+    return " ".join(f"{o} {e(g_, w_) / e(c_, w_):.2f}"
+                    for o, g_, w_, c_ in zip(outs, got, want, cpu))
+
+
+def ab_mlp(dirs, dev, checks=True) -> int:
+    inputs = {s: cs.mlp_inputs(s[0] + s[2], *s[:4], dev) for s in MLP_AB}
+    refs = {}
+    if checks:   # float64 on the card, float32 on the CPU
+        for s in MLP_AB:
+            x, w1, b1, w2, _, g = inputs[s]
+            with torch.no_grad():
+                refs[s] = (fm_mod.fused_mlp_bwd_plain(
+                    *(t.double() for t in (x, w1, b1, w2, g)), s[4], 7),
+                    fm_mod.fused_mlp_bwd_plain(
+                        *(t.cpu() for t in (x, w1, b1, w2, g)), s[4], 7))
+    times, first = {}, {}
+    for rnd, order in enumerate((dirs, dirs[::-1])):
+        for d in order:
+            use(d)
+            for s in MLP_AB:
+                x, w1, b1, w2, _, g = inputs[s]
+                fn = lambda: mlp_bwd(x, w1, b1, w2, g, s[4], 7)
+                with torch.no_grad():
+                    times.setdefault((d.name, s), []).append(time_ms(fn))
+                    if rnd or not checks:
+                        continue
+                    got = fn()
+                    want = fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2, g, s[4],
+                                                      7)
+                    for g_, w_ in zip(got, want):
+                        torch.testing.assert_close(g_, w_, **cs.KERNEL_TOL)
+                    print(f"{d.name} fused_mlp_bwd R={s[0]} rate={s[4]}: "
+                          f"error from float64 over the CPU float32 "
+                          f"route's {cpu32_text(got, *refs[s])}", flush=True)
+                    if s not in first:
+                        first[s] = (d.name, [t.clone() for t in got])
+                    else:
+                        same = all(map(torch.equal, got, first[s][1]))
+                        print(f"{d.name} fused_mlp_bwd R={s[0]} rate={s[4]}"
+                              f" bit-equal to {first[s][0]}: {same}",
+                              flush=True)
+    for (name, s), ts in times.items():
+        print(f"AB {name:12s} fused_mlp_bwd R={s[0]:5d} d={s[1]} F={s[2]} "
+              f"rate={s[4]}: " + " ".join(f"{t:.4f}" for t in ts))
+    return 0
+
+
+def pre_exact(dev) -> int:
+    """At rate 0 with g one-hot on 8 rows, dW2[:, o] is row sel[o]'s
+    relu(pre), which the dyadic inputs make exact: it must equal the
+    float64 value bit for bit. Returns the number of mismatches."""
+    x, w1, b1, w2, _, _ = cs.mlp_inputs(5, 10007, 8, 2048, 8, dev)
+    sel = [0, 1, 1000, 4097, 5000, 9000, 10005, 10006]
+    g = torch.zeros((10007, 8), device=dev)
+    for o, r in enumerate(sel):
+        g[r, o] = 1.0
+    with torch.no_grad():
+        dw2 = mlp_bwd(x, w1, b1, w2, g, 0.0, 7)[3]
+    want = torch.relu(x[sel].double() @ w1.double() + b1.double()).float()
+    return int((dw2.T != want).sum())
+
+
+def check_mlp(dirs, dev) -> int:
+    bad = 0
+    for d in dirs:
+        build_facts(d, ("fused_mlp",))
+        if "keep_scale" in (d / "fused_mlp.cu").read_text():
+            hash_sass(d)
+        use(d)
+        for r, din, f, dout, rate in MLP_EDGES:
+            x, w1, b1, w2, _, g = cs.mlp_inputs(r + f + din, r, din, f, dout,
+                                                dev, g_scale=0.05)
+            with torch.no_grad():
+                got = mlp_bwd(x, w1, b1, w2, g, rate, 7)
+                again = mlp_bwd(x, w1, b1, w2, g, rate, 7)
+                want = fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2, g, rate, 7)
+                torch.cuda.synchronize()
+            same = all(map(torch.equal, got, again))
+            bad += not same
+            text, n_bad = misses(got, want)
+            bad += n_bad
+            print(f"fused_mlp_bwd {d.name} R={r} d_in={din} F={f} "
+                  f"d_out={dout} rate={rate}: bit-identical {same}; "
+                  + "; ".join(text), flush=True)
+        if hasattr(build.load("fused_mlp"), "feta_fused_mlp_bwd_grid"):
+            keep_f, keep_b = cs.mlp_masks(dev, 1234, 0.1, rows=64)
+            want = fm_mod.dropout_keep(1234, 64, 64, 0.1, dev)
+            masks = torch.equal(keep_f, want) and torch.equal(keep_b, want)
+            bad += not masks
+            wrong = pre_exact(dev)
+            bad += wrong != 0
+            print(f"fused_mlp {d.name}: masks bit-equal to dropout_keep "
+                  f"{masks}; relu(pre) of 8 rows x 2048 units exact: "
+                  f"{wrong} mismatches", flush=True)
+    print(f"check mlp: {bad} failures")
+    return 1 if bad else 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab.py needs a CUDA card", file=sys.stderr)
@@ -476,6 +870,17 @@ def main(argv) -> int:
         if mode == "--times":
             return times_fused(dirs, dev)
         return ab_fused(dirs, dev)
+    if argv[0] in ("--colstat", "--mlp"):
+        mode = argv[1] if argv[1] in ("--check", "--times") else None
+        dirs = [Path(a) for a in argv[1 + bool(mode):]]
+        colstat = argv[0] == "--colstat"
+        build_all(dirs, ("colstat",) if colstat else ("fused_mlp",))
+        if mode == "--check":
+            return (check_colstat if colstat else check_mlp)(dirs, dev)
+        for d in dirs:
+            build_facts(d, ("colstat",) if colstat else ("fused_mlp",))
+        return (ab_colstat if colstat else ab_mlp)(dirs, dev,
+                                                   checks=mode is None)
     if argv[0] == "--precision":
         build.CSRC = Path(argv[1])
         sys.argv = ["chip_smoke.py", "--precision"]

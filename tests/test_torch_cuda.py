@@ -105,6 +105,33 @@ def test_cuda_kernels_match_plain(cuda, n, pad, dv, with_mod):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 48, 64, 65, 200, 2048])
+@pytest.mark.parametrize("with_mod", [True, False])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cuda_colstat_matches_plain_at_the_tiles_edges(cuda, n, with_mod,
+                                                       weighted):
+    """colstat at N across its 64-key blocks and 64-query tiles (the ZINC
+    batch's 48, the fold step's 2048), pe zero on graph 0's first query rows
+    (the |su/se| <= 1e-9 branch), wq absent or given: within the tolerance
+    of plain, two runs bit-identical, one launch counted per call."""
+    pad = min(n - 1, 7)
+    ops, vw = _ops(n, 2, 4, n, 64, 8, pad, with_mod)
+    if with_mod:
+        ops["pe"][0, :3] = 0.0
+    _, m, se, su = tfl.flash_fwd_plain(vw=vw, **ops)
+    wq = torch.rand(se.shape, generator=torch.Generator().manual_seed(n))
+    stats = dict(m=m, se=se, su=su, wq=wq if weighted else None)
+    gops, gstats = _to(ops, cuda), _to(stats, cuda)
+    before = tcs.colstat.launches
+    got = tcs.colstat(**gops, **gstats)
+    again = tcs.colstat(**gops, **gstats)
+    torch.cuda.synchronize()
+    assert tcs.colstat.launches == before + 2
+    assert all(map(torch.equal, got, again))
+    _close(got, tcs.colstat_plain(**ops, **stats))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ops, vw = _ops(8, 1, 2, 32, 16, 8, 3)
     gops = _to(ops, cuda)
@@ -401,7 +428,10 @@ def _mlp_inputs(seed, r, din, f, dout):
 @pytest.mark.parametrize("r,din,f,dout,rate", [
     (4096, 8, 2048, 8, 0.0), (4096, 8, 2048, 8, 0.1),
     (10007, 8, 2048, 8, 0.1), (257, 3, 100, 5, 0.3), (300, 16, 512, 16, 0.1),
-    (64, 40, 70, 64, 0.0)])
+    (64, 40, 70, 64, 0.0), (1, 8, 520, 8, 0.1), (31, 8, 520, 8, 0.0),
+    (10007, 8, 520, 8, 0.0), (31, 16, 520, 16, 0.1), (1, 32, 2048, 32, 0.0),
+    (10007, 32, 520, 32, 0.1), (300, 64, 520, 64, 0.1),
+    (31, 64, 300, 64, 0.0)])
 def test_cuda_fused_mlp_matches_plain(cuda, r, din, f, dout, rate):
     args = _mlp_inputs(3, r, din, f, dout)
     x, w1, b1, w2, b2, g = args
