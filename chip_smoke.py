@@ -27,10 +27,14 @@ Phases (any failure raises and the script exits non-zero):
      their masks read back bit-equal to the plain version's, a keep
      fraction of 0.9 +- 0.002 and two backward runs bit-identical; the
      modulation kernels at B=128, N=48, at B=32, N=128, at B=4, N=1024 and
-     at B=2, N=2048, and the fused attention kernels at the first two, with
-     padded nodes and rows in the |denom| <= 1e-9 branch, two backward runs
-     bit-identical, each output within 2x the CPU float32 route's error
-     from a float64 run of the plain version;
+     at B=2 and B=1, N=2048 (each also timed with the L2 cache overwritten
+     before every call, `time_ms(cold=True)`, beside a bound counted from
+     the mask: `modulation_cost`), their outputs exactly 0 at every cell with
+     a masked query or key, and the fused attention kernels at the first
+     two, with padded nodes and rows in the |denom| <= 1e-9 branch, two
+     backward runs bit-identical, each output within 2x the CPU float32
+     route's error from a float64 run of the plain version (the modulation
+     kernels at the ZINC batch and at B=1, N=2048);
   4. serve the FeTA SBM node classifier (DiffGraphTransformerGenGCNSBM at
      d_model 64, 8 heads, 10 layers, ff 128, batch norm, LapPE 8, Chebyshev
      order 4; random weights from a seed) at N=1024 through `Predictor` on
@@ -164,6 +168,7 @@ from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
+L2_BYTES = 50 * 2**20           # the L2 cache that `time_ms(cold=True)` evicts
 PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
 # 32-bit integer instructions: 64 a clock and SM (the CUDA C++ Programming
@@ -287,10 +292,13 @@ ZINC_STEP_LAUNCHES = {
     "modulation": {**NONE, "modulation_fwd": 10, "modulation_bwd": 10},
     "flash": STEP_LAUNCHES}
 # checks of the modulation kernels: (B, N, padding) at H=8, the ZINC batch,
-# the SBM-PATTERN shape (bench.py:267) and the SBM slice's N=1024; the
-# fused kernels take N <= 128, so the first two
+# the SBM-PATTERN shape (bench.py:267), the SBM slice's N=1024 and the `r4`
+# setting's request and step at N=2048; the fused kernels take N <= 128,
+# so the first two. The modulation kernels' outputs are held to float64
+# at MOD_F64_SHAPES
 MOD_SHAPES = ((ZINC_GRAPHS, ZINC_NODES, 11), (32, 128, 17), (4, 1024, 60),
-              (2, 2048, 60))
+              (2, 2048, 60), (1, 2048, 100))
+MOD_F64_SHAPES = (MOD_SHAPES[0], MOD_SHAPES[-1])
 FUSED_SHAPES = MOD_SHAPES[:2]
 # The SBM model at N=2048 (examples/largen_combo_ab.py, the JAX package's
 # measurement of its head-folded kernels: sbm_like_dataset(seed=2,
@@ -345,13 +353,18 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25) -> float:
+def time_ms(fn, reps: int = 25, cold: bool = False) -> float:
     """Median device milliseconds of one call, CUDA events around each call.
     Each call is queued behind ~1 ms of device spin, so the host has
     enqueued the start event, the call's kernels and the end event before
     the device reaches them: the events time the device's work, not the
     host's enqueue of it, which for a kernel of tens of microseconds (the
-    ZINC batch's) takes as long as the work."""
+    ZINC batch's) takes as long as the work. `cold`: before each call,
+    outside the timed events, a read of twice L2_BYTES, whose clean lines
+    evict the call's inputs, so the call reads them from device memory as a
+    bound counted at PEAK_BYTES assumes."""
+    if cold:
+        flush = torch.ones(2 * L2_BYTES // 4, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -359,6 +372,8 @@ def time_ms(fn, reps: int = 25) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if cold:
+            flush.sum()
         torch.cuda._sleep(PAD_CYCLES)
         start.record()
         fn()
@@ -841,7 +856,7 @@ def modulation_inputs(seed, b, h, n, pad, device, guard_rows=4):
     """Scaled scores [B, H, N, N], pe, degree and mask (graph i loses its
     last pad + (i mod 8) nodes), with pe zero on the first `guard_rows`
     query rows of graph 0 (the |denom| <= 1e-9 branch), and a cotangent."""
-    ops, _ = attention_inputs(seed, b, h, n, 8, 8, pad, device)
+    ops, _ = attention_inputs(seed, b, h, n, 8 * h, 8, pad, device)
     ops["pe"][0, :guard_rows] = 0.0
     gen = torch.Generator(device).manual_seed(seed)
     scores = torch.randn((b, h, n, n), device=device, generator=gen)
@@ -849,16 +864,28 @@ def modulation_inputs(seed, b, h, n, pad, device, guard_rows=4):
     return scores, ops["pe"], ops["deg"], ops["mask"], g
 
 
-def modulation_cost(b, h, n, which):
-    """(operations, bytes) of one call: ~10 operations per score forward
-    (masked max, exp, two row sums, two divisions, three products) and ~20
-    backward (the recomputed chain and three more row sums); scores (and g)
-    read once, the output written once, pe, degree and mask read once."""
-    cells = b * h * n * n
-    data = b * n * n + 2 * b * n
-    if which == "fwd":
-        return 10.0 * cells, 4.0 * (2 * cells + data)
-    return 20.0 * cells, 4.0 * (3 * cells + data)
+def modulation_cost(mask, h, which):
+    """(operations, bytes) of one call on these inputs, counted from the
+    mask [B, N]: what the function needs is the score (and g) of each cell
+    whose query and key are both real, read once; every output cell written
+    once; pe at those cells, the degree of the real nodes and the whole
+    mask, read once. ~10 operations
+    per real cell forward (masked max, exp, two row sums, two divisions,
+    three products) and ~20 backward (the recomputed chain, a third sum
+    and the gradient)."""
+    real = (mask > 0).sum(-1).double()
+    b, n = mask.shape
+    pairs = float((real * real).sum())
+    data = pairs + float(real.sum()) + b * n
+    reads = 1 if which == "fwd" else 2
+    return ((10.0 if which == "fwd" else 20.0) * h * pairs,
+            4.0 * (reads * h * pairs + h * b * n * n + data))
+
+
+def masked_cells(mask):
+    """[B, 1, N, N] True where the query or the key is masked."""
+    real = mask > 0
+    return ~(real[:, None, :, None] & real[:, None, None, :])
 
 
 def fused_cost(b, h, n, d, which):
@@ -885,8 +912,12 @@ def check_outputs(name, got, again, want, outs, tag):
 def check_modulation(device, h=8, shapes=MOD_SHAPES):
     """Phase 3, modulation kernels: forward and backward vs their plain
     versions, with padded nodes and guard rows; two backward runs
-    bit-identical. Returns the JSON rows (numbers of the first shape, the
-    ZINC batch)."""
+    bit-identical; both outputs exactly 0 at every cell with a masked query
+    or key; at MOD_F64_SHAPES each output's error from float64
+    within FUSED_CPU32_FACTOR of the CPU float32 route's. Times warm and
+    cold (`time_ms`) beside the bound of
+    `modulation_cost`. Returns the JSON rows (numbers of the first shape,
+    the ZINC batch; its warm times)."""
     rows = {}
     errs = {"modulation_fwd": 0.0, "modulation_bwd": 0.0}
     for b, n, pad in shapes:
@@ -904,19 +935,41 @@ def check_modulation(device, h=8, shapes=MOD_SHAPES):
             e_f = max_err([got_f], [plain_f()], f"modulation_fwd {tag}")
             (e_b,) = check_outputs("modulation_bwd", [got_b], [again],
                                    [plain_b()], ("ds",), tag)
+            dead = masked_cells(mask).expand_as(got_f)
+            for name, out in (("fwd", got_f), ("bwd", got_b)):
+                if bool((out[dead] != 0).any()):
+                    raise AssertionError(f"modulation_{name} {tag}: nonzero "
+                                         f"output at a masked cell")
             pd = pe[0, :4] * deg[0]
             n_guard = int((pd.sum(-1) == 0).sum())
             times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
+            cold = [time_ms(fn, cold=True) for fn in (fwd, bwd)]
+        ratios = ""
+        if (b, n, pad) in MOD_F64_SHAPES:
+            args = [scores, pe, deg, mask, g]
+            r_f = cpu32_ratios([got_f], lambda a: [
+                mod_mod.modulation_fwd_plain(*a[:4])], ("attn",), args,
+                f"modulation_fwd {tag}")
+            r_b = cpu32_ratios([got_b], lambda a: [
+                mod_mod.modulation_bwd_plain(*a)], ("ds",), args,
+                f"modulation_bwd {tag}")
+            ratios = (f"; error from float64 over the CPU float32 route's: "
+                      f"{r_f} {r_b} (at most {FUSED_CPU32_FACTOR})")
         errs["modulation_fwd"] = max(errs["modulation_fwd"], e_f)
         errs["modulation_bwd"] = max(errs["modulation_bwd"], e_b)
-        bf = bound(*modulation_cost(b, h, n, "fwd"))
-        bb = bound(*modulation_cost(b, h, n, "bwd"))
+        bf = bound(*modulation_cost(mask, h, "fwd"))
+        bb = bound(*modulation_cost(mask, h, "bwd"))
         print(f"modulation check B={b} H={h} N={n} pad~{pad} ({n_guard} "
-              f"guard rows x {h} heads): fwd err {e_f:.3e} {times[0]:.4f} ms "
-              f"(plain {times[2]:.4f} ms, bound {bf[0]:.4f} ms {bf[1]}); bwd "
-              f"err {e_b:.3e} {times[1]:.4f} ms (plain {times[3]:.4f} ms, "
-              f"bound {bb[0]:.4f} ms {bb[1]}); two bwd runs bit-identical; "
-              f"tolerance rtol 1e-4 atol 1e-5", flush=True)
+              f"guard rows x {h} heads; team T, V = "
+              f"{mod_mod.team_geometry(n)}): fwd err "
+              f"{e_f:.3e} {times[0]:.4f} ms, cold {cold[0]:.4f} ms (plain "
+              f"{times[2]:.4f} ms, bound {bf[0]:.4f} ms {bf[1]}, "
+              f"{100 * bf[0] / cold[0]:.1f} % cold); bwd err {e_b:.3e} "
+              f"{times[1]:.4f} ms, cold {cold[1]:.4f} ms (plain "
+              f"{times[3]:.4f} ms, bound {bb[0]:.4f} ms {bb[1]}, "
+              f"{100 * bb[0] / cold[1]:.1f} % cold); two bwd runs "
+              f"bit-identical; 0 at every masked cell; tolerance rtol 1e-4 "
+              f"atol 1e-5{ratios}", flush=True)
         if (b, n, pad) == shapes[0]:
             for name, t_k, t_p, (b_ms, by) in (
                     ("modulation_fwd", times[0], times[2], bf),

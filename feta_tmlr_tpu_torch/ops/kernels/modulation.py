@@ -3,8 +3,10 @@
 Kernels: `csrc/modulation.cu`, the H100 counterparts of the TPU kernels
 `feta_tmlr_tpu/ops/pallas/modulation.py::_fwd_kernel` and `::_bwd_kernel`.
 The source note says what bounds them (bytes: one score in, one attention
-value out) and how the design answers that (one warp per query row, so the
-row's four reductions are warp shuffles and any N works).
+value out) and how the design answers that (each row read once into the
+registers of a team of threads that loops over the heads with pe * degree
+held, masked cells never read; a streaming kernel past 8192 keys, so any N
+works).
 
 The function, per query row of scaled scores [B, H, N, N]: masked softmax
 over the keys, times pe[i, j] * degree[j], renormalised over the keys (a
@@ -42,6 +44,20 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
 )
 
 _fns = {}
+WIDE_MAX = 512      # csrc/modulation.cu's kWideMax: the largest team
+
+
+def team_geometry(n):
+    """(T, V) of csrc/modulation.cu's `geometry` for N = n keys: a team of
+    T threads holds a query row, V groups of 4 keys a thread (one up to 32
+    groups, else four), T the least power of two that covers the groups;
+    None past the register path (T > WIDE_MAX: the streaming kernels)."""
+    groups = (n + 3) // 4
+    v = 1 if groups <= 32 else 4
+    t = 1
+    while t * v < groups:
+        t *= 2
+    return None if t > WIDE_MAX else (t, v)
 
 
 def _kernel(name):

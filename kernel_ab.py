@@ -10,8 +10,10 @@
                                                its times alone, and bits
   python3 kernel_ab.py --colstat [--check | --times] DIR [DIR ...]
   python3 kernel_ab.py --mlp [--check | --times] DIR [DIR ...]
-                                               the same for colstat and
-                                               the fused MLP's backward
+  python3 kernel_ab.py --modulation [--check | --times] DIR [DIR ...]
+                                               the same for colstat, the
+                                               fused MLP's backward and
+                                               the modulation pair
 
 Each DIR holds a copy of `feta_tmlr_tpu_torch/csrc` (a variant, edited or
 taken from another commit). The default mode builds every variant's
@@ -86,6 +88,23 @@ equal bit for bit to the float64 value. `--times` times the trees without
 checks (variants with a phase removed). The parent's `fused_mlp` (three
 launches, no `feta_fused_mlp_bwd_grid`) is called through its own C
 interface.
+
+`--modulation` times `modulation_fwd` and `modulation_bwd` (H=8) at the ZINC
+batch (B=128, N=48, padding 11), B=32, N=128, the `r4` setting's request
+and step (B=2 and B=1, N=2048) and B=4, N=1024, each warm (`time_ms`) and
+cold (`time_ms(cold=True)`: the L2 cache overwritten before every call,
+outside the timed events), in two rounds, beside the bound that
+`chip_smoke.modulation_cost` counts from the mask; held to plain, compared
+bit for bit with the first tree, and (ZINC batch, B=1, N=2048) each
+output's error from float64 over the CPU float32 route's. With `--check`:
+registers and spills of each tree's library, then each tree against plain
+at N of 1, 4, 17, 48, 128, 129, 300, 1990, 2048 and 8200 (past the
+register path), H of 1, 3, 8 and 12, pe and degree absent or given, guard
+rows, a graph with every node masked, padded queries, and scores at a
+4-byte offset (the 4-byte loads at N % 4 == 0): two backward runs
+bit-identical, both outputs exactly 0 at every cell with a masked query or
+key. `--times` times without checks. The
+parent's `modulation.cu` has the same C interface.
 """
 
 from __future__ import annotations
@@ -103,6 +122,7 @@ import chip_smoke as cs
 from chip_smoke import bwd_inputs, build, fa_mod, fl_mod, time_ms
 from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
 from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as fm_mod
+from feta_tmlr_tpu_torch.ops.kernels import modulation as mod_mod
 
 # (kernel, B, N, padding, dv): each unfolded kernel at the SBM N=1024 batch
 # and the ZINC batch, each folded one at the N=2048 training shape, and the
@@ -156,6 +176,7 @@ def use(src: Path) -> None:
     fl_mod._fns.clear()
     fa_mod._fns.clear()
     fm_mod._fns.clear()
+    mod_mod._fns.clear()
     cs_mod._fn = None
 
 
@@ -855,6 +876,129 @@ def check_mlp(dirs, dev) -> int:
     return 1 if bad else 0
 
 
+# ---------------------------------------------------------- modulation
+
+# (B, N, padding) of the A/B at H=8: the ZINC batch, B=32 N=128, the `r4`
+# request and step at N=2048, the SBM batch at N=1024
+MOD_AB = ((128, 48, 11), (32, 128, 17), (2, 2048, 60), (1, 2048, 100),
+          (4, 1024, 60))
+MOD_F64 = ((128, 48, 11), (1, 2048, 100))
+# `--modulation --check`: (B, H, N, padding, pe given, deg given, the last
+# graph's nodes all masked, scores at a 4-byte offset)
+MOD_EDGES = ((3, 8, 1, 0, True, True, True, False),
+             (2, 3, 4, 1, True, False, False, False),
+             (3, 1, 17, 2, True, True, True, False),
+             (128, 8, 48, 11, True, True, False, False),
+             (2, 12, 48, 5, False, False, True, True),
+             (2, 8, 128, 17, False, True, False, False),
+             (3, 3, 129, 7, True, True, True, False),
+             (2, 12, 300, 9, True, False, False, False),
+             (2, 8, 1990, 9, True, True, True, False),
+             (1, 8, 2048, 100, True, True, False, False),
+             (2, 3, 2048, 60, False, False, True, True),
+             (1, 1, 8200, 50, True, True, False, False))
+
+
+def mod_case(seed, b, h, n, pad, dev, pe=True, deg=True, dead=False,
+             offset=False):
+    """`chip_smoke.modulation_inputs` (graph i loses its last pad + i mod 8
+    nodes, pe 0 on graph 0's first 4 query rows) with pe or degree absent,
+    the last graph all masked, or the scores 4 bytes past an aligned
+    address: [scores, pe, deg, mask, g]."""
+    scores, pe_, deg_, mask, g = cs.modulation_inputs(seed, b, h, n, pad,
+                                                      dev)
+    if dead:
+        mask[-1] = 0.0
+        pe_[-1] = 0.0
+        deg_[-1] = 0.0
+    if offset:
+        buf = torch.empty(scores.numel() + 1, device=dev)
+        buf[1:] = scores.reshape(-1)
+        scores = buf[1:].view(scores.shape)
+    return [scores, pe_ if pe else None, deg_ if deg else None, mask, g]
+
+
+def mod_call(name, args, plain=False):
+    fn = getattr(mod_mod, f"modulation_{name}" + ("_plain" if plain else ""))
+    return fn(*args[:4]) if name == "fwd" else fn(*args)
+
+
+def ab_modulation(dirs, dev, checks=True) -> int:
+    inputs = {s: mod_case(sum(s), *s[:1], 8, *s[1:], dev) for s in MOD_AB}
+    times, first = {}, {}
+    for rnd, order in enumerate((dirs, dirs[::-1])):
+        for d in order:
+            use(d)
+            for s in MOD_AB:
+                args = inputs[s]
+                for name in ("fwd", "bwd"):
+                    fn = lambda: mod_call(name, args)
+                    with torch.inference_mode():
+                        times.setdefault((d.name, name, s), []).append(
+                            (time_ms(fn), time_ms(fn, cold=True)))
+                        if rnd or not checks:
+                            continue
+                        got = fn()
+                        torch.testing.assert_close(
+                            got, mod_call(name, args, True), **cs.KERNEL_TOL)
+                        text = ""
+                        if s in MOD_F64:
+                            ratio = cs.cpu32_ratios(
+                                [got], lambda a: [mod_call(name, a, True)],
+                                (name,), args, f"{d.name} {name}")
+                            text = (f" error from float64 over the CPU "
+                                    f"float32 route's {ratio};")
+                        key = (name, s)
+                        if key not in first:
+                            first[key] = (d.name, got.clone())
+                            same = "first tree"
+                        else:
+                            same = (f"bit-equal to {first[key][0]}: "
+                                    f"{torch.equal(got, first[key][1])}")
+                        print(f"{d.name} modulation_{name} B={s[0]} N={s[1]}:"
+                              f"{text} {same}", flush=True)
+    for (tree, name, s), ts in times.items():
+        b_ms, by = cs.bound(*cs.modulation_cost(inputs[s][3], 8, name))
+        print(f"AB {tree:12s} modulation_{name} B={s[0]:3d} N={s[1]:4d}: "
+              "warm " + " ".join(f"{w:.4f}" for w, _ in ts) + " cold "
+              + " ".join(f"{c:.4f}" for _, c in ts)
+              + f"; bound {b_ms:.4f} ms {by} ("
+              + " ".join(f"{100 * b_ms / c:.1f}" for _, c in ts)
+              + " % of cold)", flush=True)
+    return 0
+
+
+def check_modulation(dirs, dev) -> int:
+    bad = 0
+    for d in dirs:
+        build_facts(d, ("modulation",))
+        use(d)
+        for e in MOD_EDGES:
+            b, h, n, pad, pe, deg, dead, offset = e
+            args = mod_case(b + h + n, b, h, n, pad, dev, pe, deg, dead,
+                            offset)
+            zero = cs.masked_cells(args[3]).expand_as(args[0])
+            msg = []
+            with torch.inference_mode():
+                for name in ("fwd", "bwd"):
+                    got, again = mod_call(name, args), mod_call(name, args)
+                    want = mod_call(name, args, True)
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, again)
+                    zeros = bool((got[zero] == 0).all())
+                    bad += (not same) + (not zeros)
+                    m_text, n_bad = misses([got], [want])
+                    bad += n_bad
+                    msg.append(f"{name}: bit-identical {same}; 0 at masked "
+                               f"cells {zeros}; " + "; ".join(m_text))
+            print(f"modulation {d.name} B={b} H={h} N={n} pad~{pad} pe={pe} "
+                  f"deg={deg} dead graph={dead} offset={offset} (team T, V = "
+                  f"{mod_mod.team_geometry(n)}): "
+                  + "; ".join(msg), flush=True)
+    print(f"check modulation: {bad} failures")
+    return 1 if bad else 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab.py needs a CUDA card", file=sys.stderr)
@@ -870,6 +1014,15 @@ def main(argv) -> int:
         if mode == "--times":
             return times_fused(dirs, dev)
         return ab_fused(dirs, dev)
+    if argv[0] == "--modulation":
+        mode = argv[1] if argv[1] in ("--check", "--times") else None
+        dirs = [Path(a) for a in argv[1 + bool(mode):]]
+        build_all(dirs, ("modulation",))
+        if mode == "--check":
+            return check_modulation(dirs, dev)
+        for d in dirs:
+            build_facts(d, ("modulation",))
+        return ab_modulation(dirs, dev, checks=mode is None)
     if argv[0] in ("--colstat", "--mlp"):
         mode = argv[1] if argv[1] in ("--check", "--times") else None
         dirs = [Path(a) for a in argv[1 + bool(mode):]]

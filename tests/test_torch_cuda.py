@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import mlp_inputs, mlp_masks
+from chip_smoke import masked_cells, mlp_inputs, mlp_masks
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
     sbm_like_dataset,
@@ -531,11 +531,22 @@ def _mod_inputs(seed, b, h, n, pad, with_mod):
     return f(b, h, n, n), ops["pe"], ops["deg"], ops["mask"], f(b, h, n, n)
 
 
+# (B, H, N, padding, pe and deg, the last graph all masked): the kernels'
+# team geometries (T = 1, 8, 16, 32, 128 threads a row, V = 1 and 4 groups
+# a thread; 4-byte loads at N of 1, 17, 129 and 300), H of 1, 3 and 8, a
+# graph with no real node
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,pad,with_mod", [
-    (3, 48, 7, True), (2, 300, 11, False), (2, 1, 0, True)])
-def test_cuda_modulation_matches_plain(cuda, b, n, pad, with_mod):
-    args = _mod_inputs(10, b, 8, n, pad, with_mod)
+@pytest.mark.parametrize("b,h,n,pad,with_mod,dead", [
+    (3, 8, 48, 7, True, False), (2, 8, 300, 11, False, False),
+    (2, 8, 1, 0, True, False), (2, 1, 17, 3, True, False),
+    (3, 3, 129, 5, True, True), (2, 8, 2048, 100, True, False),
+    (2, 3, 2048, 60, False, True)])
+def test_cuda_modulation_matches_plain(cuda, b, h, n, pad, with_mod, dead):
+    args = _mod_inputs(10, b, h, n, pad, with_mod)
+    if dead:
+        for t in args[1:4]:
+            if t is not None:
+                t[-1] = 0.0
     gargs = [None if t is None else t.to(cuda) for t in args]
     before = tmod.modulation_fwd.launches, tmod.modulation_bwd.launches
     got = tmod.modulation_fwd(*gargs[:4])
@@ -545,6 +556,9 @@ def test_cuda_modulation_matches_plain(cuda, b, n, pad, with_mod):
     _close([got, got_b], [tmod.modulation_fwd_plain(*args[:4]),
                           tmod.modulation_bwd_plain(*args)])
     assert torch.equal(got_b, again)
+    masked = masked_cells(args[3]).expand(b, h, n, n)
+    for out in (got, got_b):
+        assert bool((out.cpu()[masked] == 0).all())
     assert (tmod.modulation_fwd.launches, tmod.modulation_bwd.launches) == (
         before[0] + 1, before[1] + 2)
 
