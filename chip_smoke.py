@@ -25,7 +25,9 @@ Phases (any failure raises and the script exits non-zero):
      bit-identical; the fused-MLP kernels at the SAN eigen-PE head's 40,960
      rows (d 8, F 2048) and at a ragged 10,007, at dropout 0 and 0.1, with
      their masks read back bit-equal to the plain version's, a keep
-     fraction of 0.9 +- 0.002 and two backward runs bit-identical; the
+     fraction of 0.9 +- 0.002, two forward and two backward runs
+     bit-identical and each output within 2x the CPU float32 route's
+     error from a float64 run of the plain version, at both rates; the
      modulation kernels at B=128, N=48, at B=32, N=128, at B=4, N=1024 and
      at B=2 and B=1, N=2048 (each also timed with the L2 cache overwritten
      before every call, `time_ms(cold=True)`, beside a bound counted from
@@ -176,11 +178,18 @@ TF32_SPLIT = 3                  # TF32 products per f32 product (3xTF32)
 # (the clock at which the f32 peak above is 132 x 128 x 2 x 1.98e9), the
 # multiplies on the FMA pipe, the others on the INT32 lanes
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# warp instructions dispatched: one a clock per SM sub-partition, four an
+# SM, at the same clock
+PEAK_WARP_ISSUE = 132 * 4 * 1.98e9
+MMA_FLOPS = 2 * 16 * 8 * 8      # one m16n8k8 product (mma.sync, HMMA)
 # the dropout keep bit of one (row, unit) (`Dropout::keep_scale`,
 # csrc/fused_mlp.cu), counted from the SASS by `kernel_ab.py --mlp
-# --check`: its integer multiplies and its other instructions
+# --check`: its integer multiplies and its other instructions; the
+# forward's (`Dropout::keep_p` and the select of h or 0) takes the same
+# multiplies and FWD_HASH_ALU_OPS others
 HASH_IMAD_OPS = 2
 HASH_ALU_OPS = 9
+FWD_HASH_ALU_OPS = 7
 # the folded kernels that run their unfolded twin's body on another grid
 # (csrc/fwd.cuh, csrc/bwd_q.cuh) and so must give its bits
 BIT_EQUAL_TWINS = ("flash_fwd_hf", "flash_bwd_q_hf")
@@ -194,7 +203,7 @@ KERNEL_TOL = dict(rtol=1e-4, atol=1e-5)   # f32, sums in another order
 # the CPU's float32 route; the ZINC and SAN models' errors stay near 1e-5
 # and are held to float32
 SLICE_TOL = dict(rtol=1e-3, atol=1e-3)
-# the fused attention kernels', colstat's and the fused MLP backward's
+# the fused attention kernels', colstat's and the fused MLP kernels'
 # outputs against a float64 run of the plain version: each within this
 # multiple of the CPU float32 route's own error (a tolerance check alone
 # let a kernel output through at 17.7x, PERF.md)
@@ -742,31 +751,31 @@ def mlp_cost(r, din, f, dout, which):
 def mlp_bounds(r, din, f, dout, rate, which):
     """A fused-MLP kernel's two bounds, (JSON fields, text): all of its
     products as f32 FMAs on the CUDA cores (`bound`), and the bound of
-    what it issues, its `bound_ms`, the pipes side by side: the forward's
-    products as f32 FMAs on the FMA pipe, which also takes the keep bit's
-    HASH_IMAD_OPS multiplies per (row, unit); the backward's in 3xTF32 at
-    the TF32 peak beside the multiplies at the INT32 rate; the keep bit's
-    HASH_ALU_OPS other instructions on the INT32 lanes (the hash only at
-    rate > 0); or its bytes."""
+    what it issues, its `bound_ms`, the pipes side by side: its products
+    in 3xTF32 at the TF32 peak; the keep bit's HASH_IMAD_OPS multiplies
+    and HASH_ALU_OPS (the forward's: FWD_HASH_ALU_OPS) other instructions
+    per (row, unit) at the INT32 rate (the hash only at rate > 0); the
+    dispatch of the products' HMMAs and
+    the keep bit's instructions, a warp instruction a clock per SM
+    sub-partition; or its bytes."""
     flops, nbytes = mlp_cost(r, din, f, dout, which)
     b32, by32 = bound(flops, nbytes)
     hashes = r * f if rate > 0 else 0
+    t_tc = TF32_SPLIT * flops / PEAK_TF32_FLOPS
+    alu = FWD_HASH_ALU_OPS if which == "fwd" else HASH_ALU_OPS
     t_imad = HASH_IMAD_OPS * hashes / PEAK_INT32_OPS
-    t_alu = HASH_ALU_OPS * hashes / PEAK_INT32_OPS
-    if which == "fwd":      # an FMA is 2 flops, a multiply one FMA slot
-        t_mul = max((flops + 2 * HASH_IMAD_OPS * hashes) / PEAK_F32_FLOPS,
-                    t_imad)
-    else:
-        t_mul = max(TF32_SPLIT * flops / PEAK_TF32_FLOPS, t_imad)
+    t_alu = alu * hashes / PEAK_INT32_OPS
+    t_issue = (TF32_SPLIT * flops / MMA_FLOPS + (
+        HASH_IMAD_OPS + alu) * hashes / 32) / PEAK_WARP_ISSUE
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(t_mul, t_alu)
+    t_ops = max(t_tc, t_imad, t_alu, t_issue)
     issued = max(t_ops, t_bytes) * 1e3
     by = "bytes" if t_bytes > t_ops else "operations"
-    text = (f"bound {issued:.4f} ms {by} (" + (
-        "f32 FMAs and the hash's multiplies" if which == "fwd"
-        else "3xTF32 products") + f" {t_mul * 1e3:.4f}, the hash's "
-        f"multiplies {t_imad * 1e3:.4f}, its INT32 instructions "
-        f"{t_alu * 1e3:.4f}), f32 CUDA cores only {b32:.4f} ms {by32}")
+    text = (f"bound {issued:.4f} ms {by} (3xTF32 products {t_tc * 1e3:.4f},"
+            f" the hash's multiplies {t_imad * 1e3:.4f}, its INT32 "
+            f"instructions {t_alu * 1e3:.4f}, dispatch {t_issue * 1e3:.4f},"
+            f" bytes {t_bytes * 1e3:.4f}), f32 CUDA cores only {b32:.4f} "
+            f"ms {by32}")
     return dict(bound_ms=issued, bound_by=by, bound_f32_ms=b32), text
 
 
@@ -789,10 +798,13 @@ def mlp_masks(device, seed, rate, rows, units=64):
 
 def check_fused_mlp(device, shapes=MLP_SHAPES, seed=7):
     """Phase 3, fused MLP: forward and backward kernels vs their plain
-    versions at rate 0 and 0.1; two backward runs bit-identical; the
-    kernels' dropout masks bit-equal to the plain version's and keeping
-    0.9 +- 0.002 of the units. Returns the JSON rows like
-    `check_kernels`."""
+    versions at rate 0 and 0.1; two forward and two backward runs
+    bit-identical; each output's error from float64 within
+    FUSED_CPU32_FACTOR of the CPU float32 route's; the kernels' dropout
+    masks bit-equal to the plain version's and keeping 0.9 +- 0.002 of
+    the units. Returns the JSON rows like `check_kernels`, the first
+    shape's at rate 0.1, with the forward's at rate 0 beside
+    (`ms_rate0`, `plain_ms_rate0`, `bound_ms_rate0`)."""
     rows = {}
     errs = {"fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}
     for r, din, f, dout in shapes:
@@ -807,15 +819,23 @@ def check_fused_mlp(device, shapes=MLP_SHAPES, seed=7):
                                                          rate, seed)
                 plain_b = lambda: fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2,
                                                              g, rate, seed)
-                got_f, got_b, again = fwd(), bwd(), bwd()
+                got_f, again_f = fwd(), fwd()
+                got_b, again = bwd(), bwd()
                 torch.cuda.synchronize()
                 tag = f"R={r} rate={rate}"
                 e_f = max_err([got_f], [plain_f()], f"fused_mlp_fwd {tag}")
                 e_b = max_err(got_b, plain_b(), f"fused_mlp_bwd {tag}")
+                if not torch.equal(got_f, again_f):
+                    raise AssertionError(f"fused_mlp_fwd {tag}: two runs "
+                                         "differ")
                 if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
                     raise AssertionError(f"fused_mlp_bwd {tag}: two runs "
                                          "differ")
                 times = [time_ms(fn) for fn in (fwd, bwd, plain_f, plain_b)]
+            ratio_f = cpu32_ratios(
+                [got_f], lambda a: [fm_mod.fused_mlp_plain(*a, rate, seed)],
+                ("y",), [x, w1, b1, w2, b2], f"fused_mlp_fwd R={r} "
+                f"rate={rate}")
             ratios = cpu32_ratios(
                 got_b, lambda a: fm_mod.fused_mlp_bwd_plain(*a, rate, seed),
                 ("dx", "dW1", "db1", "dW2", "db2"), [x, w1, b1, w2, g],
@@ -828,14 +848,21 @@ def check_fused_mlp(device, shapes=MLP_SHAPES, seed=7):
                   f"rate={rate}: fwd err {e_f:.3e} {times[0]:.4f} ms (plain "
                   f"{times[2]:.4f} ms, {tf}); bwd err {e_b:.3e} "
                   f"{times[1]:.4f} ms (plain {times[3]:.4f} ms, {tb}); two "
-                  f"bwd runs bit-identical; tolerance rtol 1e-4 atol 1e-5; "
-                  f"bwd error from float64 over the CPU float32 route's: "
-                  f"{ratios} (at most {FUSED_CPU32_FACTOR})", flush=True)
-            if (r, din, f, dout) == shapes[0] and rate > 0:
-                for name, t_k, t_p, j in (
-                        ("fused_mlp_fwd", times[0], times[2], jf),
-                        ("fused_mlp_bwd", times[1], times[3], jb)):
-                    rows[name] = dict(ms=t_k, plain_ms=t_p, **j)
+                  f"fwd and two bwd runs bit-identical; tolerance rtol 1e-4 "
+                  f"atol 1e-5; error from float64 over the CPU float32 "
+                  f"route's: fwd {ratio_f}, bwd {ratios} (at most "
+                  f"{FUSED_CPU32_FACTOR})", flush=True)
+            if (r, din, f, dout) == shapes[0]:
+                if rate > 0:
+                    for name, t_k, t_p, j in (
+                            ("fused_mlp_fwd", times[0], times[2], jf),
+                            ("fused_mlp_bwd", times[1], times[3], jb)):
+                        rows.setdefault(name, {}).update(ms=t_k,
+                                                         plain_ms=t_p, **j)
+                else:
+                    rows["fused_mlp_fwd"] = dict(
+                        ms_rate0=times[0], plain_ms_rate0=times[2],
+                        bound_ms_rate0=jf["bound_ms"])
     keep_f, keep_b = mlp_masks(device, seed, 0.1, shapes[0][0])
     want = fm_mod.dropout_keep(seed, shapes[0][0], 64, 0.1, device)
     frac = float(keep_f.float().mean())
@@ -2374,7 +2401,7 @@ def main() -> int:
                     bound_ms=rows[name]["bound_ms"],
                     bound_by=rows[name]["bound_by"], library_ms=None,
                     **{k: v for k, v in rows[name].items()
-                       if k == "bound_f32_ms"})
+                       if k == "bound_f32_ms" or k.endswith("_rate0")})
                for name, (src, line) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

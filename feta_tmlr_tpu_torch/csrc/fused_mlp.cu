@@ -31,17 +31,56 @@
 // max(din, dout) (a template parameter), so any width up to 64 runs; F is
 // any size and R may be ragged (rows >= R load zeros and store nothing).
 //
-// Forward (`fwd_kernel<D, RT>`), f32 FMAs on the CUDA cores: a block of 256
-// threads owns 32·RT rows; lane l holds rows l, l + 32, ... and their x and
-// y partials in registers. W1, b1 and W2 are staged through shared memory
-// in chunks of 2048 / D hidden units (~17 KB), and the eight warps split
-// each chunk's units, so every warp reads one unit's weights at a time (a
-// broadcast). The eight per-warp y partials of a row are added in warp
-// order at the end. At the SAN eigen-PE head's shape (R = 40,960 rows,
-// din = dout = 8, F = 2048) it is 2·R·F·(din + dout) = 2.68 GFLOP against
-// ~3 MB of operands (0.040 ms at 67 TFLOP/s; with dropout 0.045, the
-// keep bit's IMADs beside the FMAs and its other instructions on the
-// INT32 lanes, as below).
+// Forward (`fwd_kernel<D, kDrop>`), one pass on the tensor cores with the
+// weights resident; kDrop is rate > 0. Rows lie on the mma's M; per 16
+// rows and 8 hidden units (a k-step):
+//   pre = b1 + x W1: m16n8k8 with x as A (K = din; its fragments loaded
+//     once a strip) and W1 as B;
+//   h = relu(pre), or 0 where the keep bit drops the unit, in the C
+//     fragment's registers, once per (row, unit) (`Dropout::keep_p`: the
+//     bits of keep_scale with mix32's first step taken apart, rk ^ (rk >>
+//     16) once a row and j ^ (j >> 16) once a unit: 2 instructions fewer a
+//     hash); 1 / (1 - rate) is taken once on each y, at the group's sum;
+//   y += h W2 (K = the 8 units, N = dout): A straight from pre's C
+//     fragment (frag_a_from_c's order), no trip through shared memory.
+// Both products in 3xTF32, a fresh fragment per product added on the CUDA
+// cores, the independent products of a k-step issued together (`fresh3`);
+// the weights and h are split by `split_t`, lo not rounded. One block of
+// 16 warps an SM stages a slab of U = 16384 / D hidden units once (2048 at
+// D = 8: the SAN head's whole F), W1 and W2 as the m16n8k8 B fragments (a
+// float4 a lane and k-step, 128 KB) and b1, then keeps them while its four
+// groups of four warps (a warp on each SM sub-partition) walk their rows
+// in strips of 32 (16 at D >= 32), each weight fragment split once for a
+// strip's two m-tiles. Warp w of a group takes the w-th quarter of the
+// slab's k-steps; its y runs as a fresh fragment per k-step into a run of
+// kRunTerms k-steps, each run into the lane's total in shared memory, and
+// the group adds its four warps' totals in warp order behind a named
+// barrier. The grid is persistent: per slab a block an SM, each group a
+// contiguous run of whole m-tiles (80 rows at R = 40,960), so there is no
+// tail wave. With more than one slab (F > U) each slab writes a partial of
+// R·dout and `fwd_finish_kernel` adds them in slab order, in runs, with b2
+// (a second launch). No float atomics: y is bit-identical run to run.
+//
+// What bounds the forward on the H100 at R = 40,960, din = dout = 8, F =
+// 2048: its two products are 2.68 GFLOP, 0.016 ms in 3xTF32 at the TF32
+// peak; the keep bit's 84 M hashes take 0.035 ms of the INT32 lanes at
+// keep_p's 7 instructions (2 IMAD beside them). What it issues is bound by
+// mma.sync: 6 m16n8k8 a 16 x 8 tile, 3.93 M in all, about 17 cycles each
+// of an SM sub-partition, ~0.065 ms. Measured (kernel_ab.py --mlp, PERF.md):
+// 0.107 ms at rate 0.1 and 0.075 at rate 0 (the SIMT kernel it replaced:
+// 0.157 and 0.104; its second wave held 56 of 320 blocks). Of that, the
+// launch with 155 KB of shared memory takes 0.005 ms and the staging 0.007
+// (every block reads the same 136 KB from L2), and the rest is close to
+// the sum of the mma.sync time and the other instructions', not their
+// maximum: the keep bit adds its 0.033 ms at rate 0.1, and fewer
+// instructions of any kind helped where reordering them did not. Slower,
+// on the same card: the
+// splits on the FP32 pipe, the weights staged in their own layout by
+// 16-byte copies, x W1 of step j + 1 issued with h W2 of step j, m-tile 0's
+// act issued during m-tile 1's products, 24 warps a block, one m-tile a
+// strip, x W1 as an FMA chain (6 mma.sync fewer, 64 FFMA more: 24 %
+// slower), the staging in four phases with the first strip waiting per
+// phase (19 % slower). wgmma's TF32 tile would lower the mma.sync floor.
 //
 // Backward (`bwd_kernel<D>`), one pass on the tensor cores, then
 // `finish_kernel`. The grid is (slab of U hidden units, split of rows); U =
@@ -141,107 +180,19 @@ struct Dropout {
   __device__ __forceinline__ float keep_scale(uint32_t rk, int j) const {
     return mix32(rk ^ (uint32_t)j) < threshold ? inv_keep : 0.f;
   }
+  // keep_scale(rk, j) != 0 from rkp = rk ^ (rk >> 16) of the row and jp =
+  // j ^ (j >> 16) of the unit: mix32's first step of rk ^ j is rkp ^ jp
+  __device__ __forceinline__ bool keep_p(uint32_t rkp, uint32_t jp) const {
+    uint32_t v = (rkp ^ jp) * 0x7feb352dU;
+    v ^= v >> 15;
+    v *= 0x846ca68bU;
+    v ^= v >> 16;
+    return v < threshold;
+  }
   __device__ __forceinline__ float scale(uint32_t rk, int j) const {
     return on ? keep_scale(rk, j) : 1.f;
   }
 };
-
-template <int D>
-__host__ __device__ constexpr int chunk_units() {
-  return 2048 / D;
-}
-
-// Stage hidden units [c0, c0 + FC) of W1 (transposed to [FC][D]), W2
-// ([FC][D]) and b1 into shared memory, zero beyond din, dout and F.
-template <int D>
-__device__ __forceinline__ void stage_weights(
-    float* w1s, float* w2s, float* b1s, const float* __restrict__ w1,
-    const float* __restrict__ b1, const float* __restrict__ w2, int c0,
-    int din, int F, int dout, int tid) {
-  constexpr int FC = chunk_units<D>();
-  for (int idx = tid; idx < FC * D; idx += kThreads) {
-    const int k = idx / FC, jj = idx % FC, j = c0 + jj;
-    w1s[jj * D + k] = (k < din && j < F) ? w1[(size_t)k * F + j] : 0.f;
-    const int jj2 = idx / D, o = idx % D, j2 = c0 + jj2;
-    w2s[idx] = (o < dout && j2 < F) ? w2[(size_t)j2 * dout + o] : 0.f;
-  }
-  for (int jj = tid; jj < FC; jj += kThreads)
-    b1s[jj] = c0 + jj < F ? b1[c0 + jj] : 0.f;
-}
-
-template <int D, int RT>
-__host__ __device__ constexpr size_t rowblock_smem() {
-  return sizeof(float) * (2 * chunk_units<D>() * D + chunk_units<D>() +
-                          kWarps * 32 * RT * D);
-}
-
-// y = dropout(relu(x W1 + b1)) W2 + b2 for 32·RT rows per block.
-template <int D, int RT>
-__global__ void __launch_bounds__(kThreads, 2)
-fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ y, int R,
-           int din, int F, int dout, Dropout drop) {
-  constexpr int FC = chunk_units<D>();
-  constexpr int ROWS = 32 * RT;
-  extern __shared__ float smem[];
-  float* w1s = smem;            // [FC][D]
-  float* w2s = w1s + FC * D;    // [FC][D]
-  float* b1s = w2s + FC * D;    // [FC]
-  float* red = b1s + FC;        // [kWarps][ROWS][D] per-warp y partials
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * ROWS;
-
-  float xr[RT][D], acc[RT][D];
-  uint32_t rk[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int row = r0 + lane + 32 * i;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      xr[i][k] = (row < R && k < din) ? x[(size_t)row * din + k] : 0.f;
-      acc[i][k] = 0.f;
-    }
-    rk[i] = drop.row_key(row);
-  }
-
-  for (int c0 = 0; c0 < F; c0 += FC) {
-    __syncthreads();
-    stage_weights<D>(w1s, w2s, b1s, w1, b1, w2, c0, din, F, dout, tid);
-    __syncthreads();
-    const int nj = min(FC, F - c0);
-    for (int jj = warp; jj < nj; jj += kWarps) {
-      const float* w1j = w1s + jj * D;
-      const float* w2j = w2s + jj * D;
-      const float bj = b1s[jj];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        float pre = bj;
-#pragma unroll
-        for (int k = 0; k < D; ++k) pre = fmaf(xr[i][k], w1j[k], pre);
-        const float h = fmaxf(pre, 0.f) * drop.scale(rk[i], c0 + jj);
-#pragma unroll
-        for (int o = 0; o < D; ++o) acc[i][o] = fmaf(h, w2j[o], acc[i][o]);
-      }
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int o = 0; o < D; ++o)
-      red[(warp * ROWS + lane + 32 * i) * D + o] = acc[i][o];
-  __syncthreads();
-  for (int idx = tid; idx < ROWS * D; idx += kThreads) {
-    const int rl = idx / D, o = idx % D, row = r0 + rl;
-    if (row < R && o < dout) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[(w * ROWS + rl) * D + o];
-      y[(size_t)row * dout + o] = s + b2[o];
-    }
-  }
-}
 
 int width_bucket(int din, int dout) {
   const int d = din > dout ? din : dout;
@@ -257,22 +208,6 @@ Dropout make_dropout(int on, unsigned seed, unsigned threshold,
                      float inv_keep) {
   return Dropout{on, mix32((uint32_t)seed ^ 0x9e3779b9U), threshold,
                  inv_keep};
-}
-
-template <int D, int RT>
-cudaError_t launch_fwd(const float* x, const float* w1, const float* b1,
-                       const float* w2, const float* b2, float* y, int R,
-                       int din, int F, int dout, Dropout drop,
-                       cudaStream_t stream) {
-  const size_t smem = rowblock_smem<D, RT>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (R + 32 * RT - 1) / (32 * RT);
-  fwd_kernel<D, RT><<<blocks, kThreads, smem, stream>>>(
-      x, w1, b1, w2, b2, y, R, din, F, dout, drop);
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- backward
@@ -648,6 +583,314 @@ __global__ void finish_kernel(const float* __restrict__ part,
   }
 }
 
+// -------------------------------------------------------------- forward
+
+constexpr int kFwdThreads = 512;   // 16 warps: one block an SM, all of it
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kGroupWarps = 4;     // a group: a warp on each sub-partition
+constexpr int kGroups = kFwdWarps / kGroupWarps;
+constexpr int kSlabFloats = 32768;  // a slab's W1 and W2 fragments: 128 KB
+
+template <int D>
+struct Fwd {
+  static constexpr int MT = D <= 16 ? 2 : 1;  // 16-row m-tiles a strip
+  static constexpr int KT = D / 8;     // k-steps of din, n-tiles of dout
+  static constexpr int U = kSlabFloats / (2 * D);   // units of a slab
+  static constexpr int kSlots = MT * KT * 4;  // a lane's y of a strip
+};
+
+// The forward's shared memory for F hidden units: the slab's fragments, b1
+// and every lane's y totals.
+template <int D>
+size_t fwd_smem(int F) {
+  const int ks = (F < Fwd<D>::U ? (F + 7) / 8 : Fwd<D>::U / 8);
+  return sizeof(float) * ((size_t)ks * (Fwd<D>::KT * 128 + 8) +
+                           (size_t)kFwdThreads * Fwd<D>::kSlots);
+}
+
+// tc::split without lo's rounding, one instruction fewer: the tensor cores
+// drop lo's 13 low bits, about 2^-22 of x at most
+__device__ __forceinline__ tc::Split split_t(float x) {
+  const uint32_t hi = __float_as_uint(x) + 0x1000u;
+  return tc::Split{
+      hi, __float_as_uint(x - __uint_as_float(hi & 0xffffe000u))};
+}
+
+// p[i] = a(i)·b(i) for i < N, each in 3xTF32 into a fresh fragment, the N
+// products' tensor-core steps interleaved (mma3's three are dependent).
+template <int N, class FA, class FB>
+__device__ __forceinline__ void fresh3(float (&p)[N][4], FA a, FB b) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) tc::mma_fresh(p[i], a(i).lo, b(i).hi);
+#pragma unroll
+  for (int i = 0; i < N; ++i) tc::mma(p[i], a(i).hi, b(i).lo);
+#pragma unroll
+  for (int i = 0; i < N; ++i) tc::mma(p[i], a(i).hi, b(i).hi);
+}
+
+// One strip of a warp: MA m-tiles of 16 rows from r0, over the slab's
+// k-steps [kb, ke) of 8 hidden units; y into the lane's totals `tot` (slot
+// s at tot[32 s]) in runs of kRunTerms k-steps.
+template <int D, int MA, bool kDrop>
+__device__ __forceinline__ void fwd_strip(
+    const float* __restrict__ x, const float* pack, const float* b1s,
+    float* tot, int r0, int R, int din, int kb, int ke, int j0,
+    const Dropout& drop) {
+  using C = Fwd<D>;
+  constexpr int KT = C::KT, N = MA * KT;
+  const int g8 = tc::lane_g(), t = tc::lane_t(), lane = threadIdx.x & 31;
+  // x's A fragments, rows r0 + 16 m + g (+ 8), columns 8 c + t (+ 4)
+  tc::FragA ax[MA][KT];
+  uint32_t rk[MA][2];
+#pragma unroll
+  for (int m = 0; m < MA; ++m) {
+    const int ra = r0 + 16 * m + g8, rb = ra + 8;
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      const int ca = 8 * c + t, cb = ca + 4;
+      auto ld = [&](int r, int k) {
+        return r < R && k < din ? __ldg(x + (size_t)r * din + k) : 0.f;
+      };
+      const float v[4] = {ld(ra, ca), ld(rb, ca), ld(ra, cb), ld(rb, cb)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const tc::Split sp = tc::split(v[i]);
+        ax[m][c].hi[i] = sp.hi;
+        ax[m][c].lo[i] = sp.lo;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rk[m][e] = kDrop ? drop.row_key(ra + 8 * e) : 0u;
+      rk[m][e] ^= rk[m][e] >> 16;
+    }
+  }
+  float yrun[MA][KT][4] = {};
+  auto flush = [&]() {
+#pragma unroll
+    for (int m = 0; m < MA; ++m)
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tot[32 * ((m * KT + c) * 4 + i)] += yrun[m][c][i];
+          yrun[m][c][i] = 0.f;
+        }
+  };
+#pragma unroll 1
+  for (int ks = kb; ks < ke; ++ks) {
+    // W1's B of din k-step c and W2's B of dout n-tile c, split once for
+    // the MA m-tiles; b1 of units 2t, 2t + 1 (the C fragment's columns)
+    const float* pk = pack + (size_t)ks * KT * 128 + 4 * lane;
+    tc::FragB bw1[KT], bw2[KT];
+#pragma unroll
+    for (int c = 0; c < KT; ++c) {
+      const float4 w = *reinterpret_cast<const float4*>(pk + 128 * c);
+      const tc::Split s0 = split_t(w.x), s1 = split_t(w.y);
+      const tc::Split s2 = split_t(w.z), s3 = split_t(w.w);
+      bw1[c] = tc::FragB{{s0.hi, s1.hi}, {s0.lo, s1.lo}};
+      bw2[c] = tc::FragB{{s2.hi, s3.hi}, {s2.lo, s3.lo}};
+    }
+    const float2 bb = *reinterpret_cast<const float2*>(b1s + 8 * ks + 2 * t);
+    // pre = b1 + x W1: a fresh fragment per din k-step, added in order
+    float p[N][4];
+    fresh3<N>(p, [&](int i) -> const tc::FragA& { return ax[i / KT][i % KT]; },
+              [&](int i) -> const tc::FragB& { return bw1[i % KT]; });
+    uint32_t jp[2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const uint32_t j = j0 + 8 * ks + 2 * t + f;
+      jp[f] = j ^ (j >> 16);
+    }
+    tc::FragA ah[MA];
+#pragma unroll
+    for (int m = 0; m < MA; ++m) {
+      float h[4] = {bb.x, bb.y, bb.x, bb.y};
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) h[i] += p[m * KT + c][i];
+      // h = relu(pre) * scale at the fragment's (row, unit), once each
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = fmaxf(h[i], 0.f);
+        if (kDrop && !drop.keep_p(rk[m][i >> 1], jp[i & 1])) h[i] = 0.f;
+      }
+      // frag_a_from_c with split_t
+      const float v[4] = {h[0], h[2], h[1], h[3]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const tc::Split sp = split_t(v[i]);
+        ah[m].hi[i] = sp.hi;
+        ah[m].lo[i] = sp.lo;
+      }
+    }
+    // y += h W2 (K = the k-step's 8 units), a fresh fragment per n-tile
+    fresh3<N>(p, [&](int i) -> const tc::FragA& { return ah[i / KT]; },
+              [&](int i) -> const tc::FragB& { return bw2[i % KT]; });
+#pragma unroll
+    for (int m = 0; m < MA; ++m)
+#pragma unroll
+      for (int c = 0; c < KT; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) yrun[m][c][i] += p[m * KT + c][i];
+    if ((ks - kb) % kRunTerms == kRunTerms - 1) flush();
+  }
+  flush();
+}
+
+// y = dropout(relu(x W1 + b1)) W2 + b2 for the slab blockIdx.x of U hidden
+// units: the block stages the slab's W1, W2 (as m16n8k8 B fragments, a
+// float4 a lane and k-step) and b1 once and keeps them; each of its four
+// groups of four warps walks its rows_per_group rows in strips of 16 MT
+// rows, warp w of a group taking the w-th quarter of the slab's k-steps,
+// and the group adds its four warps' y in warp order. One slab: y + b2
+// into y; more: the slab's partial into y_part[slab] (fwd_finish_kernel).
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+           const float* __restrict__ b1, const float* __restrict__ w2,
+           const float* __restrict__ b2, float* __restrict__ y,
+           float* __restrict__ y_part, int R, int din, int F, int dout,
+           int rows_per_group, Dropout drop) {
+  using C = Fwd<D>;
+  constexpr int KT = C::KT, MT = C::MT, S = C::kSlots;
+  extern __shared__ float smem[];
+  const int slab = blockIdx.x, j0 = slab * C::U;
+  const int nka = F < C::U ? (F + 7) / 8 : C::U / 8;   // k-steps allocated
+  const int nks = (min(C::U, F - j0) + 7) / 8;          // the slab's
+  float* pack = smem;                       // [nka][KT][32 lanes][4]
+  float* b1s = pack + (size_t)nka * KT * 128;   // [8 nka]
+  float* tots = b1s + 8 * nka;              // [kFwdWarps][S][32 lanes]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // the slab's fragments: lane 4g + t of k-step ks, tile c holds W1[8c + t]
+  // [u + g], W1[8c + t + 4][u + g], W2[u + 2t][8c + g], W2[u + 2t + 1][8c
+  // + g] with u = j0 + 8 ks; zero beyond din, dout and F. A warp copies one
+  // of the four for its 32 lanes: 4 rows of 32 contiguous bytes
+  for (int e = tid; e < nks * KT * 128; e += kFwdThreads) {
+    const int l = e & 31, q = (e >> 5) & 3, kc = e >> 7;
+    const int ks = kc / KT, c = kc - ks * KT;
+    const int g = l >> 2, t = l & 3, u = j0 + 8 * ks;
+    const float* src;
+    bool valid;
+    if (q < 2) {
+      const int k = 8 * c + t + 4 * q, j = u + g;
+      valid = k < din && j < F;
+      src = w1 + (size_t)k * F + j;
+    } else {
+      const int j = u + 2 * t + q - 2, o = 8 * c + g;
+      valid = j < F && o < dout;
+      src = w2 + (size_t)j * dout + o;
+    }
+    tc::cp_async4(pack + 128 * kc + 4 * l + q, valid ? src : w1, valid);
+  }
+  for (int j = tid; j < 8 * nks; j += kFwdThreads)
+    tc::cp_async4(b1s + j, j0 + j < F ? b1 + j0 + j : b1, j0 + j < F);
+  tc::cp_async_commit();
+  for (int s = tid; s < kFwdWarps * S * 32; s += kFwdThreads) tots[s] = 0.f;
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int group = warp / kGroupWarps, gw = warp % kGroupWarps;
+  const int rbeg = (blockIdx.y * kGroups + group) * rows_per_group;
+  const int rend = min(R, rbeg + rows_per_group);
+  const int kpw = (nks + kGroupWarps - 1) / kGroupWarps;
+  const int kb = min(nks, gw * kpw), ke = min(nks, kb + kpw);
+  float* tot = tots + warp * S * 32 + lane;
+  float* gtot = tots + group * kGroupWarps * S * 32;
+  const int gt = gw * 32 + lane;            // thread of the group
+  for (int r0 = rbeg; r0 < rend; r0 += 16 * MT) {
+    if (MT == 2 && r0 + 16 >= rend)
+      fwd_strip<D, 1, kDrop>(x, pack, b1s, tot, r0, R, din, kb, ke, j0,
+                             drop);
+    else
+      fwd_strip<D, MT, kDrop>(x, pack, b1s, tot, r0, R, din, kb, ke, j0,
+                              drop);
+    // the group's four warps' y added in warp order; the totals zeroed
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + group),
+                 "n"(kGroupWarps * 32) : "memory");
+    for (int e = gt; e < S * 32; e += kGroupWarps * 32) {
+      const int s = e >> 5, l = e & 31, m = s / (KT * 4);
+      const int c = (s >> 2) % KT, i = s & 3;
+      const int row = r0 + 16 * m + (l >> 2) + 8 * (i >> 1);
+      const int col = 8 * c + 2 * (l & 3) + (i & 1);
+      float* p = gtot + e;
+      float v = p[0];
+#pragma unroll
+      for (int w = 1; w < kGroupWarps; ++w) v += p[w * S * 32];
+      if (kDrop) v *= drop.inv_keep;   // h was relu(pre) or 0
+#pragma unroll
+      for (int w = 0; w < kGroupWarps; ++w) p[w * S * 32] = 0.f;
+      if (row < rend && col < dout) {
+        if (y_part)
+          y_part[((size_t)slab * R + row) * dout + col] = v;
+        else
+          y[(size_t)row * dout + col] = v + b2[col];
+      }
+    }
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + group),
+                 "n"(kGroupWarps * 32) : "memory");
+  }
+}
+
+// y[r, o] = the slabs' partials added in slab order, in runs, + b2[o]
+__global__ void fwd_finish_kernel(const float* __restrict__ y_part,
+                                  const float* __restrict__ b2,
+                                  float* __restrict__ y, size_t RD,
+                                  int dout, int n_slabs) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < RD;
+       i += (size_t)gridDim.x * blockDim.x)
+    y[i] = run_sum(y_part + i, RD, n_slabs) + b2[i % dout];
+}
+
+int fwd_units(int D) {
+  switch (D) {
+    case 8: return Fwd<8>::U;
+    case 16: return Fwd<16>::U;
+    case 32: return Fwd<32>::U;
+    default: return Fwd<64>::U;
+  }
+}
+
+template <int D, bool kDrop>
+cudaError_t launch_fwd(const float* x, const float* w1, const float* b1,
+                       const float* w2, const float* b2, float* y,
+                       float* y_part, int R, int din, int F, int dout,
+                       int n_sm, Dropout drop, cudaStream_t stream) {
+  const size_t smem = fwd_smem<D>(F);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int slabs = (F + Fwd<D>::U - 1) / Fwd<D>::U;
+  // a block an SM; each group's rows a whole number of m-tiles
+  const int splits = (n_sm + slabs - 1) / slabs;
+  const int groups = splits * kGroups;
+  const int rows = ((R + groups - 1) / groups + 15) / 16 * 16;
+  fwd_kernel<D, kDrop><<<dim3(slabs, splits), kFwdThreads, smem, stream>>>(
+      x, w1, b1, w2, b2, y, slabs > 1 ? y_part : nullptr, R, din, F, dout,
+      rows, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slabs == 1) return err;
+  const size_t RD = (size_t)R * dout;
+  const size_t blocks = (RD + kThreads - 1) / kThreads;
+  fwd_finish_kernel<<<blocks < 4096 ? (int)blocks : 4096, kThreads, 0,
+                      stream>>>(y_part, b2, y, RD, dout, slabs);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_rate(const float* x, const float* w1, const float* b1,
+                            const float* w2, const float* b2, float* y,
+                            float* y_part, int R, int din, int F, int dout,
+                            int n_sm, Dropout drop, cudaStream_t stream) {
+  return drop.on ? launch_fwd<D, true>(x, w1, b1, w2, b2, y, y_part, R, din,
+                                       F, dout, n_sm, drop, stream)
+                 : launch_fwd<D, false>(x, w1, b1, w2, b2, y, y_part, R,
+                                        din, F, dout, n_sm, drop, stream);
+}
+
 int bwd_units(int D) {
   switch (D) {
     case 8: return Bwd<8>::U;
@@ -709,14 +952,24 @@ extern "C" int feta_fused_mlp_bwd_grid(int R, int din, int F, int dout,
   return (R + rows - 1) / rows;
 }
 
+// The forward's slabs of hidden units: y_part needs that many partials of
+// R·dout floats where it is more than 1 (0 for shapes the kernel rejects).
+extern "C" int feta_fused_mlp_fwd_slabs(int din, int F, int dout) {
+  const int D = width_bucket(din, dout);
+  if (D == 0 || F <= 0) return 0;
+  return (F + fwd_units(D) - 1) / fwd_units(D);
+}
+
 extern "C" int feta_fused_mlp_fwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
-                                  const void* b2, void* y, int R, int din,
-                                  int F, int dout, int drop_on, unsigned seed,
+                                  const void* b2, void* y, void* y_part,
+                                  int R, int din, int F, int dout, int n_sm,
+                                  int drop_on, unsigned seed,
                                   unsigned threshold, float inv_keep,
                                   void* stream) {
   const int D = width_bucket(din, dout);
-  if (D == 0 || R <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  if (D == 0 || R <= 0 || F <= 0 || n_sm <= 0)
+    return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(drop_on, seed, threshold, inv_keep);
   const auto* xf = (const float*)x;
   const auto* w1f = (const float*)w1;
@@ -724,20 +977,21 @@ extern "C" int feta_fused_mlp_fwd(const void* x, const void* w1,
   const auto* w2f = (const float*)w2;
   const auto* b2f = (const float*)b2;
   auto* yf = (float*)y;
+  auto* pf = (float*)y_part;
   auto s = (cudaStream_t)stream;
   switch (D) {
     case 8:
-      return (int)launch_fwd<8, 4>(xf, w1f, b1f, w2f, b2f, yf, R, din, F,
-                                   dout, drop, s);
+      return (int)launch_fwd_rate<8>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                    din, F, dout, n_sm, drop, s);
     case 16:
-      return (int)launch_fwd<16, 2>(xf, w1f, b1f, w2f, b2f, yf, R, din, F,
-                                    dout, drop, s);
+      return (int)launch_fwd_rate<16>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                     din, F, dout, n_sm, drop, s);
     case 32:
-      return (int)launch_fwd<32, 1>(xf, w1f, b1f, w2f, b2f, yf, R, din, F,
-                                    dout, drop, s);
+      return (int)launch_fwd_rate<32>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                     din, F, dout, n_sm, drop, s);
     default:
-      return (int)launch_fwd<64, 1>(xf, w1f, b1f, w2f, b2f, yf, R, din, F,
-                                    dout, drop, s);
+      return (int)launch_fwd_rate<64>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                     din, F, dout, n_sm, drop, s);
   }
 }
 

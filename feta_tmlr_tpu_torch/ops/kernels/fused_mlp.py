@@ -3,17 +3,21 @@
 Kernels: `csrc/fused_mlp.cu`, the H100 counterparts of the TPU kernels
 `feta_tmlr_tpu/ops/pallas/fused_mlp.py::_fwd_kernel` and `::_bwd_kernel`.
 Neither writes the [R, F] hidden field to device memory; the backward
-recomputes it from x. The source note says what bounds them (the forward's
-f32 FMAs; the backward's 3xTF32 products at mma.sync's rate, beside the
-dropout hash) and how the designs answer that (the forward splits F across
-a block's warps; the backward is one pass on the tensor cores per slab of
-hidden units and split of rows, computing pre, g @ w2.T and the keep bit
-once per (row, unit); sums in a fixed order, no atomics).
+recomputes it from x. Both run their products on the tensor cores in
+3xTF32, and the source note says what bounds them: `mma.sync`'s TF32
+rate, beside the dropout hash on the integer lanes. The forward keeps a
+slab of hidden units' weights resident in shared memory (the whole F of
+the SAN head) and walks strips of rows with a persistent grid, a block an
+SM, so there is no tail wave; pre, the keep bit and h are taken in the
+products' registers. The backward is one pass per slab of hidden units
+and split of rows, computing pre, g @ w2.T and the keep bit once per
+(row, unit). Sums are in a fixed order, with no atomics.
 
 `fused_mlp_fwd` and `fused_mlp_bwd` are the wrappers: on a CUDA tensor each
 launches its kernel and counts the call in its `launches` attribute (the
 backward's one call is two launches: the pass, then the sum of its split
-and slab partials); on a CPU tensor each runs its plain version
+and slab partials; the forward's is two only where F spans more than one
+slab, which no main path does); on a CPU tensor each runs its plain version
 (`fused_mlp_plain`, `fused_mlp_bwd_plain`). There is no other route and no
 fallback. `FusedMLP` is the `torch.autograd.Function` that ties them
 together, and `fused_mlp` the entry point.
@@ -48,22 +52,24 @@ _fns = {}
 
 
 def _kernel(name):
-    """(lib, bound C function) for "fwd", "bwd" or "grid"."""
-    if not _fns:
+    """(lib, bound C function) for "fwd", "slabs", "bwd" or "grid", each
+    bound at its first use."""
+    if name not in _fns:
         lib = build.load("fused_mlp")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        sigs = {"fwd": ("feta_fused_mlp_fwd",
-                        [p] * 6 + [i] * 5 + [u, u, ctypes.c_float, p]),
-                "bwd": ("feta_fused_mlp_bwd",
-                        [p] * 9 + [i] * 6 + [u, u, ctypes.c_float, p]),
-                "grid": ("feta_fused_mlp_bwd_grid",
-                         [i] * 5 + [ctypes.POINTER(i)])}
-        for key, (sym, argtypes) in sigs.items():
-            fn = getattr(lib, sym)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-            _fns[key] = (lib, fn)
+        sym, argtypes = {
+            "fwd": ("feta_fused_mlp_fwd",
+                    [p] * 7 + [i] * 6 + [u, u, ctypes.c_float, p]),
+            "slabs": ("feta_fused_mlp_fwd_slabs", [i] * 3),
+            "bwd": ("feta_fused_mlp_bwd",
+                    [p] * 9 + [i] * 6 + [u, u, ctypes.c_float, p]),
+            "grid": ("feta_fused_mlp_bwd_grid",
+                     [i] * 5 + [ctypes.POINTER(i)])}[name]
+        fn = getattr(lib, sym)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.feta_cuda_error_string.argtypes = [ctypes.c_int]
         lib.feta_cuda_error_string.restype = ctypes.c_char_p
+        _fns[name] = (lib, fn)
     return _fns[name]
 
 
@@ -183,16 +189,26 @@ def _dropout_args(rate, seed):
 
 def fused_mlp_fwd(x, w1, b1, w2, b2, rate: float = 0.0,
                   seed: Optional[int] = None) -> torch.Tensor:
-    """y [R, d_out] = dropout(relu(x @ w1 + b1)) @ w2 + b2."""
+    """y [R, d_out] = dropout(relu(x @ w1 + b1)) @ w2 + b2. Where F spans
+    more than one slab of the kernel's hidden units, one call is two
+    launches: the pass, which writes a y partial per slab, then their sum
+    in slab order with b2."""
     if not cuda_or_plain("fused_mlp_fwd", x):
         return fused_mlp_plain(x, w1, b1, w2, b2, rate, seed)
     seed = _check_seed(rate, seed)
     r, din, f, dout = _check("fused_mlp_fwd", x, w1, b1, w2,
                              [("b2", b2, (w2.shape[1],))])
+    dev = x.device
+    _, slabs_fn = _kernel("slabs")
+    n_slabs = slabs_fn(din, f, dout)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    y = torch.empty((r, dout), dtype=torch.float32, device=dev)
+    part = (torch.empty((n_slabs, r, dout), dtype=torch.float32, device=dev)
+            if n_slabs > 1 else y)
     lib, fn = _kernel("fwd")
-    y = torch.empty((r, dout), dtype=torch.float32, device=x.device)
-    err = fn(ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(y), r, din, f,
-             dout, *_dropout_args(rate, seed), stream_ptr(x.device))
+    err = fn(ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(y), ptr(part),
+             r, din, f, dout, n_sm, *_dropout_args(rate, seed),
+             stream_ptr(dev))
     check_launch(lib, err, "fused_mlp_fwd")
     fused_mlp_fwd.launches += 1
     return y

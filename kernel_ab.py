@@ -12,8 +12,8 @@
   python3 kernel_ab.py --mlp [--check | --times] DIR [DIR ...]
   python3 kernel_ab.py --modulation [--check | --times] DIR [DIR ...]
                                                the same for colstat, the
-                                               fused MLP's backward and
-                                               the modulation pair
+                                               fused MLP pair and the
+                                               modulation pair
 
 Each DIR holds a copy of `feta_tmlr_tpu_torch/csrc` (a variant, edited or
 taken from another commit). The default mode builds every variant's
@@ -72,22 +72,27 @@ the diagonal bit-equal to the first tree's, whose score is the same FMA
 chain. `--times` times the trees without checks. Without `--check` each
 tree's registers and spills are printed first.
 
-`--mlp` times `fused_mlp_bwd` at the SAN head's 40,960 rows (d 8, F 2048,
+`--mlp` times `fused_mlp_fwd` (warm, and cold: `time_ms(cold=True)`) and
+`fused_mlp_bwd` (warm) at the SAN head's 40,960 rows (d 8, F 2048,
 dropout 0.1 and 0) and at 10,007 rows, held to plain and compared with the
 first tree, two rounds, and prints each output's error from float64 over
 the CPU float32 route's. With `--check`: registers, spills and HMMA count
-of `fused_mlp`; the dropout keep bit's instructions per (row, unit) by
+of every kernel of `fused_mlp` (each `fwd_kernel` and `bwd_kernel`
+instantiation); the dropout keep bit's instructions per (row, unit) by
 pipe (`hash_sass`: the SASS of a probe kernel that calls the tree's
 `Dropout::keep_scale`, less the same kernel without it), the counts that
-chip_smoke's HASH_IMAD_OPS and HASH_ALU_OPS take; then each tree against plain at R of 1, 31 and 10,007,
-every width bucket (d 8, 16, 32, 64 and mixed widths), F of 520 (not a
-multiple of a slab) and 2048, dropout 0 and 0.1, two runs bit-identical,
-the dropout masks bit-equal to `dropout_keep`, and pre exact on the dyadic
-inputs: with g one-hot on 8 rows, dW2 holds those rows' relu(pre) * scale,
-equal bit for bit to the float64 value. `--times` times the trees without
-checks (variants with a phase removed). The parent's `fused_mlp` (three
-launches, no `feta_fused_mlp_bwd_grid`) is called through its own C
-interface.
+chip_smoke's HASH_IMAD_OPS and HASH_ALU_OPS take; then each tree's forward
+and backward against plain at every MLP_EDGES shape: R of 1, 31 and
+10,007, every width bucket (d 8, 16, 32, 64 and mixed widths), F of 520
+(not a multiple of a slab) and 2048, dropout 0 and 0.1, two runs
+bit-identical; for a tree with the current interface, the forward's and
+the backward's dropout masks read back through `chip_smoke.mlp_masks`,
+bit-equal to `dropout_keep`, and pre exact on the dyadic inputs: with g
+one-hot on 8 rows, dW2 holds those rows' relu(pre) * scale, equal bit for
+bit to the float64 value. `--times` times the trees without checks
+(variants with a phase removed). A tree whose library lacks
+`feta_fused_mlp_fwd_slabs` (the parent's SIMT forward) has its forward
+called through its own C interface (`mlp_fwd`).
 
 `--modulation` times `modulation_fwd` and `modulation_bwd` (H=8) at the ZINC
 batch (B=128, N=48, padding 11), B=32, N=128, the `r4` setting's request
@@ -272,11 +277,13 @@ def build_facts(src: Path, libs=LIBS) -> None:
             print(f"sass {name}: {fn} HMMA.1688.F32.TF32 {n}")
 
 
-# The dropout keep bit of one (row, unit) of a tree's fused_mlp.cu
-# (`Dropout::keep_scale`: the hash, its compare and the select) in a probe
-# kernel on a loaded row key and unit; its base adds the two values
-# instead. Their loads and stores are the same, so their SASS differ by the
-# keep bit's instructions less the base's one FADD.
+# The dropout keep bit of one (row, unit) of a tree's fused_mlp.cu in a
+# probe kernel on a loaded row key and unit: the backward's
+# (`Dropout::keep_scale`: the hash, its compare and the select of the
+# scale) and, where the tree has it, the forward's (`Dropout::keep_p` and
+# the select of h or 0); the base adds the two values instead. Their loads
+# and stores are the same, so their SASS differ by the keep bit's
+# instructions less the base's one FADD.
 HASH_PROBE = r"""
 #include "{src}"
 __global__ void keep_probe(const uint2* in, float* out, Dropout drop) {{
@@ -286,6 +293,12 @@ __global__ void keep_probe(const uint2* in, float* out, Dropout drop) {{
 __global__ void base_probe(const uint2* in, float* out, Dropout drop) {{
   const uint2 v = in[threadIdx.x];
   out[threadIdx.x] = __uint_as_float(v.x) + __uint_as_float(v.y);
+}}
+"""
+FWD_HASH_PROBE = r"""
+__global__ void keep_p_probe(const uint2* in, float* out, Dropout drop) {{
+  const uint2 v = in[threadIdx.x];
+  out[threadIdx.x] = drop.keep_p(v.x, v.y) ? __uint_as_float(v.x) : 0.f;
 }}
 """
 # opcodes (with their first modifier) that sm_90 issues to the FMA pipe
@@ -323,32 +336,39 @@ def sass_opcodes(cubin: Path, nvcc: Path, names) -> dict:
 
 def hash_sass(src: Path) -> None:
     """The keep bit's instructions per (row, unit), from the SASS of
-    HASH_PROBE: each opcode's count in keep_probe less base_probe, summed
-    by pipe (FMA_PIPE, ALU_PIPE, other: the base's FADD), ADDRESS left
-    out."""
+    HASH_PROBE (and FWD_HASH_PROBE where the tree has `keep_p`): each
+    opcode's count in a keep probe less base_probe, summed by pipe
+    (FMA_PIPE, ALU_PIPE, other: the base's FADD), ADDRESS left out."""
     out_dir = build.BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = Path(build._nvcc())
+    text = (src / "fused_mlp.cu").read_text()
+    probes = {"keep_probe": "keep bit per (row, unit)"}
+    code = HASH_PROBE
+    if "keep_p(" in text:
+        probes["keep_p_probe"] = "forward keep bit per (row, unit)"
+        code += FWD_HASH_PROBE
     probe = out_dir / f"hash_probe-{src.name}.cu"
-    probe.write_text(HASH_PROBE.format(
-        src=(src / "fused_mlp.cu").resolve()))
+    probe.write_text(code.format(src=(src / "fused_mlp.cu").resolve()))
     cubin = probe.with_suffix(".cubin")
     subprocess.run([str(nvcc), *build.NVCC_FLAGS[:4], "-cubin", "-o",
                     str(cubin), str(probe)], check=True)
-    ops = sass_opcodes(cubin, nvcc, ("keep_probe", "base_probe"))
-    keep, base = ops["keep_probe"], ops["base_probe"]
-    diff = {o: keep.get(o, 0) - base.get(o, 0) for o in {*keep, *base}}
-    diff = {o: n for o, n in sorted(diff.items()) if n}
-    by = {"FMA pipe": 0, "INT32 lanes": 0, "other": 0}
-    for o, n in diff.items():
-        if o not in ADDRESS:
-            by["FMA pipe" if o in FMA_PIPE else "INT32 lanes"
-               if o in ALU_PIPE else "other"] += n
-    print(f"sass hash {src.name}: keep bit per (row, unit) "
-          + ", ".join(f"{k} {n}" for k, n in by.items()) + " ("
-          + " ".join(f"{o} {n:+d}" for o, n in diff.items()) + "); "
-          "keep_probe " + " ".join(f"{o} {n}" for o, n in sorted(
-              keep.items())), flush=True)
+    ops = sass_opcodes(cubin, nvcc, (*probes, "base_probe"))
+    base = ops["base_probe"]
+    for name, what in probes.items():
+        keep = ops[name]
+        diff = {o: keep.get(o, 0) - base.get(o, 0) for o in {*keep, *base}}
+        diff = {o: n for o, n in sorted(diff.items()) if n}
+        by = {"FMA pipe": 0, "INT32 lanes": 0, "other": 0}
+        for o, n in diff.items():
+            if o not in ADDRESS:
+                by["FMA pipe" if o in FMA_PIPE else "INT32 lanes"
+                   if o in ALU_PIPE else "other"] += n
+        print(f"sass hash {src.name}: {what} "
+              + ", ".join(f"{k} {n}" for k, n in by.items()) + " ("
+              + " ".join(f"{o} {n:+d}" for o, n in diff.items()) + "); "
+              f"{name} " + " ".join(f"{o} {n}" for o, n in sorted(
+                  keep.items())), flush=True)
 
 
 def misses(got, want):
@@ -731,7 +751,7 @@ def check_colstat(dirs, dev) -> int:
     return 1 if bad else 0
 
 
-# ------------------------------------------------------- fused MLP backward
+# ------------------------------------------------------------- fused MLP
 
 # (rows, d_in, F, d_out, rate) of the A/B
 MLP_AB = ((cs.SAN_ROWS, 8, 2048, 8, 0.1), (cs.SAN_ROWS, 8, 2048, 8, 0.0),
@@ -745,51 +765,55 @@ MLP_EDGES = ((1, 8, 520, 8, 0.1), (31, 8, 2048, 8, 0.0),
              (1, 64, 2048, 64, 0.0))
 
 
-def mlp_bwd(x, w1, b1, w2, g, rate, seed):
-    """fused_mlp_bwd through the current tree's library: the wrapper, or
-    for a library without `feta_fused_mlp_bwd_grid` (the parent's three
-    launches) its own C interface."""
+def mlp_fwd(x, w1, b1, w2, b2, rate, seed):
+    """fused_mlp_fwd through the current tree's library: the wrapper, or
+    for a library without `feta_fused_mlp_fwd_slabs` (the parent's SIMT
+    forward) its own C interface."""
     lib = build.load("fused_mlp")
-    if hasattr(lib, "feta_fused_mlp_bwd_grid"):
-        return fm_mod.fused_mlp_bwd(x, w1, b1, w2, g, rate, seed)
+    if hasattr(lib, "feta_fused_mlp_fwd_slabs"):
+        return fm_mod.fused_mlp_fwd(x, w1, b1, w2, b2, rate, seed)
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    fn, splits = lib.feta_fused_mlp_bwd, lib.feta_fused_mlp_bwd_splits
-    fn.argtypes = [p] * 8 + [i] * 6 + [u, u, ctypes.c_float, p]
-    splits.argtypes = [i] * 5
+    fn = lib.feta_fused_mlp_fwd
+    fn.argtypes = [p] * 6 + [i] * 5 + [u, u, ctypes.c_float, p]
     r, din = x.shape
     f, dout = w2.shape
-    n_splits = splits(r, din, f, dout, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
-    e = din * f + f + f * dout + dout
-    dx = torch.empty((r, din), device=x.device)
-    part = torch.empty((n_splits, e), device=x.device)
-    grads = torch.empty((e,), device=x.device)
-    err = fn(*(t.data_ptr() for t in (x, w1, b1, w2, g, dx, part, grads)),
-             r, din, f, dout, n_splits, *fm_mod._dropout_args(rate, seed),
+    y = torch.empty((r, dout), device=x.device)
+    err = fn(*(t.data_ptr() for t in (x, w1, b1, w2, b2, y)), r, din, f,
+             dout, *fm_mod._dropout_args(rate, seed),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"fused_mlp_bwd (parent interface): {err}")
-    dw1, db1, dw2, db2 = grads.split([din * f, f, f * dout, dout])
-    return dx, dw1.view(din, f), db1, dw2.view(f, dout), db2
+        raise RuntimeError(f"fused_mlp_fwd (parent interface): {err}")
+    return y
 
 
-def cpu32_text(got, want, cpu):
+def ratio_text(got, want, cpu, outs):
     """Each output's max abs error from the float64 outputs `want` over
     the CPU float32 route's `cpu` (chip_smoke.cpu32_ratios' statistic)."""
-    outs = ("dx", "dW1", "db1", "dW2", "db2")
     e = lambda a, w: float((a.cpu().double() - w.cpu()).abs().max())
     return " ".join(f"{o} {e(g_, w_) / e(c_, w_):.2f}"
                     for o, g_, w_, c_ in zip(outs, got, want, cpu))
 
 
+BWD_OUTS = ("dx", "dW1", "db1", "dW2", "db2")
+
+
 def ab_mlp(dirs, dev, checks=True) -> int:
+    """The forward (warm and cold) and the backward (warm) of each tree at
+    MLP_AB, two rounds; with `checks`, each held to plain, its error from
+    float64 over the CPU float32 route's, and compared bit for bit with
+    the first tree."""
     inputs = {s: cs.mlp_inputs(s[0] + s[2], *s[:4], dev) for s in MLP_AB}
     refs = {}
     if checks:   # float64 on the card, float32 on the CPU
         for s in MLP_AB:
-            x, w1, b1, w2, _, g = inputs[s]
+            x, w1, b1, w2, b2, g = inputs[s]
             with torch.no_grad():
-                refs[s] = (fm_mod.fused_mlp_bwd_plain(
+                refs[s, "fwd"] = (
+                    [fm_mod.fused_mlp_plain(
+                        *(t.double() for t in (x, w1, b1, w2, b2)), s[4], 7)],
+                    [fm_mod.fused_mlp_plain(
+                        *(t.cpu() for t in (x, w1, b1, w2, b2)), s[4], 7)])
+                refs[s, "bwd"] = (fm_mod.fused_mlp_bwd_plain(
                     *(t.double() for t in (x, w1, b1, w2, g)), s[4], 7),
                     fm_mod.fused_mlp_bwd_plain(
                         *(t.cpu() for t in (x, w1, b1, w2, g)), s[4], 7))
@@ -798,30 +822,48 @@ def ab_mlp(dirs, dev, checks=True) -> int:
         for d in order:
             use(d)
             for s in MLP_AB:
-                x, w1, b1, w2, _, g = inputs[s]
-                fn = lambda: mlp_bwd(x, w1, b1, w2, g, s[4], 7)
+                x, w1, b1, w2, b2, g = inputs[s]
+                calls = {
+                    "fwd": (lambda: [mlp_fwd(x, w1, b1, w2, b2, s[4], 7)],
+                            lambda: [fm_mod.fused_mlp_plain(
+                                x, w1, b1, w2, b2, s[4], 7)], ("y",)),
+                    "bwd": (lambda: fm_mod.fused_mlp_bwd(x, w1, b1, w2, g,
+                                                         s[4], 7),
+                            lambda: fm_mod.fused_mlp_bwd_plain(
+                                x, w1, b1, w2, g, s[4], 7), BWD_OUTS)}
                 with torch.no_grad():
-                    times.setdefault((d.name, s), []).append(time_ms(fn))
+                    fwd = calls["fwd"][0]
+                    times.setdefault((d.name, "fwd", s), []).append(
+                        time_ms(fwd))
+                    times.setdefault((d.name, "fwd cold", s), []).append(
+                        time_ms(fwd, cold=True))
+                    times.setdefault((d.name, "bwd", s), []).append(
+                        time_ms(calls["bwd"][0]))
                     if rnd or not checks:
                         continue
-                    got = fn()
-                    want = fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2, g, s[4],
-                                                      7)
-                    for g_, w_ in zip(got, want):
-                        torch.testing.assert_close(g_, w_, **cs.KERNEL_TOL)
-                    print(f"{d.name} fused_mlp_bwd R={s[0]} rate={s[4]}: "
-                          f"error from float64 over the CPU float32 "
-                          f"route's {cpu32_text(got, *refs[s])}", flush=True)
-                    if s not in first:
-                        first[s] = (d.name, [t.clone() for t in got])
-                    else:
-                        same = all(map(torch.equal, got, first[s][1]))
-                        print(f"{d.name} fused_mlp_bwd R={s[0]} rate={s[4]}"
-                              f" bit-equal to {first[s][0]}: {same}",
+                    for which, (fn, plain, outs) in calls.items():
+                        got, want = fn(), plain()
+                        for g_, w_ in zip(got, want):
+                            torch.testing.assert_close(g_, w_,
+                                                       **cs.KERNEL_TOL)
+                        tag = f"{d.name} fused_mlp_{which} R={s[0]} " \
+                              f"rate={s[4]}"
+                        print(f"{tag}: error from float64 over the CPU "
+                              f"float32 route's "
+                              f"{ratio_text(got, *refs[s, which], outs)}",
                               flush=True)
-    for (name, s), ts in times.items():
-        print(f"AB {name:12s} fused_mlp_bwd R={s[0]:5d} d={s[1]} F={s[2]} "
-              f"rate={s[4]}: " + " ".join(f"{t:.4f}" for t in ts))
+                        if (s, which) not in first:
+                            first[s, which] = (d.name,
+                                               [t.clone() for t in got])
+                        else:
+                            same = all(map(torch.equal, got,
+                                           first[s, which][1]))
+                            print(f"{tag} bit-equal to "
+                                  f"{first[s, which][0]}: {same}",
+                                  flush=True)
+    for (name, which, s), ts in times.items():
+        print(f"AB {name:12s} fused_mlp_{which:8s} R={s[0]:5d} d={s[1]} "
+              f"F={s[2]} rate={s[4]}: " + " ".join(f"{t:.4f}" for t in ts))
     return 0
 
 
@@ -835,7 +877,7 @@ def pre_exact(dev) -> int:
     for o, r in enumerate(sel):
         g[r, o] = 1.0
     with torch.no_grad():
-        dw2 = mlp_bwd(x, w1, b1, w2, g, 0.0, 7)[3]
+        dw2 = fm_mod.fused_mlp_bwd(x, w1, b1, w2, g, 0.0, 7)[3]
     want = torch.relu(x[sel].double() @ w1.double() + b1.double()).float()
     return int((dw2.T != want).sum())
 
@@ -848,30 +890,37 @@ def check_mlp(dirs, dev) -> int:
             hash_sass(d)
         use(d)
         for r, din, f, dout, rate in MLP_EDGES:
-            x, w1, b1, w2, _, g = cs.mlp_inputs(r + f + din, r, din, f, dout,
-                                                dev, g_scale=0.05)
+            x, w1, b1, w2, b2, g = cs.mlp_inputs(r + f + din, r, din, f,
+                                                 dout, dev, g_scale=0.05)
             with torch.no_grad():
-                got = mlp_bwd(x, w1, b1, w2, g, rate, 7)
-                again = mlp_bwd(x, w1, b1, w2, g, rate, 7)
-                want = fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2, g, rate, 7)
-                torch.cuda.synchronize()
-            same = all(map(torch.equal, got, again))
-            bad += not same
-            text, n_bad = misses(got, want)
-            bad += n_bad
-            print(f"fused_mlp_bwd {d.name} R={r} d_in={din} F={f} "
-                  f"d_out={dout} rate={rate}: bit-identical {same}; "
-                  + "; ".join(text), flush=True)
-        if hasattr(build.load("fused_mlp"), "feta_fused_mlp_bwd_grid"):
+                calls = (("fwd", lambda: [mlp_fwd(x, w1, b1, w2, b2, rate,
+                                                  7)],
+                          lambda: [fm_mod.fused_mlp_plain(x, w1, b1, w2, b2,
+                                                          rate, 7)]),
+                         ("bwd", lambda: fm_mod.fused_mlp_bwd(x, w1, b1, w2,
+                                                              g, rate, 7),
+                          lambda: fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2,
+                                                             g, rate, 7)))
+                for which, fn, plain in calls:
+                    got, again, want = fn(), fn(), plain()
+                    torch.cuda.synchronize()
+                    same = all(map(torch.equal, got, again))
+                    bad += not same
+                    text, n_bad = misses(got, want)
+                    bad += n_bad
+                    print(f"fused_mlp_{which} {d.name} R={r} d_in={din} "
+                          f"F={f} d_out={dout} rate={rate}: bit-identical "
+                          f"{same}; " + "; ".join(text), flush=True)
+        if hasattr(build.load("fused_mlp"), "feta_fused_mlp_fwd_slabs"):
             keep_f, keep_b = cs.mlp_masks(dev, 1234, 0.1, rows=64)
             want = fm_mod.dropout_keep(1234, 64, 64, 0.1, dev)
             masks = torch.equal(keep_f, want) and torch.equal(keep_b, want)
             bad += not masks
             wrong = pre_exact(dev)
             bad += wrong != 0
-            print(f"fused_mlp {d.name}: masks bit-equal to dropout_keep "
-                  f"{masks}; relu(pre) of 8 rows x 2048 units exact: "
-                  f"{wrong} mismatches", flush=True)
+            print(f"fused_mlp {d.name}: forward and backward masks "
+                  f"bit-equal to dropout_keep {masks}; relu(pre) of 8 rows "
+                  f"x 2048 units exact: {wrong} mismatches", flush=True)
     print(f"check mlp: {bad} failures")
     return 1 if bad else 0
 

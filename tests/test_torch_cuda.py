@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import masked_cells, mlp_inputs, mlp_masks
+from chip_smoke import (FUSED_CPU32_FACTOR, masked_cells, mlp_inputs,
+                        mlp_masks)
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
     sbm_like_dataset,
@@ -448,6 +449,31 @@ def test_cuda_fused_mlp_matches_plain(cuda, r, din, f, dout, rate):
     assert all(torch.equal(a, b) for a, b in zip(got_b, again))
     assert (tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches) == (
         before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,din,f,dout,rate", [
+    (4096, 8, 2048, 8, 0.0), (4096, 8, 2048, 8, 0.1),
+    (10007, 16, 2048, 16, 0.1), (300, 20, 520, 8, 0.0)])
+def test_cuda_fused_mlp_fwd_float64_and_bits(cuda, r, din, f, dout, rate):
+    """The forward's y: two runs bit-identical, and its error from a
+    float64 run of the plain version within 2x the CPU float32 route's
+    (chip_smoke.FUSED_CPU32_FACTOR), one slab (d 8) and two or more (d 16
+    and 20 at F = 2048 and 520)."""
+    x, w1, b1, w2, b2, _ = _mlp_inputs(5, r, din, f, dout)
+    with torch.no_grad():
+        got = tfm.fused_mlp_fwd(*(t.to(cuda) for t in (x, w1, b1, w2, b2)),
+                                rate, 17)
+        again = tfm.fused_mlp_fwd(*(t.to(cuda) for t in (x, w1, b1, w2,
+                                                         b2)), rate, 17)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    cpu = tfm.fused_mlp_plain(x, w1, b1, w2, b2, rate, 17)
+    want = tfm.fused_mlp_plain(*(t.double() for t in (x, w1, b1, w2, b2)),
+                               rate, 17)
+    e_k = float((got.cpu().double() - want).abs().max())
+    e_c = float((cpu.double() - want).abs().max())
+    assert e_k <= FUSED_CPU32_FACTOR * e_c, (e_k, e_c)
 
 
 @pytest.mark.cuda
