@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card, at the
      slices' shapes, printing the largest absolute error, the kernel's and
      the plain version's median device milliseconds (CUDA events, each call
-     queued behind ~1 ms of device spin; see `time_ms`) and the bound (the
+     queued behind ~1 ms of device spin; see `time_ms`) and the bound,
+     counted from the mask (the attention kernels' from the pairs whose
+     query and key are both real: `real_counts`; the
      four backward passes, which run on the tensor cores in 3xTF32, also
      against that arithmetic's bound, and the folded ones against the
      unfolded):
@@ -19,10 +21,15 @@ Phases (any failure raises and the script exits non-zero):
      (B=4, the training batch, and B=8, the serving batch) and at a ragged
      N=200 with B=8 and at the ZINC batch (B=128, N=48), with padded
      nodes, the backward kernels also on rows in the |su/se| <= 1e-9
-     branch; the head-folded attention kernels at B=1 and B=2, N=2048 and
-     at B=2, N=1990, value widths 64 and 8, against their plain versions
-     and their unfolded CUDA twins, guard rows included, two runs
-     bit-identical; the fused-MLP kernels at the SAN eigen-PE head's 40,960
+     branch; the unfolded ones again at the molhiv width D=128, value
+     widths 128 and 16, at B=4, N=1024 and at the molhiv request's
+     B=128, N=222 (20-27 real nodes a graph), each
+     output also within 2x the CPU float32 route's error from a float64
+     run of the plain version; the head-folded attention kernels at B=1
+     and B=2, N=2048 and at B=2, N=1990, value widths 64 and 8, against
+     their plain versions and their unfolded CUDA twins, guard rows
+     included, two runs bit-identical; the fused-MLP kernels at the SAN
+     eigen-PE head's 40,960
      rows (d 8, F 2048) and at a ragged 10,007, at dropout 0 and 0.1, with
      their masks read back bit-equal to the plain version's, a keep
      fraction of 0.9 +- 0.002, two forward and two backward runs
@@ -96,12 +103,23 @@ Phases (any failure raises and the script exits non-zero):
      (flash_need_heads off: the filtered layer through the score product
      and the modulation kernel) serve two requests and train 1 + 2 epochs;
      then 9 interleaved rounds of one request and one epoch per setting;
- 11. print the kernels' JSON line, the card line, and the final status line
+ 11. the OGB molhiv classifier (DiffGraphTransformerGenGCNMolHiv at its
+     CLI's widths: d_model 128, 8 heads, 4 layers, ff 256, Chebyshev
+     order 4, no batch norm, no PE; random weights from a seed) on the
+     "flash" route: three requests of 128 ogb_like_dataset molecules
+     through `Predictor` padded to their own largest molecule and three
+     padded to N=222 (ogbg-molhiv's largest), 4 + 2 launches each, the
+     logits held to a float64 CPU forward (all 128 at their own padding,
+     every 16th at N=222), ms per request and graphs/s; the 10 molecules of tests/fixtures/ogbg_molhiv
+     read by `data/ogb_raw.py` and served at N=222; 3 binary_graph steps
+     (sigmoid BCE, warmup) on the 128 molecules, 4 + 2 + 4 + 4 launches a
+     step, then one step on 16 graphs held to a float64 CPU step;
+ 12. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
 training step's device time, for each model (ZINC on the "fused" route,
-SBM at N=2048 under "fold").
+SBM at N=2048 under "fold", molhiv requests at both paddings).
 `--rounding` runs only phase 5's parity step, on the canonical LapPE signs
 and on 8 random sign patterns, and prints how far float32 rounding moves
 its loss and gradients from float64 on CUDA and on the CPU; then phase
@@ -140,7 +158,12 @@ import numpy as np
 import torch
 
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
+from feta_tmlr_tpu_torch.data.ogb_raw import (
+    ATOM_FEATURE_DIMS,
+    load_ogb_graphs,
+)
 from feta_tmlr_tpu_torch.data.synthetic import (
+    ogb_like_dataset,
     sbm_like_dataset,
     zinc_categorical_dataset,
     zinc_like_dataset,
@@ -151,6 +174,7 @@ from feta_tmlr_tpu_torch.nn.models import (
     DiffGraphTransformerGenGCN,
     DiffGraphTransformerGenGCNSBM,
 )
+from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import build
 from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
@@ -165,7 +189,11 @@ from feta_tmlr_tpu_torch.pe.encodings import (
 )
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.serve import Predictor
-from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
+from feta_tmlr_tpu_torch.train.trainer import (
+    TrainConfig,
+    Trainer,
+    task_metric,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -349,6 +377,44 @@ LARGE_STEP_LAUNCHES = {
 # checks of the head-folded kernels: (B, N, padding) at the training shape,
 # the serving shape and a ragged N; the JSON rows are the first shape's
 HF_SHAPES = ((1, LARGE_N, 100), (2, LARGE_N, 60), (2, 1990, 9))
+# The OGB molhiv classifier at its CLI's widths
+# (feta_tmlr_tpu/experiments/run_transformer_gengcn_molhiv.py:42-77 with
+# experiments/common.py's defaults: d_model 128, 8 heads, 4 layers, ff 256,
+# dropout 0, Chebyshev order 4, the last layer filtered, no batch norm, no
+# PE), random weights from a seed, on the "flash" route: the unfolded
+# kernels at D = 128 (dv 128 on the three unfiltered layers, 16 on the
+# filtered one). Requests of 128 ogb_like_dataset molecules (the CLI's
+# synthetic fallback, 8-27 atoms), padded to their own largest molecule and
+# to N = 222, the largest molecule of ogbg-molhiv, which the CLI pads real
+# batches to; the 10 molecules of tests/fixtures/ogbg_molhiv; 3 training
+# steps (binary_graph, sigmoid BCE, warmup)
+MOLHIV_CFG = dict(nb_class=1, d_model=128, nb_heads=8, dim_feedforward=256,
+                  dropout=0.0, nb_layers=4, batch_norm=False,
+                  filter_order=4)
+MOLHIV_GRAPHS = 128
+MOLHIV_REAL_N = 222
+MOLHIV_REQUESTS = 3
+MOLHIV_STEPS = 3
+# served graphs held to the float64 CPU forward at N = 222: every 16th
+# (at the batch's own padding, and of the fixture's 10, all of them)
+MOLHIV_REF_STRIDE = 16
+MOLHIV_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "fixtures")
+MOLHIV_REQUEST_LAUNCHES = {**NONE, "flash_fwd": 4, "colstat": 2}
+MOLHIV_STEP_LAUNCHES = {**NONE, "flash_fwd": 4, "colstat": 2,
+                        "flash_bwd_q": 4, "flash_bwd_k": 4}
+MOLHIV_STEP_PARAMS = ("embedding.atom_emb_0.weight", "encoder.layers.0.qkv",
+                      "encoder.layers.3.qkv",
+                      "encoder.layers.3.out_proj_kernel",
+                      "encoder.coeff_head.gcn_kernel", "cls_fc2.weight")
+# the unfolded kernels at the molhiv width: (B, N, padding) at the SBM
+# slice's training shape, beside the D = 64 rows, and at the molhiv
+# request padded to N = 222 (ragged; 20-27 real nodes a graph, as
+# ogb_like_dataset's molecules); the `*_d128` fields of the JSON rows are
+# the first shape's at dv = 128
+WIDE_D = 128
+WIDE_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (MOLHIV_GRAPHS, MOLHIV_REAL_N,
+                                              MOLHIV_REAL_N - 27))
 # `--precision`'s backward probe: the canonical signs and the `--rounding`
 # sign pattern on which the N=2048 step's CUDA gradients were furthest
 # from float64 against the CPU's float32 route (3.99x, PERF.md)
@@ -425,18 +491,36 @@ def max_err(got, want, name):
     return worst
 
 
-def flash_cost(b, h, n, d, dv):
-    flops = 2.0 * b * h * n * n * (d + dv)
-    nbytes = 4.0 * (b * h * n * d + b * n * d + b * h * n * dv + b * n * n
-                    + 2 * b * n + 2 * b * h * n + h
+def real_counts(mask):
+    """(B, N, real nodes, real (query, key) pairs) of a mask [B, N]: the
+    attention kernels' work is the score of each pair whose query and key
+    are both real; a padded row's outputs are written, not computed."""
+    real = (mask > 0).sum(-1).double()
+    b, n = mask.shape
+    return b, n, float(real.sum()), float((real * real).sum())
+
+
+def flash_cost(mask, h, d, dv):
+    """(flops, bytes) of the forward on these inputs, counted from the mask
+    [B, N]: the score and P·V of each real pair; the real rows of each
+    input and the real pairs of pe read once, the whole mask read, each
+    output (outh, m, se, su) written once."""
+    b, n, rows, pairs = real_counts(mask)
+    flops = 2.0 * h * pairs * (d + dv)
+    nbytes = 4.0 * (h * rows * d + rows * d + h * rows * dv + pairs
+                    + rows + b * n + 2 * h * rows + h
                     + b * h * n * dv + 3 * b * h * n)
     return flops, nbytes
 
 
-def colstat_cost(b, h, n, d):
-    flops = 2.0 * b * h * n * n * d
-    nbytes = 4.0 * (b * h * n * d + b * n * d + b * n * n + 2 * b * n
-                    + 2 * b * h * n + h + 4 * b * h * n + 2 * b * h * n)
+def colstat_cost(mask, h, d):
+    """(flops, bytes) of colstat on these inputs, counted from the mask as
+    `flash_cost`: the score of each real pair; the real rows of its inputs
+    (with m, se, su and wq) read once, each output written once."""
+    b, n, rows, pairs = real_counts(mask)
+    flops = 2.0 * h * pairs * d
+    nbytes = 4.0 * (h * rows * d + rows * d + pairs + rows + b * n
+                    + 2 * h * rows + h + 4 * h * rows + 2 * b * h * n)
     return flops, nbytes
 
 
@@ -458,20 +542,20 @@ def bound_tc(flops, nbytes, fma_flops):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def pass_bounds(t, cost, b, h, n, d):
+def pass_bounds(t, cost, mask, h, d):
     """A flash or fused attention kernel's bounds from its (flops, bytes)
-    `cost`. Each takes its score (2·B·H·N²·D of the flops) on the CUDA
-    cores as one FMA chain and its other products (the forwards one, the
-    query passes two, the key passes three, the fused backward four) on
-    the tensor cores in 3xTF32: the bound of what it issues (`bound_tc`),
-    which is its `bound_ms`, beside all of it as f32 FMAs on the CUDA
-    cores; the fields of its JSON row and the text with each share of time
-    `t`."""
+    `cost`. Each takes its score (2·H·D flops a real pair of the mask
+    [B, N]) on the CUDA cores as one FMA chain and its other products (the
+    forwards one, the query passes two, the key passes three, the fused
+    backward four) on the tensor cores in 3xTF32: the bound of what it
+    issues (`bound_tc`), which is its `bound_ms`, beside all of it as f32
+    FMAs on the CUDA cores; the fields of its JSON row and the text with
+    each share of time `t`."""
     (b32, by32) = bound(*cost)
-    (btc, bytc) = bound_tc(*cost, 2.0 * b * h * n * n * d)
-    text = (f"bound {btc:.4f} ms {bytc} ({100 * btc / t:.1f} %; CUDA-core "
-            f"score, 3xTF32 tensor-core products), f32 CUDA cores only "
-            f"{b32:.4f} ms {by32} ({100 * b32 / t:.1f} %)")
+    (btc, bytc) = bound_tc(*cost, 2.0 * h * real_counts(mask)[3] * d)
+    text = (f"bound {btc:.4f} ms {bytc} ({100 * btc / t:.2f} %; CUDA-core "
+            f"score, 3xTF32 tensor-core products; real pairs only), f32 "
+            f"CUDA cores only {b32:.4f} ms {by32} ({100 * b32 / t:.2f} %)")
     return dict(bound_ms=btc, bound_by=bytc, bound_f32_ms=b32), text
 
 
@@ -502,17 +586,19 @@ def check_colstat(ops, stats, wq, tag):
     return err, " / ".join(texts)
 
 
-def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
+def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES, dvs=(64, 8),
+                  fold_shape=True, f64=False):
     """Phase 3: each kernel vs its plain version, two runs of the
     forward and of colstat bit-identical, colstat's error from float64
     within 2x the CPU float32 route's (colstat does not read vw: each dv
-    gives it another draw of the inputs); then colstat at the `fold`
-    step's B=1, N=2048; returns the JSON rows (numbers of the first shape
-    at dv=64, errors over all shapes)."""
+    gives it another draw of the inputs; with `f64` the forward's too);
+    then (`fold_shape`) colstat at the `fold` step's B=1, N=2048; returns
+    the JSON rows (numbers of the first shape at dvs[0], errors over all
+    shapes)."""
     rows = {}
     errs = {"flash_fwd": 0.0, "colstat": 0.0}
     for b, n, pad in shapes:
-        for dv in (64, 8):
+        for dv in dvs:
             ops, vw = attention_inputs(b + n + dv, b, h, n, d, dv, pad,
                                        device)
             with torch.inference_mode():
@@ -526,6 +612,17 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                 stats = dict(m=want[1], se=want[2], su=want[3])
                 wq = torch.rand(want[2].shape, device=device,
                                 generator=torch.Generator(device).manual_seed(n))
+            r1 = ""
+            if f64:
+                r1 = ("; flash_fwd's error from float64 over the CPU float32 "
+                      "route's: " + cpu32_ratios(
+                          got, lambda a: fl_mod.flash_fwd_plain(*a),
+                          ("outh", "m", "se", "su"),
+                          [ops[k] for k in ("xa", "x", "cq", "ck", "c0")]
+                          + [vw] + [ops[k] for k in ("pe", "deg", "mask",
+                                                     "inv_sqrt")],
+                          f"flash_fwd B={b} N={n} D={d} dv={dv}")
+                      + f" (at most {FUSED_CPU32_FACTOR})")
             e2, r2 = check_colstat(ops, stats, wq, f"B={b} N={n} dv={dv}")
             with torch.inference_mode():
                 torch.cuda.synchronize()
@@ -536,9 +633,9 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                                                            wq=wq))
             errs["flash_fwd"] = max(errs["flash_fwd"], e1)
             errs["colstat"] = max(errs["colstat"], e2)
-            f_row, f_text = pass_bounds(t_k, flash_cost(b, h, n, d, dv), b,
-                                        h, n, d)
-            cb, cby = bound(*colstat_cost(b, h, n, d))
+            f_row, f_text = pass_bounds(
+                t_k, flash_cost(ops["mask"], h, d, dv), ops["mask"], h, d)
+            cb, cby = bound(*colstat_cost(ops["mask"], h, d))
             print(f"kernel check B={b} H={h} N={n} D={d} dv={dv} pad~{pad}: "
                   f"flash_fwd err {e1:.3e} {t_k:.4f} ms (plain {t_p:.4f} ms,"
                   f" {f_text}); colstat err {e2:.3e} "
@@ -546,11 +643,16 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                   f"{cby}); flash_fwd's and colstat's two runs "
                   f"bit-identical; tolerance rtol 1e-4 atol 1e-5; colstat's "
                   f"error from float64 over the CPU float32 route's (wq 1 / "
-                  f"wq): {r2} (at most {FUSED_CPU32_FACTOR})", flush=True)
-            if (b, n, pad) == shapes[0] and dv == 64:
+                  f"wq): {r2} (at most {FUSED_CPU32_FACTOR}){r1}",
+                  flush=True)
+            if (b, n, pad) == shapes[0] and dv == dvs[0]:
                 rows["flash_fwd"] = dict(ms=t_k, plain_ms=t_p, **f_row)
                 rows["colstat"] = dict(ms=c_k, plain_ms=c_p, bound_ms=cb,
                                        bound_by=cby)
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    if not fold_shape:
+        return rows
     b, n, pad = HF_SHAPES[0]
     ops, vw = attention_inputs(b + n, b, h, n, d, 8, pad, device)
     with torch.inference_mode():
@@ -563,28 +665,30 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
     with torch.inference_mode():
         c_k = time_ms(lambda: cs_mod.colstat(**ops, **stats, wq=wq))
         c_p = time_ms(lambda: cs_mod.colstat_plain(**ops, **stats, wq=wq))
-    cb, cby = bound(*colstat_cost(b, h, n, d))
+    cb, cby = bound(*colstat_cost(ops["mask"], h, d))
     print(f"colstat check B={b} H={h} N={n} D={d} pad~{pad} (the fold "
           f"step's shape): err {e2:.3e} {c_k:.4f} ms (plain {c_p:.4f} ms, "
           f"bound {cb:.4f} ms {cby}); two runs bit-identical; tolerance rtol "
           f"1e-4 atol 1e-5; error from float64 over the CPU float32 "
           f"route's (wq 1 / wq): {r2} (at most {FUSED_CPU32_FACTOR})",
           flush=True)
-    for name in rows:
-        rows[name]["max_abs_err"] = errs[name]
+    rows["colstat"]["max_abs_err"] = errs["colstat"]
     return rows
 
 
-def bwd_cost(b, h, n, d, dv, which):
-    """(flops, bytes) of one backward pass: each input read once (the
-    forward's operands, g and five row constants), each output written
-    once (q: dxa, dcq; k: dvw, dck, dx)."""
-    inputs = (b * h * n * d + b * n * d + 2 * b * h * n + h + b * n * n
-              + 2 * b * n + 2 * b * h * n * dv + 5 * b * h * n)
+def bwd_cost(mask, h, d, dv, which):
+    """(flops, bytes) of one backward pass on these inputs, counted from
+    the mask as `flash_cost`: the products of each real pair; the real rows
+    of each input (the forward's operands, g and five row constants) and
+    the real pairs of pe read once, each output written once (q: dxa, dcq;
+    k: dvw, dck, dx)."""
+    b, n, rows, pairs = real_counts(mask)
+    inputs = (h * rows * d + rows * d + 2 * h * rows + h + pairs + rows
+              + b * n + 2 * h * rows * dv + 5 * h * rows)
     if which == "q":
-        return (2.0 * b * h * n * n * (2 * d + dv),
+        return (2.0 * h * pairs * (2 * d + dv),
                 4.0 * (inputs + b * h * n * d + b * h * n))
-    return (2.0 * b * h * n * n * (2 * d + 2 * dv),
+    return (2.0 * h * pairs * (2 * d + 2 * dv),
             4.0 * (inputs + b * h * n * dv + b * h * n + b * n * d))
 
 
@@ -612,18 +716,21 @@ def bwd_inputs(seed, b, h, n, d, dv, pad, device, guard_rows=8):
     return args, n_guard, int((consts[3] != 0).sum())
 
 
-def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
+def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES, dvs=(64, 8),
+                      f64=False):
     """Phase 3, backward: flash_bwd_q / flash_bwd_k vs their plain
-    versions, two runs of each bit-identical; returns the JSON rows like
-    `check_kernels`."""
+    versions, two runs of each bit-identical; with `f64`, each output's
+    error from float64 within 2x the CPU float32 route's; returns the JSON
+    rows like `check_kernels`."""
     rows = {}
     errs = {"flash_bwd_q": 0.0, "flash_bwd_k": 0.0}
     passes = {"flash_bwd_q": (fl_mod.flash_bwd_q, fl_mod.flash_bwd_q_plain),
               "flash_bwd_k": (fl_mod.flash_bwd_k, fl_mod.flash_bwd_k_plain)}
     for b, n, pad in shapes:
-        for dv in (64, 8):
+        for dv in dvs:
             args, n_guard, n_c = bwd_inputs(b + n + dv + 1, b, h, n, d, dv,
                                             pad, device)
+            mask = args[8]
             line = [f"backward check B={b} H={h} N={n} D={d} dv={dv} "
                     f"pad~{pad}: {n_guard} rows in the guard branch, {n_c} "
                     f"with c != 0"]
@@ -640,12 +747,19 @@ def check_bwd_kernels(device, h=8, d=64, shapes=CHECK_SHAPES):
                     t_k = time_ms(lambda: kernel(*args))
                     t_p = time_ms(lambda: plain(*args))
                     row, text = pass_bounds(
-                        t_k, bwd_cost(b, h, n, d, dv, name[-1]), b, h, n, d)
+                        t_k, bwd_cost(mask, h, d, dv, name[-1]), mask, h, d)
+                    if f64:
+                        text += ("; error from float64 over the CPU float32 "
+                                 "route's: " + cpu32_ratios(
+                                     got, lambda a, p=plain: p(*a), outs,
+                                     list(args), f"{name} B={b} N={n} D={d} "
+                                     f"dv={dv}")
+                                 + f" (at most {FUSED_CPU32_FACTOR})")
                     line.append(
                         f"{name} err " + " ".join(
                             f"{o} {e:.3e}" for o, e in zip(outs, each))
                         + f"; {t_k:.4f} ms (plain {t_p:.4f} ms, {text})")
-                    if (b, n, pad) == shapes[0] and dv == 64:
+                    if (b, n, pad) == shapes[0] and dv == dvs[0]:
                         rows[name] = dict(ms=t_k, plain_ms=t_p, **row)
             print("; ".join(line) + "; two runs of each bit-identical; "
                   "tolerance rtol 1e-4 atol 1e-5", flush=True)
@@ -667,16 +781,17 @@ def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
         for dv in (64, 8):
             args, n_guard, n_c = bwd_inputs(b + n + dv + 2, b, h, n, d, dv,
                                             pad, device)
+            mask = args[8]
             passes = (
                 ("flash_fwd_hf", fl_mod.flash_fwd, fl_mod.flash_fwd_plain,
                  args[:10], ("outh", "m", "se", "su"),
-                 flash_cost(b, h, n, d, dv)),
+                 flash_cost(mask, h, d, dv)),
                 ("flash_bwd_q_hf", fl_mod.flash_bwd_q,
                  fl_mod.flash_bwd_q_plain, args, ("dxa", "dcq"),
-                 bwd_cost(b, h, n, d, dv, "q")),
+                 bwd_cost(mask, h, d, dv, "q")),
                 ("flash_bwd_k_hf", fl_mod.flash_bwd_k,
                  fl_mod.flash_bwd_k_plain, args, ("dvw", "dck", "dx"),
-                 bwd_cost(b, h, n, d, dv, "k")))
+                 bwd_cost(mask, h, d, dv, "k")))
             line = [f"folded check B={b} H={h} N={n} D={d} dv={dv} "
                     f"pad~{pad}: {n_guard} rows in the guard branch, {n_c} "
                     f"with c != 0"]
@@ -697,7 +812,7 @@ def check_hf_kernels(device, h=8, d=64, shapes=HF_SHAPES):
                     t_k, t_u, t_p = (time_ms(lambda f=f: f(*a))
                                      for f in (kernel, twin, plain))
                 errs[name] = max(errs[name], *each)
-                row, text = pass_bounds(t_k, cost, b, h, n, d)
+                row, text = pass_bounds(t_k, cost, mask, h, d)
                 line.append(
                     f"{name} err " + " ".join(
                         f"{o} {e:.3e}" for o, e in zip(outs, each))
@@ -915,15 +1030,18 @@ def masked_cells(mask):
     return ~(real[:, None, :, None] & real[:, None, None, :])
 
 
-def fused_cost(b, h, n, d, which):
-    """(operations, bytes): the forward's 2 products of 2 B H N^2 D flops,
-    the backward's 5; each input read once, each output written once."""
-    inputs = 2 * b * h * n * d + b * n * d + 2 * b * h * n + h + b * n * n \
-        + 2 * b * n
+def fused_cost(mask, h, d, which):
+    """(operations, bytes), counted from the mask as `flash_cost`: the
+    forward's 2 products of 2·H·D flops a real pair, the backward's 5; the
+    real rows of each input and the real pairs of pe read once, each output
+    written once."""
+    b, n, rows, pairs = real_counts(mask)
+    inputs = 2 * h * rows * d + rows * d + 2 * h * rows + h + pairs \
+        + rows + b * n
     if which == "fwd":
-        return 4.0 * b * h * n * n * d, 4.0 * (inputs + b * n * d)
-    return (10.0 * b * h * n * n * d,
-            4.0 * (inputs + b * n * d + 2 * b * h * n * d + b * n * d
+        return 4.0 * h * pairs * d, 4.0 * (inputs + b * n * d)
+    return (10.0 * h * pairs * d,
+            4.0 * (inputs + rows * d + 2 * b * h * n * d + b * n * d
                    + 2 * b * h * n + b * h))
 
 
@@ -1076,10 +1194,11 @@ def check_fused_attention(device, h=8, d=64, shapes=FUSED_SHAPES):
                            outs, args, f"fused_attn_bwd {tag}")
         errs["fused_attn_fwd"] = max(errs["fused_attn_fwd"], e_f)
         errs["fused_attn_bwd"] = max(errs["fused_attn_bwd"], *each)
-        jf, tf = pass_bounds(times[0], fused_cost(b, h, n, d, "fwd"), b, h,
-                             n, d)
-        jb, tb = pass_bounds(times[1], fused_cost(b, h, n, d, "bwd"), b, h,
-                             n, d)
+        mask = ops["mask"]
+        jf, tf = pass_bounds(times[0], fused_cost(mask, h, d, "fwd"), mask,
+                             h, d)
+        jb, tb = pass_bounds(times[1], fused_cost(mask, h, d, "bwd"), mask,
+                             h, d)
         print(f"fused-attention check B={b} H={h} N={n} D={d} pad~{pad} "
               f"(clusters of {fa_mod.cluster_size(h)} CTAs): fwd err "
               f"{e_f:.3e} {times[0]:.4f} ms (plain {times[2]:.4f} ms; {tf}); "
@@ -1816,6 +1935,153 @@ def large_slice(device, card, profile=False):
     return runs
 
 
+def molhiv_logits_check(model, graphs, served, n_nodes, label, stride=1):
+    """Every `stride`-th graph of `served` (the CUDA logits of `graphs` at
+    padding `n_nodes`) against a float64 forward of the same graphs on the
+    CPU, within SLICE_TOL; prints the CPU float32 route's error beside."""
+    ref_graphs = graphs[::stride]
+    batch = collate_graphs(ref_graphs, max_nodes=n_nodes)
+    with torch.inference_mode():
+        ref = copy.deepcopy(model).to("cpu", torch.float64)(
+            as_float64(batch))[0].numpy()
+        ref32 = copy.deepcopy(model).to("cpu")(batch)[0].numpy()
+    got = served[::stride]
+    real = np.isfinite(ref)
+    gap = lambda a: float(np.abs(a - ref)[real].max()) if real.any() else 0.
+    which = f"every {stride}th of" if stride > 1 else "all"
+    print(f"{label}: CUDA logits of {len(ref_graphs)} graphs ({which} "
+          f"{len(graphs)}) at N={n_nodes} against float64 on the CPU: max abs err {gap(got):.3e} (CPU "
+          f"float32 {gap(ref32):.3e}; max |logit| "
+          f"{float(np.abs(ref[real]).max()) if real.any() else 0.:.3f}; "
+          f"NaN in {int((~real).sum())} graphs, at the same ones on CUDA: "
+          f"{bool(np.array_equal(np.isnan(got), ~real))}; tolerance rtol "
+          f"1e-3 atol 1e-3)", flush=True)
+    np.testing.assert_allclose(got, ref, equal_nan=True, **SLICE_TOL)
+
+
+def molhiv_serve(model, graphs, device, card, n_nodes, label, finite=True,
+                 profile=False):
+    """MOLHIV_REQUESTS requests of `graphs` through Predictor at padding
+    `n_nodes`, launch counts read around them, each request's logits the
+    same (and, with `finite`, finite); with `profile`, one more request
+    traced; returns (launches, the first request's logits)."""
+    pred = Predictor(model, device=device, max_batch=MOLHIV_GRAPHS,
+                     collate_kwargs={"max_nodes": n_nodes})
+    reset_launches()
+    outs, call_ms = [], []
+    for _ in range(MOLHIV_REQUESTS):
+        t0 = time.perf_counter()
+        outs.append(pred.predict(graphs))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    want = {k: MOLHIV_REQUESTS * v
+            for k, v in MOLHIV_REQUEST_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} for "
+                             f"{MOLHIV_REQUESTS} requests; expected "
+                             f"{MOLHIV_REQUEST_LAUNCHES} each")
+    for out in outs:
+        if out.shape != (len(graphs),) or (finite
+                                            and not np.isfinite(out).all()):
+            raise AssertionError(f"{label}: bad logits {out}")
+        if not np.array_equal(out, outs[0], equal_nan=True):
+            raise AssertionError(f"{label}: two requests differ")
+    steady = statistics.median(call_ms[1:])
+    print(f"{label}: {MOLHIV_REQUESTS} requests of {len(graphs)} graphs at "
+          f"N={n_nodes}; ms/call {[round(t, 2) for t in call_ms]}; steady "
+          f"(median after the first) {steady:.2f} ms/request = "
+          f"{len(graphs) / steady * 1e3:.1f} graphs/s on {card}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if profile:
+        profile_call(f"one molhiv request of {len(graphs)} graphs at "
+                     f"N={n_nodes}", lambda: pred.predict(graphs))
+    return launches, outs[0]
+
+
+def molhiv_slice(device, card, profile=False):
+    """The molhiv phase: serving at the batch's own padding and at
+    N = 222, the fixture's real molecules, then 3 binary_graph steps;
+    returns the launches of each run."""
+    graphs = ogb_like_dataset(seed=0, n_graphs=MOLHIV_GRAPHS)
+    own_n = max(g.num_nodes for g in graphs)
+    model = DiffGraphTransformerGenGCNMolHiv(**MOLHIV_CFG, seed=0,
+                                             device=device)
+    runs, served = [], {}
+    for n_nodes in (own_n, MOLHIV_REAL_N):
+        label = f"molhiv serve N={n_nodes}"
+        launches, served[n_nodes] = molhiv_serve(model, graphs, device,
+                                                 card, n_nodes, label,
+                                                 profile=profile)
+        runs.append(launches)
+        molhiv_logits_check(model, graphs, served[n_nodes], n_nodes, label,
+                            1 if n_nodes == own_n else MOLHIV_REF_STRIDE)
+    gap = float(np.abs(served[own_n] - served[MOLHIV_REAL_N]).max())
+    auc = task_metric("binary_graph", served[own_n],
+                      np.array([g.y for g in graphs]))["rocauc"]
+    print(f"molhiv serve: logits at N={own_n} and N={MOLHIV_REAL_N} differ "
+          f"by at most {gap:.3e}; ROC-AUC of the served logits against the "
+          f"synthetic labels {auc:.4f}", flush=True)
+    if not np.isfinite(auc):
+        raise AssertionError(f"molhiv: ROC-AUC {auc}")
+    if gap > SLICE_TOL["atol"] + SLICE_TOL["rtol"] * float(
+            np.abs(served[own_n]).max()):
+        raise AssertionError(f"molhiv: logits depend on the padding ({gap})")
+    # The fixture's atom ids run 0-19 in every column
+    # (tests/fixtures/make_fixtures.py), past most of OGB's vocabularies;
+    # the port's atom encoder gives such atoms NaN, as the JAX package's
+    # does. So its molecules are served as read (NaN where float64 has
+    # NaN), then with each id taken modulo its column's vocabulary.
+    real = load_ogb_graphs(MOLHIV_FIXTURES, "ogbg-molhiv")
+    dims = np.array(ATOM_FEATURE_DIMS, np.int32)
+    folded = [dataclasses.replace(g, x=g.x % dims) for g in real]
+    for gs, how in ((real, "as read"), (folded, "ids modulo the vocab")):
+        label = f"molhiv serve, ogbg-molhiv fixture ({how})"
+        launches, out = molhiv_serve(model, gs, device, card, MOLHIV_REAL_N,
+                                     label, finite=gs is folded)
+        runs.append(launches)
+        molhiv_logits_check(model, gs, out, MOLHIV_REAL_N, label)
+        print(f"{label}: {len(gs)} molecules of "
+              f"{min(g.num_nodes for g in gs)}-"
+              f"{max(g.num_nodes for g in gs)} atoms, labels "
+              f"{[int(g.y) for g in gs]}, logits "
+              f"{[round(float(v), 4) for v in out]}", flush=True)
+
+    train_model = DiffGraphTransformerGenGCNMolHiv(**MOLHIV_CFG, seed=1,
+                                                   device=device)
+    initial = copy.deepcopy(train_model)
+    batch = collate_graphs(graphs, max_nodes=own_n).to(device)
+    trainer = Trainer(train_model, TrainConfig(
+        task="binary_graph", lr=1e-3, weight_decay=1e-4, schedule="warmup",
+        warmup_steps=MOLHIV_STEPS, sign_flip=False, seed=0))
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [float(trainer.step(batch)) for _ in range(MOLHIV_STEPS)]
+    step_ms = (time.perf_counter() - t0) * 1e3 / MOLHIV_STEPS
+    launches = read_launches()
+    runs.append(launches)
+    want = {k: MOLHIV_STEPS * v for k, v in MOLHIV_STEP_LAUNCHES.items()}
+    print(f"molhiv train: {MOLHIV_STEPS} steps (binary_graph, sigmoid BCE, "
+          f"AdamW lr 1e-3 warming up over {MOLHIV_STEPS} steps) of "
+          f"{MOLHIV_GRAPHS} graphs at N={own_n}: losses "
+          f"{[round(x, 6) for x in losses]}, {step_ms:.2f} ms/step (with the "
+          f"host syncs of reading each loss) on {card}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; metric of the "
+          f"trained model {trainer.evaluate([batch])}", flush=True)
+    if launches != want:
+        raise AssertionError(f"molhiv train: launch counts {launches}; "
+                             f"expected {MOLHIV_STEP_LAUNCHES} per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"molhiv train: losses {losses}")
+    if profile:
+        profile_call(f"one molhiv training step of {MOLHIV_GRAPHS} graphs "
+                     f"at N={own_n}", lambda: trainer.step(batch))
+    step_parity(initial, graphs[:16], device, "molhiv train",
+                dict(max_nodes=own_n),
+                TrainConfig(task="binary_graph", regularization=0.1,
+                            sign_flip=False), MOLHIV_STEP_PARAMS)
+    return runs
+
+
 def as_float64(batch):
     return dataclasses.replace(batch, **{
         f.name: getattr(batch, f.name).double()
@@ -2361,6 +2627,16 @@ def main() -> int:
         return 0
     rows = check_kernels(device)
     rows.update(check_bwd_kernels(device))
+    wide = check_kernels(device, d=WIDE_D, shapes=WIDE_SHAPES,
+                         dvs=(WIDE_D, 16), fold_shape=False, f64=True)
+    wide.update(check_bwd_kernels(device, d=WIDE_D, shapes=WIDE_SHAPES,
+                                  dvs=(WIDE_D, 16), f64=True))
+    for name, row in wide.items():
+        rows[name].update(ms_d128=row["ms"], plain_ms_d128=row["plain_ms"],
+                          bound_ms_d128=row["bound_ms"],
+                          bound_by_d128=row["bound_by"])
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        row["max_abs_err"])
     rows.update(check_hf_kernels(device))
     rows.update(check_fused_mlp(device))
     rows.update(check_modulation(device))
@@ -2374,6 +2650,7 @@ def main() -> int:
              san_train_slice(san_graphs, device, card, profile=profile)]
     runs += zinc_slice(device, card, profile=profile)
     runs += large_slice(device, card, profile=profile)
+    runs += molhiv_slice(device, card, profile=profile)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"
     meta = {"flash_fwd": ("fwd.cuh", "flash_attention.py:95"),
@@ -2390,8 +2667,8 @@ def main() -> int:
             "fused_attn_fwd": ("fused_attention.cu", "fused_attention.py:60"),
             "fused_attn_bwd": ("fused_attention.cu", "fused_attention.py:85")}
     # launches: the main paths' runs (SBM at N=1024, SAN, ZINC on its
-    # three routes and SBM at N=2048 under its three settings, serving and
-    # training)
+    # three routes, SBM at N=2048 under its three settings and molhiv,
+    # serving and training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,
@@ -2401,7 +2678,8 @@ def main() -> int:
                     bound_ms=rows[name]["bound_ms"],
                     bound_by=rows[name]["bound_by"], library_ms=None,
                     **{k: v for k, v in rows[name].items()
-                       if k == "bound_f32_ms" or k.endswith("_rate0")})
+                       if k == "bound_f32_ms" or k.endswith("_rate0")
+                       or k.endswith("_d128")})
                for name, (src, line) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,6 +6,9 @@ port's module tree mirrors the flax one, so each torch parameter or buffer
 names its flax leaf:
 
   - `layers.<i>` is flax's `layer_<i>`;
+  - the OGB models' atom encoder `embedding.atom_emb_<i>` is flax's
+    `embedding/atom_emb_<i>`, their head `cls_fc1` / `cls_fc2` flax's
+    Dense layers of those names;
   - an `nn.Linear` weight is the flax Dense `kernel` transposed ([in, out]
     -> [out, in]); an `nn.LayerNorm` weight is the flax `scale`; an
     `nn.Embedding` weight is the flax Embed `embedding`;

@@ -37,6 +37,13 @@
 // an SM, 128 registers a thread), folded 183,808 bytes at H=8 (one block
 // of 16 warps an SM).
 //
+// Wide rows (kW = 128, the unfolded grid at D or DV > 64): xa, g, x and
+// vw rows of 128 floats (stride 132), the score's chain over all D
+// columns and ga over all DV, and a grid axis of kChunk = 64 columns of
+// dxa (strips.cuh): each chunk's block recomputes ds (the same bits) and
+// takes its 64 columns of ds·x; chunk 0 writes dcq. Shared memory 149,248
+// bytes (one block an SM).
+//
 // What bounds it: instruction issue and mma.sync's TF32 rate. A warp's
 // tile is 512 score FMAs beside 96 TF32 mma.sync (48 a product) and their
 // operand splits (mma_tf32.cuh); the bound of what it issues is the
@@ -59,29 +66,35 @@ using namespace strips;
 
 constexpr int kLDS = kKeys + 4;    // ds [query][key]: A loads conflict-free
 
+template <int kW>
 __host__ __device__ inline size_t smem_floats(Shape sh) {
   const size_t rows = (size_t)sh.S * kStrip;
-  return 2 * rows * kLD + rows * kLDS + vw_floats(sh) +
-         2 * (size_t)key_floats(sh) + 2 * rows;
+  return 2 * rows * ld(kW) + rows * kLDS + vw_floats<kW>(sh) +
+         2 * (size_t)key_floats<kW>(sh) + 2 * rows;
 }
 
-template <bool kFold>
+// kW: the widest rows (strips.cuh), kMaxW or (unfolded) kWideW
+template <bool kFold, int kW>
 __global__ void __launch_bounds__(kFold ? 64 * kMaxHeads : 256,
                                   kFold ? 1 : 2)
 bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
              float* __restrict__ dcq, int H, int N, int D, int DV,
              float inv_sqrt) {
+  static_assert(kW == kMaxW || (!kFold && kW == kWideW), "row width");
+  constexpr int kLDX = ld(kW);
+  constexpr bool kChunked = kW > kMaxW;
   extern __shared__ float smem[];
   const Shape sh = shape(kFold, H);
-  const int rows = sh.S * kStrip, stage = key_floats(sh);
-  float* xas = smem;                     // [16 S][kLD]  the strips' xa
-  float* gs = xas + rows * kLD;          // [16 S][kLD]  their cotangents
-  float* dss = gs + rows * kLD;          // [16 S][kLDS] ds of the tile
-  float* vws = dss + rows * kLDS;        // [V][32][kLD] its values
-  float* ring = vws + vw_floats(sh);
+  const int rows = sh.S * kStrip, stage = key_floats<kW>(sh);
+  float* xas = smem;                     // [16 S][kLDX] the strips' xa
+  float* gs = xas + rows * kLDX;         // [16 S][kLDX] their cotangents
+  float* dss = gs + rows * kLDX;         // [16 S][kLDS] ds of the tile
+  float* vws = dss + rows * kLDS;        // [V][32][kLDX] its values
+  float* ring = vws + vw_floats<kW>(sh);
   float* red = ring + 2 * stage;         // [2][16 S]    dcq of each warp
 
-  const Block blk = block_of<kFold>(H, N);
+  const Block blk = block_of<kFold, kChunked>(H, N, chunks(kW, D));
+  const int col0 = kChunked ? blk.chunk * kChunk : 0;   // dxa's columns
   const int tid = threadIdx.x, warp = tid / 32;
   const int g = tc::lane_g(), t = tc::lane_t();
   const int s = warp >> 1, u = warp & 1;
@@ -90,10 +103,10 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
   const float* pe_b = op.pe ? op.pe + (size_t)blk.b * N * N : nullptr;
 
   // the query side, once; then key tile 0 and its values
-  stage_strips(xas, blk, sh, op.xa, D, H, N, op.x);
-  stage_strips(gs, blk, sh, op.g, DV, H, N, op.x);
-  stage_keys(ring, blk, sh, op, 0, H, N, D);
-  stage_vw(vws, blk, sh, op, 0, H, N, DV);
+  stage_strips<kW>(xas, blk, sh, op.xa, D, H, N, op.x);
+  stage_strips<kW>(gs, blk, sh, op.g, DV, H, N, op.x);
+  stage_keys<kW>(ring, blk, sh, op, 0, H, N, D);
+  stage_vw<kW>(vws, blk, sh, op, 0, H, N, DV, 0, DV);
   tc::cp_async_commit();
 
   // the row constants of the thread's queries qs0 + g (+8)
@@ -123,41 +136,41 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
     tc::cp_async_wait_all();
     __syncthreads();  // tile `it` visible; every warp done with it - 1
     if (it + 1 < nt) {
-      stage_keys(ring + ((it + 1) & 1) * stage, blk, sh, op, k0 + kKeys, H,
-                 N, D);
+      stage_keys<kW>(ring + ((it + 1) & 1) * stage, blk, sh, op, k0 + kKeys,
+                     H, N, D);
       tc::cp_async_commit();
     }
     const float* xst = ring + (it & 1) * stage;
-    const float* pst = xst + kKeys * kLD + (kFold ? 0 : kStrip * s) * kLDP;
-    const float* cks = xst + kKeys * kLD + sh.P * kLDP;
+    const float* pst = xst + kKeys * kLDX + (kFold ? 0 : kStrip * s) * kLDP;
+    const float* cks = xst + kKeys * kLDX + sh.P * kLDP;
     const float* dgs = cks + sh.V * kKeys;
     const float* kms = dgs + kKeys;
     if (kFold) cks += s * kKeys;
 
     // 1. score (FMA chain) and ga (tensor cores), 16 queries x 16 keys
     float sc[2][4] = {}, ga[2][4] = {};
-    const float* xq = xas + (kStrip * s + g) * kLD;
-    const float* xk = xst + (16 * u + 2 * t) * kLD;
-    const float* gq = gs + kStrip * s * kLD;
-    const float* vk = vws + (kFold ? s : 0) * kKeys * kLD;
+    const float* xq = xas + (kStrip * s + g) * kLDX;
+    const float* xk = xst + (16 * u + 2 * t) * kLDX;
+    const float* gq = gs + kStrip * s * kLDX;
+    const float* vk = vws + (kFold ? s : 0) * kKeys * kLDX;
 #pragma unroll
-    for (int kk = 0; kk < kMaxW; kk += 8) {
+    for (int kk = 0; kk < kW; kk += 8) {
       if (kk < DV8) {
-        const tc::FragA a = tc::load_a(gq, kLD, 0, kk);
+        const tc::FragA a = tc::load_a(gq, kLDX, 0, kk);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
-          tc::mma3(ga[n], a, tc::load_b_nk(vk, kLD, 16 * u + 8 * n, kk));
+          tc::mma3(ga[n], a, tc::load_b_nk(vk, kLDX, 16 * u + 8 * n, kk));
       }
       if (kk < D8) {
 #pragma unroll
         for (int k = kk; k < kk + 8; k += 4) {
           const float4 qv[2] = {graphit::ld4(xq + k),
-                                graphit::ld4(xq + 8 * kLD + k)};
+                                graphit::ld4(xq + 8 * kLDX + k)};
 #pragma unroll
           for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int f = 0; f < 2; ++f) {
-              const float4 kv = graphit::ld4(xk + (8 * n + f) * kLD + k);
+              const float4 kv = graphit::ld4(xk + (8 * n + f) * kLDX + k);
 #pragma unroll
               for (int e = 0; e < 2; ++e)
                 sc[n][2 * e + f] = graphit::dot4(qv[e], kv, sc[n][2 * e + f]);
@@ -196,7 +209,7 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
     dsum[1].add(tile[1], it);
     __syncthreads();  // every strip's ds complete; vw no longer read
     if (it + 1 < nt) {
-      stage_vw(vws, blk, sh, op, k0 + kKeys, H, N, DV);
+      stage_vw<kW>(vws, blk, sh, op, k0 + kKeys, H, N, DV, 0, DV);
       tc::cp_async_commit();
     }
 
@@ -208,8 +221,8 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
       const tc::FragA a = tc::load_a(dsa, kLDS, 0, kk);
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const int c0 = 32 * u + 8 * n;
-        if (c0 < D8) tc::mma3(part[n], a, tc::load_b_kn(xst, kLD, kk, c0));
+        const int c0 = col0 + 32 * u + 8 * n;
+        if (c0 < D8) tc::mma3(part[n], a, tc::load_b_kn(xst, kLDX, kk, c0));
       }
     }
 #pragma unroll
@@ -223,7 +236,7 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int q = qs0 + g + 8 * (i >> 1);
-      const int col = 32 * u + 8 * n + 2 * t + (i & 1);
+      const int col = col0 + 32 * u + 8 * n + 2 * t + (i & 1);
       if (q < N && col < D) dxa[(bhs * N + q) * D + col] = acc[n][i];
     }
   // dcq: each thread's rows, then the 4 lanes of a row, then the two warps
@@ -235,7 +248,7 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
     if (t == 0) red[u * rows + kStrip * s + g + 8 * e] = v;
   }
   __syncthreads();
-  for (int r = tid; r < rows; r += blockDim.x) {
+  for (int r = tid; blk.chunk == 0 && r < rows; r += blockDim.x) {
     const int sr = r >> 4, q = blk.first(sr) + (r & 15);
     if (q < N)
       dcq[((size_t)blk.b * H + blk.head(sr)) * N + q] =
@@ -243,18 +256,20 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
   }
 }
 
-// Launch either grid: blocks of 2 S warps, dynamic shared memory set first.
-template <bool kFold>
+// Launch either grid at row width kW: blocks of 2 S warps, times the
+// chunks of dxa's columns, dynamic shared memory set first.
+template <bool kFold, int kW = kMaxW>
 int launch(graphit::Operands op, float* dxa, float* dcq, int B, int H,
            int N, int D, int DV, float inv_sqrt, cudaStream_t stream) {
   const Shape sh = shape(kFold, H);
-  const size_t smem = sizeof(float) * smem_floats(sh);
+  const size_t smem = sizeof(float) * smem_floats<kW>(sh);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_q_kernel<kFold>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_q_kernel<kFold, kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_q_kernel<kFold><<<blocks(kFold, B, H, N), 64 * sh.S, smem, stream>>>(
-      op, dxa, dcq, H, N, D, DV, inv_sqrt);
+  bwd_q_kernel<kFold, kW>
+      <<<blocks(kFold, B, H, N, chunks(kW, D)), 64 * sh.S, smem, stream>>>(
+          op, dxa, dcq, H, N, D, DV, inv_sqrt);
   return (int)cudaGetLastError();
 }
 

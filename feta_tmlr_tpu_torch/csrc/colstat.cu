@@ -65,6 +65,12 @@
 // `__launch_bounds__(256, 2)`: 128 registers with a 28-byte spill, two
 // blocks an SM.
 //
+// Wide rows: at D over 64 (up to 128, the OGB molecular models' d_model)
+// the kernel's kW = 128 instantiation stages the x and xa rows at 128
+// floats (stride 132) and runs the score's chain over all D columns, the
+// forwards' chain at that width; nothing else changes. Shared memory
+// 140,544 bytes (one block an SM).
+//
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
 
@@ -78,7 +84,8 @@ namespace {
 
 using namespace graphit;
 
-constexpr int kMaxW = 64;                // D at most 64
+constexpr int kMaxW = 64;                // rows of up to 64 floats
+constexpr int kWideW = 128;              // the wide rows, D up to 128
 constexpr int kKT = 64;                  // keys per block
 constexpr int kLD64 = kMaxW + 4;         // rows of 64 floats, padded
 // A thread's scores: keys g + 8 e (e < kEK) of its warp's key group and
@@ -97,13 +104,22 @@ enum { kCq, kM, kSe, kSu, kQm, kWq };
 static_assert(kKH * kKW == kKT && kKH * kQG == kWarps && kQW <= 32,
               "warp tiles must cover the block's keys and a query tile");
 
-// one ring stage: xa [kQT][kLD64], pe [kQT][kLD64], rows [6][kQT]
-constexpr int kStage = 2 * kQT * kLD64 + kNRS * kQT;
+// rows of up to kW floats, padded
+__host__ __device__ constexpr int ld(int kW) { return kW + 4; }
 
-__host__ __device__ constexpr size_t smem_floats() {
-  return (size_t)kKT * kLD64 + 2 * kStage + kKT + kQG * kKT;
+// one ring stage: xa [kQT][ld(kW)], pe [kQT][kLD64], rows [6][kQT]
+template <int kW>
+__host__ __device__ constexpr int stage_floats() {
+  return kQT * (ld(kW) + kLD64) + kNRS * kQT;
 }
 
+template <int kW>
+__host__ __device__ constexpr size_t smem_floats() {
+  return (size_t)kKT * ld(kW) + 2 * stage_floats<kW>() + kKT + kQG * kKT;
+}
+
+// kW: the widest rows of xa and x, kMaxW or kWideW
+template <int kW>
 __global__ void __launch_bounds__(kThreads, 2)
 colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
                const float* __restrict__ cq, const float* __restrict__ ck,
@@ -113,9 +129,10 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
                const float* __restrict__ su, const float* __restrict__ wq,
                float* __restrict__ colsum, float* __restrict__ diag, int H,
                int N, int D, float inv_sqrt) {
+  constexpr int kLDX = ld(kW), kStage = stage_floats<kW>();
   extern __shared__ float smem[];
-  float* xs = smem;                      // [kKT][kLD64] key rows (resident)
-  float* ring = xs + kKT * kLD64;        // 2 stages
+  float* xs = smem;                      // [kKT][kLDX] key rows (resident)
+  float* ring = xs + kKT * kLDX;         // 2 stages
   float* diags = ring + 2 * kStage;      // [kKT]
   float* red = diags + kKT;              // [kQG][kKT] the groups' sums
 
@@ -149,16 +166,17 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
   // the query tile q0 into ring stage `s` (cp.async, one commit group)
   auto issue = [&](int q0, int s) {
     float* xst = ring + s * kStage;
-    float* pst = xst + kQT * kLD64;
+    float* pst = xst + kQT * kLDX;
     float* rst = pst + kQT * kLD64;
     if (vec_xa) {
-      for (int i = tid; i < kQT * 16; i += kThreads) {
-        const int r = i >> 4, c = (i & 15) * 4, q = q0 + r;
-        tc::cp_async16(xst + r * kLD64 + c, xa_bh + (size_t)q * D + c,
+      constexpr int kVecs = kW / 4, kShift = kW == kWideW ? 5 : 4;
+      for (int i = tid; i < kQT * kVecs; i += kThreads) {
+        const int r = i >> kShift, c = (i & (kVecs - 1)) * 4, q = q0 + r;
+        tc::cp_async16(xst + r * kLDX + c, xa_bh + (size_t)q * D + c,
                        q < N && c < D);
       }
     } else {
-      tc::stage_rows(xst, kLD64, xa_bh, D, q0, kQT, N, 0, D, D, tid,
+      tc::stage_rows(xst, kLDX, xa_bh, D, q0, kQT, N, 0, D, D, tid,
                      kThreads);
     }
     if (vec_keys) {
@@ -183,7 +201,7 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
   };
 
   issue(0, 0);
-  tc::stage_rows(xs, kLD64, x + (size_t)b * N * D, D, k0, kKT, N, 0, D, D,
+  tc::stage_rows(xs, kLDX, x + (size_t)b * N * D, D, k0, kKT, N, 0, D, D,
                  tid, kThreads);
   tc::cp_async_commit();
   if (tid < kKT) diags[tid] = 0.f;
@@ -209,7 +227,7 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
     __syncthreads();  // tile `it` visible; every warp done with it - 1
     if (it + 1 < nq) issue(q0 + kQT, (it + 1) & 1);
     const float* xas = ring + (it & 1) * kStage;
-    const float* pes = xas + kQT * kLD64;
+    const float* pes = xas + kQT * kLDX;
     const float* rs = pes + kQT * kLD64;
     float tile[kEK] = {};
     if (keys_in && q0 + wq0 < N) {
@@ -226,21 +244,21 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
       // s^T as the forwards' FMA chain at the C-fragment positions: keys
       // kr0 + g + 8 e, queries wq0 + 8 n + 2 t + f
       float s[kNQ][kEK][2] = {};
-      const float* krow = xs + (kr0 + g) * kLD64;
-      const float* qrow = xas + (wq0 + 2 * t) * kLD64;
+      const float* krow = xs + (kr0 + g) * kLDX;
+      const float* qrow = xas + (wq0 + 2 * t) * kLDX;
 #pragma unroll
-      for (int kk = 0; kk < kMaxW; kk += 8) {
+      for (int kk = 0; kk < kW; kk += 8) {
         if (kk < D8) {
 #pragma unroll
           for (int k = kk; k < kk + 8; k += 4) {
             float4 kv[kEK];
 #pragma unroll
-            for (int e = 0; e < kEK; ++e) kv[e] = ld4(krow + 8 * e * kLD64 + k);
+            for (int e = 0; e < kEK; ++e) kv[e] = ld4(krow + 8 * e * kLDX + k);
 #pragma unroll
             for (int n = 0; n < kNQ; ++n)
 #pragma unroll
               for (int f = 0; f < 2; ++f) {
-                const float4 qv = ld4(qrow + (8 * n + f) * kLD64 + k);
+                const float4 qv = ld4(qrow + (8 * n + f) * kLDX + k);
 #pragma unroll
                 for (int e = 0; e < kEK; ++e)
                   s[n][e][f] = dot4(qv, kv[e], s[n][e][f]);
@@ -302,6 +320,28 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
   }
 }
 
+// Launch at row width kW: one block per (b, 64-key tile, h).
+template <int kW>
+int launch(const void* xa, const void* x, const void* cq, const void* ck,
+           const void* c0, const void* pe, const void* deg, const void* mask,
+           const void* m, const void* se, const void* su, const void* wq,
+           void* colsum, void* diag, int B, int H, int N, int D,
+           float inv_sqrt, void* stream) {
+  const size_t smem = sizeof(float) * smem_floats<kW>();
+  cudaError_t err = cudaFuncSetAttribute(
+      colstat_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nk = (N + kKT - 1) / kKT;
+  colstat_kernel<kW><<<B * H * nk, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)xa, (const float*)x, (const float*)cq, (const float*)ck,
+      (const float*)c0, (const float*)pe, (const float*)deg,
+      (const float*)mask, (const float*)m, (const float*)se,
+      (const float*)su, (const float*)wq, (float*)colsum, (float*)diag, H, N,
+      D, inv_sqrt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int feta_colstat(const void* xa, const void* x, const void* cq,
@@ -310,21 +350,11 @@ extern "C" int feta_colstat(const void* xa, const void* x, const void* cq,
                             const void* se, const void* su, const void* wq,
                             void* colsum, void* diag, int B, int H, int N,
                             int D, float inv_sqrt, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kMaxW)
+  if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kWideW)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats();
-  cudaError_t err = cudaFuncSetAttribute(
-      colstat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nk = (N + kKT - 1) / kKT;
-  colstat_kernel<<<B * H * nk, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)xa, (const float*)x, (const float*)cq, (const float*)ck,
-      (const float*)c0, (const float*)pe, (const float*)deg,
-      (const float*)mask, (const float*)m, (const float*)se,
-      (const float*)su, (const float*)wq, (float*)colsum, (float*)diag, H, N,
-      D, inv_sqrt);
-  return (int)cudaGetLastError();
+  return (D > kMaxW ? launch<kWideW> : launch<kMaxW>)(
+      xa, x, cq, ck, c0, pe, deg, mask, m, se, su, wq, colsum, diag, B, H, N,
+      D, inv_sqrt, stream);
 }
 
 extern "C" const char* feta_cuda_error_string(int err) {

@@ -54,6 +54,13 @@
 // elementwise step issue beside them (PERF.md). The split itself is four
 // integer and float instructions (mma_tf32.cuh).
 //
+// Wide rows (D or DV over 64, up to 128): both passes take their kW = 128
+// instantiation: rows of 128 floats (stride 132), the score's chain over
+// all D columns and ga over all DV, and a grid axis of 64-column chunks
+// of the outputs (strips.cuh; the key pass's chunk c holds columns 64 c ..
+// 64 c + 63 of dvw and of dx_h, recomputing s and ga; chunk 0 writes dck).
+// The key pass then takes 173,824 bytes of shared memory, one block an SM.
+//
 // No carry between blocks. The TPU's `_bwd_k_kernel` sums dx over heads in
 // scratch because h is its innermost sequential grid axis. GPU blocks run
 // in no order, so the k pass writes one dx partial per head, [B, H, N, D],
@@ -87,7 +94,9 @@ namespace {
 
 using namespace graphit;
 
-constexpr int kMaxW = 64;           // D and DV at most 64
+using strips::kChunk;
+using strips::kMaxW;                     // rows of up to 64 floats
+using strips::kWideW;                    // the wide rows, D or DV > 64
 
 // The key pass on the tensor cores (the design in the note above).
 constexpr int kKT = 64;                  // keys per block
@@ -96,26 +105,30 @@ constexpr int kLDT = kQT + 4;            // attn / ds tiles [kKT][kLDT]
 constexpr int kLDP = kKT + 4;            // pe tile [kQT][kLDP]
 constexpr int kNRC = 6;                  // row constants cq m ise qa beta c
 
-constexpr int kLD64 = kMaxW + 4;         // rows of 64 floats, padded
-
 struct KLayout {
   float *xs, *vws, *ring, *ats, *dss, *cks, *dgs, *kms, *red;
 };
 
-// one ring stage: xa [kQT][kLD64], g [kQT][kLD64], pe [kQT][kLDP],
+// one ring stage: xa [kQT][ld(kW)], g [kQT][ld(kW)], pe [kQT][kLDP],
 // rc [6][kQT]
-constexpr int kStage = kQT * (2 * kLD64 + kLDP) + kNRC * kQT;
-
-__device__ __host__ inline size_t k_smem_floats() {
-  return (size_t)2 * kKT * kLD64 + 2 * kStage + 2 * (size_t)kKT * kLDT +
-         3 * kKT + 2 * kKT;
+template <int kW>
+__device__ __host__ constexpr int k_stage() {
+  return kQT * (2 * strips::ld(kW) + kLDP) + kNRC * kQT;
 }
 
+template <int kW>
+__device__ __host__ inline size_t k_smem_floats() {
+  return (size_t)2 * kKT * strips::ld(kW) + 2 * k_stage<kW>() +
+         2 * (size_t)kKT * kLDT + 3 * kKT + 2 * kKT;
+}
+
+template <int kW>
 __device__ inline KLayout k_layout(float* smem) {
+  constexpr int kLDX = strips::ld(kW), kStage = k_stage<kW>();
   KLayout l;
-  l.xs = smem;                           // [kKT][kLD64] key tile (resident)
-  l.vws = l.xs + kKT * kLD64;            // [kKT][kLD64] its values
-  l.ring = l.vws + kKT * kLD64;          // 2 stages
+  l.xs = smem;                           // [kKT][kLDX] key tile (resident)
+  l.vws = l.xs + kKT * kLDX;             // [kKT][kLDX] its values
+  l.ring = l.vws + kKT * kLDX;           // 2 stages
   l.ats = l.ring + 2 * kStage;           // [kKT][kLDT] attn^T
   l.dss = l.ats + kKT * kLDT;            // [kKT][kLDT] ds^T
   l.cks = l.dss + kKT * kLDT;            // [kKT]
@@ -125,15 +138,27 @@ __device__ inline KLayout k_layout(float* smem) {
   return l;
 }
 
+// kW: the widest rows of xa, x, g and vw, kMaxW or kWideW; at kWideW a
+// grid axis of kChunk-wide chunks of the update products' columns (dvw's
+// and dx's), the fastest, each block recomputing s and ga for its chunk
+template <int kW>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
                    float* __restrict__ dck, float* __restrict__ dx_heads,
                    int H, int N, int D, int DV, float inv_sqrt) {
+  constexpr int kLDX = strips::ld(kW), kStage = k_stage<kW>();
+  constexpr bool kChunked = kW > kMaxW;
   extern __shared__ float smem[];
-  const KLayout l = k_layout(smem);
+  const KLayout l = k_layout<kW>(smem);
 
   const int nk = (N + kKT - 1) / kKT;
-  int bid = blockIdx.x;
+  int bid = blockIdx.x, chunk = 0;
+  if (kChunked) {
+    const int nc = strips::chunks(kW, D > DV ? D : DV);
+    chunk = bid % nc;
+    bid /= nc;
+  }
+  const int col0 = chunk * kChunk;       // the block's output columns
   const int h = bid % H;
   bid /= H;
   const int k0 = (bid % nk) * kKT;
@@ -151,8 +176,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
                                    op.c};
 
   // 16-byte copies where every row allows them: each thread then stages
-  // fixed chunks of rows of 64 floats, chunk i at row i / 16, column
-  // 4 (i % 16), zero beyond the width and the ragged edge
+  // fixed chunks of rows of kW floats, chunk i at row i / (kW / 4),
+  // column 4 (i % (kW / 4)), zero beyond the width and the ragged edge
   const bool vec_rows = tc::vec_ok(xa_bh, D, 0, 0, D) &&
                         tc::vec_ok(g_bh, DV, 0, 0, DV);
   bool vec_keys = N % 4 == 0 && (!pe_b || tc::vec_ok(pe_b, N, 0, k0, kKT));
@@ -162,21 +187,22 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   // the query tile q0 into ring stage `s` (cp.async, one commit group)
   auto issue = [&](int q0, int s) {
     float* xst = l.ring + s * kStage;
-    float* gst = xst + kQT * kLD64;
-    float* pst = gst + kQT * kLD64;
+    float* gst = xst + kQT * kLDX;
+    float* pst = gst + kQT * kLDX;
     float* rst = pst + kQT * kLDP;
     if (vec_rows) {
-      for (int i = tid; i < kQT * 16; i += kThreads) {
-        const int r = i >> 4, c = (i & 15) * 4, q = q0 + r;
-        tc::cp_async16(xst + r * kLD64 + c, xa_bh + (size_t)q * D + c,
+      constexpr int kVecs = kW / 4, kShift = strips::log2w(kW) - 2;
+      for (int i = tid; i < kQT * kVecs; i += kThreads) {
+        const int r = i >> kShift, c = (i & (kVecs - 1)) * 4, q = q0 + r;
+        tc::cp_async16(xst + r * kLDX + c, xa_bh + (size_t)q * D + c,
                        q < N && c < D);
-        tc::cp_async16(gst + r * kLD64 + c, g_bh + (size_t)q * DV + c,
+        tc::cp_async16(gst + r * kLDX + c, g_bh + (size_t)q * DV + c,
                        q < N && c < DV);
       }
     } else {
-      tc::stage_rows(xst, kLD64, xa_bh, D, q0, kQT, N, 0, D, D, tid,
+      tc::stage_rows(xst, kLDX, xa_bh, D, q0, kQT, N, 0, D, D, tid,
                      kThreads);
-      tc::stage_rows(gst, kLD64, g_bh, DV, q0, kQT, N, 0, DV, DV, tid,
+      tc::stage_rows(gst, kLDX, g_bh, DV, q0, kQT, N, 0, DV, DV, tid,
                      kThreads);
     }
     if (vec_keys) {
@@ -202,9 +228,9 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   };
 
   issue(0, 0);
-  tc::stage_rows(l.xs, kLD64, op.x + (size_t)b * N * D, D, k0, kKT, N, 0, D,
+  tc::stage_rows(l.xs, kLDX, op.x + (size_t)b * N * D, D, k0, kKT, N, 0, D,
                  D, tid, kThreads);
-  tc::stage_rows(l.vws, kLD64, op.vw + bh * N * DV, DV, k0, kKT, N, 0, DV,
+  tc::stage_rows(l.vws, kLDX, op.vw + bh * N * DV, DV, k0, kKT, N, 0, DV,
                  DV, tid, kThreads);
   tc::cp_async_commit();
   if (tid < kKT) {
@@ -218,11 +244,11 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   const int D8 = (D + 7) & ~7, DV8 = (DV + 7) & ~7;
 
   // the update products: warp (up, kh, ch) takes keys 32 kh .. + 31 (two
-  // m-tiles) and columns 32 ch .. + 31 (four n-tiles) of dvw (up = 0) or
-  // dx_h (up = 1); its accumulators are C fragments, keys 32 kh + 16 mt +
-  // g (+8), columns 32 ch + 8 n + 2 t (+1)
+  // m-tiles) and columns col0 + 32 ch .. + 31 (four n-tiles) of dvw (up =
+  // 0) or dx_h (up = 1); its accumulators are C fragments, keys 32 kh + 16
+  // mt + g (+8), columns col0 + 32 ch + 8 n + 2 t (+1)
   const int up = warp >> 2, kh = (warp >> 1) & 1, ch = warp & 1;
-  const int w8 = up ? D8 : DV8;
+  const int w8 = (up ? D8 : DV8) - col0;   // the chunk's columns (<= 0: none)
   float acc[2][4][4] = {};
   RunSum colsum[2];
 
@@ -233,8 +259,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     __syncthreads();  // tile `it` visible; every warp done with it - 1
     if (it + 1 < nq) issue(q0 + kQT, (it + 1) & 1);
     const float* xas = l.ring + (it & 1) * kStage;
-    const float* gs = xas + kQT * kLD64;
-    const float* pes = gs + kQT * kLD64;
+    const float* gs = xas + kQT * kLDX;
+    const float* pes = gs + kQT * kLDX;
     const float* rcs = pes + kQT * kLDP;
 
     // The warp's 16 keys x 16 queries: s^T as the forward's FMA chain
@@ -247,27 +273,27 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     // put dck at 1.61x the CPU's error (PERF.md): there ga is an FMA chain
     // too.
     float s[2][4] = {}, ga[2][4] = {}, tile[2] = {0.f, 0.f};
-    const float* krow = l.xs + (kr0 + g) * kLD64;
-    const float* qrow = xas + (16 * wq + 2 * t) * kLD64;
+    const float* krow = l.xs + (kr0 + g) * kLDX;
+    const float* qrow = xas + (16 * wq + 2 * t) * kLDX;
 #pragma unroll
-    for (int kk = 0; kk < kMaxW; kk += 8) {
+    for (int kk = 0; kk < kW; kk += 8) {
       if (kk < DV8 && DV8 > 8) {
-        const tc::FragA a = tc::load_a(l.vws, kLD64, kr0, kk);
+        const tc::FragA a = tc::load_a(l.vws, kLDX, kr0, kk);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
-          tc::mma3(ga[n], a, tc::load_b_nk(gs, kLD64, 16 * wq + 8 * n, kk));
+          tc::mma3(ga[n], a, tc::load_b_nk(gs, kLDX, 16 * wq + 8 * n, kk));
       }
       if (kk == 0 && DV8 == 8) {   // ga as an FMA chain
-        const float* vrow = l.vws + (kr0 + g) * kLD64;
-        const float* grow = gs + (16 * wq + 2 * t) * kLD64;
+        const float* vrow = l.vws + (kr0 + g) * kLDX;
+        const float* grow = gs + (16 * wq + 2 * t) * kLDX;
 #pragma unroll
         for (int k = 0; k < 8; k += 4) {
-          const float4 vv[2] = {ld4(vrow + k), ld4(vrow + 8 * kLD64 + k)};
+          const float4 vv[2] = {ld4(vrow + k), ld4(vrow + 8 * kLDX + k)};
 #pragma unroll
           for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int f = 0; f < 2; ++f) {
-              const float4 gq = ld4(grow + (8 * n + f) * kLD64 + k);
+              const float4 gq = ld4(grow + (8 * n + f) * kLDX + k);
 #pragma unroll
               for (int e = 0; e < 2; ++e)
                 ga[n][2 * e + f] = dot4(gq, vv[e], ga[n][2 * e + f]);
@@ -277,12 +303,12 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
       if (kk < D8) {
 #pragma unroll
         for (int k = kk; k < kk + 8; k += 4) {
-          const float4 kv[2] = {ld4(krow + k), ld4(krow + 8 * kLD64 + k)};
+          const float4 kv[2] = {ld4(krow + k), ld4(krow + 8 * kLDX + k)};
 #pragma unroll
           for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int f = 0; f < 2; ++f) {
-              const float4 qv = ld4(qrow + (8 * n + f) * kLD64 + k);
+              const float4 qv = ld4(qrow + (8 * n + f) * kLDX + k);
 #pragma unroll
               for (int e = 0; e < 2; ++e)
                 s[n][2 * e + f] = dot4(qv, kv[e], s[n][2 * e + f]);
@@ -327,7 +353,7 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
       for (int n = 0; n < 4; ++n) {
         const int c0 = 32 * ch + 8 * n;
         if (c0 < w8) {
-          const tc::FragB bf = tc::load_b_kn(bm, kLD64, kk, c0);
+          const tc::FragB bf = tc::load_b_kn(bm, kLDX, kk, col0 + c0);
           tc::mma3(part[0][n], a0, bf);
           tc::mma3(part[1][n], a1, bf);
         }
@@ -352,7 +378,7 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     if (t == 0) l.red[wq * kKT + kr0 + g + 8 * j] = v;
   }
   __syncthreads();
-  if (tid < kKT && k0 + tid < N)
+  if (tid < kKT && k0 + tid < N && chunk == 0)
     dck[bh * N + k0 + tid] = l.red[tid] + l.red[kKT + tid];
   float* const out = up ? dx_heads : dvw;
   const int width = up ? D : DV;
@@ -363,7 +389,7 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = k0 + 32 * kh + 16 * mt + g + 8 * (i >> 1);
-        const int col = 32 * ch + 8 * n + 2 * t + (i & 1);
+        const int col = col0 + 32 * ch + 8 * n + 2 * t + (i & 1);
         if (key < N && col < width)
           out[(bh * N + key) * width + col] = acc[mt][n][i];
       }
@@ -384,11 +410,29 @@ __global__ void head_sum_kernel(const float* __restrict__ dx_heads,
   }
 }
 
-size_t smem_k() { return sizeof(float) * k_smem_floats(); }
-
 bool bad_shape(int B, int H, int N, int D, int DV) {
-  return B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kMaxW || DV <= 0 ||
-         DV > kMaxW;
+  return B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kWideW || DV <= 0 ||
+         DV > kWideW;
+}
+
+bool wide(int D, int DV) { return D > kMaxW || DV > kMaxW; }
+
+// the key pass at row width kW: its blocks per (b, key tile, h), times the
+// chunks of the update products' columns
+template <int kW>
+cudaError_t launch_k(const Operands& op, float* dvw, float* dck,
+                     float* dx_heads, int B, int H, int N, int D, int DV,
+                     float inv_sqrt, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * k_smem_floats<kW>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_k_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nk = (N + kKT - 1) / kKT;
+  const int nc = strips::chunks(kW, D > DV ? D : DV);
+  flash_bwd_k_kernel<kW><<<B * H * nk * nc, kThreads, smem, stream>>>(
+      op, dvw, dck, dx_heads, H, N, D, DV, inv_sqrt);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -403,7 +447,9 @@ extern "C" int feta_flash_bwd_q(const void* xa, const void* x, const void* cq,
                                 int H, int N, int D, int DV, float inv_sqrt,
                                 void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  return bwdq::launch<false>(
+  auto run = wide(D, DV) ? bwdq::launch<false, kWideW>
+                         : bwdq::launch<false, kMaxW>;
+  return run(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
       (float*)dxa, (float*)dcq, B, H, N, D, DV, inv_sqrt,
       (cudaStream_t)stream);
@@ -420,16 +466,11 @@ extern "C" int feta_flash_bwd_k(const void* xa, const void* x, const void* cq,
                                 void* dx_heads, void* dx, int B, int H, int N,
                                 int D, int DV, float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_k();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_k_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nk = (N + kKT - 1) / kKT;
-  flash_bwd_k_kernel<<<B * H * nk, kThreads, smem, (cudaStream_t)stream>>>(
+  auto run = wide(D, DV) ? launch_k<kWideW> : launch_k<kMaxW>;
+  cudaError_t err = run(
       operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
-      (float*)dvw, (float*)dck, (float*)dx_heads, H, N, D, DV, inv_sqrt);
-  err = cudaGetLastError();
+      (float*)dvw, (float*)dck, (float*)dx_heads, B, H, N, D, DV, inv_sqrt,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const size_t nd = (size_t)N * D;
   const size_t total = (size_t)B * nd;

@@ -22,7 +22,9 @@
 // (measured on the SBM model's layers, `chip_smoke.py --precision`).
 //
 // The kernel is fwd.cuh's body on the unfolded grid: one block per (b,
-// 64-query tile, h), h fastest, in strips of 16 queries (strips.cuh). Its
+// 64-query tile, h), h fastest, in strips of 16 queries (strips.cuh); at
+// D or DV over 64 (up to 128) its wide-row instantiation, one block per
+// 64 value columns as well (fwd.cuh's note). Its
 // score is the FMA chain that colstat.cu and the backward passes repeat bit
 // for bit (graphit_tile.cuh's dot4); P·V runs on the tensor cores in
 // error-compensated TF32 (mma_tf32.cuh). What bounds it, and the design's
@@ -44,14 +46,18 @@ extern "C" int feta_flash_fwd(const void* xa, const void* x, const void* cq,
                               const void* mask, void* outh, void* m, void* se,
                               void* su, int B, int H, int N, int D, int DV,
                               float inv_sqrt, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > strips::kMaxW ||
-      DV <= 0 || DV > strips::kMaxW)
+  if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > strips::kWideW ||
+      DV <= 0 || DV > strips::kWideW)
     return (int)cudaErrorInvalidValue;
-  return fwd::launch<false>(
-      graphit::operands(xa, x, cq, ck, c0, vw, pe, deg, mask, nullptr,
-                        nullptr, nullptr, nullptr, nullptr, nullptr),
-      (float*)outh, (float*)m, (float*)se, (float*)su, B, H, N, D, DV,
-      inv_sqrt, (cudaStream_t)stream);
+  const graphit::Operands op = graphit::operands(
+      xa, x, cq, ck, c0, vw, pe, deg, mask, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr);
+  // rows of up to 64 floats, or the wide rows and their value chunks
+  auto run = D > strips::kMaxW || DV > strips::kMaxW
+                 ? fwd::launch<false, strips::kWideW>
+                 : fwd::launch<false, strips::kMaxW>;
+  return run(op, (float*)outh, (float*)m, (float*)se, (float*)su, B, H, N, D,
+             DV, inv_sqrt, (cudaStream_t)stream);
 }
 
 extern "C" const char* feta_cuda_error_string(int err) {

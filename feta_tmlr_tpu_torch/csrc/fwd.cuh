@@ -36,6 +36,16 @@
 // bytes of spill), folded 199,168 bytes at H=8 (one block of 16 warps an
 // SM).
 //
+// Wide rows (kW = 128, the unfolded grid at D or DV > 64): the xa and x
+// rows are 128 floats (stride 132), the score's chain runs over all D
+// columns, and the grid gains an axis of kChunk = 64 value columns
+// (strips.cuh), each block staging only its chunk of vw and writing its
+// chunk of outh; every chunk's block computes the same m, se and su bit
+// for bit (the same chain, sums and order), and chunk 0 writes them. So
+// at DV = 128 the score and the softmax are computed twice, the price of
+// keeping the accumulator at acc[8][4]. Shared memory 106,240 bytes (two
+// blocks an SM).
+//
 // What bounds it: a warp's tile is 512 score FMAs a thread beside 48 TF32
 // mma.sync (P·V) and their operand splits, one after the other. The bound
 // of what it issues is the score's FMAs at 67 TFLOP/s beside one 3xTF32
@@ -59,29 +69,39 @@ namespace fwd {
 
 using namespace strips;
 
-// a ring stage: the key tile and its values
+// a ring stage: the key tile and its values (a chunk of at most 64
+// columns)
+template <int kW>
 __host__ __device__ inline int stage_floats(Shape sh) {
-  return key_floats(sh) + vw_floats(sh);
+  return key_floats<kW>(sh) + vw_floats<kMaxW>(sh);
 }
 
+template <int kW>
 __host__ __device__ inline size_t smem_floats(Shape sh) {
-  return (size_t)sh.S * kStrip * kLD + 2 * (size_t)stage_floats(sh);
+  return (size_t)sh.S * kStrip * ld(kW) + 2 * (size_t)stage_floats<kW>(sh);
 }
 
-template <bool kFold>
+// kW: the widest rows of xa and x (strips.cuh), kMaxW or (unfolded) kWideW
+template <bool kFold, int kW>
 __global__ void __launch_bounds__(kFold ? 64 * kMaxHeads : 256,
                                   kFold ? 1 : 2)
 fwd_kernel(graphit::Operands op, float* __restrict__ outh,
            float* __restrict__ m_out, float* __restrict__ se_out,
            float* __restrict__ su_out, int H, int N, int D, int DV,
            float inv_sqrt) {
+  static_assert(kW == kMaxW || (!kFold && kW == kWideW), "row width");
+  constexpr int kLDX = ld(kW);
+  constexpr bool kChunked = kW > kMaxW;
   extern __shared__ float smem[];
   const Shape sh = shape(kFold, H);
-  const int stage = stage_floats(sh);
-  float* xas = smem;                         // [16 S][kLD] the strips' xa
-  float* ring = xas + sh.S * kStrip * kLD;   // 2 x {key tile, vw}
+  const int stage = stage_floats<kW>(sh);
+  float* xas = smem;                         // [16 S][kLDX] the strips' xa
+  float* ring = xas + sh.S * kStrip * kLDX;  // 2 x {key tile, vw}
 
-  const Block blk = block_of<kFold>(H, N);
+  const Block blk = block_of<kFold, kChunked>(H, N, chunks(kW, DV));
+  // the block's value columns: col0 .. col0 + DVc - 1
+  const int col0 = kChunked ? blk.chunk * kChunk : 0;
+  const int DVc = kChunked ? min(DV - col0, kChunk) : DV;
   const int warp = threadIdx.x / 32;
   const int g = tc::lane_g(), t = tc::lane_t();
   const int s = warp >> 1, u = warp & 1;
@@ -90,11 +110,12 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
 
   auto issue = [&](int k0, int st) {
     float* p = ring + st * stage;
-    stage_keys(p, blk, sh, op, k0, H, N, D);
-    stage_vw(p + key_floats(sh), blk, sh, op, k0, H, N, DV);
+    stage_keys<kW>(p, blk, sh, op, k0, H, N, D);
+    stage_vw<kMaxW>(p + key_floats<kW>(sh), blk, sh, op, k0, H, N, DV, col0,
+                    DVc);
     tc::cp_async_commit();
   };
-  stage_strips(xas, blk, sh, op.xa, D, H, N, op.x);
+  stage_strips<kW>(xas, blk, sh, op.xa, D, H, N, op.x);
   issue(0, 0);
 
   float cq[2];
@@ -104,7 +125,7 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
     cq[e] = q < N ? op.cq[bhs * N + q] : 0.f;
   }
   const float c0h = op.c0[hs];
-  const int D8 = tc::round8(D), DV8 = tc::round8(DV);
+  const int D8 = tc::round8(D), DV8 = tc::round8(DVc);
 
   // Rows g (+8): the running max m and the sums se, su and the output acc
   // (C fragments: rows g (+8), columns 8 j + 2 t (+1)), each in runs: a
@@ -145,28 +166,28 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
     if (it + 1 < nt) issue(k0 + kKeys, (it + 1) & 1);
     if (k0 + 16 * u >= N) continue;   // the warp's keys lie past N
     const float* xst = ring + (it & 1) * stage;
-    const float* pst = xst + kKeys * kLD + (kFold ? 0 : kStrip * s) * kLDP;
-    const float* cks = xst + kKeys * kLD + sh.P * kLDP;
+    const float* pst = xst + kKeys * kLDX + (kFold ? 0 : kStrip * s) * kLDP;
+    const float* cks = xst + kKeys * kLDX + sh.P * kLDP;
     const float* dgs = cks + sh.V * kKeys;
     const float* kms = dgs + kKeys;
-    const float* vws =
-        xst + key_floats(sh) + ((kFold ? s : 0) * kKeys + 16 * u) * kLD;
+    const float* vws = xst + key_floats<kW>(sh) +
+                       ((kFold ? s : 0) * kKeys + 16 * u) * kLD;
     if (kFold) cks += s * kKeys;
 
     // 1. the score, 16 queries x 16 keys
     float sc[2][4] = {};
-    const float* xq = xas + (kStrip * s + g) * kLD;
-    const float* xk = xst + (16 * u + 2 * t) * kLD;
+    const float* xq = xas + (kStrip * s + g) * kLDX;
+    const float* xk = xst + (16 * u + 2 * t) * kLDX;
 #pragma unroll
-    for (int k = 0; k < kMaxW; k += 4) {
+    for (int k = 0; k < kW; k += 4) {
       if (k < D8) {
         const float4 qv[2] = {graphit::ld4(xq + k),
-                              graphit::ld4(xq + 8 * kLD + k)};
+                              graphit::ld4(xq + 8 * kLDX + k)};
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int f = 0; f < 2; ++f) {
-            const float4 kv = graphit::ld4(xk + (8 * n + f) * kLD + k);
+            const float4 kv = graphit::ld4(xk + (8 * n + f) * kLDX + k);
 #pragma unroll
             for (int e = 0; e < 2; ++e)
               sc[n][2 * e + f] = graphit::dot4(qv[e], kv, sc[n][2 * e + f]);
@@ -244,20 +265,20 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
   join();   // the open run
 
   // the strip's two warps: warp u = 1 hands its totals to warp u = 0
-  // through the strip's xa rows, [16][kLD]: the output in columns 0..63,
+  // through the strip's xa rows, [16][kLDX]: the output in columns 0..63,
   // then m, se, su
   __syncthreads();  // every warp done with the xa rows
-  float* mrg = xas + kStrip * s * kLD;
+  float* mrg = xas + kStrip * s * kLDX;
   if (u == 1) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        mrg[(g + 8 * (i >> 1)) * kLD + 8 * j + 2 * t + (i & 1)] = tot[j][i];
+        mrg[(g + 8 * (i >> 1)) * kLDX + 8 * j + 2 * t + (i & 1)] = tot[j][i];
     if (t == 0)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float* r = mrg + (g + 8 * e) * kLD + kMaxW;
+        float* r = mrg + (g + 8 * e) * kLDX + kMaxW;
         r[0] = m[e];
         r[1] = se_tot[e];
         r[2] = su_tot[e];
@@ -268,7 +289,7 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
   float a0[2], a1[2], div[2], qm[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const float* r = mrg + (g + 8 * e) * kLD + kMaxW;
+    const float* r = mrg + (g + 8 * e) * kLDX + kMaxW;
     const float m_all = fmaxf(m[e], r[0]);
     a0[e] = expf(m[e] - m_all);
     a1[e] = expf(r[0] - m_all);      // 0 where warp 1 saw no key
@@ -277,7 +298,7 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
     div[e] = fabsf(su_all / se_all) > graphit::kEps ? su_all : se_all;
     const int q = qs0 + g + 8 * e;
     qm[e] = q < N ? op.mask[(size_t)blk.b * N + q] : 0.f;
-    if (q < N && t == 0) {
+    if (q < N && t == 0 && blk.chunk == 0) {
       m_out[bhs * N + q] = m_all;
       se_out[bhs * N + q] = se_all;
       su_out[bhs * N + q] = su_all;
@@ -289,27 +310,29 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
     for (int i = 0; i < 4; ++i) {
       const int e = i >> 1, q = qs0 + g + 8 * e;
       const int col = 8 * j + 2 * t + (i & 1);
-      if (q < N && col < DV) {
+      if (q < N && col < DVc) {
         const float a = fmaf(tot[j][i], a0[e],
-                             mrg[(g + 8 * e) * kLD + col] * a1[e]);
-        outh[(bhs * N + q) * DV + col] = a / div[e] * qm[e];
+                             mrg[(g + 8 * e) * kLDX + col] * a1[e]);
+        outh[(bhs * N + q) * DV + col0 + col] = a / div[e] * qm[e];
       }
     }
 }
 
-// Launch either grid: blocks of 2 S warps, dynamic shared memory set first.
-template <bool kFold>
+// Launch either grid at row width kW: blocks of 2 S warps, times the
+// chunks of the value columns, dynamic shared memory set first.
+template <bool kFold, int kW = kMaxW>
 int launch(graphit::Operands op, float* outh, float* m, float* se, float* su,
            int B, int H, int N, int D, int DV, float inv_sqrt,
            cudaStream_t stream) {
   const Shape sh = shape(kFold, H);
-  const size_t smem = sizeof(float) * smem_floats(sh);
+  const size_t smem = sizeof(float) * smem_floats<kW>(sh);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<kFold>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<kFold, kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<kFold><<<blocks(kFold, B, H, N), 64 * sh.S, smem, stream>>>(
-      op, outh, m, se, su, H, N, D, DV, inv_sqrt);
+  fwd_kernel<kFold, kW>
+      <<<blocks(kFold, B, H, N, chunks(kW, DV)), 64 * sh.S, smem, stream>>>(
+          op, outh, m, se, su, H, N, D, DV, inv_sqrt);
   return (int)cudaGetLastError();
 }
 

@@ -15,11 +15,20 @@
 // strip's arithmetic does not depend on the grid, so both grids give the
 // same bits.
 //
-// Staging, by cp.async (mma_tf32.cuh): rows of up to 64 floats padded to
-// kLD, columns past the width and rows past N zero-filled by the copy.
-// A 32-key tile is {x [32][kLD], pe [P][kLDP], ck [V][32], deg [32], key
-// mask [32]} (P = 64 query rows unfolded, 16 folded; V = 1 head unfolded,
-// H folded), and its values vw [V][32][kLD].
+// Staging, by cp.async (mma_tf32.cuh): rows of up to kW floats padded to
+// ld(kW) = kW + 4, columns past the width and rows past N zero-filled by
+// the copy. A 32-key tile is {x [32][ld(kW)], pe [P][kLDP], ck [V][32],
+// deg [32], key mask [32]} (P = 64 query rows unfolded, 16 folded; V = 1
+// head unfolded, H folded), and its values vw [V][32][ld(kWV)].
+//
+// Widths. The folded grid and the unfolded kernels at D, DV <= 64 take
+// rows of kW = kMaxW = 64 floats (kLD = 68). Wider models (d_model 128: the OGB molecular CLIs)
+// take the unfolded kernels' kW = kWideW = 128 instantiation: the score's
+// FMA chain runs over all D <= 128 columns in order, the same chain, and
+// each block writes one kChunk-wide chunk of the output columns, a grid
+// axis of chunks fastest (`Block::chunk`), every chunk recomputing the
+// score (and the backward's ga) for its columns. An output entry is the
+// same sum in the same order whatever the chunking.
 
 #pragma once
 
@@ -34,7 +43,9 @@ constexpr int kKeys = 32;          // keys per tile
 constexpr int kStrip = 16;         // queries per strip
 constexpr int kLD = 68;            // rows of up to 64 floats, padded
 constexpr int kLDP = kKeys + 8;    // pe [query][key]: float2 reads
-constexpr int kMaxW = 64;
+constexpr int kMaxW = 64;          // the folded kernels' widest rows
+constexpr int kWideW = 128;        // the unfolded kernels' widest rows
+constexpr int kChunk = 64;         // output columns a block (kW = kWideW)
 constexpr int kUnfoldedStrips = 4;
 constexpr int kMaxHeads = 8;
 
@@ -47,34 +58,54 @@ __host__ __device__ inline Shape shape(bool fold, int H) {
               : Shape{kUnfoldedStrips, kUnfoldedStrips * kStrip, 1};
 }
 
+// padded row stride of rows of up to kW floats
+__host__ __device__ constexpr int ld(int kW) { return kW + 4; }
+
+// log2 of a row width kW (64 or 128): the staging loops take row and
+// column of a flat index by shift and mask (a signed division by kW / 4
+// cost the key pass at kW = 64 registers, 100 bytes of spill and 13 %)
+__host__ __device__ constexpr int log2w(int kW) { return kW == 128 ? 7 : 6; }
+
+// chunks of kChunk output columns of a width w at row width kW
+__host__ __device__ inline int chunks(int kW, int w) {
+  return kW > kMaxW ? (w + kChunk - 1) / kChunk : 1;
+}
+
 // floats of a key tile's x, pe, ck, deg and key mask
+template <int kW>
 __host__ __device__ inline int key_floats(Shape sh) {
-  return kKeys * kLD + sh.P * kLDP + (sh.V + 2) * kKeys;
+  return kKeys * ld(kW) + sh.P * kLDP + (sh.V + 2) * kKeys;
 }
 
-// floats of a key tile's vw rows
+// floats of a key tile's vw rows of up to kWV floats
+template <int kWV>
 __host__ __device__ inline int vw_floats(Shape sh) {
-  return sh.V * kKeys * kLD;
+  return sh.V * kKeys * ld(kWV);
 }
 
-// blocks of either grid
-__host__ inline int blocks(bool fold, int B, int H, int N) {
+// blocks of either grid, times the chunks of the output columns
+__host__ inline int blocks(bool fold, int B, int H, int N, int nc = 1) {
   const int tile = fold ? kStrip : kUnfoldedStrips * kStrip;
-  return B * ((N + tile - 1) / tile) * (fold ? 1 : H);
+  return B * ((N + tile - 1) / tile) * (fold ? 1 : H) * nc;
 }
 
-// The block's graph b, first query q0 and (unfolded) head hb; strip s's
-// head and first query.
+// The block's graph b, first query q0, (unfolded) head hb and chunk of
+// output columns; strip s's head and first query.
 struct Block {
-  int b, q0, hb;
+  int b, q0, hb, chunk;
   bool fold;
   __device__ int head(int s) const { return fold ? s : hb; }
   __device__ int first(int s) const { return fold ? q0 : q0 + kStrip * s; }
 };
 
-template <bool kFold>
-__device__ __forceinline__ Block block_of(int H, int N) {
-  int bid = blockIdx.x, hb = 0, q0;
+// kChunked: the grid has `nc` chunks of output columns, the fastest axis
+template <bool kFold, bool kChunked = false>
+__device__ __forceinline__ Block block_of(int H, int N, int nc = 1) {
+  int bid = blockIdx.x, hb = 0, q0, chunk = 0;
+  if (kChunked) {
+    chunk = bid % nc;
+    bid /= nc;
+  }
   if (kFold) {
     const int nq = (N + kStrip - 1) / kStrip;
     q0 = (bid % nq) * kStrip;
@@ -87,31 +118,33 @@ __device__ __forceinline__ Block block_of(int H, int N) {
     q0 = (bid % nq) * kUnfoldedStrips * kStrip;
     bid /= nq;
   }
-  return Block{bid, q0, hb, kFold};
+  return Block{bid, q0, hb, chunk, kFold};
 }
 
-// cp.async of `rows` rows of width w <= 64 into dst [rows][kLD], columns w
-// .. 63 zero: row r from src_row(r), or all zero where that is nullptr.
-// 16 bytes a copy where `vec` (w and the rows' offsets multiples of 4
-// floats), chunk i at row i / 16, columns 4 (i % 16) .. + 3; else 4 bytes.
-template <class Src>
-__device__ __forceinline__ void stage_rows64(float* dst, int rows, int w,
+// cp.async of `rows` rows of width w <= kW into dst [rows][ld(kW)], columns
+// w .. kW - 1 zero: row r from src_row(r), or all zero where that is
+// nullptr. 16 bytes a copy where `vec` (w and the rows' offsets multiples
+// of 4 floats), chunk i at row i / (kW / 4), columns 4 (i % (kW / 4)) ..
+// + 3; else 4 bytes. kW is 64 or 128 (`log2w`).
+template <int kW, class Src>
+__device__ __forceinline__ void stage_rows_w(float* dst, int rows, int w,
                                              bool vec, Src src_row,
                                              const float* dummy) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
+  constexpr int kVecs = kW / 4, kShift = log2w(kW) - 2;
   if (vec) {
-    for (int i = tid; i < rows * 16; i += nthreads) {
-      const int r = i >> 4, c = (i & 15) * 4;
+    for (int i = tid; i < rows * kVecs; i += nthreads) {
+      const int r = i >> kShift, c = (i & (kVecs - 1)) * 4;
       const float* p = src_row(r);
       const bool valid = p != nullptr && c < w;
-      tc::cp_async16(dst + r * kLD + c, valid ? p + c : dummy, valid);
+      tc::cp_async16(dst + r * ld(kW) + c, valid ? p + c : dummy, valid);
     }
   } else {
-    for (int i = tid; i < rows * kMaxW; i += nthreads) {
-      const int r = i >> 6, c = i & (kMaxW - 1);
+    for (int i = tid; i < rows * kW; i += nthreads) {
+      const int r = i >> log2w(kW), c = i & (kW - 1);
       const float* p = src_row(r);
       const bool valid = p != nullptr && c < w;
-      tc::cp_async4(dst + r * kLD + c, valid ? p + c : dummy, valid);
+      tc::cp_async4(dst + r * ld(kW) + c, valid ? p + c : dummy, valid);
     }
   }
 }
@@ -121,12 +154,13 @@ __device__ __forceinline__ bool vec_rows(const float* base, int w) {
 }
 
 // The strips' rows of a per-head operand `base` [B, H, N, w] into dst
-// [16 S][kLD], rows past N zero.
+// [16 S][ld(kW)], rows past N zero.
+template <int kW>
 __device__ __forceinline__ void stage_strips(float* dst, const Block& blk,
                                              Shape sh, const float* base,
                                              int w, int H, int N,
                                              const float* dummy) {
-  stage_rows64(
+  stage_rows_w<kW>(
       dst, sh.S * kStrip, w, vec_rows(base, w),
       [&](int r) -> const float* {
         const int sr = r >> 4, q = blk.first(sr) + (r & 15);
@@ -136,8 +170,9 @@ __device__ __forceinline__ void stage_strips(float* dst, const Block& blk,
       dummy);
 }
 
-// Key tile k0's x, pe, ck, deg and key mask into `st` (key_floats(sh)
+// Key tile k0's x, pe, ck, deg and key mask into `st` (key_floats<kW>(sh)
 // floats, laid out as the note says).
+template <int kW>
 __device__ __forceinline__ void stage_keys(float* st, const Block& blk,
                                            Shape sh,
                                            const graphit::Operands& op,
@@ -145,9 +180,9 @@ __device__ __forceinline__ void stage_keys(float* st, const Block& blk,
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int b = blk.b;
   const float* dummy = op.x;
-  float* pst = st + kKeys * kLD;
+  float* pst = st + kKeys * ld(kW);
   float* vst = pst + sh.P * kLDP;     // ck [V][32], deg [32], mask [32]
-  stage_rows64(
+  stage_rows_w<kW>(
       st, kKeys, D, vec_rows(op.x, D),
       [&](int r) -> const float* {
         return k0 + r < N ? op.x + ((size_t)b * N + k0 + r) * D : nullptr;
@@ -181,17 +216,20 @@ __device__ __forceinline__ void stage_keys(float* st, const Block& blk,
   }
 }
 
-// Key tile k0's vw rows of every staged head into dst [V][32][kLD].
+// Key tile k0's vw rows of every staged head into dst [V][32][ld(kWV)]:
+// columns col0 .. col0 + w - 1 of rows of DV floats (w <= kWV).
+template <int kWV>
 __device__ __forceinline__ void stage_vw(float* dst, const Block& blk,
                                          Shape sh,
                                          const graphit::Operands& op, int k0,
-                                         int H, int N, int DV) {
-  stage_rows64(
-      dst, sh.V * kKeys, DV, vec_rows(op.vw, DV),
+                                         int H, int N, int DV, int col0,
+                                         int w) {
+  stage_rows_w<kWV>(
+      dst, sh.V * kKeys, w, vec_rows(op.vw, DV),
       [&](int r) -> const float* {
         const int key = k0 + (r & (kKeys - 1));
         return key < N ? op.vw + (((size_t)blk.b * H + blk.head(r >> 5)) * N +
-                                  key) * DV
+                                  key) * DV + col0
                        : nullptr;
       },
       op.x);

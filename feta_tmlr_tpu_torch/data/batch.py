@@ -31,6 +31,8 @@ class Graph:
       edge_type: optional [e] int edge (bond) types, one per edge.
       eigvecs: optional [n, m] Laplacian eigenvectors, NaN-padded.
       eigvals: optional [m] eigenvalues, NaN-padded.
+      edge_attr: optional [e, k] int edge features (OGB bond features);
+        collation does not read them.
     """
 
     x: np.ndarray
@@ -42,6 +44,7 @@ class Graph:
     edge_type: Optional[np.ndarray] = None
     eigvecs: Optional[np.ndarray] = None
     eigvals: Optional[np.ndarray] = None
+    edge_attr: Optional[np.ndarray] = None
 
     @property
     def num_nodes(self) -> int:

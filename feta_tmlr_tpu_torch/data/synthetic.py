@@ -1,6 +1,7 @@
 """Synthetic graphs for tests and the chip smoke run: SBM-shaped node
 classification graphs (PATTERN/CLUSTER-like), ZINC-shaped molecules with
-one-hot atoms, and ZINC-shaped molecules with categorical atoms and bonds.
+one-hot atoms, ZINC-shaped molecules with categorical atoms and bonds, and
+OGB-shaped molecules (the molhiv / molpcba CLIs' fallback).
 The numpy call sequence is the JAX package's, so a seed gives identical
 graphs in both."""
 
@@ -11,6 +12,7 @@ from typing import List, Optional
 import numpy as np
 
 from feta_tmlr_tpu_torch.data.batch import Graph
+from feta_tmlr_tpu_torch.data.ogb_raw import ATOM_FEATURE_DIMS
 
 
 def random_connected_graph(rng: np.random.Generator, n_nodes: int,
@@ -69,6 +71,26 @@ def zinc_categorical_dataset(seed: int = 0, n_graphs: int = 32,
             et[i] = seen[key]
         g.edge_type = et
         g.y = np.float32(rng.standard_normal())
+        g.compute_degree_feature()
+        graphs.append(g)
+    return graphs
+
+
+def ogb_like_dataset(seed: int = 0, n_graphs: int = 128,
+                     n_tasks: int = 1) -> List[Graph]:
+    """Molecule-shaped graphs of 8-27 atoms with the nine OGB atom feature
+    columns (ints in each column's vocabulary) and binary labels: a scalar
+    for one task (molhiv), else [n_tasks]. The molhiv CLI's synthetic
+    fallback (experiments/run_transformer_gengcn_molhiv.py:26-38)."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n_graphs):
+        n = int(rng.integers(8, 28))
+        g = random_connected_graph(rng, n, 1, edge_prob=0.15)
+        g.x = np.stack([rng.integers(0, d, n) for d in ATOM_FEATURE_DIMS],
+                       axis=-1).astype(np.int32)
+        g.y = (np.float32(rng.integers(0, 2)) if n_tasks == 1
+               else rng.integers(0, 2, n_tasks).astype(np.float32))
         g.compute_degree_feature()
         graphs.append(g)
     return graphs

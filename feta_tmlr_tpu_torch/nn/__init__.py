@@ -10,6 +10,15 @@ from feta_tmlr_tpu_torch.nn.models import (
     DiffGraphTransformerGenGCNSBM,
     coefficient_regularizer,
 )
+from feta_tmlr_tpu_torch.nn.ogb import (
+    ATOM_FEATURE_DIMS,
+    BOND_FEATURE_DIMS,
+    DiffGraphTransformerGenGCNMolHiv,
+    DiffGraphTransformerGenGCNMolPcba,
+    DiffGraphTransformerGenGCNPCQM4M,
+    OGBAtomEncoder,
+    OGBBondEncoder,
+)
 from feta_tmlr_tpu_torch.nn.san import (
     FreqTransformer,
     LPETransformer,
@@ -22,8 +31,13 @@ from feta_tmlr_tpu_torch.nn.san import (
     typed_edge_scores,
 )
 
-__all__ = ["AttnColStats", "ClassifierMLP", "DiffGraphTransformerGenGCN",
-           "DiffGraphTransformerGenGCNSBM",
+__all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
+           "ClassifierMLP", "DiffGraphTransformerGenGCN",
+           "DiffGraphTransformerGenGCNMolHiv",
+           "DiffGraphTransformerGenGCNMolPcba",
+           "DiffGraphTransformerGenGCNPCQM4M",
+           "DiffGraphTransformerGenGCNSBM", "OGBAtomEncoder",
+           "OGBBondEncoder",
            "FeTAEncoder", "FilterCoefficientHead", "FreqTransformer",
            "GraphiTEncoderLayer", "LPETransformer", "MLPReadout",
            "MaskedBatchNorm", "SANAttention", "SANCoeffHead",

@@ -34,6 +34,7 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
 )
 from feta_tmlr_tpu_torch.ops.laplacian import rsqrt_pos
 
+MAX_WIDTH = 128       # csrc/colstat.cu's kWideW
 _fn = None
 
 
@@ -69,6 +70,8 @@ def colstat(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su, wq=None):
     check_operands("colstat", xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[(k, t, (b, h, n)) for k, t in
                           (("m", m), ("se", se), ("su", su), ("wq", wq))])
+    if d > MAX_WIDTH:
+        raise ValueError(f"colstat: width {d} > {MAX_WIDTH}")
     lib, fn = _kernel()
     colsum, diag = (torch.empty((b, h, n), dtype=torch.float32,
                                 device=xa.device) for _ in range(2))

@@ -67,6 +67,7 @@ class _Kernel(NamedTuple):
     dx_scratch: bool = False     # the k pass writes one dx partial a head
     max_heads: Optional[int] = None
     splits: bool = False         # the folded k pass splits its query loop
+    max_width: int = 128         # D and dv (csrc/strips.cuh: kWideW, kMaxW)
 
 
 # wrapper name -> its kernel; the folded kernels run the heads side by side
@@ -76,11 +77,11 @@ _SYMBOLS = {
     "flash_bwd_k": _Kernel("flash_bwd", "feta_flash_bwd_k", 19,
                            dx_scratch=True),
     "flash_fwd_hf": _Kernel("flash_hf", "feta_flash_fwd_hf", 13,
-                            max_heads=8),
+                            max_heads=8, max_width=64),
     "flash_bwd_q_hf": _Kernel("flash_hf", "feta_flash_bwd_q_hf", 17,
-                              max_heads=8),
+                              max_heads=8, max_width=64),
     "flash_bwd_k_hf": _Kernel("flash_hf", "feta_flash_bwd_k_hf", 19,
-                              max_heads=8, splits=True)}
+                              max_heads=8, splits=True, max_width=64)}
 K_HF_KEYS = 32        # keys per block of the folded k pass
 K_HF_MAX_SPLITS = 4
 _fns = {}
@@ -96,10 +97,13 @@ def _kernel(name):
     return _fns[name]
 
 
-def _check_heads(name, h):
-    limit = _SYMBOLS[name].max_heads
-    if limit is not None and h > limit:
-        raise ValueError(f"{name}: {h} heads > {limit}")
+def _check_shape(name, h, d, dv):
+    k = _SYMBOLS[name]
+    if k.max_heads is not None and h > k.max_heads:
+        raise ValueError(f"{name}: {h} heads > {k.max_heads}")
+    if d > k.max_width or dv > k.max_width:
+        raise ValueError(f"{name}: width {d} or value width {dv} > "
+                         f"{k.max_width}")
 
 
 def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
@@ -121,9 +125,7 @@ def _launch_fwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     dv = vw.shape[-1]
     check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[("vw", vw, (b, h, n, dv))])
-    if d > 64 or dv > 64:
-        raise ValueError(f"{name}: width {d} or value width {dv} > 64")
-    _check_heads(name, h)
+    _check_shape(name, h, d, dv)
     lib, fn = _kernel(name)
     outh = torch.empty((b, h, n, dv), dtype=torch.float32, device=xa.device)
     m, se, su = (torch.empty((b, h, n), dtype=torch.float32,
@@ -137,8 +139,9 @@ def _launch_fwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
 
 def flash_fwd(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     """Online-softmax GraphiT forward (operand layout in `common`; xa is
-    [B, H, N, D] and vw [B, H, N, dv] with D, dv <= 64). Returns (outh, m,
-    se, su)."""
+    [B, H, N, D] and vw [B, H, N, dv] with D, dv <= 128: over 64, the
+    kernel's wide-row instantiation, csrc/fwd.cuh). Returns (outh, m, se,
+    su)."""
     if not cuda_or_plain("flash_fwd", xa):
         return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
     out = _launch_fwd("flash_fwd", xa, x, cq, ck, c0, vw, pe, deg, mask,
@@ -151,8 +154,8 @@ def flash_fwd_hf(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     """Head-folded forward (`csrc/flash_hf.cu`, TPU `_fwd_kernel_hf`): the
     same function as `flash_fwd`, so its plain version is
     `flash_fwd_plain`; `csrc/fwd.cuh`'s body, as `flash_fwd`'s, on one
-    block per (graph, 16-query tile) for all heads (H <= 8), so it returns
-    `flash_fwd`'s bits."""
+    block per (graph, 16-query tile) for all heads (H <= 8, D and dv <=
+    64), so it returns `flash_fwd`'s bits."""
     if not cuda_or_plain("flash_fwd_hf", xa):
         return flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt)
     out = _launch_fwd("flash_fwd_hf", xa, x, cq, ck, c0, vw, pe, deg, mask,
@@ -214,9 +217,7 @@ def _check_bwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
     check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
                    extra=[("vw", vw, (b, h, n, dv)), ("g", g, (b, h, n, dv)),
                           *rows])
-    if d > 64 or dv > 64:
-        raise ValueError(f"{name}: width {d} or value width {dv} > 64")
-    _check_heads(name, h)
+    _check_shape(name, h, d, dv)
     return b, h, n, d, dv
 
 

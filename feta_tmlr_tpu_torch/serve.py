@@ -21,7 +21,9 @@ from feta_tmlr_tpu_torch.device import resolve_device
 class Predictor:
     """Args:
       model: a module whose forward takes a `GraphBatch` and returns
-        logits or a tuple whose first element is the logits.
+        logits or a tuple whose first element is the logits ([B], [B, C]
+        or [B, N, C]; the graphs' rows are stacked as the JAX package's
+        Predictor stacks them: [G], [G, C]).
       device: where to serve (default CUDA; raises if CUDA is absent and
         the CPU was not asked for). The model is moved there.
       max_batch: graphs per forward call.

@@ -1,14 +1,19 @@
-"""Trainer for the node classifier (`node_clf`) and the graph regressor
-(`graph_reg`).
+"""Trainer for the four tasks of the JAX package's `train/trainer.py`.
 
-The counterpart of the JAX package's `train/trainer.py` for the tasks the
-port trains so far: masked cross-entropy over labelled real nodes plus the
-weighted coefficient regularizer with class-balanced accuracy (SBM
-PATTERN/CLUSTER), and the L1 loss with MAE (ZINC). Reference behaviours
-kept: the Laplacian-PE and eigenvector sign-flip augmentations during
-training, batch-norm running statistics updated in train mode, best-val
-selection (lower is better for `graph_reg`), and the constant / step /
-warmup / plateau learning-rate schedules.
+  node_clf      masked cross-entropy over labelled real nodes; class-
+                balanced accuracy (SBM PATTERN/CLUSTER)
+  graph_reg     L1 loss; MAE (ZINC, PCQM4M)
+  graph_clf     cross-entropy of one logit row per graph; accuracy (TU)
+  binary_graph  sigmoid binary cross-entropy over the labelled entries
+                (NaN labels are unlabelled, molpcba); ROC-AUC for one task
+                (molhiv), else the mean over tasks of AP or ROC-AUC
+                (`TrainConfig.binary_metric`)
+
+each plus the weighted coefficient regularizer. Reference behaviours kept:
+the Laplacian-PE and eigenvector sign-flip augmentations during training,
+batch-norm running statistics updated in train mode, best-val selection
+(lower is better for `graph_reg`, higher for the others), and the
+constant / step / warmup / plateau learning-rate schedules.
 
 Models may return the logits or a tuple (logits, reg, ...), and take the
 `regularization` keyword only if their forward has it, as in the JAX
@@ -28,9 +33,19 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
-from feta_tmlr_tpu_torch.train.metrics import accuracy_sbm, mae
+from feta_tmlr_tpu_torch.train.losses import (cross_entropy,
+                                              sample_cross_entropy)
+from feta_tmlr_tpu_torch.train.metrics import (
+    accuracy_graph,
+    accuracy_sbm,
+    average_precision,
+    mae,
+    multitask_mean,
+    roc_auc,
+)
 from feta_tmlr_tpu_torch.train.optim import (
     PlateauScheduler,
     make_optimizer,
@@ -38,12 +53,12 @@ from feta_tmlr_tpu_torch.train.optim import (
     warmup_inverse_sqrt,
 )
 
-TASKS = ("node_clf", "graph_reg")
+TASKS = ("node_clf", "graph_reg", "graph_clf", "binary_graph")
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    task: str = "node_clf"             # node_clf | graph_reg
+    task: str = "node_clf"             # one of TASKS
     lr: float = 1e-3
     weight_decay: float = 1e-5
     epochs: int = 100
@@ -57,14 +72,14 @@ class TrainConfig:
     plateau_patience: int = 10
     plateau_factor: float = 0.5
     min_lr: float = 1e-6
+    binary_metric: str = "ap"    # binary_graph, several tasks: ap | rocauc
     seed: int = 0
 
 
 def _check_task(task: str) -> None:
     if task not in TASKS:
-        raise ValueError(
-            f"task {task!r} is not ported yet (ROADMAP Queue 1 item 2 and "
-            f"later); the port trains {', '.join(TASKS)}")
+        raise ValueError(f"unknown task {task!r}; the trainer takes "
+                         f"{', '.join(TASKS)}")
 
 
 def _model_outputs(out):
@@ -77,21 +92,50 @@ def _model_outputs(out):
 def task_loss(task: str, logits: torch.Tensor,
               batch: GraphBatch) -> torch.Tensor:
     """node_clf: masked cross-entropy over real nodes with a label
-    (y >= 0); graph_reg: mean absolute error of one output per graph."""
+    (y >= 0); graph_reg: mean absolute error of one output per graph;
+    graph_clf: mean cross-entropy of one logit row per graph;
+    binary_graph: sigmoid binary cross-entropy with logits, summed over the
+    entries whose label is not NaN and divided by their count (at least
+    1)."""
     _check_task(task)
     if task == "graph_reg":
         return (logits.reshape(batch.y.shape) - batch.y).abs().mean()
-    labels = batch.y.clamp_min(0).long()
-    ce = -torch.log_softmax(logits, -1).gather(-1, labels[..., None])[..., 0]
+    if task == "graph_clf":
+        return cross_entropy(logits, batch.y, logits.shape[-1])
+    if task == "binary_graph":
+        y = batch.y.to(logits.dtype)
+        if y.dim() < logits.dim():
+            y = y[..., None]
+        valid = ~torch.isnan(y)
+        per = F.binary_cross_entropy_with_logits(
+            logits, torch.where(valid, y, torch.zeros_like(y)),
+            reduction="none")
+        per = torch.where(valid, per, torch.zeros_like(per))
+        return per.sum() / valid.sum().clamp_min(1)
+    ce = sample_cross_entropy(logits, batch.y.clamp_min(0))
     m = (batch.node_mask & (batch.y >= 0)).to(ce.dtype)
     return (ce * m).sum() / m.sum().clamp_min(1.0)
 
 
-def task_metric(task: str, logits: np.ndarray, y, node_mask=None) -> dict:
-    """Metric over a full split (logits and labels of all its batches)."""
+def task_metric(task: str, logits: np.ndarray, y, node_mask=None,
+                binary_metric: str = "ap") -> dict:
+    """Metric over a full split (logits and labels of all its batches:
+    ROC-AUC and AP do not decompose over batches)."""
     _check_task(task)
     if task == "graph_reg":
         return {"mae": mae(np.asarray(logits).reshape(np.shape(y)), y)}
+    if task == "graph_clf":
+        return {"acc": accuracy_graph(logits, y)}
+    if task == "binary_graph":
+        y = np.asarray(y)
+        s = np.asarray(logits)
+        if s.ndim == 1 or s.shape[-1] == 1:
+            return {"rocauc": roc_auc(s.reshape(-1), y.reshape(-1))}
+        if y.ndim < s.ndim:
+            y = y[..., None]
+        if binary_metric == "rocauc":
+            return {"rocauc": multitask_mean(roc_auc, s, y)}
+        return {"ap": multitask_mean(average_precision, s, y)}
     return {"acc_sbm": accuracy_sbm(logits, y, mask=node_mask)}
 
 
@@ -136,7 +180,8 @@ class Trainer:
 
     @property
     def _mode(self) -> str:
-        """Whether a lower ("min", MAE) or higher ("max") metric is better."""
+        """Whether a lower ("min", MAE) or higher ("max": accuracy,
+        ROC-AUC, AP) metric is better."""
         return "min" if self.cfg.task == "graph_reg" else "max"
 
     def _set_lr(self, lr: float) -> None:
@@ -198,7 +243,8 @@ class Trainer:
                 y_all.append(b.y.cpu().numpy())
                 mask_all.append(b.node_mask.cpu().numpy())
         return task_metric(self.cfg.task, np.concatenate(logits_all),
-                           np.concatenate(y_all), np.concatenate(mask_all))
+                           np.concatenate(y_all), np.concatenate(mask_all),
+                           binary_metric=self.cfg.binary_metric)
 
     def fit(self, train_batches: Sequence[GraphBatch],
             val_batches: Optional[Sequence[GraphBatch]] = None,

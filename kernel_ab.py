@@ -32,8 +32,9 @@ round 1> <ms round 2>`. Compare variants only within one run.
 `--check` prints each kernel's registers and spills (`nvcc -Xptxas -v`)
 and its count of `HMMA.1688.F32.TF32` (`cuobjdump -sass` of a cubin),
 then holds each forward and backward pass to its plain version at the
-tiles' edge shapes (where it misses, the indices of the misses), two runs
-bit-identical, the folded forward and query pass bit-equal to the unfolded
+tiles' edge shapes (a tree with the wide rows, `kWideW` in strips.cuh,
+also at WIDE_EDGES: D and dv up to 128) (where it misses, the indices of
+the misses), two runs bit-identical, the folded forward and query pass bit-equal to the unfolded
 ones, and times them at N >= 1024 (median of 10). With more than one DIR,
 the first is the reference (the parent tree's `csrc`) and each other DIR
 is checked, its forwards' row maximum m held bit-equal to the reference's
@@ -163,6 +164,15 @@ FWD_EDGES = tuple((b, 8, n, pad, 64, dv)
     (2, 4, 1, 0, 64, 8), (1, 1, 13, 2, 20, 12), (2, 3, 65, 0, 64, 64),
     (2, 3, 200, 7, 20, 12), (1, 3, 257, 4, 20, 12), (1, 1, 1990, 9, 64, 8),
     (2, 8, 33, 1, 64, 8))
+# the unfolded kernels' wide rows (csrc/strips.cuh, D or dv over 64):
+# (kernel, B, H, N, padding, D, dv) at the molhiv width D = 128 with dv 128
+# (two value chunks) and 16 (the filtered layer), D = 100 (a K edge inside
+# the second chunk), D = 70 (4-byte staging), N of 1, 13, 65, 200 and 1024
+WIDE_EDGES = tuple((name, *e) for name in ("flash_fwd", "flash_bwd_q",
+                                           "flash_bwd_k") for e in (
+    (4, 8, 1024, 60, 128, 128), (2, 8, 200, 9, 128, 16),
+    (2, 3, 65, 3, 100, 100), (1, 1, 13, 2, 70, 70), (2, 4, 1, 0, 128, 128),
+    (2, 8, 33, 1, 128, 16), (1, 2, 130, 5, 72, 40)))
 LIBS = ("flash_fwd", "flash_bwd", "flash_hf")
 FUSED_LIBS = ("fused_attention",)
 # `--fused --check`: (B, H, N, padding, D): clusters of 8, 1, 3, 6 (two
@@ -419,6 +429,8 @@ def check(src: Path, dev, ref_m=None) -> int:
              "flash_fwd_hf": fl_mod.flash_fwd}
     cases = EDGES + tuple((name, *e) for e in FWD_EDGES
                           for name in ("flash_fwd", "flash_fwd_hf"))
+    if (src / "strips.cuh").read_text().count("kWideW"):
+        cases += WIDE_EDGES
     for name, *shape in cases:
         b, h, n, pad, d, dv = shape
         args = operands(name, edge_inputs(cache, tuple(shape), dev))
@@ -434,7 +446,7 @@ def check(src: Path, dev, ref_m=None) -> int:
             equal = all(map(torch.equal, got, twin))
             msg.append(f"bit-equal to the unfolded kernel {equal}")
             bad += not equal
-        if ref_m is not None and "fwd" in name:
+        if ref_m is not None and "fwd" in name and tuple(shape) in ref_m:
             equal = torch.equal(got[1], ref_m[tuple(shape)])
             msg.append(f"m bit-equal to the reference's {equal}")
             bad += not equal

@@ -2,8 +2,9 @@
 the CPU.
 
 `csrc/colstat.cu` recomputes the attention of a 64-key block tile by tile
-and sums its columns; `csrc/fused_mlp.cu`'s backward walks each (slab of
-hidden units, split of rows) once on the tensor cores. No card is needed
+and sums its columns (at D = 20, and at its wide rows' D = 128);
+`csrc/fused_mlp.cu`'s backward walks each (slab of hidden units, split of
+rows) once on the tensor cores. No card is needed
 to check that their arithmetic keeps float32 accuracy: it is emulated here
 in torch, step by step in the kernels' order, with the TF32 split of
 `test_torch_tf32_split.py` and the batched 3xTF32 k-steps of
@@ -133,11 +134,11 @@ def colstat_emulated(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su,
     return colsum[..., :n], diag
 
 
-def colstat_case(seed, n, pad, with_pe, with_deg):
-    """B=2, H=3, D=20 operands (`chip_smoke.attention_inputs`), pe zero on
+def colstat_case(seed, n, pad, with_pe, with_deg, d=20):
+    """B=2, H=3, D=d operands (`chip_smoke.attention_inputs`), pe zero on
     graph 0's first 3 query rows (su = 0: the guard branch), the plain
     forward's statistics and a wq in (0, 1]."""
-    ops, vw = chip_smoke.attention_inputs(seed, 2, 3, n, 20, 8, pad,
+    ops, vw = chip_smoke.attention_inputs(seed, 2, 3, n, d, 8, pad,
                                           torch.device("cpu"))
     ops["pe"][0, :3] = 0.0
     _, m, se, su = tfl.flash_fwd_plain(vw=vw, **ops)
@@ -176,6 +177,34 @@ def test_colstat_tiles_keep_f32_accuracy(n, pad, with_pe, with_deg,
         assert max_err(got[0], want[0]) <= CPU32_FACTOR * max_err(
             plain[0], want[0]), (max_err(got[0], want[0]),
                                  max_err(plain[0], want[0]))
+
+
+@pytest.mark.parametrize("n,pad", [(48, 5), (130, 9)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_colstat_wide_rows_keep_f32_accuracy(n, pad, weighted):
+    """colstat at its wide rows (kWideW = 128 in the source, the OGB
+    models' d_model): the score's FMA chain over all 128 columns, the
+    column sums as at D = 64; against plain and float64 within the
+    kernels' tolerance, the column sums' mean error (and at N = 130 their
+    max) within 2x the CPU float32 route's."""
+    d = constant("colstat.cu", "kWideW")
+    assert d == 128
+    args, wq, _ = colstat_case(n + pad + d, n, pad, True, True, d=d)
+    assert args[0].shape[-1] == d
+    w = wq if weighted else None
+    got = colstat_emulated(*args, wq=w)
+    plain = tcs.colstat_plain(*args, wq=w)
+    want = tcs.colstat_plain(*f64(args), wq=None if w is None else
+                             w.double())
+    for name, gt, p, wt in zip(("colsum", "diag"), got, plain, want):
+        assert torch.isfinite(gt).all(), name
+        assert torch.allclose(gt, p, **KERNEL_TOL), name
+        assert torch.allclose(gt.double(), wt, **KERNEL_TOL), name
+    assert mean_err(got[0], want[0]) <= CPU32_FACTOR * mean_err(
+        plain[0], want[0])
+    if n >= 130:
+        assert max_err(got[0], want[0]) <= CPU32_FACTOR * max_err(
+            plain[0], want[0])
 
 
 def test_colstat_geometry_covers_the_block():

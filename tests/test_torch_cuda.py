@@ -12,7 +12,8 @@ dropout masks bit-equal; the two-layer SBM model rtol 1e-4 / atol 1e-4
 and its gradients rtol 1e-3 / atol 1e-5; the two-layer SAN model's outputs
 rtol 1e-4 / atol 1e-4 and its gradients within 1e-3 of each tensor's
 largest entry (eigen-PE dropout 0.1 on both sides, the same masks); the
-two-layer ZINC model on the modulation and fused routes as the SBM model.
+two-layer ZINC model on the modulation and fused routes and the two-layer
+molhiv model at d_model 128 on the flash route as the SBM model.
 """
 
 import copy
@@ -25,6 +26,7 @@ from chip_smoke import (FUSED_CPU32_FACTOR, masked_cells, mlp_inputs,
                         mlp_masks)
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
+    ogb_like_dataset,
     sbm_like_dataset,
     zinc_categorical_dataset,
     zinc_like_dataset,
@@ -33,6 +35,7 @@ from feta_tmlr_tpu_torch.nn.models import (
     DiffGraphTransformerGenGCN,
     DiffGraphTransformerGenGCNSBM,
 )
+from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra
 from feta_tmlr_tpu_torch.ops.kernels import colstat as tcs
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
@@ -137,7 +140,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ops, vw = _ops(8, 1, 2, 32, 16, 8, 3)
     gops = _to(ops, cuda)
     with pytest.raises(ValueError, match="value width"):
-        tfl.flash_fwd(vw=torch.zeros(1, 2, 32, 65, device=cuda), **gops)
+        tfl.flash_fwd(vw=torch.zeros(1, 2, 32, 129, device=cuda), **gops)
     with pytest.raises(ValueError, match="contiguous"):
         tfl.flash_fwd(vw=vw.to(cuda).transpose(2, 3).contiguous()
                       .transpose(2, 3), **gops)
@@ -159,6 +162,39 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         bad[10] = gargs[10].transpose(2, 3).contiguous().transpose(2, 3)
         with pytest.raises(ValueError, match="contiguous"):
             fn(*bad)
+
+
+# the unfolded forward's and colstat's wide rows (D or dv over 64, up to
+# 128: the OGB molecular models' d_model), two value chunks at dv 128,
+# the filtered layer's dv 16, K edges at D = 100 and 70 (4-byte staging),
+# N of 1, 13 and ragged
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,pad,d,dv,with_mod", [
+    (2, 8, 200, 7, 128, 128, True), (2, 8, 222, 9, 128, 16, True),
+    (1, 3, 65, 3, 100, 100, False), (1, 1, 13, 2, 70, 70, True),
+    (2, 4, 1, 0, 128, 128, True), (4, 8, 1024, 60, 128, 128, True)])
+def test_cuda_wide_forward_and_colstat_match_plain(cuda, b, h, n, pad, d, dv,
+                                                   with_mod):
+    """flash_fwd and colstat at D = 128 against their plain versions, two
+    runs bit-identical; the folded forward refuses the width."""
+    ops, vw = _ops(12, b, h, n, d, dv, pad, with_mod)
+    gops, gvw = _to(ops, cuda), vw.to(cuda)
+    before = tfl.flash_fwd.launches, tcs.colstat.launches
+    want = tfl.flash_fwd_plain(vw=vw, **ops)
+    got, again = tfl.flash_fwd(vw=gvw, **gops), tfl.flash_fwd(vw=gvw, **gops)
+    torch.cuda.synchronize()
+    _close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    stats = dict(m=want[1], se=want[2], su=want[3])
+    for wq in (None, want[2]):
+        got_cs = tcs.colstat(**gops, **_to(stats, cuda),
+                             wq=None if wq is None else wq.to(cuda))
+        torch.cuda.synchronize()
+        _close(got_cs, tcs.colstat_plain(**ops, **stats, wq=wq))
+    assert (tfl.flash_fwd.launches, tcs.colstat.launches) == (
+        before[0] + 2, before[1] + 2)
+    with pytest.raises(ValueError, match="> 64"):
+        tfl.flash_fwd_hf(vw=gvw, **gops)
 
 
 def _bwd_args(ops, vw, guard_rows=4):
@@ -189,7 +225,12 @@ def _bwd_args(ops, vw, guard_rows=4):
     (2, 8, 65, 0, 64, 64, True), (2, 8, 33, 1, 64, 8, True),
     (128, 8, 48, 11, 64, 64, True), (128, 8, 48, 11, 64, 8, True),
     (2, 8, 257, 3, 64, 64, True), (1, 3, 257, 4, 20, 12, True),
-    (1, 8, 2048, 100, 64, 64, True)])
+    (1, 8, 2048, 100, 64, 64, True),
+    # the wide rows (D or dv over 64): two column chunks, the filtered
+    # layer's dv 16, a K edge inside the second chunk, 4-byte staging
+    (2, 8, 200, 7, 128, 128, True), (2, 8, 70, 9, 128, 16, False),
+    (1, 3, 65, 3, 100, 100, True), (1, 1, 13, 2, 70, 70, True),
+    (4, 8, 1024, 60, 128, 128, True)])
 def test_cuda_backward_kernels_match_plain(cuda, b, h, n, pad, d, dv,
                                            with_mod):
     ops, vw = _ops(7, b, h, n, d, dv, pad, with_mod)
@@ -718,4 +759,39 @@ def test_cuda_zinc_step_and_predictor_match_cpu(cuda, impl, launches):
     kw = dict(max_batch=4, collate_kwargs={"max_nodes": 48})
     got = Predictor(gpu_model, **kw).predict(graphs)
     ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_molhiv_step_and_predictor_match_cpu(cuda):
+    """The molhiv model at its CLI width (d_model 128, 8 heads; 2 layers)
+    on the flash route: one binary_graph step's loss and gradients and the
+    served logits on CUDA against the CPU, 2 + 1 + 2 + 2 launches a step
+    (the flash forward on both layers, colstat twice on the filtered one,
+    both backward passes on both)."""
+    graphs = ogb_like_dataset(seed=3, n_graphs=6)
+    batch = collate_graphs(graphs[:4], max_nodes=32)
+    cpu_model = DiffGraphTransformerGenGCNMolHiv(
+        nb_class=1, d_model=128, nb_heads=8, dim_feedforward=256,
+        dropout=0.0, nb_layers=2, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(task="binary_graph", regularization=0.1,
+                      sign_flip=False)
+    counts = lambda: (tfl.flash_fwd.launches, tcs.colstat.launches,
+                      tfl.flash_bwd_q.launches, tfl.flash_bwd_k.launches)
+    before = counts()
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 2, 2)
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   want[name].grad.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    kw = dict(max_batch=4, collate_kwargs={"max_nodes": 32})
+    got = Predictor(gpu_model, **kw).predict(graphs)
+    ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    assert got.shape == (6,)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

@@ -28,6 +28,12 @@ shapes, and held to float64:
 - the bounded partial sums of dcq and dck over 2048 rows: no further from
   float64 than the one f32 chain per thread that the earlier kernels took,
   and near the CPU float32 route's own sum;
+- the unfolded kernels' wide rows (D and dv up to 128, the OGB models'
+  d_model): each block's chunk of 64 output columns emulated with the
+  full-D score chain (`fwd_emulated` per value chunk, `q_pass_emulated`
+  and `k_pass_emulated` per column chunk, the geometry read from
+  `csrc/strips.cuh`), the chunks' shared outputs bit-equal, held to
+  float64 and to 2x the CPU float32 route's error;
 - the forwards' whole tile arithmetic (`fwd_emulated`, `csrc/fwd.cuh`):
   the score as the FMA chain, the online softmax per warp and 16 keys of a
   32-key tile, P·V in 3xTF32 with a fresh fragment per k-step and a fresh
@@ -44,6 +50,8 @@ the Chebyshev filter (`ops/cheb.py::node_matmul`) against float64.
 """
 
 import contextlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -252,17 +260,22 @@ def warp_keys(u, t):
 
 
 def q_pass_emulated(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
-                    ise, qa, beta, c):
+                    ise, qa, beta, c, cols=None):
     """flash_bwd_q's and flash_bwd_q_hf's arithmetic (bwd_q.cuh: both grids
-    compute each 16-query strip alike) in torch: (dxa, dcq)."""
+    compute each 16-query strip alike) in torch: (dxa, dcq). `cols`: one
+    wide-row block's chunk of dxa's columns (its ds·x over those columns
+    of x; the score and ga over all of them); dxa is then that chunk."""
     b_, h_, n, d = xa.shape
     dv = vw.shape[-1]
     np_ = -(-n // KEYS) * KEYS
     pad = lambda t, dims: torch.nn.functional.pad(t, dims)
     w8 = lambda w: -(-w // 8) * 8
+    cols = cols or slice(0, d)
+    dc = len(range(d)[cols])
     # the staged tiles: rows past N and columns past the width are zero
     xa_p = pad(xa, (0, w8(d) - d, 0, np_ - n))
     x_p = pad(x, (0, w8(d) - d, 0, np_ - n))
+    xc_p = pad(x[..., cols], (0, w8(dc) - dc, 0, np_ - n))
     g_p = pad(g, (0, w8(dv) - dv, 0, np_ - n))
     vw_p = pad(vw, (0, w8(dv) - dv, 0, np_ - n))
     dot = fma_chain(xa_p[:, :, :, None, :], x_p[:, None, None, :, :])
@@ -280,13 +293,13 @@ def q_pass_emulated(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
     valid = torch.zeros(np_, dtype=torch.bool)
     valid[:n] = True
     valid = valid[:, None] & valid[None, :]
-    dxa = torch.zeros((b_, h_, np_, w8(d)))
+    dxa = torch.zeros((b_, h_, np_, w8(dc)))
     dcq = torch.zeros((b_, h_, np_))
     for bi in range(b_):
         for hi in range(h_):
             for q0 in range(0, np_, STRIP):
                 qs = slice(q0, q0 + STRIP)
-                acc = torch.zeros((STRIP, w8(d)))
+                acc = torch.zeros((STRIP, w8(dc)))
                 parts = {(u, t): [] for u in range(2) for t in range(4)}
                 for k0 in range(0, np_, KEYS):
                     ks = slice(k0, k0 + KEYS)
@@ -304,12 +317,12 @@ def q_pass_emulated(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
                         for j in warp_keys(u, t):
                             p = p + ds[:, j]
                         lst.append(p)
-                    acc = acc + mma_product(ds, x_p[bi, ks].contiguous())
+                    acc = acc + mma_product(ds, xc_p[bi, ks].contiguous())
                 halves = [lane_sum([run_sum(parts[u, t]) for t in range(4)])
                           for u in range(2)]
                 dxa[bi, hi, qs] = acc
                 dcq[bi, hi, qs] = halves[0] + halves[1]
-    return dxa[:, :, :n, :d], dcq[:, :, :n]
+    return dxa[:, :, :n, :dc], dcq[:, :, :n]
 
 
 @pytest.mark.parametrize("b,h,n,pad,d,dv", [
@@ -560,6 +573,180 @@ def test_fwd_tiles_keep_f32_accuracy(b, h, n, pad, d, dv, with_mod, block,
     s = torch.where(ops["mask"][:, None, None, :] > 0, s,
                     torch.full_like(s, NEG_INF))
     assert torch.equal(got[1], s.amax(-1))
+
+
+# ------------------------------------------------------------ wide rows
+#
+# The unfolded kernels at D or dv over 64 (up to kWideW = 128, the OGB
+# molecular models' d_model): the score's FMA chain over all D columns,
+# and a grid axis of kChunk-column chunks of each pass's outputs, each
+# chunk's block recomputing the score (and ga) for its columns
+# (`csrc/strips.cuh`). The geometry is read from the source.
+
+def strips_constant(name):
+    """An integer `constexpr int name = value;` of csrc/strips.cuh."""
+    text = (Path(tfl.__file__).resolve().parents[2] / "csrc"
+            / "strips.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def chunks(width):
+    """The column slices of the wide-row blocks of a width."""
+    step = strips_constant("kChunk")
+    return [slice(c, min(c + step, width)) for c in range(0, width, step)]
+
+
+def k_pass_emulated(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
+                    ise, qa, beta, c, cols=None):
+    """flash_bwd_k's arithmetic (flash_bwd.cu) in torch: (dvw, dck, dx).
+    Per 64-key block and 32-query tile: s^T as the forwards' FMA chain, ga^T
+    = vw g^T in 3xTF32 (a fresh fragment per k-step; where dv rounds to 8,
+    an FMA chain), ds and attn, then dvw += attn^T g and dx_h += ds^T xa
+    over the tile's queries into a fresh partial; dck in per-tile partials
+    of each thread's 4 queries summed in runs, then the 4 lanes and the two
+    query halves; dx summed over the heads in order. `cols`: one wide-row
+    block's chunk of dvw's and dx's columns."""
+    b_, h_, n, d = xa.shape
+    dv = vw.shape[-1]
+    qt, kt = 32, 64
+    np_ = -(-n // kt) * kt
+    pad = lambda t, dims: torch.nn.functional.pad(t, dims)
+    w8 = lambda w: -(-w // 8) * 8
+    cols = cols or slice(0, max(d, dv))
+    xa_p = pad(xa, (0, w8(d) - d, 0, np_ - n))
+    x_p = pad(x, (0, w8(d) - d, 0, np_ - n))
+    g_p = pad(g, (0, w8(dv) - dv, 0, np_ - n))
+    vw_p = pad(vw, (0, w8(dv) - dv, 0, np_ - n))
+    dot = fma_chain(xa_p[:, :, :, None, :], x_p[:, None, None, :, :])
+    km = pad(mask, (0, np_ - n))
+    row = lambda t: pad(t, (0, np_ - n))[..., :, None]
+    s = torch.where(km[:, None, None, :] > 0,
+                    (dot + row(cq) + pad(ck, (0, np_ - n))[..., None, :]
+                     + c0[None, :, None, None]) * inv_sqrt,
+                    torch.full_like(dot, NEG_INF))
+    pd = torch.ones((b_, 1, np_, np_))
+    if pe is not None:
+        pd = pd * pad(pe, (0, np_ - n, 0, np_ - n))[:, None]
+    if deg is not None:
+        pd = pd * pad(deg, (0, np_ - n))[:, None, None, :]
+    valid = torch.arange(np_) < n
+    valid = valid[:, None] & valid[None, :]
+    gc, xac = g_p[..., cols], xa_p[..., cols]
+    dvw = torch.zeros((b_, h_, np_, gc.shape[-1]))
+    dxh = torch.zeros((b_, h_, np_, xac.shape[-1]))
+    dck = torch.zeros((b_, h_, np_))
+    for bi in range(b_):
+        for hi in range(h_):
+            for k0 in range(0, np_, kt):
+                ks = slice(k0, k0 + kt)
+                a_acc = torch.zeros((kt, gc.shape[-1]))
+                x_acc = torch.zeros((kt, xac.shape[-1]))
+                ds_t = []
+                for q0 in range(0, np_, qt):
+                    qs = slice(q0, q0 + qt)
+                    if w8(dv) == 8:
+                        ga_t = fma_chain(vw_p[bi, hi, ks][:, None, :],
+                                         g_p[bi, hi, qs][None, :, :])
+                    else:
+                        ga_t = mma_product(vw_p[bi, hi, ks].contiguous(),
+                                           g_p[bi, hi, qs].T.contiguous())
+                    ga = ga_t.T
+                    a = torch.exp(s[bi, hi, qs, ks] - row(m)[bi, hi, qs]) \
+                        * row(ise)[bi, hi, qs]
+                    pdt = pd[bi, 0, qs, ks]
+                    kmt = km[bi, None, ks]
+                    attn = a * pdt * row(qa)[bi, hi, qs] * kmt
+                    du = ga * kmt * row(qa)[bi, hi, qs] - row(beta)[bi, hi, qs]
+                    ds = a * (du * pdt - row(c)[bi, hi, qs]) * inv_sqrt
+                    zero = ~valid[qs, ks]
+                    ds = ds.masked_fill(zero, 0.0)
+                    attn = attn.masked_fill(zero, 0.0)
+                    ds_t.append(ds.T)
+                    a_acc = a_acc + mma_product(attn.T.contiguous(),
+                                                gc[bi, hi, qs].contiguous())
+                    x_acc = x_acc + mma_product(ds.T.contiguous(),
+                                                xac[bi, hi, qs].contiguous())
+                dvw[bi, hi, ks] = a_acc
+                dxh[bi, hi, ks] = x_acc
+                dck[bi, hi, ks] = thread_sums(torch.cat(ds_t, 1), qt,
+                                              warp_keys, 2, True)
+    dx = dxh[:, 0]
+    for hi in range(1, h_):
+        dx = dx + dxh[:, hi]
+    dvc = len(range(dv)[cols])
+    dxc = len(range(d)[cols])
+    return dvw[:, :, :n, :dvc], dck[:, :, :n], dx[:, :n, :dxc]
+
+
+def _f64(args):
+    return [a.double() if torch.is_tensor(a) else a for a in args]
+
+
+def _wide_case(b, h, n, pad, d, dv):
+    return chip_smoke.bwd_inputs(b + n + d + dv, b, h, n, d, dv, pad,
+                                 torch.device("cpu"), guard_rows=min(n, 4))[0]
+
+
+# (B, H, N, padding, D, dv): the molhiv width D = 128 with dv 128 (two
+# value chunks) and 16 (the filtered layer's heads), D = 100 (a K edge in
+# the second chunk); N past one tile, ragged
+WIDE_CASES = [(1, 2, 40, 3, 128, 128), (1, 2, 37, 2, 128, 16),
+              (1, 1, 70, 5, 100, 100)]
+
+
+@pytest.mark.parametrize("b,h,n,pad,d,dv", WIDE_CASES)
+def test_fwd_wide_chunks_keep_f32_accuracy(b, h, n, pad, d, dv):
+    """The forward at kW = kWideW: each chunk of kChunk value columns
+    emulated as its own block (the full-D score chain, the same softmax);
+    the chunks' m, se and su bit-equal; the joined outh and the statistics
+    within the kernels' tolerance of float64 and of the plain version,
+    and each no further than 2x the CPU float32 route's error from
+    float64."""
+    assert strips_constant("kWideW") == 128 and strips_constant(
+        "kChunk") == strips_constant("kMaxW") == 64
+    args = _wide_case(b, h, n, pad, d, dv)[:10]
+    parts = [fwd_emulated(*args[:5], args[5][..., cs].contiguous(),
+                          *args[6:]) for cs in chunks(dv)]
+    for p in parts[1:]:
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(p[1:], parts[0][1:]))
+    got = (torch.cat([p[0] for p in parts], -1), *parts[0][1:])
+    want = tfl.flash_fwd_plain(*_f64(args))
+    plain = tfl.flash_fwd_plain(*args)
+    for gt, w, p in zip(got, want, plain):
+        assert torch.allclose(gt.double(), w, **KERNEL_TOL)
+        assert torch.allclose(gt, p, **KERNEL_TOL)
+        assert err(gt, w) <= 2 * err(p, w) or err(gt, w) == 0.0
+
+
+@pytest.mark.parametrize("b,h,n,pad,d,dv", WIDE_CASES)
+def test_backward_wide_chunks_keep_f32_accuracy(b, h, n, pad, d, dv):
+    """Both backward passes at kW = kWideW: each chunk of kChunk output
+    columns emulated as its own block (the full-D score chain and ga over
+    all dv), dcq and dck from chunk 0 bit-equal in every chunk; the joined
+    outputs within the kernels' tolerance of float64 and of the plain
+    version, dxa, dvw and dx no further than 2x the CPU float32 route's
+    error from float64 (dcq, 0 in exact arithmetic, and dck are held to
+    the tolerance)."""
+    args = _wide_case(b, h, n, pad, d, dv)
+    q_parts = [q_pass_emulated(*args, cols=cs) for cs in chunks(d)]
+    k_parts = [k_pass_emulated(*args, cols=cs) for cs in chunks(max(d, dv))]
+    for p in q_parts[1:]:
+        assert torch.equal(p[1], q_parts[0][1])
+    for p in k_parts[1:]:
+        assert torch.equal(p[1], k_parts[0][1])
+    got = (torch.cat([p[0] for p in q_parts], -1), q_parts[0][1],
+           torch.cat([p[0] for p in k_parts], -1), k_parts[0][1],
+           torch.cat([p[2] for p in k_parts], -1))
+    want = tfl.flash_bwd_plain(*_f64(args))
+    plain = tfl.flash_bwd_plain(*args)
+    for name, gt, w, p in zip(("dxa", "dcq", "dvw", "dck", "dx"), got, want,
+                              plain):
+        assert gt.shape == p.shape, name
+        assert torch.allclose(gt.double(), w, **KERNEL_TOL), name
+        assert torch.allclose(gt, p, **KERNEL_TOL), name
+        if name in ("dxa", "dvw", "dx"):
+            assert err(gt, w) <= 2 * err(p, w), (name, err(gt, w),
+                                                 err(p, w))
 
 
 def _probe_graphs(n_graphs, n_nodes):

@@ -251,9 +251,13 @@ def test_sign_flip_is_reproducible_from_seed():
 
 
 def test_unported_tasks_raise():
+    """Every task of the JAX trainer is taken; an unknown task or
+    schedule raises."""
     model = tmodels.DiffGraphTransformerGenGCNSBM(**CFG, device="cpu")
     for task in ("graph_clf", "binary_graph"):
-        with pytest.raises(ValueError, match="Queue 1 item 2"):
+        assert Trainer(model, TrainConfig(task=task)).cfg.task == task
+    for task in ("node_reg", "multilabel"):
+        with pytest.raises(ValueError, match="unknown task"):
             Trainer(model, TrainConfig(task=task))
     with pytest.raises(ValueError, match="schedule"):
         Trainer(model, TrainConfig(schedule="cosine"))
