@@ -114,7 +114,30 @@ Phases (any failure raises and the script exits non-zero):
      read by `data/ogb_raw.py` and served at N=222; 3 binary_graph steps
      (sigmoid BCE, warmup) on the 128 molecules, 4 + 2 + 4 + 4 launches a
      step, then one step on 16 graphs held to a float64 CPU step;
- 12. print the kernels' JSON line, the card line, and the final status line
+ 12. cli: the port's command-line entry points, as a user runs them (each
+     module's main() with its argv, in this process so the launch counters
+     see it): the config-driven trainer
+     (experiments/main_ZINC_graph_regression.py) trains SAN_NodeSpectra at
+     configs/LPE/ZINC/optimized.json's widths (hidden 56, 10 layers, 8
+     heads, eigen-PE dim 8 with 4 heads and 2 layers, sum readout) on the
+     ZINC fixture (tests/fixtures/molecules) for 2 epochs into a
+     checkpoint directory, then one epoch more with --resume; serve_main
+     starts from that checkpoint in the background with --warmup and
+     answers 8 POST /predict requests of 32 raw ZINC-shaped graphs on
+     127.0.0.1 (eigen-PE computed server-side), each answer held to an
+     in-process Predictor restored from the same checkpoint within 1e-5,
+     2 fused_mlp_fwd launches a request, ms per request; the 256 graphs
+     as one request of 16 chunks through the Predictor's window bit-equal
+     to one chunk a call; feta-zinc
+     (run_transformer_gengcn.py) at bench.py's widths with --lappe
+     --lap-dim 8 --pos-enc diffusion on the ZINC fixture and feta-molhiv
+     at d_model 128 on its synthetic fallback, feta-sbm on the SBM fixture
+     (tests/fixtures/SBMs) and feta-tu-cv on the TU fixture
+     (tests/fixtures/TUFIX) at their CLIs' defaults with --lappe, 2
+     epochs and one resumed epoch each; logs.csv's columns as the JAX CLIs
+     write them, finite losses, and each run's kernels launched (#12/#13
+     for the config trainer, #1-#4 for the FeTA CLIs) and no other;
+ 13. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
@@ -150,7 +173,10 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 import warnings
 from concurrent.futures import ProcessPoolExecutor
 
@@ -168,6 +194,20 @@ from feta_tmlr_tpu_torch.data.synthetic import (
     zinc_categorical_dataset,
     zinc_like_dataset,
 )
+from feta_tmlr_tpu_torch.experiments import (
+    main_ZINC_graph_regression as cli_zinc_config,
+)
+from feta_tmlr_tpu_torch.experiments import run_transformer_gengcn as cli_zinc
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gengcn_cv as cli_tu,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gengcn_molhiv as cli_molhiv,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gengcn_SBM_cv as cli_sbm,
+)
+from feta_tmlr_tpu_torch.experiments import serve_main as cli_serve_main
 from feta_tmlr_tpu_torch.nn import feta as feta_mod
 from feta_tmlr_tpu_torch.nn.layers import MaskedBatchNorm
 from feta_tmlr_tpu_torch.nn.models import (
@@ -188,7 +228,9 @@ from feta_tmlr_tpu_torch.pe.encodings import (
     LapEncoding,
 )
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
+from feta_tmlr_tpu_torch import serve as serve_mod
 from feta_tmlr_tpu_torch.serve import Predictor
+from feta_tmlr_tpu_torch.serve_http import _graph_from_json
 from feta_tmlr_tpu_torch.train.trainer import (
     TrainConfig,
     Trainer,
@@ -415,6 +457,32 @@ MOLHIV_STEP_PARAMS = ("embedding.atom_emb_0.weight", "encoder.layers.0.qkv",
 WIDE_D = 128
 WIDE_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (MOLHIV_GRAPHS, MOLHIV_REAL_N,
                                               MOLHIV_REAL_N - 27))
+# the cli phase: the port's command-line entry points as a user runs them
+# (module main()s with argv, in this process so the launch counters see
+# them): the config-driven trainer on the ZINC fixture at
+# configs/LPE/ZINC/optimized.json's widths, serve_main from its checkpoint
+# answering HTTP requests on 127.0.0.1, feta-zinc at bench.py's widths on
+# the ZINC fixture and feta-molhiv at d_model 128 on its synthetic fallback
+CLI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "LPE", "ZINC", "optimized.json")
+CLI_FIXTURES = MOLHIV_FIXTURES
+CLI_EPOCHS = 2
+CLI_REQUESTS = 8
+CLI_REQUEST_GRAPHS = 32
+CLI_MAX_NODES = 64            # serve_main's default padded size
+CLI_SERVE_TOL = 1e-5          # served logits against an in-process Predictor
+CLI_WINDOW_CHUNK = 16         # the window check's chunk: 16 chunks a request
+CLI_TIMED_REQUESTS = 200      # requests timed after the checked ones
+CLI_STAGE_REPS = 50           # in-process runs of one request's stages
+CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "zinc": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "molhiv": ["epoch", "loss", "time", "val_rocauc"],
+                   "sbm": ["epoch", "loss", "time", "val_acc_sbm"],
+                   "tu": ["epoch", "loss", "time", "val_acc"]}
+FLASH_ROUTE = {"flash_fwd", "colstat", "flash_bwd_q", "flash_bwd_k"}
+CLI_KERNELS = {"config": {"fused_mlp_fwd", "fused_mlp_bwd"},
+               "zinc": FLASH_ROUTE, "molhiv": FLASH_ROUTE,
+               "sbm": FLASH_ROUTE, "tu": FLASH_ROUTE}
 # `--precision`'s backward probe: the canonical signs and the `--rounding`
 # sign pattern on which the N=2048 step's CUDA gradients were furthest
 # from float64 against the CPU's float32 route (3.99x, PERF.md)
@@ -2082,6 +2150,244 @@ def molhiv_slice(device, card, profile=False):
     return runs
 
 
+def cli_train(name, main, argv, workdir, card, device="cuda"):
+    """One CLI trainer for CLI_EPOCHS epochs into a checkpoint directory,
+    then one more epoch resumed from it; returns the launches of both runs
+    and the checkpoint directory. Holds logs.csv's columns, finite losses,
+    the checkpoints written and the resumed epoch."""
+    ckpt = os.path.join(workdir, f"{name}_ckpt")
+    out = os.path.join(workdir, f"{name}_out")
+    common = argv + ["--ckpt-dir", ckpt, "--device", device]
+    reset_launches()
+    t0 = time.perf_counter()
+    result = main(common + ["--epochs", str(CLI_EPOCHS), "--outdir", out])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = main(common + ["--epochs", str(CLI_EPOCHS + 1), "--resume"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = read_launches()
+    logs = [os.path.join(root, "logs.csv")
+            for root, _, files in os.walk(out) if "logs.csv" in files]
+    with open(logs[0]) as f:
+        columns = f.readline().strip().split(",")
+    losses = [r["loss"] for r in result["history"] + resumed["history"]]
+    print(f"cli {name}: {CLI_EPOCHS} epochs in {train_s:.2f} s and one "
+          f"resumed epoch in {resume_s:.2f} s on {card}; epoch losses "
+          f"{[round(x, 6) for x in losses]}; best_val {result['best_val']}, "
+          f"test {result.get('test')}; logs.csv columns {columns}; "
+          f"checkpoints {sorted(os.listdir(ckpt))}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if columns != CLI_LOG_COLUMNS[name]:
+        raise AssertionError(f"cli {name}: logs.csv columns {columns}")
+    if [r["epoch"] for r in resumed["history"]] != [CLI_EPOCHS]:
+        raise AssertionError(f"cli {name}: --resume ran epochs "
+                             f"{[r['epoch'] for r in resumed['history']]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"cli {name}: losses {losses}")
+    if "fit_meta.json" not in os.listdir(ckpt):
+        raise AssertionError(f"cli {name}: no checkpoint sidecar in {ckpt}")
+    check_cli_launches(name, launches, CLI_KERNELS[name])
+    return launches, ckpt
+
+
+def check_cli_launches(label, launches, kernels, exact=None):
+    """Every kernel of the path launched (`exact` times, if given), no
+    other."""
+    missing = sorted(k for k in kernels if not launches[k])
+    stray = sorted(k for k, v in launches.items() if v and k not in kernels)
+    if missing or stray or (exact and launches != {**NONE, **exact}):
+        raise AssertionError(f"cli {label}: launches {launches}; kernels "
+                             f"not launched {missing}, off the path {stray}"
+                             f"; expected {exact or sorted(kernels)}")
+
+
+def request_body(graphs) -> bytes:
+    """The JSON body of a POST /predict of raw ZINC graphs (ids, edges,
+    bond types)."""
+    return json.dumps({"graphs": [{"x_int": g.x.reshape(-1).tolist(),
+                                   "edge_index": g.edge_index.tolist(),
+                                   "edge_type": g.edge_type.tolist()}
+                                  for g in graphs]}).encode()
+
+
+def post_body(port, body: bytes):
+    """POST /predict of a request body; the logits as float32."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/predict", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return np.asarray(json.loads(r.read())["logits"], np.float32)
+
+
+def spread(ms) -> str:
+    """Median, 10th and 90th percentiles, least and most of times in ms."""
+    q = np.percentile(ms, [50, 10, 90])
+    return (f"median {q[0]:.2f} ms (p10 {q[1]:.2f}, p90 {q[2]:.2f}, min "
+            f"{min(ms):.2f}, max {max(ms):.2f})")
+
+
+def request_stages(body: bytes, preprocess, pred, reps: int) -> dict:
+    """One request's server-side work split into its stages, in this
+    process, `reps` times: ms per stage (JSON decode into graphs, the
+    host eigen-PE, the padded collation alone, `Predictor.predict` with
+    its own collation, forward and copy back, the JSON encode)."""
+    stages = {k: [] for k in ("decode", "eigen_pe", "collate", "predict",
+                              "encode")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        graphs = [_graph_from_json(g) for g in json.loads(body)["graphs"]]
+        t1 = time.perf_counter()
+        preprocess(graphs)
+        t2 = time.perf_counter()
+        collate_graphs(graphs + [graphs[0]] * (pred.max_batch - len(graphs)),
+                       **pred.collate_kwargs)
+        t3 = time.perf_counter()
+        logits = pred.predict(graphs)
+        t4 = time.perf_counter()
+        json.dumps({"logits": logits.tolist()})
+        t5 = time.perf_counter()
+        for k, a, b in (("decode", t0, t1), ("eigen_pe", t1, t2),
+                        ("collate", t2, t3), ("predict", t3, t4),
+                        ("encode", t4, t5)):
+            stages[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in stages.items()}
+
+
+def cli_serve(ckpt, card, device="cuda"):
+    """serve_main from the config trainer's checkpoint, in the background
+    with --warmup: CLI_REQUESTS POST /predict requests of
+    CLI_REQUEST_GRAPHS raw ZINC-shaped graphs one after another, then the
+    same requests all at once from CLI_REQUESTS threads (handler threads
+    that share one Predictor), each answer held to an in-process
+    Predictor restored from the same checkpoint; then CLI_TIMED_REQUESTS
+    more one after another, timed, and one request's server-side stages
+    timed in this process."""
+    t0 = time.perf_counter()
+    srv, port, _ = cli_serve_main.main(
+        ["--config", CLI_CONFIG, "--model", "SAN_NodeSpectra", "--ckpt-dir",
+         ckpt, "--warmup", "--port", "0", "--device", device],
+        background=True)
+    start_s = time.perf_counter() - t0
+    graphs = zinc_categorical_dataset(seed=11, n_graphs=CLI_REQUESTS
+                                      * CLI_REQUEST_GRAPHS)
+    requests = [graphs[i:i + CLI_REQUEST_GRAPHS]
+                for i in range(0, len(graphs), CLI_REQUEST_GRAPHS)]
+    bodies = [request_body(req) for req in requests]
+    concurrent = [None] * len(bodies)
+
+    def post_at_once(i, barrier):
+        barrier.wait()
+        concurrent[i] = post_body(port, bodies[i])
+
+    try:
+        reset_launches()
+        served, call_ms = [], []
+        for body in bodies:
+            t0 = time.perf_counter()
+            served.append(post_body(port, body))
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        barrier = threading.Barrier(len(bodies))
+        threads = [threading.Thread(target=post_at_once, args=(i, barrier))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        timed_ms = []
+        for k in range(CLI_TIMED_REQUESTS):
+            t0 = time.perf_counter()
+            post_body(port, bodies[k % len(bodies)])
+            timed_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    model, preprocess, _ = cli_serve_main.build_from_config(
+        CLI_CONFIG, "SAN_NodeSpectra", device=device)
+    ref = Predictor(model, device=device, ckpt_dir=ckpt, max_batch=64,
+                    collate_kwargs={"max_nodes": CLI_MAX_NODES})
+    errs, errs_at_once = [], []
+    for req, got, at_once in zip(requests, served, concurrent):
+        preprocess(req)
+        want = ref.predict(req)
+        for answer, into in ((got, errs), (at_once, errs_at_once)):
+            if answer is None or answer.shape != want.shape \
+                    or not np.isfinite(answer).all():
+                raise AssertionError(
+                    f"cli serve: logits {getattr(answer, 'shape', None)} "
+                    f"vs {want.shape}")
+            into.append(float(np.abs(answer - want).max()))
+    # the window on the card: all the requests' graphs as one request of
+    # many chunks (each chunk's logits copied back into a page-locked
+    # buffer of its own, drained on its event) against one chunk a call
+    window = Predictor(model, device=device, ckpt_dir=ckpt,
+                       max_batch=CLI_WINDOW_CHUNK,
+                       collate_kwargs={"max_nodes": CLI_MAX_NODES})
+    whole = window.predict(graphs)
+    one = np.concatenate([window.predict(graphs[i:i + CLI_WINDOW_CHUNK])
+                          for i in range(0, len(graphs), CLI_WINDOW_CHUNK)])
+    if not np.array_equal(whole, one):
+        raise AssertionError("cli serve: a request of "
+                             f"{len(graphs) // CLI_WINDOW_CHUNK} chunks "
+                             "through the window differs from one chunk a "
+                             f"call by {float(np.abs(whole - one).max())}")
+    stages = request_stages(bodies[0], preprocess, ref, CLI_STAGE_REPS)
+    print(f"cli serve: {len(graphs) // CLI_WINDOW_CHUNK} chunks of "
+          f"{CLI_WINDOW_CHUNK} through the Predictor's window of "
+          f"{serve_mod.WINDOW} bit-equal to one chunk a call", flush=True)
+    print(f"cli serve: serve_main --warmup from the checkpoint ready in "
+          f"{start_s:.2f} s; {len(requests)} POST /predict of "
+          f"{CLI_REQUEST_GRAPHS} raw graphs (server-side eigen-PE, padded "
+          f"to N={CLI_MAX_NODES}) one after another: ms/request "
+          f"{[round(t, 2) for t in call_ms]}; max abs err against the "
+          f"in-process Predictor per request {[f'{e:.1e}' for e in errs]}, "
+          f"and with all {len(requests)} sent at once "
+          f"{[f'{e:.1e}' for e in errs_at_once]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"cli serve: {CLI_TIMED_REQUESTS} more requests one after "
+          f"another on {card}: {spread(timed_ms)} a request = "
+          f"{CLI_REQUEST_GRAPHS / statistics.median(timed_ms) * 1e3:.1f} "
+          f"graphs/s; one request's server-side stages in this process, "
+          f"median of {CLI_STAGE_REPS} (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    if max(errs + errs_at_once) > CLI_SERVE_TOL:
+        raise AssertionError(f"cli serve: served logits off the Predictor's "
+                             f"by {max(errs + errs_at_once)}")
+    check_cli_launches("serve", launches, {"fused_mlp_fwd"},
+                       exact={"fused_mlp_fwd": 2 * len(requests)})
+    return launches
+
+
+def cli_slice(card, device="cuda"):
+    """The cli phase: the port's entry points, run as a user runs them;
+    returns the launches of each run."""
+    with tempfile.TemporaryDirectory() as workdir:
+        config, ckpt = cli_train(
+            "config", cli_zinc_config.main,
+            ["--config", CLI_CONFIG, "--model", "SAN_NodeSpectra",
+             "--data-dir", CLI_FIXTURES], workdir, card, device)
+        serve = cli_serve(ckpt, card, device)
+        zinc, _ = cli_train(
+            "zinc", cli_zinc.main,
+            ["--datadir", CLI_FIXTURES, "--lappe", "--lap-dim", "8",
+             "--pos-enc", "diffusion"], workdir, card, device)
+        molhiv, _ = cli_train(
+            "molhiv", cli_molhiv.main,
+            ["--datadir", os.path.join(workdir, "no-dataset")], workdir,
+            card, device)
+        sbm, _ = cli_train(
+            "sbm", cli_sbm.main,
+            ["--datadir", CLI_FIXTURES, "--dataset", "FIXTURE", "--lappe"],
+            workdir, card, device)
+        tu, _ = cli_train(
+            "tu", cli_tu.main,
+            ["--datadir", CLI_FIXTURES, "--dataset", "TUFIX", "--lappe"],
+            workdir, card, device)
+    return [config, serve, zinc, molhiv, sbm, tu]
+
+
 def as_float64(batch):
     return dataclasses.replace(batch, **{
         f.name: getattr(batch, f.name).double()
@@ -2651,6 +2957,7 @@ def main() -> int:
     runs += zinc_slice(device, card, profile=profile)
     runs += large_slice(device, card, profile=profile)
     runs += molhiv_slice(device, card, profile=profile)
+    runs += cli_slice(card)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"
     meta = {"flash_fwd": ("fwd.cuh", "flash_attention.py:95"),
@@ -2667,8 +2974,8 @@ def main() -> int:
             "fused_attn_fwd": ("fused_attention.cu", "fused_attention.py:60"),
             "fused_attn_bwd": ("fused_attention.cu", "fused_attention.py:85")}
     # launches: the main paths' runs (SBM at N=1024, SAN, ZINC on its
-    # three routes, SBM at N=2048 under its three settings and molhiv,
-    # serving and training)
+    # three routes, SBM at N=2048 under its three settings, molhiv, and
+    # the entry points of the cli phase, serving and training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,

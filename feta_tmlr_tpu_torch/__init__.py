@@ -6,8 +6,10 @@ names mirror the JAX package (`nn/feta.py` <-> `nn/feta.py`); plain tensor
 code is PyTorch and the attention kernels are hand-written CUDA C++ under
 `csrc/`, built with nvcc at first use (`ops/kernels/build.py`).
 
-Entry points (`serve.Predictor`, model construction) run on CUDA unless the
-caller passes `device="cpu"`; `train.Trainer` runs on its model's device.
+Entry points (`serve.Predictor`, model construction, the command-line
+mains under `experiments/`) run on CUDA unless the caller passes
+`device="cpu"` (`--device cpu`); `train.Trainer` runs on its model's
+device.
 On CPU tensors every kernel wrapper takes its plain PyTorch version.
 """
 

@@ -85,10 +85,18 @@ class GraphBatch:
     def max_nodes(self) -> int:
         return self.x.shape[1]
 
-    def to(self, device) -> "GraphBatch":
+    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "GraphBatch":
+        """A copy in page-locked host memory, which a card reads with
+        `to(device, non_blocking=True)` without holding up the host."""
+        return self._map(lambda t: t.pin_memory())
+
+    def _map(self, fn) -> "GraphBatch":
         return GraphBatch(**{
             f.name: (None if getattr(self, f.name) is None
-                     else getattr(self, f.name).to(device))
+                     else fn(getattr(self, f.name)))
             for f in dataclasses.fields(self)})
 
 

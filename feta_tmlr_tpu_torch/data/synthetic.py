@@ -1,4 +1,5 @@
-"""Synthetic graphs for tests and the chip smoke run: SBM-shaped node
+"""Synthetic graphs for tests and the chip smoke run: graphs with a
+learnable label (the TU CLIs' fallback), SBM-shaped node
 classification graphs (PATTERN/CLUSTER-like), ZINC-shaped molecules with
 one-hot atoms, ZINC-shaped molecules with categorical atoms and bonds, and
 OGB-shaped molecules (the molhiv / molpcba CLIs' fallback).
@@ -32,6 +33,39 @@ def random_connected_graph(rng: np.random.Generator, n_nodes: int,
     else:
         x = rng.standard_normal((n_nodes, n_features)).astype(np.float32)
     return Graph(x=x, edge_index=edge_index)
+
+
+def random_graph_dataset(seed: int = 0, n_graphs: int = 32,
+                         min_nodes: int = 6, max_nodes: int = 24,
+                         n_features: int = 7, n_classes: int = 2,
+                         edge_prob: float = 0.2,
+                         task: str = "classification",
+                         node_level: bool = False) -> List[Graph]:
+    """Graphs of min_nodes..max_nodes nodes with Gaussian features and a
+    label a model can fit: per node, degree above the graph's median
+    (node_level); a float of the mean degree and features (task other
+    than classification); else a balanced class, a median split of mean
+    degree plus 0.3 times the mean feature."""
+    rng = np.random.default_rng(seed)
+    graphs, scores = [], []
+    for _ in range(n_graphs):
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        g = random_connected_graph(rng, n, n_features, edge_prob)
+        mean_deg = g.num_edges / n
+        scores.append(mean_deg + 0.3 * float(g.x.mean()))
+        if node_level:
+            deg = np.zeros(n)
+            np.add.at(deg, g.edge_index[0], 1.0)
+            g.y = (deg > np.median(deg)).astype(np.int32)
+        elif task != "classification":
+            g.y = np.float32(mean_deg + 0.1 * g.x.sum())
+        g.compute_degree_feature()
+        graphs.append(g)
+    if not node_level and task == "classification":
+        med = float(np.median(scores))
+        for g, s in zip(graphs, scores):
+            g.y = np.int64(s > med)
+    return graphs
 
 
 def zinc_like_dataset(seed: int = 0, n_graphs: int = 128) -> List[Graph]:

@@ -25,10 +25,12 @@ of (seed, row, unit), with one seed drawn per use from the model's CPU
 a seed gives the same masks on the CPU and on the card.
 
 Only the ZINC configuration is ported (full graph, typed bond edges, batch
-norm, residuals, the filter in every layer, mean readout, layer dropout 0).
-Not ported yet: `SANNet`, `EdgeLPETransformer`, the dense edge-field score
-path (`typed_edges=False`), the options above and the node-level,
-float-input variant.
+norm, residuals, the filter in every layer, layer and input dropout 0;
+mean, sum or max readout). The constructor takes the JAX model's other
+options by name, so that a config's net_params map onto it, and refuses
+values other than these. Not ported yet: `SANNet`, `EdgeLPETransformer`,
+the dense edge-field score path (`typed_edges=False`), the options above
+and the node-level, float-input variant.
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ from feta_tmlr_tpu_torch.ops.masking import (
     pair_mask,
     pair_mask_no_diag,
 )
+
+
+READOUTS = ("mean", "sum", "max")
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -324,7 +329,7 @@ class MLPReadout(nn.Module):
 class SANNodeSpectra(nn.Module):
     """SAN_NodeSpectra graph regressor (ZINC): atom-id embedding
     concatenated with the learned eigen-PE, SAN spectra layers with typed
-    bond edges, masked mean readout, MLP readout.
+    bond edges, a masked mean, sum or max readout, MLP readout.
 
     forward(batch) returns the bare outputs [B, n_out] and takes no
     regularization argument. Parameters come from a `torch.Generator`
@@ -337,12 +342,30 @@ class SANNodeSpectra(nn.Module):
                  hidden_dim: int = 64, out_dim: int = 64, n_heads: int = 8,
                  n_layers: int = 6, lpe_dim: int = 8, lpe_heads: int = 2,
                  lpe_layers: int = 2, gamma: float = 1e-5,
-                 filter_order: int = 4, n_out: int = 1,
+                 full_graph: bool = True, dropout: float = 0.0,
+                 in_feat_dropout: float = 0.0, layer_norm: bool = False,
+                 batch_norm: bool = True, residual: bool = True,
+                 filter_order: int = 4, last_layer_filter: bool = False,
+                 readout: str = "mean", n_out: int = 1,
                  seed: int = 0, device=None):
         super().__init__()
         if num_bond_type > 16:
             raise NotImplementedError(
                 "only the typed-edge score path (<= 16 bond types) is ported")
+        ported = dict(full_graph=True, dropout=0.0, in_feat_dropout=0.0,
+                      layer_norm=False, batch_norm=True, residual=True,
+                      last_layer_filter=False)
+        given = dict(full_graph=full_graph, dropout=dropout,
+                     in_feat_dropout=in_feat_dropout, layer_norm=layer_norm,
+                     batch_norm=batch_norm, residual=residual,
+                     last_layer_filter=last_layer_filter)
+        other = {k: v for k, v in given.items() if v != ported[k]}
+        if other or readout not in READOUTS:
+            raise NotImplementedError(
+                f"SANNodeSpectra options {other or {'readout': readout}} are "
+                "not ported (ROADMAP Queue 1 item 6); the port runs "
+                f"{ported} with readout in {READOUTS}")
+        self.readout = readout
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.dropout_generator = torch.Generator().manual_seed(seed)
@@ -375,4 +398,11 @@ class SANNodeSpectra(nn.Module):
         for layer in self.layers:
             h = layer(h, batch.adj, batch.node_mask, self.embedding_e.weight,
                       batch.edge_type)
-        return self.mlp_readout(masked_mean(h, batch.node_mask, dim=1))
+        mask = batch.node_mask[..., None]
+        if self.readout == "sum":
+            hg = (h * mask.to(h.dtype)).sum(1)
+        elif self.readout == "max":
+            hg = torch.where(mask, h, torch.finfo(h.dtype).min).amax(1)
+        else:
+            hg = masked_mean(h, batch.node_mask, dim=1)
+        return self.mlp_readout(hg)

@@ -15,13 +15,14 @@ from feta_tmlr_tpu_torch.train.optim import (
     warmup_inverse_sqrt,
 )
 from feta_tmlr_tpu_torch.train.trainer import (
+    NonFiniteError,
     TrainConfig,
     Trainer,
     task_loss,
     task_metric,
 )
 
-__all__ = ["LOSS", "PlateauScheduler", "TrainConfig", "Trainer",
+__all__ = ["LOSS", "NonFiniteError", "PlateauScheduler", "TrainConfig", "Trainer",
            "accuracy_graph", "accuracy_sbm", "average_precision",
            "binary_f1", "cross_entropy", "hinge_loss", "mae",
            "make_optimizer", "multitask_mean", "roc_auc", "step_lr",

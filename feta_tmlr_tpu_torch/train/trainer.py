@@ -21,6 +21,12 @@ trainer. The trainer runs on the model's device (CUDA by default). PyTorch
 runs eagerly, so a step is the model's forward, `backward()` through the
 kernels' `autograd.Function`s, and one AdamW update; losses stay on the
 device until `train_epoch` takes their mean in one host sync.
+
+`fit` keeps per-epoch checkpoints (`train/checkpoint.py`) and resumes the
+uninterrupted trajectory from them exactly: every piece of state a step
+reads (weights, batch-norm statistics, optimizer moments and learning
+rate, step count, plateau counters, the sign-flip and dropout generators
+and the epoch order) is saved or replayed.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import inspect
+import json
+import os
 import time
 from typing import Callable, List, Optional, Sequence
 
@@ -36,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
+from feta_tmlr_tpu_torch.train.checkpoint import CheckpointManager
 from feta_tmlr_tpu_torch.train.losses import (cross_entropy,
                                               sample_cross_entropy)
 from feta_tmlr_tpu_torch.train.metrics import (
@@ -72,7 +81,15 @@ class TrainConfig:
     plateau_patience: int = 10
     plateau_factor: float = 0.5
     min_lr: float = 1e-6
+    # the reference's stop conditions: stop once the plateau schedule has
+    # reached min_lr / after max_time_h hours of training
+    stop_at_min_lr: bool = False
+    max_time_h: Optional[float] = None
     binary_metric: str = "ap"    # binary_graph, several tasks: ap | rocauc
+    # after each epoch, raise NonFiniteError if the mean loss or any
+    # parameter is non-finite or a parameter exceeds 1000 in magnitude
+    # (one host transfer an epoch; off, no step syncs the host)
+    debug_nan: bool = False
     seed: int = 0
 
 
@@ -246,15 +263,84 @@ class Trainer:
                            np.concatenate(y_all), np.concatenate(mask_all),
                            binary_metric=self.cfg.binary_metric)
 
+    def state_dict(self) -> dict:
+        """Everything a training step reads besides the batches: the
+        checkpoint `fit` saves (tensors stay where they are; the
+        checkpoint manager copies them to the host)."""
+        dropout_generator = getattr(self.model, "dropout_generator", None)
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "steps": self.steps,
+            "plateau": (None if self.plateau is None else
+                        {"best": self.plateau.best,
+                         "bad_epochs": self.plateau.bad_epochs,
+                         "scale": self.plateau.scale}),
+            "sign_generator": self.sign_generator.get_state(),
+            "dropout_generator": (None if dropout_generator is None
+                                  else dropout_generator.get_state()),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.steps = int(state["steps"])
+        if self.plateau is not None and state["plateau"] is not None:
+            self.plateau.best = state["plateau"]["best"]
+            self.plateau.bad_epochs = state["plateau"]["bad_epochs"]
+            self.plateau.scale = state["plateau"]["scale"]
+        self.sign_generator.set_state(state["sign_generator"])
+        dropout_generator = getattr(self.model, "dropout_generator", None)
+        if dropout_generator is not None \
+                and state["dropout_generator"] is not None:
+            dropout_generator.set_state(state["dropout_generator"])
+
+    def _better(self, cur: float, best: Optional[float]) -> bool:
+        return (best is None or np.isnan(best)
+                or (not np.isnan(cur)
+                    and (cur < best if self._mode == "min" else cur > best)))
+
+    def _write_meta(self, path: str, epoch: int, best_val, best_epoch: int
+                    ) -> None:
+        """The `fit_meta.json` sidecar of each checkpoint: the host-side
+        loop state (the JAX package's layout)."""
+        meta = {"epoch": epoch,
+                "best_val": None if best_val is None else float(best_val),
+                "best_epoch": best_epoch}
+        if self.plateau is not None:
+            meta.update(plateau_best=(None if self.plateau.best is None
+                                      else float(self.plateau.best)),
+                        plateau_bad=self.plateau.bad_epochs,
+                        plateau_scale=self.plateau.scale)
+        with open(path + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(path + ".tmp", path)
+
     def fit(self, train_batches: Sequence[GraphBatch],
             val_batches: Optional[Sequence[GraphBatch]] = None,
             test_batches: Optional[Sequence[GraphBatch]] = None,
             epochs: Optional[int] = None,
-            log_fn: Optional[Callable[[dict], None]] = None) -> dict:
+            log_fn: Optional[Callable[[dict], None]] = None,
+            rebatch_fn: Optional[Callable[[int], Sequence[GraphBatch]]]
+            = None,
+            ckpt_dir: Optional[str] = None,
+            resume: bool = False) -> dict:
         """Train for `epochs` (default `cfg.epochs`); each epoch replays the
         training batches in an order from a numpy generator seeded with
-        `cfg.seed` (the JAX trainer's order). With validation batches the
-        model ends on its best-val weights, which are also returned.
+        `cfg.seed` (the JAX trainer's order), or, with `rebatch_fn`, the
+        batches `rebatch_fn(epoch)` returns from the second epoch on. With
+        validation batches the model ends on its best-val weights, which
+        are also returned.
+
+        ckpt_dir: a checkpoint of `state_dict()` after every epoch (the
+        newest two kept), with a `fit_meta.json` sidecar holding best_val,
+        best_epoch and the plateau counters. resume=True continues from
+        the latest checkpoint there: the trainer's state comes from the
+        checkpoint, best_val / best_epoch from the sidecar, the best
+        weights from the best epoch's checkpoint while it is kept (else
+        the resume point's, as in the JAX package), and the epoch-order
+        generator is replayed through the finished epochs, so the run
+        continues the uninterrupted one exactly.
 
         Returns {"history", "best_epoch", "best_val", "state"} and, with
         test batches, "test" (metrics of the returned weights)."""
@@ -266,28 +352,66 @@ class Trainer:
         history: List[dict] = []
         best_val, best_state, best_epoch = None, None, 0
         order_rng = np.random.default_rng(cfg.seed)
-        for epoch in range(epochs or cfg.epochs):
-            t0 = time.perf_counter()
-            loss = self.train_epoch(
-                [train[i] for i in order_rng.permutation(len(train))])
-            row = {"epoch": epoch, "loss": loss,
-                   "time": time.perf_counter() - t0}
-            if val is not None:
-                vm = self.evaluate(val)
-                row.update({f"val_{k}": v for k, v in vm.items()})
-                cur = next(iter(vm.values()))
-                if (best_val is None or np.isnan(best_val)
-                        or (not np.isnan(cur)
-                            and (cur < best_val if self._mode == "min"
-                                 else cur > best_val))):
-                    best_val, best_epoch = cur, epoch
-                    best_state = copy.deepcopy(self.model.state_dict())
-                if self.plateau is not None:
-                    row["lr"] = self.plateau.step(cur, cfg.lr)
-                    self._set_lr(row["lr"])
-            history.append(row)
-            if log_fn:
-                log_fn(row)
+        ckpt = meta_path = None
+        if ckpt_dir is not None:
+            ckpt = CheckpointManager(ckpt_dir, max_to_keep=2)
+            meta_path = os.path.join(ckpt.directory, "fit_meta.json")
+        start_epoch = 0
+        if resume and ckpt is not None and ckpt.latest_step() is not None:
+            last = ckpt.latest_step()
+            self.load_state_dict(ckpt.restore(last))
+            start_epoch = last + 1
+            if os.path.isfile(meta_path):
+                with open(meta_path) as f:
+                    meta = json.load(f)
+                best_val = meta.get("best_val")
+                best_epoch = meta.get("best_epoch", last)
+            if best_val is not None:
+                best_state = (ckpt.restore(best_epoch)["model"]
+                              if best_epoch in ckpt.all_steps()
+                              else copy.deepcopy(self.model.state_dict()))
+            for _ in range(start_epoch):
+                order_rng.permutation(len(train))
+        t_start = time.perf_counter()
+        try:
+            for epoch in range(start_epoch, epochs or cfg.epochs):
+                t0 = time.perf_counter()
+                if rebatch_fn is not None and epoch > 0:
+                    train = on_device(rebatch_fn(epoch))
+                loss = self.train_epoch(
+                    [train[i] for i in order_rng.permutation(len(train))])
+                row = {"epoch": epoch, "loss": loss,
+                       "time": time.perf_counter() - t0}
+                if cfg.debug_nan:
+                    _check_finite(self.model, loss, epoch)
+                if val is not None:
+                    vm = self.evaluate(val)
+                    row.update({f"val_{k}": v for k, v in vm.items()})
+                    cur = next(iter(vm.values()))
+                    if self._better(cur, best_val):
+                        best_val, best_epoch = cur, epoch
+                        best_state = copy.deepcopy(self.model.state_dict())
+                    if self.plateau is not None:
+                        row["lr"] = self.plateau.step(cur, cfg.lr)
+                        self._set_lr(row["lr"])
+                history.append(row)
+                if log_fn:
+                    log_fn(row)
+                if ckpt is not None:
+                    ckpt.save(epoch, self.state_dict())
+                    self._write_meta(meta_path, epoch, best_val, best_epoch)
+                if (cfg.stop_at_min_lr and self.plateau is not None
+                        and row.get("lr", cfg.lr) <= cfg.min_lr):
+                    print("lr <= min_lr, stopping")
+                    break
+                if (cfg.max_time_h is not None
+                        and time.perf_counter() - t_start
+                        > cfg.max_time_h * 3600):
+                    print("max_time reached, stopping")
+                    break
+        except KeyboardInterrupt:
+            # the reference's catch: finish on the best state so far
+            print("interrupted, exiting from training early")
         if best_state is not None:
             self.model.load_state_dict(best_state)
         result = {"history": history, "best_epoch": best_epoch,
@@ -295,3 +419,28 @@ class Trainer:
         if test is not None:
             result["test"] = self.evaluate(test)
         return result
+
+
+class NonFiniteError(RuntimeError):
+    """Raised under `TrainConfig.debug_nan` when training diverges; the
+    message names the offending parameters."""
+
+
+def _check_finite(model: torch.nn.Module, loss: float, epoch: int) -> None:
+    if not np.isfinite(loss):
+        raise NonFiniteError(f"non-finite loss {loss} at epoch {epoch}")
+    named = [(n, p.detach()) for n, p in model.named_parameters()
+             if p.numel()]
+    with torch.no_grad():           # one device -> host transfer
+        stats = torch.stack([torch.stack(
+            [torch.isfinite(p).all().float(), p.abs().max().float()])
+            for _, p in named]).cpu().numpy()
+    bad = []
+    for (name, _), (finite, amax) in zip(named, stats):
+        if not finite:
+            bad.append(f"{name}: nan/inf")
+        elif amax > 1000:           # the reference's explosion threshold
+            bad.append(f"{name}: max|p|={amax:.1f}")
+    if bad:
+        raise NonFiniteError(
+            f"epoch {epoch}: bad parameters\n  " + "\n  ".join(bad))
