@@ -1,15 +1,15 @@
 """The config-driven ZINC trainer of the LPE/LSPE tier.
 
     python -m feta_tmlr_tpu_torch.experiments.main_ZINC_graph_regression \
-        --config configs/LPE/ZINC/optimized.json --model SAN_NodeSpectra \
+        --config configs/LPE/ZINC/optimized.json \
         --data-dir data --ckpt-dir runs/ckpt [--resume] [--device cpu]
 
 `--config <json>` plus overrides, the JAX package's registry of names and
 the reference's protocol: plateau learning-rate schedule that stops at
 min_lr or after max_time hours, per-epoch checkpoints, eigenvector sign
-flips for the SAN models. Of the registry's families only SAN_NodeSpectra
-is ported; the other names exit naming their ROADMAP item. Runs on the
-card unless `--device cpu`.
+flips for the SAN models. The LPE tier's nets are ported (SAN,
+SAN_NodeLPE, SAN_EdgeLPE, SAN_NodeSpectra, GAT, GATFeTA); the LSPE names
+exit naming their ROADMAP item. Runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from feta_tmlr_tpu_torch.experiments.common import (
     make_batches,
     run_and_log,
 )
-from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra
+from feta_tmlr_tpu_torch.nn.gat import GATFeTANet, GATNet
+from feta_tmlr_tpu_torch.nn.san import SANNet, SANNodeSpectra
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 from feta_tmlr_tpu_torch.utils.config import (
@@ -39,19 +40,20 @@ from feta_tmlr_tpu_torch.utils.config import (
 # name -> (class, fixed kwargs), or the ROADMAP item of a family not
 # ported yet
 MODEL_REGISTRY = {
-    "SAN": "Queue 1 item 6",
-    "GAT": "Queue 1 item 8",
-    "SAN_NodeLPE": "Queue 1 item 6",
-    "SAN_EdgeLPE": "Queue 1 item 6",
+    "SAN": (SANNet, {"lpe": "none"}),
+    "GAT": (GATNet, {}),
+    "SAN_NodeLPE": (SANNet, {"lpe": "node"}),
+    "SAN_EdgeLPE": (SANNet, {"lpe": "edge"}),
     "SAN_NodeSpectra": (SANNodeSpectra, {}),
-    "GATFeTA": "Queue 1 item 8",
+    "GATFeTA": (GATFeTANet, {}),
     "GraphiTSpectra": "Queue 1 item 8",
     "GraphiT": "Queue 1 item 8",
     "GatedGCN": "Queue 1 item 8",
     "SAN_LSPE": "Queue 1 item 8",
     "PNA": "Queue 1 item 8",
 }
-SIGN_FLIP_MODELS = (SANNodeSpectra,)
+# the nets that read the eigen-PE: their eigenvector signs flip in training
+SAN_MODELS = (SANNet, SANNodeSpectra)
 
 
 def resolve_model_name(cfg, model_arg=None):
@@ -69,9 +71,11 @@ def resolve_build(cfg, model_arg=None):
                          f"choose from {sorted(MODEL_REGISTRY)}")
     entry = MODEL_REGISTRY[name]
     if isinstance(entry, str):
+        ported = sorted(k for k, v in MODEL_REGISTRY.items()
+                        if not isinstance(v, str))
         raise SystemExit(f"model {name} is not ported to "
                          f"feta_tmlr_tpu_torch yet (ROADMAP {entry}); "
-                         "ported: SAN_NodeSpectra")
+                         f"ported: {', '.join(ported)}")
     cls, extra = entry
     kwargs = model_kwargs_for(cls, cfg["net_params"])
     kwargs.update(extra)
@@ -79,16 +83,20 @@ def resolve_build(cfg, model_arg=None):
 
 
 def construct_model(cls, kwargs, device=None, seed: int = 0):
-    """The model with ZINC's atom and bond vocabularies, weights drawn
-    from `seed`, on `device` (default CUDA)."""
-    return cls(num_atom_type=NUM_ATOM_TYPE, num_bond_type=NUM_BOND_TYPE,
-               seed=seed, device=device, **kwargs)
+    """The model with ZINC's atom vocabulary (and bond vocabulary, but
+    for the GAT nets, which read no bonds), weights drawn from `seed`, on
+    `device` (default CUDA)."""
+    if cls not in (GATFeTANet, GATNet):
+        kwargs = dict(kwargs, num_bond_type=NUM_BOND_TYPE)
+    return cls(num_atom_type=NUM_ATOM_TYPE, seed=seed, device=device,
+               **kwargs)
 
 
 def pe_precompute(graphs, cls, kwargs, cfg, max_freqs=10):
     """The positional encodings the model reads, computed on its input
-    graphs: the same transforms for training and for served requests."""
-    if cls is SANNodeSpectra:
+    graphs: the same transforms for training and for served requests (the
+    SAN nets' Laplacian eigen-PE; the GAT nets read none)."""
+    if cls in SAN_MODELS:
         apply_laplace_decomp(graphs, max_freqs)
 
 
@@ -149,7 +157,7 @@ def main(argv=None):
                     min_lr=params.get("min_lr", 1e-5),
                     stop_at_min_lr=True,
                     max_time_h=params.get("max_time"),
-                    sign_flip=cls in SIGN_FLIP_MODELS,
+                    sign_flip=cls in SAN_MODELS,
                     seed=args.seed),
         steps_per_epoch=len(train_b))
     args.epochs = epochs

@@ -1,16 +1,17 @@
 """Serving CLI: a config-driven model over HTTP.
 
     python -m feta_tmlr_tpu_torch.experiments.serve_main \
-        --config configs/LPE/ZINC/optimized.json --model SAN_NodeSpectra \
+        --config configs/LPE/ZINC/optimized.json \
         --ckpt-dir runs/ckpt --warmup [--port 8000] [--device cpu]
 
     POST /predict {"graphs": [{"x_int": [...], "edge_index": [[..],[..]],
                                "edge_type": [...]}]} -> {"logits": [...]}
 
-The model is built as the config-driven trainer builds it (same JSON
-schema, same registry), its weights restored from the trainer's latest
-checkpoint (random weights from a seed without `--ckpt-dir`), and the
-positional encodings are computed server-side with the training
+The model is built as the config-driven ZINC trainer builds it (same JSON
+schema, same registry: the graph-level nets of the LPE tier, the SAN nets
+with their eigen-PE, GAT and GATFeTA), its weights restored from the
+trainer's latest checkpoint (random weights from a seed without
+`--ckpt-dir`), and the positional encodings are computed server-side with the training
 transforms, so clients send only ids, edges and bond types. `--warmup`
 runs the serving shape once before listening, which builds the CUDA
 kernels. Runs on the card unless `--device cpu`. `--wire` and

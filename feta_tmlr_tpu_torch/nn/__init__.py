@@ -1,4 +1,11 @@
 from feta_tmlr_tpu_torch.nn.feta import FeTAEncoder, FilterCoefficientHead
+from feta_tmlr_tpu_torch.nn.gat import (
+    DenseGATConv,
+    GATFeTALayer,
+    GATFeTANet,
+    GATLayer,
+    GATNet,
+)
 from feta_tmlr_tpu_torch.nn.layers import (
     AttnColStats,
     GraphiTEncoderLayer,
@@ -20,11 +27,13 @@ from feta_tmlr_tpu_torch.nn.ogb import (
     OGBBondEncoder,
 )
 from feta_tmlr_tpu_torch.nn.san import (
+    EdgeLPETransformer,
     FreqTransformer,
     LPETransformer,
     MLPReadout,
     SANAttention,
     SANCoeffHead,
+    SANNet,
     SANNodeSpectra,
     SANSpectraLayer,
     san_structure_laplacian,
@@ -32,14 +41,15 @@ from feta_tmlr_tpu_torch.nn.san import (
 )
 
 __all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
-           "ClassifierMLP", "DiffGraphTransformerGenGCN",
+           "ClassifierMLP", "DenseGATConv", "DiffGraphTransformerGenGCN",
            "DiffGraphTransformerGenGCNMolHiv",
            "DiffGraphTransformerGenGCNMolPcba",
            "DiffGraphTransformerGenGCNPCQM4M",
            "DiffGraphTransformerGenGCNSBM", "OGBAtomEncoder",
            "OGBBondEncoder",
-           "FeTAEncoder", "FilterCoefficientHead", "FreqTransformer",
-           "GraphiTEncoderLayer", "LPETransformer", "MLPReadout",
-           "MaskedBatchNorm", "SANAttention", "SANCoeffHead",
+           "EdgeLPETransformer", "FeTAEncoder", "FilterCoefficientHead",
+           "FreqTransformer", "GATFeTALayer", "GATFeTANet", "GATLayer",
+           "GATNet", "GraphiTEncoderLayer", "LPETransformer", "MLPReadout",
+           "MaskedBatchNorm", "SANAttention", "SANCoeffHead", "SANNet",
            "SANNodeSpectra", "SANSpectraLayer", "coefficient_regularizer",
            "san_structure_laplacian", "typed_edge_scores"]

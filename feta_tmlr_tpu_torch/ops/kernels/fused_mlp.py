@@ -16,9 +16,10 @@ and split of rows, computing pre, g @ w2.T and the keep bit once per
 `fused_mlp_fwd` and `fused_mlp_bwd` are the wrappers: on a CUDA tensor each
 launches its kernel and counts the call in its `launches` attribute (the
 backward's one call is two launches: the pass, then the sum of its split
-and slab partials; the forward's is two only where F spans more than one
-slab, which no main path does); on a CPU tensor each runs its plain version
-(`fused_mlp_plain`, `fused_mlp_bwd_plain`). There is no other route and no
+and slab partials; the forward's is two where F spans more than one slab:
+at width 16 and F = 2048, the PATTERN and molhiv eigen-PE heads); on a
+CPU tensor each runs its plain version (`fused_mlp_plain`,
+`fused_mlp_bwd_plain`). There is no other route and no
 fallback. `FusedMLP` is the `torch.autograd.Function` that ties them
 together, and `fused_mlp` the entry point.
 
@@ -156,7 +157,11 @@ def fused_mlp_bwd_plain(x, w1, b1, w2, g, rate: float = 0.0,
 
 def _check(name, x, w1, b1, w2, extra):
     """Raise unless every operand is a contiguous float32 tensor on x's
-    device of the kernels' shapes, with widths <= 64."""
+    device of the kernels' shapes, with widths <= 64 and fewer than 2^31
+    rows: the kernels take the row index as an int, widen every offset
+    from a row to size_t before multiplying it, and never form an R x F
+    index (the hidden field is not stored; R * F passes 2^31 at the edge
+    eigen-PE head of a 128-graph chunk)."""
     r, din = x.shape
     f, dout = w2.shape
     shapes = [("x", x, (r, din)), ("w1", w1, (din, f)), ("b1", b1, (f,)),
@@ -170,9 +175,11 @@ def _check(name, x, w1, b1, w2, extra):
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    if not (0 < din <= 64 and 0 < dout <= 64 and r > 0 and f > 0):
+    if not (0 < din <= 64 and 0 < dout <= 64 and 0 < r < 2 ** 31
+            and f > 0):
         raise ValueError(f"{name}: rows {r}, widths {din}/{dout} and hidden "
-                         f"{f} must be positive, widths <= 64")
+                         f"{f} must be positive, widths <= 64, rows below "
+                         "2^31 (the kernels' row index is an int)")
     if torch.is_grad_enabled() and any(t.requires_grad for _, t, _ in shapes):
         raise RuntimeError(f"{name}: the raw kernel wrapper is not "
                            "differentiable; call it under torch.no_grad(), "
@@ -187,6 +194,14 @@ def _dropout_args(rate, seed):
             _inv_keep(rate) if on else 1.0)
 
 
+def fwd_slabs(din: int, f: int, dout: int) -> int:
+    """The forward kernel's slabs of hidden units at these widths (16384 /
+    D units a slab, D the width bucket of max(din, dout)): more than one
+    means per-slab partials and a second launch. Asks the kernel's
+    library, so it builds it."""
+    return _kernel("slabs")[1](din, f, dout)
+
+
 def fused_mlp_fwd(x, w1, b1, w2, b2, rate: float = 0.0,
                   seed: Optional[int] = None) -> torch.Tensor:
     """y [R, d_out] = dropout(relu(x @ w1 + b1)) @ w2 + b2. Where F spans
@@ -199,8 +214,7 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, rate: float = 0.0,
     r, din, f, dout = _check("fused_mlp_fwd", x, w1, b1, w2,
                              [("b2", b2, (w2.shape[1],))])
     dev = x.device
-    _, slabs_fn = _kernel("slabs")
-    n_slabs = slabs_fn(din, f, dout)
+    n_slabs = fwd_slabs(din, f, dout)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     y = torch.empty((r, dout), dtype=torch.float32, device=dev)
     part = (torch.empty((n_slabs, r, dout), dtype=torch.float32, device=dev)

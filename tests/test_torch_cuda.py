@@ -13,7 +13,12 @@ and its gradients rtol 1e-3 / atol 1e-5; the two-layer SAN model's outputs
 rtol 1e-4 / atol 1e-4 and its gradients within 1e-3 of each tensor's
 largest entry (eigen-PE dropout 0.1 on both sides, the same masks); the
 two-layer ZINC model on the modulation and fused routes and the two-layer
-molhiv model at d_model 128 on the flash route as the SBM model.
+molhiv model at d_model 128 on the flash route as the SBM model. The LPE
+tier's fused-MLP shapes (width 16 in two forward slabs; the edge
+eigen-PE head's B*N*N*m rows) are held to the plain versions run on the
+card, and a train-mode step of SANNet and GATFeTANet with dropout 0.2 to
+the CPU's step from the same seed (gradients within 1e-3 of each
+tensor's largest entry): one seed, the same masks on both.
 """
 
 import copy
@@ -22,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FUSED_CPU32_FACTOR, masked_cells, mlp_inputs,
-                        mlp_masks)
+from chip_smoke import (EDGE_ROWS, FUSED_CPU32_FACTOR, PATTERN_ROWS,
+                        masked_cells, mlp_g_scale, mlp_inputs, mlp_masks)
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
     ogb_like_dataset,
@@ -36,7 +41,8 @@ from feta_tmlr_tpu_torch.nn.models import (
     DiffGraphTransformerGenGCNSBM,
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
-from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra
+from feta_tmlr_tpu_torch.nn.gat import GATFeTANet
+from feta_tmlr_tpu_torch.nn.san import SANNet, SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import colstat as tcs
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
 from feta_tmlr_tpu_torch.ops.kernels import fused_attention as tfa
@@ -583,6 +589,77 @@ def test_cuda_san_step_and_predictor_match_cpu(cuda):
     got = Predictor(gpu_model, **kw).predict(graphs)
     ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------- the LPE tier's shapes
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,din,rate,slabs", [
+    (PATTERN_ROWS, 16, 0.0, 2), (PATTERN_ROWS, 16, 0.1, 2),
+    (EDGE_ROWS, 8, 0.1, 1)], ids=["pattern-rate0", "pattern", "edge-pairs"])
+def test_cuda_fused_mlp_lpe_shapes_match_plain(cuda, r, din, rate, slabs):
+    """The PATTERN eigen-PE head at width 16 (F = 2048 in two forward
+    slabs: per-slab partials and the finishing launch) and the
+    SAN_EdgeLPE pair head's B*N*N*m rows, against the plain versions run
+    on the card (the hidden field of the pair head is 3.8 GB), at
+    chip_smoke's cotangent scale for R rows (`mlp_g_scale`)."""
+    x, w1, b1, w2, b2, g = mlp_inputs(r + 2048, r, din, 2048, din, cuda,
+                                      g_scale=mlp_g_scale(r))
+    assert tfm.fwd_slabs(din, 2048, din) == slabs
+    before = tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches
+    with torch.no_grad():
+        got = tfm.fused_mlp_fwd(x, w1, b1, w2, b2, rate, 23)
+        again = tfm.fused_mlp_fwd(x, w1, b1, w2, b2, rate, 23)
+        got_b = tfm.fused_mlp_bwd(x, w1, b1, w2, g, rate, 23)
+        assert torch.equal(got, again)
+        del again
+        want = tfm.fused_mlp_plain(x, w1, b1, w2, b2, rate, 23)
+        torch.testing.assert_close(got, want, **TOL)
+        del want
+        for k, w in zip(got_b, tfm.fused_mlp_bwd_plain(x, w1, b1, w2, g,
+                                                       rate, 23)):
+            torch.testing.assert_close(k, w, **TOL)
+    assert (tfm.fused_mlp_fwd.launches, tfm.fused_mlp_bwd.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+def _lpe_batch(n_graphs=4):
+    graphs = zinc_categorical_dataset(seed=6, n_graphs=n_graphs)
+    apply_laplace_decomp(graphs, 10)
+    return collate_graphs(graphs, max_nodes=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["SANNet", "GATFeTANet"])
+def test_cuda_dropout_masks_match_cpu(cuda, net):
+    """One seed draws the same dropout masks on the CPU and on the card:
+    the hash mask itself bit for bit, and a train-mode step of a net with
+    layer, input (and the GAT's attention) dropout 0.2 and the eigen-PE
+    dropout 0.1 gives the CPU's loss and gradients."""
+    gen = lambda: torch.Generator().manual_seed(3)
+    ones = torch.ones(1000, 24)
+    assert torch.equal(hash_dropout(ones, 0.2, gen()) != 0,
+                       (hash_dropout(ones.to(cuda), 0.2, gen()) != 0).cpu())
+    if net == "SANNet":
+        cpu_model = SANNet(num_atom_type=28, num_bond_type=4, lpe="edge",
+                           hidden_dim=16, out_dim=16, n_heads=4, n_layers=2,
+                           lpe_dim=4, dropout=0.2, in_feat_dropout=0.2,
+                           device="cpu")
+    else:
+        cpu_model = GATFeTANet(num_atom_type=28, hidden_dim=4, out_dim=16,
+                               num_heads=4, n_layers=2, dropout=0.2,
+                               in_feat_dropout=0.2, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    batch = _lpe_batch()
+    cfg = TrainConfig(task="graph_reg", sign_flip=True, seed=4)
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        scale = float(want[name].grad.abs().max()) + 1e-12
+        err = float((p.grad.cpu() - want[name].grad).abs().max())
+        assert err <= 1e-3 * scale + 1e-6, name
 
 
 # ------------------------------------------- modulation and fused attention
