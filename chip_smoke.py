@@ -56,10 +56,10 @@ Phases (any failure raises and the script exits non-zero):
      fixed (`canonical_signs`), so every host serves the same inputs;
   5. train the same model on the same 8 graphs through `Trainer` on CUDA:
      2 batches of 4 graphs, 3 epochs of AdamW (6 steps, warmup towards lr
-     1e-3) with finite and falling loss, then a timed window of 20 more
-     epochs (40 steps: ms per step over the window with its spread, and
+     1e-3) with finite and falling loss, then a timed window of 10 more
+     epochs (20 steps: ms per step over the window with its spread, and
      each epoch's process CPU time, garbage-collection time and new device
-     memory segments); launch counts per step over all 46 steps; acc_sbm;
+     memory segments); launch counts per step over all 26 steps; acc_sbm;
      no host sync in one more step (torch's sync debug mode);
      then one step from the same initial weights on CUDA,
      on the CPU in float32 and on the CPU in float64, the CUDA loss and
@@ -73,7 +73,7 @@ Phases (any failure raises and the script exits non-zero):
      CPU path;
   7. train it through `Trainer` (graph_reg, L1): 2 batches of 128 graphs,
      3 epochs warming up towards lr 7e-4 (weight decay 0, FreqTransformer
-     dropout 0.1, eigvec sign flip on), then a timed window of 10 epochs;
+     dropout 0.1, eigvec sign flip on), then a timed window of 5 epochs;
      2 + 2 fused-MLP launches per step, finite loss, no host sync in a
      step (torch's sync debug mode); the eigen-PE dropout mask's device
      and host time and kernel count; then one step on 16 graphs with that
@@ -91,7 +91,7 @@ Phases (any failure raises and the script exits non-zero):
      exact launch counts per step, finite loss, no host sync in a step, and
      one step on 16 graphs on CUDA against the CPU in float64; "modulation"
      and "flash" for 1 + 4 epochs; the three routes' ms/request and ms/step
-     side by side, then in 9 interleaved rounds (one request and one epoch
+     side by side, then in 5 interleaved rounds (one request and one epoch
      of each route per round, the order rotating) with their medians and
      quartiles;
  10. the SBM model at N=2048 (examples/largen_combo_ab.py's step) under the
@@ -105,7 +105,7 @@ Phases (any failure raises and the script exits non-zero):
      LOGITS_CPU32_FACTOR); "stream" (the unfolded kernels) and "r4"
      (flash_need_heads off: the filtered layer through the score product
      and the modulation kernel) serve two requests and train 1 + 2 epochs;
-     then 9 interleaved rounds of one request and one epoch per setting;
+     then 5 interleaved rounds of one request and one epoch per setting;
  11. the OGB molhiv classifier (DiffGraphTransformerGenGCNMolHiv at its
      CLI's widths: d_model 128, 8 heads, 4 layers, ff 256, Chebyshev
      order 4, no batch norm, no PE; random weights from a seed) on the
@@ -133,7 +133,27 @@ Phases (any failure raises and the script exits non-zero):
      training steps (warmup, exact fused-MLP launches, finite loss, no
      host sync), one step on 4 graphs held to a float64 CPU step; ms per
      request and per step;
- 13. cli: the port's command-line entry points, as a user runs them (each
+ 13. lspe: the LSPE codebase's nets (none runs a TPU kernel: every launch
+     counter must read 0), each built by its config trainer at its
+     config's widths and depths with random weights from a seed:
+     GraphiT-Spectra-LSPE (configs/LSPE/GraphiT_ZINC_LSPE.json with
+     --model GraphiTSpectra: 10 layers of width 48, 8 heads, RWPE 16, the
+     adaptive edge kernel of 16 steps at gamma 0.25; 32 ZINC-shaped
+     graphs padded to N=38), the PATTERN Spectra net
+     (GraphiT_SBM_PATTERN_LSPE.json, per-node readout; 16 synthetic SBMs
+     padded to N=188), SAN-LSPE (SAN_ZINC_LSPE.json, learned gamma; 32
+     graphs), GatedGCN-LSPE (GatedGCN_ZINC_LSPE.json: 16 layers of width
+     59; 128 graphs) dense and on COO batches, PNA-LSPE (PNA_ZINC_LSPE.json:
+     16 layers of width 55, 5 stacked towers, bond features of width 40;
+     128 graphs) dense and sparse: 3 requests through Predictor each (the
+     first 4 graphs held to a float64 CPU forward), 10 training steps
+     (warmup, finite loss), one step on 4 graphs held to a float64 CPU
+     step (the PATTERN nets, here and in the lpe phase, with every
+     parameter's error ranked against the CPU float32 route's; the lpe
+     phase's again with the fused MLP's plain versions on the card), the COO
+     runs' logits and card step held to their dense twins; ms per request
+     and per step;
+ 14. cli: the port's command-line entry points, as a user runs them (each
      module's main() with its argv, in this process so the launch counters
      see it): the config-driven trainer
      (experiments/main_ZINC_graph_regression.py) trains SAN_NodeSpectra at
@@ -163,8 +183,18 @@ Phases (any failure raises and the script exits non-zero):
      SAN_NodeSpectra, 16 layers, eigen-PE dim 16) on synthetic SBMs, and
      the molhiv trainer on
      configs/LPE/MOLHIV/optimized_spectral_full_1.json on the fixture's
-     molecules (layer dropout 0.01, sum readout, eigen-PE dim 16);
- 14. print the kernels' JSON line, the card line, and the final status line
+     molecules (layer dropout 0.01, sum readout, eigen-PE dim 16); then
+     the LSPE configs as written: the ZINC trainer on
+     GatedGCN_ZINC_LSPE_withLapEigLoss.json (the lapeig term added to the
+     loss), the SBM trainer on GraphiT_SBM_PATTERN_LSPE.json (synthetic
+     SBMs) and the OGBMOL trainer on GatedGCN_MOLPCBA_LSPE.json (the
+     ogbg-molpcba fixture), each 2 epochs and a resume to 4 held bit for
+     bit to 4 epochs in one run, no kernel launched; the ZINC trainer's
+     GraphiT-Spectra-LSPE (GraphiT_ZINC_LSPE.json, --model
+     GraphiTSpectra) with a resumed epoch, served by serve_main from its
+     checkpoint (random-walk PE and edge kernel server-side), each answer
+     held to the in-process Predictor within 1e-5;
+ 15. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
@@ -239,6 +269,9 @@ from feta_tmlr_tpu_torch.experiments import (
     main_molhiv_graph_classification as cli_molhiv_config,
 )
 from feta_tmlr_tpu_torch.experiments import (
+    main_OGBMOL_graph_classification as cli_ogbmol_config,
+)
+from feta_tmlr_tpu_torch.experiments import (
     main_SBMs_node_classification as cli_sbm_config,
 )
 from feta_tmlr_tpu_torch.experiments import serve_main as cli_serve_main
@@ -249,6 +282,7 @@ from feta_tmlr_tpu_torch.nn.models import (
     DiffGraphTransformerGenGCNSBM,
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
+from feta_tmlr_tpu_torch.nn.pna import average_log_degree
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import build
 from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
@@ -335,7 +369,7 @@ MODEL_CFG = dict(in_size=3, nb_class=2, d_model=64, nb_heads=8,
 N_NODES = 1024
 N_GRAPHS = 8
 TRAIN_EPOCHS = 3
-TIMED_EPOCHS = 20
+TIMED_EPOCHS = 10
 # kernel checks: (B, N, padding); the JSON rows are those of the first
 # shape, the training batch, whose steps make most of the counted launches;
 # the last is the ZINC batch, which the "flash" route runs at N=48
@@ -372,7 +406,7 @@ SAN_FREQS = 10
 SAN_ROWS = SAN_GRAPHS * SAN_NODES * SAN_FREQS
 SAN_REQUESTS = 4
 SAN_TRAIN_EPOCHS = 3
-SAN_TIMED_EPOCHS = 10
+SAN_TIMED_EPOCHS = 5
 SAN_STEP_LAUNCHES = {**NONE, "fused_mlp_fwd": 2, "fused_mlp_bwd": 2}
 SAN_STEP_PARAMS = ("embedding_h.weight", "layers.0.attention.Q.weight",
                    "layers.9.attention.E.weight", "layers.9.cheb_weight",
@@ -409,7 +443,7 @@ ZINC_REQUESTS = 4
 # "fused" route is the slice's main path, the other two are its comparison
 ZINC_RUNS = {"fused": (ZINC_REQUESTS, 3, 10), "modulation": (2, 1, 4),
              "flash": (2, 1, 4)}
-ZINC_ROUNDS = 9     # interleaved rounds of the routes' comparison
+ZINC_ROUNDS = 5     # interleaved rounds of the routes' comparison
 ZINC_REQUEST_LAUNCHES = {
     "fused": {**NONE, "fused_attn_fwd": 9, "modulation_fwd": 1},
     "modulation": {**NONE, "modulation_fwd": 10},
@@ -442,7 +476,7 @@ LARGE_SETTINGS = {"fold": dict(head_fold=True, flash_need_heads=True),
 # (requests, warm-up epochs, timed epochs) of each setting; "fold" is the
 # slice's main path, the other two its comparison
 LARGE_RUNS = {"fold": (2, 2, 5), "stream": (2, 1, 2), "r4": (2, 1, 2)}
-LARGE_ROUNDS = 9
+LARGE_ROUNDS = 5
 # The N=2048 model from random weights amplifies float32 rounding beyond
 # the SBM tolerances on the CPU's float32 route too: over 5 LapPE sign
 # patterns (`--rounding`) the CPU's own step misses the gradient tolerance
@@ -521,7 +555,7 @@ CLI_REQUEST_GRAPHS = 32
 CLI_MAX_NODES = 64            # serve_main's default padded size
 CLI_SERVE_TOL = 1e-5          # served logits against an in-process Predictor
 CLI_WINDOW_CHUNK = 16         # the window check's chunk: 16 chunks a request
-CLI_TIMED_REQUESTS = 200      # requests timed after the checked ones
+CLI_TIMED_REQUESTS = 100      # requests timed after the checked ones
 CLI_STAGE_REPS = 50           # in-process runs of one request's stages
 CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "config_lpe": ["epoch", "loss", "time", "val_mae", "lr"],
@@ -532,14 +566,21 @@ CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "zinc": ["epoch", "loss", "time", "val_mae", "lr"],
                    "molhiv": ["epoch", "loss", "time", "val_rocauc"],
                    "sbm": ["epoch", "loss", "time", "val_acc_sbm"],
-                   "tu": ["epoch", "loss", "time", "val_acc"]}
+                   "tu": ["epoch", "loss", "time", "val_acc"],
+                   "config_lspe": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "lapeig_lspe": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "pattern_lspe": ["epoch", "loss", "time", "val_acc_sbm",
+                                    "lr"],
+                   "ogbmol_lspe": ["epoch", "loss", "time", "val_ap", "lr"]}
 FLASH_ROUTE = {"flash_fwd", "colstat", "flash_bwd_q", "flash_bwd_k"}
 MLP_ROUTE = {"fused_mlp_fwd", "fused_mlp_bwd"}
 CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
                "config_gat": set(), "sbm_lpe": MLP_ROUTE,
                "molhiv_lpe": MLP_ROUTE,
                "zinc": FLASH_ROUTE, "molhiv": FLASH_ROUTE,
-               "sbm": FLASH_ROUTE, "tu": FLASH_ROUTE}
+               "sbm": FLASH_ROUTE, "tu": FLASH_ROUTE, "config_lspe": set(),
+               "lapeig_lspe": set(), "pattern_lspe": set(),
+               "ogbmol_lspe": set()}
 # the lpe phase: the LPE codebase's other nets at their configs' widths,
 # built by the port's config trainers (resolve_build / construct_model),
 # random weights from a seed, each served (LPE_REQUESTS requests of its
@@ -597,6 +638,76 @@ CLI_LPE_RUNS = (
          ROOT, "configs/LPE/MOLHIV/optimized_spectral_full_1.json"),
       "--data-dir", CLI_FIXTURES]),
 )
+# the lspe phase: the LSPE codebase's nets at their configs' widths and
+# depths, built by the port's config trainers (with --model where given),
+# random weights from a seed, each served (LPE_REQUESTS requests of its
+# batch through Predictor, the first LPE_REF_GRAPHS graphs held to a
+# float64 CPU forward) and trained (2 batches, LPE_EPOCHS warm-up and
+# LPE_TIMED_EPOCHS timed epochs, then one step on LPE_REF_GRAPHS graphs
+# held to a float64 CPU step). They run no TPU kernel: every launch counter
+# reads 0. A run on COO batches is also held to its dense twin. (label,
+# config, --model, model kwargs, trainer, graphs a batch, padded nodes, COO
+# batches, dense twin, gradients held)
+LSPE_NETS = (
+    ("GraphiTSpectra", "configs/LSPE/GraphiT_ZINC_LSPE.json",
+     "GraphiTSpectra", {}, "zinc", 32, EDGE_NODES, False, None,
+     ("embedding_h.weight", "embedding_p.weight",
+      "layers.0.attention_h.Q.weight", "layers.9.attention_p.E_2.weight",
+      "layers.9.cheb_weight", "Whp.weight", "mlp_readout.fc_out.weight")),
+    ("PATTERN Spectra", "configs/LSPE/GraphiT_SBM_PATTERN_LSPE.json", None,
+     {}, "sbm", PATTERN_GRAPHS, PATTERN_NODES, False, None,
+     ("embedding_h.weight", "layers.0.attention_h.Q_2.weight",
+      "layers.5.coeff_head.gcn_linear.weight", "layers.9.O_p.weight",
+      "p_out.weight", "mlp_readout.fc_out.weight")),
+    ("SAN_LSPE", "configs/LSPE/SAN_ZINC_LSPE.json", None, {}, "zinc", 32,
+     EDGE_NODES, False, None,
+     ("gamma", "embedding_e.weight", "layers.0.attention_h.Q.weight",
+      "layers.9.attention_p.K_2.weight", "layers.9.ffn2.weight",
+      "mlp_readout.fc_out.weight")),
+    ("GatedGCN", "configs/LSPE/GatedGCN_ZINC_LSPE.json", None, {}, "zinc",
+     128, EDGE_NODES, False, None,
+     ("embedding_h.weight", "embedding_e.weight", "layers.0.A1.weight",
+      "layers.7.B3.weight", "layers.15.C2.weight",
+      "layers.15.bn_node_h.scale", "Whp.weight")),
+    ("GatedGCN sparse", "configs/LSPE/GatedGCN_ZINC_LSPE.json", None, {},
+     "zinc", 128, EDGE_NODES, True, "GatedGCN",
+     ("embedding_h.weight", "embedding_e.weight", "layers.0.A1.weight",
+      "layers.7.B3.weight", "layers.15.C2.weight",
+      "layers.15.bn_node_h.scale", "Whp.weight")),
+    ("PNA", "configs/LSPE/PNA_ZINC_LSPE.json", None, {}, "zinc", 128,
+     EDGE_NODES, False, None,
+     ("embedding_e.weight", "embedding_p.weight",
+      "layers.0.towers.pretrans_h.fc_out.kernel",
+      "layers.8.mixing_h.weight",
+      "layers.15.towers.posttrans_p.fc_out.kernel",
+      "layers.15.towers.batchnorm_h.scale", "Whp.weight")),
+    ("PNA sparse", "configs/LSPE/PNA_ZINC_LSPE.json", None,
+     {"sparse_edges": True}, "zinc", 128, EDGE_NODES, True, "PNA",
+     ("embedding_e.weight", "embedding_p.weight",
+      "layers.0.towers.pretrans_h.fc_out.kernel",
+      "layers.8.mixing_h.weight",
+      "layers.15.towers.posttrans_p.fc_out.kernel",
+      "layers.15.towers.batchnorm_h.scale", "Whp.weight")),
+)
+# the cli phase's LSPE runs of configs as written: 2 epochs into a
+# checkpoint directory and a resume to 4, held bit for bit to 4 epochs in
+# one run
+CLI_LSPE_RUNS = (
+    ("lapeig_lspe", cli_zinc_config.main,
+     ["--config", os.path.join(
+         ROOT, "configs/LSPE/GatedGCN_ZINC_LSPE_withLapEigLoss.json"),
+      "--data-dir", CLI_FIXTURES]),
+    ("pattern_lspe", cli_sbm_config.main,
+     ["--config", os.path.join(
+         ROOT, "configs/LSPE/GraphiT_SBM_PATTERN_LSPE.json"),
+      "--data-dir", CLI_FIXTURES]),
+    ("ogbmol_lspe", cli_ogbmol_config.main,
+     ["--config", os.path.join(
+         ROOT, "configs/LSPE/GatedGCN_MOLPCBA_LSPE.json"),
+      "--data-dir", CLI_FIXTURES]),
+)
+# serve_main from a GraphiT-Spectra-LSPE checkpoint of the ZINC trainer
+CLI_LSPE_SERVE = os.path.join(ROOT, "configs/LSPE/GraphiT_ZINC_LSPE.json")
 # `--precision`'s backward probe: the canonical signs and the `--rounding`
 # sign pattern on which the N=2048 step's CUDA gradients were furthest
 # from float64 against the CPU's float32 route (3.99x, PERF.md)
@@ -1453,12 +1564,32 @@ def _pe_worker(graph):
     return graph.pe, canonical_signs(graph.lap_pe)
 
 
+@contextlib.contextmanager
+def worker_blas_threads(n):
+    """n BLAS threads in each process spawned inside (their numpy reads
+    these variables at import), so that a pool of one process a core does
+    not run cores x cores threads."""
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: str(n) for k in keys})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def make_graphs(n_graphs=N_GRAPHS, n_nodes=N_NODES):
     graphs = sbm_like_dataset(seed=2, n_graphs=n_graphs, n_nodes=n_nodes)
     t0 = time.perf_counter()
-    workers = max(1, min(len(graphs), os.cpu_count() or 1))
+    cores = os.cpu_count() or 1
+    workers = max(1, min(len(graphs), cores))
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+    with worker_blas_threads(max(1, cores // workers)), \
+            ProcessPoolExecutor(workers, mp_context=ctx) as pool:
         pes = pool.map(_pe_worker, graphs)
         for g, (pe, lap_pe) in zip(graphs, pes):
             g.pe, g.lap_pe = pe, lap_pe
@@ -2440,9 +2571,19 @@ def lpe_net(spec, device, card, profile=False):
     if syncs:
         raise AssertionError(f"lpe {label}: a training step syncs the host: "
                              f"{syncs}")
+    step_cfg = TrainConfig(task=task, sign_flip=False)
     step_parity(initial, graphs[:LPE_REF_GRAPHS], device, f"lpe {label} "
-                "train", collate, TrainConfig(task=task, sign_flip=False),
-                params)
+                "train", collate, step_cfg, params, rank=task == "node_clf")
+    if task == "node_clf":
+        # the same step with the eigen-PE head's fused MLP on its plain
+        # version on the card: does the kernels' rounding lead the gap?
+        with plain_mlp():
+            names = [n for n, _ in initial.named_parameters()]
+            _, rel, scale, _ = step_errors(
+                initial, graphs[:LPE_REF_GRAPHS], device, collate, step_cfg,
+                names, names)
+        rank_step_errors(f"lpe {label} train, the fused MLP's plain version "
+                         "on the card", rel, scale)
     return [served, trained]
 
 
@@ -2454,6 +2595,171 @@ def lpe_slice(device, card, profile=False):
     for spec in LPE_NETS:
         runs += lpe_net(spec, device, card, profile=profile)
     print(f"lpe phase: {len(LPE_NETS)} nets in "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return runs
+
+
+def lspe_graphs(spec, n_graphs):
+    """The graphs of an lspe net and the task: ZINC-shaped molecules, or
+    synthetic PATTERN SBMs of up to PATTERN_NODES nodes."""
+    if spec[4] == "sbm":
+        tr, va, te, _ = load_sbm_or_synthetic(
+            "no-dataset", "SBM_PATTERN", seed=5, n_synthetic=n_graphs,
+            n_nodes=PATTERN_NODES)
+        return tr + va + te, "node_clf", {"node_labels": True}
+    return zinc_categorical_dataset(seed=7, n_graphs=n_graphs), \
+        "graph_reg", {}
+
+
+def lspe_build(spec, graphs, device, seed, transform=False):
+    """An lspe net as its config trainer builds it (PNA with the graphs'
+    degree statistic); with `transform`, the trainer's PE precompute on
+    `graphs` first. Returns (model, cfg)."""
+    _, config, model_arg, kw_over, trainer, *_ = spec
+    cfg = load_config(os.path.join(ROOT, config))
+    if trainer == "sbm":
+        cls, kw = cli_sbm_config.resolve_build(cfg, model_arg)
+        if transform:
+            cli_sbm_config.pe_precompute(graphs, cls, kw, cfg)
+        return cli_sbm_config.construct_model(
+            cls, dict(kw, **kw_over), 3, 2, device=device, seed=seed), cfg
+    cls, kw = cli_zinc_config.resolve_build(cfg, model_arg)
+    if transform:
+        cli_zinc_config.pe_precompute(graphs, cls, kw, cfg)
+    return cli_zinc_config.construct_model(
+        cls, dict(kw, **kw_over), device=device, seed=seed,
+        avg_d_log=average_log_degree(graphs)), cfg
+
+
+def card_step_grads(initial, graphs, device, collate, cfg, params):
+    """One step of a copy of `initial` on the card: the named gradients
+    (float64 on the host) and the loss."""
+    model = copy.deepcopy(initial)
+    loss = float(Trainer(model, cfg).step(
+        collate_graphs(graphs, **collate).to(device)))
+    return {name: model.get_parameter(name).grad.double().cpu()
+            for name in params}, loss
+
+
+def lspe_twin_check(label, twin, served, grads, loss):
+    """A COO run's served logits and card step against its dense twin's:
+    logits within SLICE_TOL, loss within STEP_LOSS_RTOL, each gradient
+    within STEP_GRAD_REL of the twin's largest entry."""
+    want = twin["served"]
+    np.testing.assert_allclose(served, want, **SLICE_TOL)
+    rel = {n: float((g - twin["grads"][n]).abs().max())
+           / float(twin["grads"][n].abs().max()) for n, g in grads.items()}
+    loss_err = abs(loss - twin["loss"]) / abs(twin["loss"])
+    print(f"lspe {label}: against its dense twin on the card: logits max "
+          f"abs err {float(np.abs(served - want).max()):.3e}; step loss rel "
+          f"err {loss_err:.2e}; grad max abs err / max |g| "
+          + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()), flush=True)
+    if loss_err > STEP_LOSS_RTOL or max(rel.values()) > STEP_GRAD_REL:
+        raise AssertionError(f"lspe {label}: off its dense twin: loss "
+                             f"{loss_err}, grads {rel}")
+
+
+def lspe_net(spec, device, card, twins, profile=False):
+    """One net of the lspe phase, served and trained on the card; returns
+    the launches of its requests and of its steps (all 0)."""
+    label, config, model_arg, kw_over, _, per, nodes, coo, twin, params \
+        = spec
+    graphs, task, extra = lspe_graphs(spec, max(LPE_REQUESTS, 2) * per)
+    t0 = time.perf_counter()
+    model, cfg = lspe_build(spec, graphs, device, seed=0, transform=True)
+    pe_s = time.perf_counter() - t0
+    collate = dict(max_nodes=nodes, with_coo=coo, **extra)
+    sizes = [g.num_nodes for g in graphs]
+    print(f"lspe {label}: {type(model).__name__} from {config} "
+          f"{'--model ' + model_arg if model_arg else ''}{kw_over or ''} "
+          f"({sum(p.numel() for p in model.parameters())} parameters, "
+          f"{len(model.layers)} layers); {len(graphs)} graphs of "
+          f"{min(sizes)}-{max(sizes)} nodes padded to N={nodes}, batches of "
+          f"{per}{', COO edges' if coo else ''}; host PE {pe_s:.2f} s",
+          flush=True)
+    calibrate_batch_norm(model, collate_graphs(graphs[:per], **collate),
+                         device)
+    pred = Predictor(model, device=device, max_batch=per,
+                     collate_kwargs=collate, node_level=task == "node_clf")
+    requests = [graphs[i * per:(i + 1) * per] for i in range(LPE_REQUESTS)]
+    reset_launches()
+    outs, call_ms = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(pred.predict(req))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    served = read_launches()
+    if served != NONE:
+        raise AssertionError(f"lspe {label}: launch counts {served}; these "
+                             "nets run no TPU kernel")
+    if not all(np.isfinite(np.asarray(o, np.float64)).all()
+               for out in outs for o in out):
+        raise AssertionError(f"lspe {label}: non-finite logits")
+    first = outs[0]
+    steady = statistics.median(call_ms[1:])
+    print(f"lspe {label} serve: {LPE_REQUESTS} requests of {per} graphs; "
+          f"ms/request {[round(t, 2) for t in call_ms]}, steady {steady:.2f}"
+          f" ms = {per / steady * 1e3:.1f} graphs/s on {card}; launches "
+          f"{served}", flush=True)
+    lpe_ref_check(model, requests[0], outs[0], collate, f"lspe {label} serve")
+    if profile:
+        profile_call(f"one lspe {label} request of {per} graphs",
+                     lambda: pred.predict(requests[0]))
+
+    model, _ = lspe_build(spec, graphs, device, seed=1)
+    initial = copy.deepcopy(model)
+    batches = [collate_graphs(graphs[i * per:(i + 1) * per], **collate)
+               .to(device) for i in range(2)]
+    p = cfg["params"]
+    steps = LPE_EPOCHS * len(batches)
+    trainer_ = Trainer(model, TrainConfig(
+        task=task, lr=p["init_lr"], weight_decay=p["weight_decay"],
+        schedule="warmup", warmup_steps=steps, sign_flip=False, seed=0))
+    reset_launches()
+    losses, _ = timed_epochs(trainer_, batches, LPE_EPOCHS)
+    more, window = timed_epochs(trainer_, batches, LPE_TIMED_EPOCHS)
+    trained = read_launches()
+    syncs = step_syncs(trainer_, batches[0])
+    total = steps + LPE_TIMED_EPOCHS * len(batches)
+    per_step = [r[0] / len(batches) for r in window]
+    print(f"lspe {label} train: {total} AdamW steps of {per} graphs (warmup "
+          f"towards lr {p['init_lr']}, weight decay {p['weight_decay']}, "
+          f"dropout {cfg['net_params'].get('dropout', 0.0)}); epoch losses "
+          f"{[round(x, 6) for x in losses + more]}; timed window "
+          f"{sum(r[0] for r in window) / (len(window) * len(batches)):.2f} "
+          f"ms/step (per epoch median {statistics.median(per_step):.2f}, "
+          f"min {min(per_step):.2f}, max {max(per_step):.2f}) on {card}; "
+          f"launches {trained}; host syncs in one step: {len(syncs)} "
+          f"{syncs[:3]}", flush=True)
+    if profile:
+        profile_call(f"one lspe {label} training step of {per} graphs",
+                     lambda: trainer_.step(batches[0]))
+    if trained != NONE:
+        raise AssertionError(f"lspe {label}: launch counts {trained}; these "
+                             "nets run no TPU kernel")
+    if not all(np.isfinite(losses + more)):
+        raise AssertionError(f"lspe {label}: epoch losses {losses + more}")
+    ref = graphs[:LPE_REF_GRAPHS]
+    step_cfg = TrainConfig(task=task, sign_flip=False)
+    step_parity(initial, ref, device, f"lspe {label} train", collate,
+                step_cfg, params, rank=task == "node_clf")
+    grads, loss = card_step_grads(initial, ref, device, collate, step_cfg,
+                                  params)
+    if twin is None:
+        twins[label] = dict(served=first, grads=grads, loss=loss)
+    else:
+        lspe_twin_check(label, twins[twin], first, grads, loss)
+    return [served, trained]
+
+
+def lspe_slice(device, card, profile=False):
+    """The lspe phase: each of LSPE_NETS served and trained; returns the
+    launches of every run."""
+    t0 = time.perf_counter()
+    runs, twins = [], {}
+    for spec in LSPE_NETS:
+        runs += lspe_net(spec, device, card, twins, profile=profile)
+    print(f"lspe phase: {len(LSPE_NETS)} runs of 5 nets in "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
     return runs
 
@@ -2498,6 +2804,56 @@ def cli_train(name, main, argv, workdir, card, device="cuda"):
         raise AssertionError(f"cli {name}: no checkpoint sidecar in {ckpt}")
     check_cli_launches(name, launches, CLI_KERNELS[name])
     return launches, ckpt
+
+
+def cli_exact_resume(name, main, argv, workdir, card, device="cuda"):
+    """A CLI trainer for CLI_EPOCHS epochs into a checkpoint directory,
+    resumed to 2 * CLI_EPOCHS, against 2 * CLI_EPOCHS epochs in one run:
+    every logged number but the times, best_val and every weight bit for
+    bit. Holds logs.csv's columns and the kernels launched (none, for the
+    LSPE nets); returns the launches."""
+    ckpt = os.path.join(workdir, f"{name}_ckpt")
+    out = os.path.join(workdir, f"{name}_out")
+    common = argv + ["--device", device]
+    reset_launches()
+    t0 = time.perf_counter()
+    first = main(common + ["--epochs", str(CLI_EPOCHS), "--ckpt-dir", ckpt,
+                           "--outdir", out])
+    resumed = main(common + ["--epochs", str(2 * CLI_EPOCHS), "--ckpt-dir",
+                             ckpt, "--resume"])
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = main(common + ["--epochs", str(2 * CLI_EPOCHS)])
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    launches = read_launches()
+    rows = lambda r: [{k: v for k, v in row.items() if k != "time"}
+                      for row in r["history"]]
+    with open(os.path.join(out, "logs.csv")) as f:
+        columns = f.readline().strip().split(",")
+    differ = sorted(k for k, v in full["state"].items()
+                    if not torch.equal(resumed["state"][k], v))
+    losses = [r["loss"] for r in full["history"]]
+    print(f"cli {name}: {CLI_EPOCHS} epochs and a resume to "
+          f"{2 * CLI_EPOCHS} in {split_s:.2f} s, {2 * CLI_EPOCHS} epochs in "
+          f"one run in {full_s:.2f} s on {card}; epoch losses "
+          f"{[round(x, 6) for x in losses]}; best_val {full['best_val']}, "
+          f"test {full.get('test')}; resumed run bit-equal: logged rows "
+          f"{rows(first) + rows(resumed) == rows(full)}, best_val "
+          f"{resumed['best_val'] == full['best_val']}, weights differing "
+          f"{len(differ)} of {len(full['state'])}; logs.csv columns "
+          f"{columns}; launches {launches}", flush=True)
+    if columns != CLI_LOG_COLUMNS[name]:
+        raise AssertionError(f"cli {name}: logs.csv columns {columns}")
+    if rows(first) + rows(resumed) != rows(full) or differ \
+            or resumed["best_val"] != full["best_val"]:
+        raise AssertionError(f"cli {name}: the resumed run is not the "
+                             f"uninterrupted one (weights {differ[:5]})")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"cli {name}: losses {losses}")
+    check_cli_launches(name, launches, CLI_KERNELS[name])
+    return launches
 
 
 def check_cli_launches(label, launches, kernels, exact=None):
@@ -2564,8 +2920,9 @@ def request_stages(body: bytes, preprocess, pred, reps: int) -> dict:
 
 
 def cli_serve(ckpt, card, device="cuda", model_name="SAN_NodeSpectra",
-              timed=CLI_TIMED_REQUESTS, label="serve"):
-    """serve_main from the config trainer's checkpoint (CLI_CONFIG, with
+              timed=CLI_TIMED_REQUESTS, label="serve", config=CLI_CONFIG,
+              mlp_launches=2, stage_reps=CLI_STAGE_REPS):
+    """serve_main from the config trainer's checkpoint (`config`, with
     --model `model_name` unless None), in the background with --warmup:
     CLI_REQUESTS POST /predict requests of CLI_REQUEST_GRAPHS raw
     ZINC-shaped graphs one after another, then the same requests all at
@@ -2576,7 +2933,7 @@ def cli_serve(ckpt, card, device="cuda", model_name="SAN_NodeSpectra",
     model_args = ["--model", model_name] if model_name else []
     t0 = time.perf_counter()
     srv, port, _ = cli_serve_main.main(
-        ["--config", CLI_CONFIG, *model_args, "--ckpt-dir", ckpt, "--warmup",
+        ["--config", config, *model_args, "--ckpt-dir", ckpt, "--warmup",
          "--port", "0", "--device", device], background=True)
     start_s = time.perf_counter() - t0
     graphs = zinc_categorical_dataset(seed=11, n_graphs=CLI_REQUESTS
@@ -2614,7 +2971,7 @@ def cli_serve(ckpt, card, device="cuda", model_name="SAN_NodeSpectra",
         srv.shutdown()
         srv.server_close()
     model, preprocess, _ = cli_serve_main.build_from_config(
-        CLI_CONFIG, model_name, device=device)
+        config, model_name, device=device)
     ref = Predictor(model, device=device, ckpt_dir=ckpt, max_batch=64,
                     collate_kwargs={"max_nodes": CLI_MAX_NODES})
     errs, errs_at_once = [], []
@@ -2642,14 +2999,14 @@ def cli_serve(ckpt, card, device="cuda", model_name="SAN_NodeSpectra",
                              f"{len(graphs) // CLI_WINDOW_CHUNK} chunks "
                              "through the window differs from one chunk a "
                              f"call by {float(np.abs(whole - one).max())}")
-    stages = request_stages(bodies[0], preprocess, ref, CLI_STAGE_REPS)
+    stages = request_stages(bodies[0], preprocess, ref, stage_reps)
     print(f"cli {label}: {type(model).__name__}; "
           f"{len(graphs) // CLI_WINDOW_CHUNK} chunks of "
           f"{CLI_WINDOW_CHUNK} through the Predictor's window of "
           f"{serve_mod.WINDOW} bit-equal to one chunk a call", flush=True)
     print(f"cli {label}: serve_main --warmup from the checkpoint ready in "
           f"{start_s:.2f} s; {len(requests)} POST /predict of "
-          f"{CLI_REQUEST_GRAPHS} raw graphs (server-side eigen-PE, padded "
+          f"{CLI_REQUEST_GRAPHS} raw graphs (server-side PEs, padded "
           f"to N={CLI_MAX_NODES}) one after another: ms/request "
           f"{[round(t, 2) for t in call_ms]}; max abs err against the "
           f"in-process Predictor per request {[f'{e:.1e}' for e in errs]}, "
@@ -2660,13 +3017,16 @@ def cli_serve(ckpt, card, device="cuda", model_name="SAN_NodeSpectra",
           f"another on {card}: {spread(timed_ms)} a request = "
           f"{CLI_REQUEST_GRAPHS / statistics.median(timed_ms) * 1e3:.1f} "
           f"graphs/s; one request's server-side stages in this process, "
-          f"median of {CLI_STAGE_REPS} (ms): "
+          f"median of {stage_reps} (ms): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
     if max(errs + errs_at_once) > CLI_SERVE_TOL:
         raise AssertionError(f"cli {label}: served logits off the "
                              f"Predictor's by {max(errs + errs_at_once)}")
-    check_cli_launches(label, launches, {"fused_mlp_fwd"},
-                       exact={"fused_mlp_fwd": 2 * len(requests)})
+    if mlp_launches:
+        check_cli_launches(label, launches, {"fused_mlp_fwd"}, exact={
+            "fused_mlp_fwd": mlp_launches * len(requests)})
+    else:
+        check_cli_launches(label, launches, set())
     return launches
 
 
@@ -2704,6 +3064,26 @@ def cli_slice(card, device="cuda"):
                 runs.append(cli_serve(ckpt, card, device, model_name=None,
                                       timed=CLI_TIMED_REQUESTS // 4,
                                       label="serve_lpe"))
+        runs += cli_lspe(workdir, card, device)
+    return runs
+
+
+def cli_lspe(workdir, card, device="cuda"):
+    """The cli phase's LSPE runs: CLI_LSPE_RUNS with their exact resume,
+    then the ZINC trainer's GraphiT-Spectra-LSPE (CLI_LSPE_SERVE, --model
+    GraphiTSpectra) served by serve_main from its checkpoint; returns the
+    launches of each run."""
+    runs = [cli_exact_resume(name, main, argv, workdir, card, device)
+            for name, main, argv in CLI_LSPE_RUNS]
+    launches, ckpt = cli_train(
+        "config_lspe", cli_zinc_config.main,
+        ["--config", CLI_LSPE_SERVE, "--model", "GraphiTSpectra",
+         "--data-dir", CLI_FIXTURES], workdir, card, device)
+    runs.append(launches)
+    runs.append(cli_serve(ckpt, card, device, model_name="GraphiTSpectra",
+                          timed=CLI_TIMED_REQUESTS // 10,
+                          label="serve_lspe", config=CLI_LSPE_SERVE,
+                          mlp_launches=0, stage_reps=CLI_STAGE_REPS // 5))
     return runs
 
 
@@ -2735,6 +3115,19 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def plain_mlp():
+    """The fused-MLP wrappers swapped for their plain PyTorch versions,
+    which run on CUDA tensors too (nothing launches or counts inside)."""
+    saved = fm_mod.fused_mlp_fwd, fm_mod.fused_mlp_bwd
+    fm_mod.fused_mlp_fwd = fm_mod.fused_mlp_plain
+    fm_mod.fused_mlp_bwd = fm_mod.fused_mlp_bwd_plain
+    try:
+        yield
+    finally:
+        fm_mod.fused_mlp_fwd, fm_mod.fused_mlp_bwd = saved
+
+
 def logits_errors(model, graphs, collate, serve, plain=False):
     """Max abs errors against a float64 CPU forward of graphs[0] of its
     logits as `serve()` returns them on CUDA (with `plain`, also with the
@@ -2757,7 +3150,7 @@ def logits_errors(model, graphs, collate, serve, plain=False):
     return errs
 
 
-def step_errors(initial, graphs, device, collate, cfg, params):
+def step_errors(initial, graphs, device, collate, cfg, params, optional=()):
     """One step from the same weights (sign flip off, so no random numbers
     enter) on CUDA in float32, on the CPU in float32 and on the CPU in
     float64. Returns the losses, each float32 route's gradient error per
@@ -2765,7 +3158,8 @@ def step_errors(initial, graphs, device, collate, cfg, params):
     float64 step's max |g| and the CPU steps' seconds. The float64 step is
     the reference: from random weights the 10-layer network's gradients
     reach |g| ~ 40 and amplify f32 rounding, so each float32 route is held
-    to it, not to the other."""
+    to it, not to the other. A name in `optional` whose parameter gets no
+    gradient is left out; any other name must get one."""
     batch = collate_graphs(graphs, **collate)
     runs = {"cuda": (copy.deepcopy(initial), batch.to(device)),
             "cpu32": (copy.deepcopy(initial).to("cpu"), batch),
@@ -2777,10 +3171,14 @@ def step_errors(initial, graphs, device, collate, cfg, params):
         loss[route] = float(Trainer(model, cfg).step(b))
         secs[route] = time.perf_counter() - t0
         grads[route] = {name: model.get_parameter(name).grad.double().cpu()
-                        for name in params}
+                        for name in params
+                        if model.get_parameter(name).grad is not None
+                        or name not in optional}
+    params = [name for name in params if name in grads["cpu64"]]
     scale = {name: float(grads["cpu64"][name].abs().max()) for name in params}
     rel = {r: {name: float((grads[r][name] - grads["cpu64"][name]).abs()
-                           .max()) / scale[name] for name in params}
+                           .max()) / max(scale[name], 1e-300)
+               for name in params}
            for r in ("cuda", "cpu32")}
     if not all(torch.isfinite(g).all() for g in grads["cuda"].values()):
         rel["cuda"] = dict.fromkeys(params, float("inf"))
@@ -2788,13 +3186,18 @@ def step_errors(initial, graphs, device, collate, cfg, params):
 
 
 def step_parity(initial, graphs, device, label, collate, cfg, params,
-                loss_rtol=STEP_LOSS_RTOL, cpu_factor=None):
+                loss_rtol=STEP_LOSS_RTOL, cpu_factor=None, rank=False):
     """The CUDA step's loss within `loss_rtol` of the float64 step's and
     each named gradient within STEP_GRAD_REL of its largest entry; with
     `cpu_factor`, a loss or gradient beyond that may instead lie within
-    `cpu_factor` times the error of the CPU's float32 step."""
+    `cpu_factor` times the error of the CPU's float32 step. With `rank`,
+    also every parameter's error ranked (`rank_step_errors`)."""
+    rest = ([n for n, _ in initial.named_parameters() if n not in params]
+            if rank else [])
     loss, rel, scale, secs = step_errors(initial, graphs, device, collate,
-                                         cfg, params)
+                                         cfg, list(params) + rest, rest)
+    if rank:
+        rank_step_errors(label, rel, scale)
     routes = ("cuda", "cpu32")
     report = [f"{name} (max |g| {scale[name]:.3e}): " + ", ".join(
         f"{r} {rel[r][name]:.2e}" for r in routes) for name in params]
@@ -2820,6 +3223,32 @@ def step_parity(initial, graphs, device, label, collate, cfg, params,
                              f"{loss['cpu64']}")
     if bad:
         raise AssertionError(f"CUDA gradients off the float64 step: {bad}")
+
+
+def rank_step_errors(label, rel, scale, top=8):
+    """Every parameter's CUDA gradient error / max |g| against float64,
+    largest first, beside the CPU float32 route's and their ratio; the
+    medians and the count of parameters whose CUDA error is over 10x the
+    CPU's. Parameters whose float64 gradient is zero by construction
+    (biases that batch norm cancels: max |g| below 1e-9 of the largest)
+    are left out and counted."""
+    top_g = max(scale.values())
+    live = [n for n in rel["cuda"] if scale[n] > 1e-9 * top_g]
+    cuda = {n: rel["cuda"][n] for n in live}
+    cpu = {n: rel["cpu32"][n] for n in live}
+    order = sorted(cuda, key=lambda n: -cuda[n])
+    ratio = {n: cuda[n] / max(cpu[n], 1e-300) for n in order}
+    print(f"{label}: every parameter's gradient error / max |g| against "
+          f"cpu64, largest CUDA first: " + "; ".join(
+              f"{n} (max |g| {scale[n]:.2e}) cuda {cuda[n]:.2e} cpu32 "
+              f"{cpu[n]:.2e} ({ratio[n]:.1f}x)" for n in order[:top])
+          + f"; median cuda {statistics.median(cuda.values()):.2e}, cpu32 "
+          f"{statistics.median(cpu.values()):.2e}; {len(order)} parameters "
+          f"({len(scale) - len(order)} with a zero gradient left out), "
+          f"{sum(r > 10 for r in ratio.values())} over 10x cpu32's; the "
+          "largest ratios: " + ", ".join(
+              f"{n} {ratio[n]:.1f}x" for n in sorted(
+                  ratio, key=lambda n: -ratio[n])[:4]), flush=True)
 
 
 def sign_pattern(graphs, p):
@@ -3277,6 +3706,7 @@ def main() -> int:
     runs += large_slice(device, card, profile=profile)
     runs += molhiv_slice(device, card, profile=profile)
     runs += lpe_slice(device, card, profile=profile)
+    runs += lspe_slice(device, card, profile=profile)
     runs += cli_slice(card)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"

@@ -14,7 +14,13 @@ names its flax leaf:
     `nn.Embedding` weight is the flax Embed `embedding`;
   - raw parameters (`qkv`, `out_proj_kernel`, `gcn_kernel`, `cheb_weight`,
     `cheb_bias`, the SAN FFN's `kernel`/`bias`, MaskedBatchNorm
-    `scale`/`bias`) keep their flax name and layout;
+    `scale`/`bias`, the PNA towers' `kernel`/`bias`, SAN-LSPE's scalar
+    `gamma` at the root) keep their flax name and layout;
+  - the PNA layers' stacked towers `towers.*` are flax's `nn.vmap` scope
+    `towers`, every leaf (batch statistics too) with the tower axis
+    first; the PNA GRU's `gru.ir` ... `gru.hn` are flax GRUCell's Dense
+    layers; the LSPE nets' `embedding_p`, `p_out` and `Whp` are Dense
+    layers like any other;
   - buffers (MaskedBatchNorm `mean`/`var`) come from `batch_stats`.
 
 Every torch tensor must find its leaf and every flax leaf must be used,

@@ -4,7 +4,9 @@ A batch is a dataclass of dense tensors: node features padded to a bucketed
 (or fixed) node count and the graph as a dense [B, N, N] adjacency, so that
 attention, Laplacian builds and Chebyshev recurrences are batched matmuls.
 Collation runs in numpy on the host (`node_mask == True` means a real node);
-`GraphBatch.to(device)` moves the tensors to the card.
+`GraphBatch.to(device)` moves the tensors to the card. With `with_coo` the
+batch also carries the padded COO edge list and each node's in-edge table,
+which the sparse GatedGCN / PNA layers read (`ops/sparse_agg.py`).
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ class Graph:
       edge_type: optional [e] int edge (bond) types, one per edge.
       eigvecs: optional [n, m] Laplacian eigenvectors, NaN-padded.
       eigvals: optional [m] eigenvalues, NaN-padded.
-      edge_attr: optional [e, k] int edge features (OGB bond features);
-        collation does not read them.
+      edge_attr: optional [e, k] edge features (OGB bond features); only
+        the COO collation carries them, as float32.
     """
 
     x: np.ndarray
@@ -76,6 +78,11 @@ class GraphBatch:
     edge_type: Optional[torch.Tensor] = None  # [B, N, N] int32 (src, dst)
     eigvecs: Optional[torch.Tensor] = None    # [B, N, M] NaN-padded
     eigvals: Optional[torch.Tensor] = None    # [B, M] NaN-padded
+    edge_index: Optional[torch.Tensor] = None   # [B, 2, E] int32 COO (padded)
+    edge_mask: Optional[torch.Tensor] = None    # [B, E] bool, True = real
+    edge_attr: Optional[torch.Tensor] = None    # [B, E, Fe] float32
+    in_edges: Optional[torch.Tensor] = None     # [B, N, K] int32 edge ids
+    in_edge_mask: Optional[torch.Tensor] = None  # [B, N, K] bool
 
     @property
     def num_graphs(self) -> int:
@@ -116,10 +123,18 @@ def collate_graphs(
     node_buckets: Sequence[int] = _DEFAULT_NODE_BUCKETS,
     max_nodes: Optional[int] = None,
     node_labels: Optional[bool] = None,
+    with_coo: bool = False,
+    edge_buckets: Optional[Sequence[int]] = None,
 ) -> GraphBatch:
     """Host collation into a CPU `GraphBatch`. Float features become
     float32 [B, N, F]; integer features become int32 ids, [B, N] for a
-    single column (categorical atoms) and [B, N, F] otherwise."""
+    single column (categorical atoms) and [B, N, F] otherwise.
+
+    with_coo: also the COO view, the edges padded to a bucket of
+    `edge_buckets` (default: the node buckets): `edge_index` [B, 2, E]
+    (pad edges (0, 0)), `edge_mask` [B, E], `edge_attr` [B, E, Fe] where
+    the graphs have edge features, and the in-edge table `in_edges` /
+    `in_edge_mask` [B, N, K] (`_collate_incidence`)."""
     bsz = len(graphs)
     n_raw = max(g.num_nodes for g in graphs)
     n = max_nodes if max_nodes is not None else pad_bucket(n_raw, node_buckets)
@@ -183,11 +198,20 @@ def collate_graphs(
             ys.append(np.asarray(g.y))
     y = _pack_labels(ys, graphs, node_labels, bsz, n)
 
+    coo = dict.fromkeys(("edge_index", "edge_mask", "edge_attr",
+                         "in_edges", "in_edge_mask"))
+    if with_coo:
+        coo["edge_index"], coo["edge_mask"], coo["edge_attr"] = _collate_coo(
+            graphs, edge_buckets or _DEFAULT_NODE_BUCKETS)
+        coo["in_edges"], coo["in_edge_mask"] = _collate_incidence(
+            coo["edge_index"], coo["edge_mask"], n)
+
     t = lambda a: None if a is None else torch.from_numpy(a)
     return GraphBatch(x=t(x), node_mask=t(node_mask), adj=t(adj), y=t(y),
                       pe=t(pe), lap_pe=t(lap_pe), degree=t(degree),
                       edge_type=t(edge_type), eigvecs=t(eigvecs),
-                      eigvals=t(eigvals))
+                      eigvals=t(eigvals),
+                      **{k: t(v) for k, v in coo.items()})
 
 
 def _pack_labels(ys, graphs, node_labels, bsz, n):
@@ -211,3 +235,50 @@ def _pack_labels(ys, graphs, node_labels, bsz, n):
             yb[i, : yy.shape[0]] = yy
         return yb
     return np.stack(ys)
+
+
+def _collate_coo(graphs, edge_buckets):
+    """(edge_index [B, 2, E] int32, edge_mask [B, E], edge_attr [B, E, Fe]
+    float32 or None), E the bucket of the largest edge count (at least
+    1)."""
+    bsz = len(graphs)
+    e = pad_bucket(max(max(g.num_edges for g in graphs), 1), edge_buckets)
+    edge_index = np.zeros((bsz, 2, e), dtype=np.int32)
+    edge_mask = np.zeros((bsz, e), dtype=bool)
+    edge_attr = None
+    if graphs[0].edge_attr is not None:
+        edge_attr = np.zeros((bsz, e, graphs[0].edge_attr.shape[-1]),
+                             dtype=np.float32)
+    for i, g in enumerate(graphs):
+        ne = g.num_edges
+        edge_index[i, :, :ne] = g.edge_index
+        edge_mask[i, :ne] = True
+        if edge_attr is not None and ne:
+            edge_attr[i, :ne] = g.edge_attr
+    return edge_index, edge_mask, edge_attr
+
+
+_INCIDENCE_BUCKETS = (2, 4, 8, 16, 32, 64, 128)
+
+
+def _collate_incidence(edge_index, edge_mask, n):
+    """The per-destination in-edge table: in_edges[b, i, k] is the id (on
+    the padded E axis) of the k-th real edge, in edge order, whose
+    destination is i; K is the batch's largest in-degree rounded up to a
+    bucket of _INCIDENCE_BUCKETS. Segment max / min then need no
+    scatter."""
+    bsz = edge_index.shape[0]
+    deg = np.zeros((bsz, n), dtype=np.int64)
+    for i in range(bsz):
+        np.add.at(deg[i], edge_index[i, 1][edge_mask[i]], 1)
+    k = pad_bucket(max(int(deg.max()), 1), _INCIDENCE_BUCKETS)
+    in_edges = np.zeros((bsz, n, k), dtype=np.int32)
+    in_mask = np.zeros((bsz, n, k), dtype=bool)
+    for i in range(bsz):
+        fill = np.zeros(n, dtype=np.int64)
+        for eid in np.nonzero(edge_mask[i])[0]:
+            d = edge_index[i, 1, eid]
+            in_edges[i, d, fill[d]] = eid
+            in_mask[i, d, fill[d]] = True
+            fill[d] += 1
+    return in_edges, in_mask

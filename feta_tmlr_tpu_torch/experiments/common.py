@@ -31,8 +31,9 @@ from feta_tmlr_tpu_torch.data.sbm import load_sbm_or_synthetic
 from feta_tmlr_tpu_torch.data.synthetic import random_graph_dataset
 from feta_tmlr_tpu_torch.data.tu import load_tu_dataset
 from feta_tmlr_tpu_torch.data.zinc import NUM_ATOM_TYPE, load_zinc_or_synthetic
-from feta_tmlr_tpu_torch.pe import POSENCODINGS, LapEncoding
+from feta_tmlr_tpu_torch.pe import POSENCODINGS, LapEncoding, PStepRWEncoding
 from feta_tmlr_tpu_torch.pe.cache import PECache
+from feta_tmlr_tpu_torch.pe.rwpe import apply_rwpe
 from feta_tmlr_tpu_torch.train.logging import CSVLogger
 from feta_tmlr_tpu_torch.utils.config import accepted_kwargs
 
@@ -133,6 +134,41 @@ def set_accepted_defaults(model_cls, kwargs: dict, **defaults) -> dict:
         if k in accepted:
             kwargs.setdefault(k, v)
     return kwargs
+
+
+# the reference PNA net's net_params that the shared name map does not
+# carry (the JAX package's trainers drop them and build PNA with its
+# defaults, 4 towers and no bond features, which do not divide the
+# configs' hidden widths 55, 70, 206, 322 and 510)
+PNA_NET_PARAMS = ("towers", "aggregators", "scalers", "edge_feat",
+                  "edge_dim", "gru", "graph_norm", "pretrans_layers",
+                  "posttrans_layers", "avg_d_log")
+
+
+def pna_kwargs(net_params: dict) -> dict:
+    """The PNA_NET_PARAMS a config gives, as PNALSPENet's arguments."""
+    return {k: net_params[k] for k in PNA_NET_PARAMS if k in net_params}
+
+
+def lspe_precompute(graphs: Sequence[Graph], kwargs: dict, net_params: dict,
+                    default_dim: int = 20, with_kernel: bool = True):
+    """The LSPE nets' positional inputs: the random-walk PE
+    (`pe_init="rand_walk"`) or the Laplacian eigenvectors (`"lap_pe"`) of
+    pos_enc_dim columns as `lap_pe`, nothing for `"no_pe"`; and, with
+    `adaptive_edge_pe` and `with_kernel`, the p-step kernel (I - gamma
+    L_sym)^p_steps as `pe` (net_params' p_steps and gamma, default 2 and
+    0.25)."""
+    dim = kwargs.get("pos_enc_dim", default_dim)
+    pe_init = kwargs.get("pe_init", "rand_walk")
+    if pe_init == "rand_walk":
+        apply_rwpe(graphs, dim)
+    elif pe_init == "lap_pe":
+        LapEncoding(dim, normalization="sym").apply_to(graphs)
+    if with_kernel and kwargs.get("adaptive_edge_pe"):
+        PStepRWEncoding(p=net_params.get("p_steps", 2),
+                        beta=net_params.get("gamma", 0.25),
+                        normalization="sym").apply_to(graphs)
+    return graphs
 
 
 def load_tu_or_synthetic(args):

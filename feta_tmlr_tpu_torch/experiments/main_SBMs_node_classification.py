@@ -6,13 +6,14 @@ CLUSTER).
         [--ckpt-dir runs/ckpt] [--resume] [--outdir runs/out] [--device cpu]
 
 `--config <json>` plus overrides, as the JAX package's trainer: the SAN
-family (SAN, SAN_NodeLPE, SAN_EdgeLPE, SAN_NodeSpectra) with the per-node
-readout and two bond types, masked cross-entropy with class-balanced
-accuracy (`node_clf`), the plateau schedule and eigenvector sign flips.
-The config's `dataset` names the pickles under `--data-dir`
-(SBMs/<name>_{train,val,test}.pkl); without them, synthetic SBMs. The LSPE
-names (GraphiTSpectra, Spectra, GraphiT) exit naming their ROADMAP item.
-Runs on the card unless `--device cpu`.
+family (SAN, SAN_NodeLPE, SAN_EdgeLPE, SAN_NodeSpectra; the Laplacian
+eigen-PE, sign flips) and the LSPE tier's GraphiT nets (GraphiTSpectra,
+Spectra, GraphiT; the random-walk PE of 12 columns unless the config says,
+the adaptive edge kernel) with the per-node readout and two bond types,
+masked cross-entropy with class-balanced accuracy (`node_clf`) and the
+plateau schedule. The config's `dataset` names the pickles under
+`--data-dir` (SBMs/<name>_{train,val,test}.pkl); without them, synthetic
+SBMs. Runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ from feta_tmlr_tpu_torch.data.sbm import load_sbm_or_synthetic
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.experiments.common import (
     add_device_flag,
+    lspe_precompute,
     make_batches,
-    refuse,
     run_and_log,
     set_accepted_defaults,
 )
+from feta_tmlr_tpu_torch.nn.lspe import GraphiTSpectraNet
 from feta_tmlr_tpu_torch.nn.san import SANNet, SANNodeSpectra
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -37,15 +39,14 @@ from feta_tmlr_tpu_torch.utils.config import (
     resolve_reference_model_name,
 )
 
-# name -> (class, fixed kwargs), or the ROADMAP item of a family not
-# ported yet
+# name -> (class, fixed kwargs)
 MODELS = {"SAN": (SANNet, {}),
           "SAN_NodeLPE": (SANNet, {"lpe": "node"}),
           "SAN_EdgeLPE": (SANNet, {"lpe": "edge"}),
           "SAN_NodeSpectra": (SANNodeSpectra, {}),
-          "GraphiTSpectra": "Queue 1 item 8",
-          "Spectra": "Queue 1 item 8",
-          "GraphiT": "Queue 1 item 8"}
+          "GraphiTSpectra": (GraphiTSpectraNet, {}),
+          "Spectra": (GraphiTSpectraNet, {}),
+          "GraphiT": (GraphiTSpectraNet, {"spectra": False})}
 
 
 def resolve_build(cfg, model_arg=None):
@@ -56,14 +57,25 @@ def resolve_build(cfg, model_arg=None):
     if entry is None:
         raise SystemExit(f"unknown model {name}; choose from "
                          f"{sorted(MODELS)}")
-    if isinstance(entry, str):
-        refuse(f"model {name}", entry)
     cls, extra = entry
     kwargs = model_kwargs_for(cls, cfg["net_params"])
     kwargs.update(extra)
     set_accepted_defaults(cls, kwargs, hidden_dim=32, out_dim=32,
-                          n_heads=4, n_layers=3, lpe_dim=8)
+                          n_heads=4, n_layers=3)
+    if cls is GraphiTSpectraNet:
+        kwargs.setdefault("pos_enc_dim", 12)
+    else:
+        set_accepted_defaults(cls, kwargs, lpe_dim=8)
     return cls, kwargs
+
+
+def pe_precompute(graphs, cls, kwargs, cfg, max_freqs=10):
+    """The GraphiT nets' random-walk PE and adaptive edge kernel, or the
+    SAN nets' Laplacian eigen-PE of `max_freqs` frequencies."""
+    if cls is GraphiTSpectraNet:
+        lspe_precompute(graphs, kwargs, cfg["net_params"])
+    else:
+        apply_laplace_decomp(graphs, max_freqs)
 
 
 def construct_model(cls, kwargs, n_tags, n_classes, device=None,
@@ -114,7 +126,7 @@ def main(argv=None):
     graphs = tr + va + te
     n_tags = int(max(int(g.x.max()) for g in graphs)) + 1
     n_classes = int(max(int(g.y.max()) for g in graphs)) + 1
-    apply_laplace_decomp(graphs, args.max_freqs)
+    pe_precompute(graphs, cls, kwargs, cfg, args.max_freqs)
     model = construct_model(cls, kwargs, n_tags, n_classes, device=device,
                             seed=args.seed)
 
@@ -128,7 +140,8 @@ def main(argv=None):
         model,
         TrainConfig(task="node_clf", lr=params.get("init_lr", 1e-3),
                     epochs=args.epochs, schedule="plateau",
-                    sign_flip=True, seed=args.seed),
+                    sign_flip=cls is not GraphiTSpectraNet,
+                    seed=args.seed),
         steps_per_epoch=len(train_b))
     return run_and_log(trainer, train_b, val_b, test_b, args, args.outdir,
                        summary_keys=("best_val",))

@@ -7,9 +7,11 @@
 `--config <json>` plus overrides, the JAX package's registry of names and
 the reference's protocol: plateau learning-rate schedule that stops at
 min_lr or after max_time hours, per-epoch checkpoints, eigenvector sign
-flips for the SAN models. The LPE tier's nets are ported (SAN,
-SAN_NodeLPE, SAN_EdgeLPE, SAN_NodeSpectra, GAT, GATFeTA); the LSPE names
-exit naming their ROADMAP item. Runs on the card unless `--device cpu`.
+flips for the SAN models. The LPE tier's nets (SAN, SAN_NodeLPE,
+SAN_EdgeLPE, SAN_NodeSpectra, GAT, GATFeTA) and the LSPE tier's
+(GraphiTSpectra, GraphiT, GatedGCN, SAN_LSPE, PNA: the random-walk PE, the
+adaptive edge kernel, the lapeig loss term, PNA's degree statistic). Runs
+on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -24,11 +26,17 @@ from feta_tmlr_tpu_torch.data.zinc import (
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.experiments.common import (
     add_device_flag,
+    lspe_precompute,
     make_batches,
+    pna_kwargs,
     run_and_log,
 )
 from feta_tmlr_tpu_torch.nn.gat import GATFeTANet, GATNet
+from feta_tmlr_tpu_torch.nn.gatedgcn import GatedGCNLSPENet
+from feta_tmlr_tpu_torch.nn.lspe import GraphiTSpectraNet
+from feta_tmlr_tpu_torch.nn.pna import PNALSPENet, average_log_degree
 from feta_tmlr_tpu_torch.nn.san import SANNet, SANNodeSpectra
+from feta_tmlr_tpu_torch.nn.san_lspe import SANLSPENet
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 from feta_tmlr_tpu_torch.utils.config import (
@@ -37,8 +45,7 @@ from feta_tmlr_tpu_torch.utils.config import (
     resolve_reference_model_name,
 )
 
-# name -> (class, fixed kwargs), or the ROADMAP item of a family not
-# ported yet
+# name -> (class, fixed kwargs)
 MODEL_REGISTRY = {
     "SAN": (SANNet, {"lpe": "none"}),
     "GAT": (GATNet, {}),
@@ -46,14 +53,16 @@ MODEL_REGISTRY = {
     "SAN_EdgeLPE": (SANNet, {"lpe": "edge"}),
     "SAN_NodeSpectra": (SANNodeSpectra, {}),
     "GATFeTA": (GATFeTANet, {}),
-    "GraphiTSpectra": "Queue 1 item 8",
-    "GraphiT": "Queue 1 item 8",
-    "GatedGCN": "Queue 1 item 8",
-    "SAN_LSPE": "Queue 1 item 8",
-    "PNA": "Queue 1 item 8",
+    "GraphiTSpectra": (GraphiTSpectraNet, {}),
+    "GraphiT": (GraphiTSpectraNet, {"spectra": False}),
+    "GatedGCN": (GatedGCNLSPENet, {}),
+    "SAN_LSPE": (SANLSPENet, {}),
+    "PNA": (PNALSPENet, {}),
 }
 # the nets that read the eigen-PE: their eigenvector signs flip in training
 SAN_MODELS = (SANNet, SANNodeSpectra)
+# the nets that read the random-walk (or Laplacian) PE as their p channel
+LSPE_MODELS = (GraphiTSpectraNet, GatedGCNLSPENet, SANLSPENet, PNALSPENet)
 
 
 def resolve_model_name(cfg, model_arg=None):
@@ -64,28 +73,29 @@ def resolve_model_name(cfg, model_arg=None):
 
 def resolve_build(cfg, model_arg=None):
     """(cls, kwargs) for a config: the registry and kwargs half of model
-    construction, shared by the trainer and the serving CLI."""
+    construction, shared by the trainer and the serving CLI. PNA also
+    takes the config's `PNA_NET_PARAMS` (`experiments/common.py`)."""
     name = resolve_model_name(cfg, model_arg)
     if name not in MODEL_REGISTRY:
         raise SystemExit(f"unknown model {name}; "
                          f"choose from {sorted(MODEL_REGISTRY)}")
-    entry = MODEL_REGISTRY[name]
-    if isinstance(entry, str):
-        ported = sorted(k for k, v in MODEL_REGISTRY.items()
-                        if not isinstance(v, str))
-        raise SystemExit(f"model {name} is not ported to "
-                         f"feta_tmlr_tpu_torch yet (ROADMAP {entry}); "
-                         f"ported: {', '.join(ported)}")
-    cls, extra = entry
+    cls, extra = MODEL_REGISTRY[name]
     kwargs = model_kwargs_for(cls, cfg["net_params"])
     kwargs.update(extra)
+    if cls is PNALSPENet:
+        kwargs.update(pna_kwargs(cfg["net_params"]))
     return cls, kwargs
 
 
-def construct_model(cls, kwargs, device=None, seed: int = 0):
+def construct_model(cls, kwargs, device=None, seed: int = 0,
+                    avg_d_log=None):
     """The model with ZINC's atom vocabulary (and bond vocabulary, but
     for the GAT nets, which read no bonds), weights drawn from `seed`, on
-    `device` (default CUDA)."""
+    `device` (default CUDA). PNA takes `avg_d_log`, the training graphs'
+    degree statistic, unless its kwargs carry one (a served model must
+    get the value it was trained with: net_params.avg_d_log)."""
+    if cls is PNALSPENet and avg_d_log is not None:
+        kwargs = dict({"avg_d_log": avg_d_log}, **kwargs)
     if cls not in (GATFeTANet, GATNet):
         kwargs = dict(kwargs, num_bond_type=NUM_BOND_TYPE)
     return cls(num_atom_type=NUM_ATOM_TYPE, seed=seed, device=device,
@@ -95,9 +105,13 @@ def construct_model(cls, kwargs, device=None, seed: int = 0):
 def pe_precompute(graphs, cls, kwargs, cfg, max_freqs=10):
     """The positional encodings the model reads, computed on its input
     graphs: the same transforms for training and for served requests (the
-    SAN nets' Laplacian eigen-PE; the GAT nets read none)."""
+    SAN nets' Laplacian eigen-PE; the LSPE nets' random-walk or Laplacian
+    PE and the adaptive edge kernel, `common.lspe_precompute`; the GAT
+    nets read none)."""
     if cls in SAN_MODELS:
         apply_laplace_decomp(graphs, max_freqs)
+    if cls in LSPE_MODELS:
+        lspe_precompute(graphs, kwargs, cfg["net_params"])
 
 
 def main(argv=None):
@@ -141,7 +155,9 @@ def main(argv=None):
         subset=not args.zinc_full, max_graphs_per_split=args.max_graphs)
     graphs = tr + va + te
     pe_precompute(graphs, cls, kwargs, cfg, max_freqs=args.max_freqs)
-    model = construct_model(cls, kwargs, device=device, seed=args.seed)
+    model = construct_model(cls, kwargs, device=device, seed=args.seed,
+                            avg_d_log=(average_log_degree(graphs)
+                                       if cls is PNALSPENet else None))
 
     max_nodes = max(g.num_nodes for g in graphs)
     train_b = make_batches(tr, batch_size, max_nodes, shuffle_seed=args.seed)
@@ -155,6 +171,9 @@ def main(argv=None):
                     plateau_patience=params.get("lr_schedule_patience", 10),
                     plateau_factor=params.get("lr_reduce_factor", 0.5),
                     min_lr=params.get("min_lr", 1e-5),
+                    # the lapeig nets return the pre-weighted loss term
+                    regularization=(1.0 if kwargs.get("use_lapeig_loss")
+                                    else 0.0),
                     stop_at_min_lr=True,
                     max_time_h=params.get("max_time"),
                     sign_flip=cls in SAN_MODELS,

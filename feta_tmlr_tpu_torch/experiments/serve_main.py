@@ -9,10 +9,13 @@
 
 The model is built as the config-driven ZINC trainer builds it (same JSON
 schema, same registry: the graph-level nets of the LPE tier, the SAN nets
-with their eigen-PE, GAT and GATFeTA), its weights restored from the
-trainer's latest checkpoint (random weights from a seed without
-`--ckpt-dir`), and the positional encodings are computed server-side with the training
-transforms, so clients send only ids, edges and bond types. `--warmup`
+with their eigen-PE, GAT and GATFeTA, and the LSPE nets), its weights
+restored from the trainer's latest checkpoint (random weights from a seed
+without `--ckpt-dir`), and the positional encodings (eigen-PE, random-walk
+PE, the adaptive edge kernel) are computed server-side with the training
+transforms, so clients send only ids, edges and bond types. PNA needs the
+training set's degree statistic in the config (net_params.avg_d_log) and
+refuses without it. `--warmup`
 runs the serving shape once before listening, which builds the CUDA
 kernels. Runs on the card unless `--device cpu`. `--wire` and
 `--quantize` (JAX serving options) are not ported and refuse.
@@ -33,6 +36,7 @@ from feta_tmlr_tpu_torch.experiments.main_ZINC_graph_regression import (
     pe_precompute,
     resolve_build,
 )
+from feta_tmlr_tpu_torch.nn.pna import PNALSPENet
 from feta_tmlr_tpu_torch.serve import Predictor
 from feta_tmlr_tpu_torch.serve_http import serve_forever, start_background
 from feta_tmlr_tpu_torch.utils.config import load_config
@@ -52,6 +56,12 @@ def build_from_config(config_path=None, model_arg=None, max_freqs=10,
 
     sample = zinc_categorical_dataset(seed=0, n_graphs=4)
     preprocess(sample)
+    if cls is PNALSPENet and "avg_d_log" not in kwargs:
+        # a training-set statistic baked into PNA's degree scalers: without
+        # it the served function is not the trained one
+        raise SystemExit(
+            "PNA serving needs net_params.avg_d_log in the config "
+            "(the training dataset's average log degree)")
     return construct_model(cls, kwargs, device=device), preprocess, sample
 
 

@@ -6,10 +6,20 @@ from feta_tmlr_tpu_torch.nn.gat import (
     GATLayer,
     GATNet,
 )
+from feta_tmlr_tpu_torch.nn.gatedgcn import (
+    GatedGCNLSPELayer,
+    GatedGCNLSPENet,
+    lapeig_loss,
+)
 from feta_tmlr_tpu_torch.nn.layers import (
     AttnColStats,
     GraphiTEncoderLayer,
     MaskedBatchNorm,
+)
+from feta_tmlr_tpu_torch.nn.lspe import (
+    GraphiTSpectraLSPELayer,
+    GraphiTSpectraNet,
+    LSPEAttention,
 )
 from feta_tmlr_tpu_torch.nn.models import (
     ClassifierMLP,
@@ -26,6 +36,12 @@ from feta_tmlr_tpu_torch.nn.ogb import (
     OGBAtomEncoder,
     OGBBondEncoder,
 )
+from feta_tmlr_tpu_torch.nn.pna import (
+    PNALSPELayer,
+    PNALSPENet,
+    PNATower,
+    average_log_degree,
+)
 from feta_tmlr_tpu_torch.nn.san import (
     EdgeLPETransformer,
     FreqTransformer,
@@ -39,6 +55,7 @@ from feta_tmlr_tpu_torch.nn.san import (
     san_structure_laplacian,
     typed_edge_scores,
 )
+from feta_tmlr_tpu_torch.nn.san_lspe import SANGTLSPELayer, SANLSPENet
 
 __all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
            "ClassifierMLP", "DenseGATConv", "DiffGraphTransformerGenGCN",
@@ -49,7 +66,11 @@ __all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
            "OGBBondEncoder",
            "EdgeLPETransformer", "FeTAEncoder", "FilterCoefficientHead",
            "FreqTransformer", "GATFeTALayer", "GATFeTANet", "GATLayer",
-           "GATNet", "GraphiTEncoderLayer", "LPETransformer", "MLPReadout",
-           "MaskedBatchNorm", "SANAttention", "SANCoeffHead", "SANNet",
-           "SANNodeSpectra", "SANSpectraLayer", "coefficient_regularizer",
+           "GATNet", "GatedGCNLSPELayer", "GatedGCNLSPENet",
+           "GraphiTEncoderLayer", "GraphiTSpectraLSPELayer",
+           "GraphiTSpectraNet", "LPETransformer", "LSPEAttention",
+           "MLPReadout", "MaskedBatchNorm", "PNALSPELayer", "PNALSPENet",
+           "PNATower", "SANAttention", "SANCoeffHead", "SANGTLSPELayer",
+           "SANLSPENet", "SANNet", "SANNodeSpectra", "SANSpectraLayer",
+           "average_log_degree", "coefficient_regularizer", "lapeig_loss",
            "san_structure_laplacian", "typed_edge_scores"]

@@ -98,29 +98,38 @@ class MaskedBatchNorm(nn.Module):
     Eval uses the running statistics (buffers `mean`, `var`); training
     uses the masked batch statistics and updates the running ones as
     `running = momentum * running + (1 - momentum) * batch` (flax's
-    convention: momentum 0.9 here is torch's 0.1)."""
+    convention: momentum 0.9 here is torch's 0.1).
 
-    def __init__(self, d: int):
+    x is [..., B, N, d] and node_mask [B, N]; with `lead` (the PNA towers'
+    (T,)) the parameters and statistics are stacked [*lead, d], one set
+    for each leading index of x [*lead, B, N, d], as flax's `nn.vmap`
+    stacks them."""
+
+    def __init__(self, d: int, lead: tuple = ()):
         super().__init__()
         self.momentum = 0.9
         self.eps = 1e-5
-        self.scale = nn.Parameter(torch.ones(d))
-        self.bias = nn.Parameter(torch.zeros(d))
-        self.register_buffer("mean", torch.zeros(d))
-        self.register_buffer("var", torch.ones(d))
+        self.scale = nn.Parameter(torch.ones(*lead, d))
+        self.bias = nn.Parameter(torch.zeros(*lead, d))
+        self.register_buffer("mean", torch.zeros(*lead, d))
+        self.register_buffer("var", torch.ones(*lead, d))
 
     def forward(self, x: torch.Tensor, node_mask: torch.Tensor):
+        # [*lead, d] -> [*lead, 1, 1, d] against x [*lead, B, N, d]
+        per = ((lambda t: t) if self.scale.dim() == 1
+               else (lambda t: t[..., None, None, :]))
         if self.training:
             m = node_mask.to(x.dtype)[..., None]
             cnt = m.sum().clamp_min(1.0)
-            mean = (x * m).sum((0, 1)) / cnt
-            var = (((x - mean) ** 2) * m).sum((0, 1)) / cnt
+            mean = (x * m).sum((-3, -2)) / cnt
+            var = (((x - per(mean)) ** 2) * m).sum((-3, -2)) / cnt
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
                 self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return ((x - per(mean)) * torch.rsqrt(per(var) + self.eps)
+                * per(self.scale) + per(self.bias))
 
 
 class GraphiTEncoderLayer(nn.Module):

@@ -170,11 +170,12 @@ class SANAttention(nn.Module):
             self.E_2 = lin(edge_dim or in_dim)
 
     def forward(self, h, adj, node_mask, e_table=None, edge_ids=None,
-                e_emb=None):
+                e_emb=None, gamma_value=None):
         """h [B, N, in_dim]; adj [B, N, N] real edges (src, dst); either
         e_table [T, edge_dim] the bond-type embeddings and edge_ids [B, N,
         N] int types (src, dst), or e_emb [B, N, N, edge_dim] the dense
-        edge field (src, dst)."""
+        edge field (src, dst). gamma_value: a tensor in place of the
+        static `gamma` (SAN-LSPE learns one, `nn/san_lspe.py`)."""
         b, n, _ = h.shape
         hh, dh = self.num_heads, self.out_dim
         split = lambda t: t.reshape(b, n, hh, dh).transpose(1, 2)
@@ -194,7 +195,7 @@ class SANAttention(nn.Module):
         if self.full_graph:
             pm = pair_mask_no_diag(node_mask)
             s_fake = scores(self.Q_2, self.K_2, self.E_2)
-            g = self.gamma
+            g = self.gamma if gamma_value is None else gamma_value
             w_real = torch.exp(s_real.clamp(-5.0, 5.0)) / (g + 1.0)
             w_fake = g * torch.exp(s_fake.clamp(-5.0, 5.0)) / (g + 1.0)
             attn = torch.where(real[:, None], w_real,
@@ -258,7 +259,29 @@ def feta_filter(layer: nn.Module, heads, attn, struct, node_mask):
     return layer.filt_linear(torch.tanh(filt))
 
 
-class SANSpectraLayer(nn.Module):
+class NormedLayer(nn.Module):
+    """A layer's post-residual norms under their flax names: layer norm
+    (`ln_<name>`, eps 1e-5) with `layer_norm`, else masked batch norm
+    (`bn_<name>`) with `batch_norm`, else none."""
+
+    def _set_norm(self, layer_norm: bool, batch_norm: bool) -> None:
+        self.norm = "ln" if layer_norm else "bn" if batch_norm else None
+
+    def _add_norm(self, name: str, d: int) -> None:
+        if self.norm == "ln":
+            self.add_module(f"ln_{name}", nn.LayerNorm(d, eps=1e-5))
+        elif self.norm == "bn":
+            self.add_module(f"bn_{name}", MaskedBatchNorm(d))
+
+    def _normed(self, name: str, x, node_mask):
+        if self.norm == "ln":
+            return getattr(self, f"ln_{name}")(x)
+        if self.norm == "bn":
+            return getattr(self, f"bn_{name}")(x, node_mask)
+        return x
+
+
+class SANSpectraLayer(NormedLayer):
     """Attention, the spectral filter fused into its output (`spectra`),
     dropout, O_h, residual, norm, FFN (ReLU, dropout), residual, norm
     (GraphTransformerLayerSpectra; with spectra=False the plain SAN
@@ -286,24 +309,11 @@ class SANSpectraLayer(nn.Module):
         if spectra:
             add_feta_filter(self, filter_order, dh, g)
         self.O_h = dense(num_heads * dh, out_dim, g)
-        self.norm = ("ln" if layer_norm else "bn" if batch_norm else None)
+        self._set_norm(layer_norm, batch_norm)
         self._add_norm("norm1", out_dim)
         self.ffn1 = dense(out_dim, 2 * out_dim, g)
         self.ffn2 = dense(2 * out_dim, out_dim, g)
         self._add_norm("norm2", out_dim)
-
-    def _add_norm(self, name: str, d: int) -> None:
-        if self.norm == "ln":
-            self.add_module(f"ln_{name}", nn.LayerNorm(d, eps=1e-5))
-        elif self.norm == "bn":
-            self.add_module(f"bn_{name}", MaskedBatchNorm(d))
-
-    def _normed(self, name: str, x, node_mask):
-        if self.norm == "ln":
-            return getattr(self, f"ln_{name}")(x)
-        if self.norm == "bn":
-            return getattr(self, f"bn_{name}")(x, node_mask)
-        return x
 
     def forward(self, h, adj, node_mask, e_table=None, edge_ids=None,
                 e_emb=None):

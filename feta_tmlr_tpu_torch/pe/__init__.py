@@ -10,8 +10,9 @@ from feta_tmlr_tpu_torch.pe.encodings import (
     graph_laplacian,
 )
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp, laplace_decomp
+from feta_tmlr_tpu_torch.pe.rwpe import apply_rwpe, rwpe
 
 __all__ = ["AdjEncoding", "DiffusionEncoding", "FullEncoding",
            "LapEncoding", "PECache", "POSENCODINGS", "PStepRWEncoding",
-           "PositionEncoding", "apply_laplace_decomp", "graph_laplacian",
-           "laplace_decomp"]
+           "PositionEncoding", "apply_laplace_decomp", "apply_rwpe",
+           "graph_laplacian", "laplace_decomp", "rwpe"]

@@ -97,6 +97,15 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": f"{type(e).__name__}: {e}"})
 
 
+class _Server(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog of 128 connections. The
+    stdlib's 5 overflows when more clients connect at once than the accept
+    loop has taken, which the handler threads (holding the GIL through a
+    forward) hold up: the kernel then resets the connections past it."""
+
+    request_queue_size = 128
+
+
 def make_server(predictor, host: str = "127.0.0.1",
                 port: int = 0, preprocess=None) -> ThreadingHTTPServer:
     """Build (without starting) the HTTP server; port=0 picks a free one
@@ -105,7 +114,7 @@ def make_server(predictor, host: str = "127.0.0.1",
                    {"predictor": predictor, "stats": {"requests": 0},
                     "preprocess": staticmethod(preprocess)
                     if preprocess else None})
-    return ThreadingHTTPServer((host, port), handler)
+    return _Server((host, port), handler)
 
 
 def serve_forever(predictor, host: str = "127.0.0.1",

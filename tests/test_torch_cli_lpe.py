@@ -132,10 +132,16 @@ def test_every_lpe_config_is_covered():
 
 
 @pytest.mark.parametrize("name", ["GraphiTSpectra", "Spectra", "GraphiT"])
-def test_sbm_trainer_refuses_the_lspe_names(name):
-    with pytest.raises(SystemExit, match=f"model {name}.*not ported.*"
-                                         "ROADMAP Queue 1 item 8"):
-        tsbm.resolve_build({"net_params": {}}, name)
+def test_sbm_trainer_resolves_the_lspe_names_like_jax(name):
+    """The JAX SBM trainer's class and fixed arguments for the LSPE names,
+    with its defaults (pos_enc_dim 12, widths 32, 4 heads, 3 layers)."""
+    from feta_tmlr_tpu.experiments import main_SBMs_node_classification \
+        as jsbm
+    cls, kwargs = tsbm.resolve_build({"net_params": {}}, name)
+    jcls, jextra = jsbm.MODELS[name]
+    assert cls.__name__ == jcls.__name__ == "GraphiTSpectraNet"
+    assert kwargs == dict(jextra, hidden_dim=32, out_dim=32, n_heads=4,
+                          n_layers=3, pos_enc_dim=12)
 
 
 def _header(path):

@@ -18,7 +18,12 @@ tier's fused-MLP shapes (width 16 in two forward slabs; the edge
 eigen-PE head's B*N*N*m rows) are held to the plain versions run on the
 card, and a train-mode step of SANNet and GATFeTANet with dropout 0.2 to
 the CPU's step from the same seed (gradients within 1e-3 of each
-tensor's largest entry): one seed, the same masks on both.
+tensor's largest entry): one seed, the same masks on both. The LSPE
+nets (GraphiT-Spectra-LSPE, GraphiT-LSPE, SAN-LSPE, GatedGCN-LSPE dense
+and sparse, PNA-LSPE dense and sparse with the GRU) at two layers: a
+train-mode step on CUDA against the CPU's from the same weights (loss
+rtol 1e-4, gradients within 1e-3 of each tensor's largest entry), the
+served logits rtol 1e-4 / atol 1e-4, and no kernel launched.
 """
 
 import copy
@@ -42,6 +47,10 @@ from feta_tmlr_tpu_torch.nn.models import (
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
 from feta_tmlr_tpu_torch.nn.gat import GATFeTANet
+from feta_tmlr_tpu_torch.nn.gatedgcn import GatedGCNLSPENet
+from feta_tmlr_tpu_torch.nn.lspe import GraphiTSpectraNet
+from feta_tmlr_tpu_torch.nn.pna import PNALSPENet
+from feta_tmlr_tpu_torch.nn.san_lspe import SANLSPENet
 from feta_tmlr_tpu_torch.nn.san import SANNet, SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import colstat as tcs
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as tfl
@@ -50,7 +59,9 @@ from feta_tmlr_tpu_torch.ops.kernels import fused_mlp as tfm
 from feta_tmlr_tpu_torch.ops.kernels import modulation as tmod
 from feta_tmlr_tpu_torch.ops.kernels.common import bwd_row_constants
 from feta_tmlr_tpu_torch.pe.encodings import DiffusionEncoding, LapEncoding
+from feta_tmlr_tpu_torch.pe.encodings import PStepRWEncoding
 from feta_tmlr_tpu_torch.pe.laplace import apply_laplace_decomp
+from feta_tmlr_tpu_torch.pe.rwpe import apply_rwpe
 from feta_tmlr_tpu_torch.serve import Predictor
 from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -872,3 +883,61 @@ def test_cuda_molhiv_step_and_predictor_match_cpu(cuda):
     ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
     assert got.shape == (6,)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------ the LSPE nets
+
+_LSPE = dict(num_atom_type=28, num_bond_type=4, hidden_dim=20, out_dim=20,
+             n_layers=2, pos_enc_dim=8)
+_LSPE_NETS = {
+    "graphit-spectra": (GraphiTSpectraNet, dict(n_heads=4,
+                                                adaptive_edge_pe=True)),
+    "graphit-field": (GraphiTSpectraNet, dict(n_heads=4, spectra=False,
+                                              typed_edges=False)),
+    "san-lspe": (SANLSPENet, dict(n_heads=4, gamma=0.2)),
+    "gatedgcn": (GatedGCNLSPENet, {}),
+    "gatedgcn-sparse": (GatedGCNLSPENet, {}),
+    "pna": (PNALSPENet, dict(towers=2, edge_feat=True, edge_dim=6,
+                             gru=True, avg_d_log=1.2)),
+    "pna-sparse": (PNALSPENet, dict(towers=2, edge_feat=True,
+                                    sparse_edges=True, avg_d_log=1.2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", sorted(_LSPE_NETS))
+def test_cuda_lspe_nets_match_cpu(cuda, net):
+    """A train-mode step (batch statistics) on CUDA against the CPU's from
+    the same weights, then both serving the stepped weights; COO batches
+    for the sparse runs; no kernel counter moves (these nets run none)."""
+    cls, kw = _LSPE_NETS[net]
+    graphs = zinc_categorical_dataset(seed=4, n_graphs=6)
+    apply_rwpe(graphs, 8)
+    PStepRWEncoding(p=4, beta=0.25, normalization="sym").apply_to(graphs)
+    collate = dict(max_nodes=32, with_coo=net.endswith("sparse"))
+    cpu_model = cls(**_LSPE, **kw, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(task="graph_reg", sign_flip=False)
+    batch = collate_graphs(graphs[:4], **collate)
+    kernels = (tfl.flash_fwd, tfl.flash_bwd_q, tfl.flash_bwd_k, tcs.colstat,
+               tfl.flash_fwd_hf, tfl.flash_bwd_q_hf, tfl.flash_bwd_k_hf,
+               tfm.fused_mlp_fwd, tfm.fused_mlp_bwd, tmod.modulation_fwd,
+               tmod.modulation_bwd, tfa.fused_attn_fwd, tfa.fused_attn_bwd)
+    before = [k.launches for k in kernels]
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        if want[name].grad is None:
+            assert p.grad is None, name
+            continue
+        scale = float(want[name].grad.abs().max()) + 1e-12
+        err = float((p.grad.cpu() - want[name].grad).abs().max())
+        assert err <= 1e-3 * scale + 1e-6, name
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    kw = dict(max_batch=4, collate_kwargs=collate)
+    got = Predictor(gpu_model, **kw).predict(graphs)
+    ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+    assert [k.launches for k in kernels] == before

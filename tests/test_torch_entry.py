@@ -464,17 +464,16 @@ def test_debug_nan_raises_non_finite_error():
 
 # ------------------------------------------------------------- refusals
 
-UNPORTED = sorted(k for k, v in tmain.MODEL_REGISTRY.items()
-                  if isinstance(v, str))
-PORTED = sorted(set(tmain.MODEL_REGISTRY) - set(UNPORTED))
+PORTED = sorted(tmain.MODEL_REGISTRY)
 
 
 def test_registry_names_match_jax():
     from feta_tmlr_tpu.experiments import main_ZINC_graph_regression as jmain
     assert sorted(tmain.MODEL_REGISTRY) == sorted(jmain.MODEL_REGISTRY)
-    # the LPE tier is ported; the LSPE names wait for their slice
-    assert UNPORTED == ["GatedGCN", "GraphiT", "GraphiTSpectra", "PNA",
-                        "SAN_LSPE"]
+    # every ZINC name is ported: none refuses
+    assert all(isinstance(v, tuple) for v in tmain.MODEL_REGISTRY.values())
+    for name in PORTED:
+        tmain.resolve_build({"net_params": {}}, name)
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -484,13 +483,6 @@ def test_ported_registry_names_resolve_like_jax(name):
     cls, kwargs = tmain.resolve_build(cfg, name)
     jcls, jkwargs = jmain.resolve_build(cfg, name)
     assert (cls.__name__, kwargs) == (jcls.__name__, jkwargs)
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_registry_names_exit(name):
-    with pytest.raises(SystemExit, match=f"model {name} is not ported.*"
-                                         "ROADMAP Queue 1 item"):
-        tmain.resolve_build({"net_params": {}}, name)
 
 
 @pytest.mark.parametrize("argv,what", [

@@ -416,3 +416,45 @@ def test_http_round_trip_matches_direct_predictor():
             assert json.loads(r.read())["requests"] == 2
     finally:
         srv.shutdown()
+
+
+def test_http_server_takes_64_connections_at_once():
+    """64 clients connect at the same moment to a server whose handlers
+    hold the GIL through each request (as a forward does): every one is
+    answered. The stdlib's listen backlog of 5 reset most of them."""
+    import time
+
+    class Busy:
+        def predict(self, graphs):
+            t0 = time.time()
+            while time.time() - t0 < 0.05:
+                sum(range(1000))
+            return np.zeros((len(graphs), 1), np.float32)
+
+    srv, port = start_background(Busy(), port=0)
+    body = json.dumps({"graphs": [{"x_int": [1, 2],
+                                   "edge_index": [[0, 1], [1, 0]]}]}).encode()
+    answers, errors = [], []
+    barrier = threading.Barrier(64)
+
+    def post():
+        barrier.wait()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                answers.append(json.loads(r.read())["logits"])
+        except Exception as e:              # noqa: BLE001 - counted below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=post) for _ in range(64)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert errors == [] and answers == [[[0.0]]] * 64
