@@ -46,7 +46,11 @@ Phases (any failure raises and the script exits non-zero):
      two, with padded nodes and rows in the |denom| <= 1e-9 branch, two
      backward runs bit-identical, each output within 2x the CPU float32
      route's error from a float64 run of the plain version (the modulation
-     kernels at the ZINC batch and at B=1, N=2048);
+     kernels at the ZINC batch and at B=1, N=2048); then the flash forward
+     and both backward passes and the fused pair at the ZINC batch with pe
+     and deg absent (nullptr, the vanilla GraphTransformer's attention),
+     against their plain versions, two runs of each bit-identical
+     (`check_unmodulated`);
   4. serve the FeTA SBM node classifier (DiffGraphTransformerGenGCNSBM at
      d_model 64, 8 heads, 10 layers, ff 128, batch norm, LapPE 8, Chebyshev
      order 4; random weights from a seed) at N=1024 through `Predictor` on
@@ -94,18 +98,19 @@ Phases (any failure raises and the script exits non-zero):
      side by side, then in 5 interleaved rounds (one request and one epoch
      of each route per round, the order rotating) with their medians and
      quartiles;
- 10. the SBM model at N=2048 (examples/largen_combo_ab.py's step) under the
+ 10. the SBM model at N=2048 (examples/largen_combo_ab.py's step), its
+     depth cut to 5 layers (LARGE_LAYERS), under the
      three settings of the attention dispatch: "fold" (head_fold, the
      head-folded kernels on every layer) serves two requests of 2 graphs
-     (10 + 2 launches each, one graph's logits held to the CPU in float64)
-     and trains on 4 one-graph batches for 2 + 5 timed epochs (10 + 2 + 10
-     + 10 launches a step, falling loss, no host sync, one step held to a
+     (5 + 2 launches each, one graph's logits held to the CPU in float64)
+     and trains on 4 one-graph batches for 2 + 5 timed epochs (5 + 2 + 5
+     + 5 launches a step, falling loss, no host sync, one step held to a
      float64 CPU step; both held at the N=1024 tolerances or within a
      stated multiple of the CPU's float32 error on the same input, see
      LOGITS_CPU32_FACTOR); "stream" (the unfolded kernels) and "r4"
      (flash_need_heads off: the filtered layer through the score product
      and the modulation kernel) serve two requests and train 1 + 2 epochs;
-     then 5 interleaved rounds of one request and one epoch per setting;
+     then 3 interleaved rounds of one request and one epoch per setting;
  11. the OGB molhiv classifier (DiffGraphTransformerGenGCNMolHiv at its
      CLI's widths: d_model 128, 8 heads, 4 layers, ff 256, Chebyshev
      order 4, no batch norm, no PE; random weights from a seed) on the
@@ -153,7 +158,24 @@ Phases (any failure raises and the script exits non-zero):
      phase's again with the fused MLP's plain versions on the card), the COO
      runs' logits and card step held to their dense twins; ms per request
      and per step;
- 14. cli: the port's command-line entry points, as a user runs them (each
+ 14. graphit: the GraphiT baselines and the FeTA filter's options, random
+     weights from a seed: DiffGraphTransformer and the vanilla
+     GraphTransformer (no attention PE) at bench.py's ZINC widths (in 28,
+     d_model 64, 8 heads, 10 layers, ff 128, batch norm, LapPE 8,
+     diffusion PE) on "flash" (#1, #3, #4) and on "fused" (#10, #11),
+     DiffGraphTransformerGenGCN at the same widths with the ARMA filter,
+     with the filter in every layer (#1 and #2 in each) and with `remat`,
+     on 2 batches of 128 zinc_like_dataset graphs padded to 48, and
+     DiffGraphTransformerMolHiv at d_model 128 (8 heads, 4 layers, ff 256)
+     on 128 ogb_like_dataset molecules on "flash": each 3 requests through
+     Predictor (the first 8 graphs' logits held to a float64 CPU forward)
+     and 10 steps through Trainer (finite losses, no host sync), exact
+     launches a request and a step, one step on 16 graphs held to a
+     float64 CPU step; ms per request and per step; the `remat` step
+     bit-equal to the same step without it, with one more forward's
+     launches; the molhiv baseline refusing "fused" and `head_fold` at
+     d_model 128 (`graphit_slice`, ~30 s);
+ 15. cli: the port's command-line entry points, as a user runs them (each
      module's main() with its argv, in this process so the launch counters
      see it): the config-driven trainer
      (experiments/main_ZINC_graph_regression.py) trains SAN_NodeSpectra at
@@ -193,8 +215,17 @@ Phases (any failure raises and the script exits non-zero):
      GraphiT-Spectra-LSPE (GraphiT_ZINC_LSPE.json, --model
      GraphiTSpectra) with a resumed epoch, served by serve_main from its
      checkpoint (random-walk PE and edge kernel server-side), each answer
-     held to the in-process Predictor within 1e-5;
- 15. print the kernels' JSON line, the card line, and the final status line
+     held to the in-process Predictor within 1e-5; then the GraphiT
+     baseline CLIs (run_transformer.py with and without --vanilla,
+     run_transformer_gcn.py on the ZINC fixture, run_transformer_cv.py and
+     run_transformer_gcn_cv.py on TUFIX, run_transformer_SBM_cv.py on the
+     SBM fixture, run_transformer_molhiv.py on its synthetic fallback),
+     feta-zinc with --gnn_type ARMAConvDynamic and with --last_layer_filter,
+     and the TU config trainer (main_TU_graph_classification.py) on TUFIX
+     with configs/LPE/ZINC/optimized.json (SAN_NodeLPE: #12/#13) and with
+     configs/LSPE/GraphiT_ZINC_LSPE.json --model GraphiT (no kernel), 2
+     epochs and one resumed each (`CLI_GRAPHIT_RUNS`);
+ 16. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
@@ -274,12 +305,34 @@ from feta_tmlr_tpu_torch.experiments import (
 from feta_tmlr_tpu_torch.experiments import (
     main_SBMs_node_classification as cli_sbm_config,
 )
+from feta_tmlr_tpu_torch.experiments import (
+    main_TU_graph_classification as cli_tu_config,
+)
+from feta_tmlr_tpu_torch.experiments import run_transformer as cli_graphit
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_cv as cli_graphit_cv,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gcn as cli_graphit_gcn,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gcn_cv as cli_graphit_gcn_cv,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_molhiv as cli_graphit_molhiv,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_SBM_cv as cli_graphit_sbm,
+)
 from feta_tmlr_tpu_torch.experiments import serve_main as cli_serve_main
 from feta_tmlr_tpu_torch.nn import feta as feta_mod
 from feta_tmlr_tpu_torch.nn.layers import MaskedBatchNorm
 from feta_tmlr_tpu_torch.nn.models import (
+    DiffGraphTransformer,
     DiffGraphTransformerGenGCN,
     DiffGraphTransformerGenGCNSBM,
+    DiffGraphTransformerMolHiv,
+    GraphTransformer,
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
 from feta_tmlr_tpu_torch.nn.pna import average_log_degree
@@ -470,13 +523,19 @@ FUSED_SHAPES = MOD_SHAPES[:2]
 # FETA_FLASH_HEAD_FOLD / FETA_FLASH_NEED_HEADS)
 LARGE_N = 2048
 LARGE_GRAPHS = 4
+# the N=1024 model cut from 10 layers to 5 at N=2048, to keep the script
+# within its time limit (the float64 CPU references scale with the depth)
+LARGE_LAYERS = 5
+LARGE_CFG = dict(MODEL_CFG, nb_layers=LARGE_LAYERS)
+LARGE_STEP_PARAMS = tuple(p.replace("layers.9.", f"layers.{LARGE_LAYERS - 1}.")
+                          for p in STEP_PARAMS)
 LARGE_SETTINGS = {"fold": dict(head_fold=True, flash_need_heads=True),
                   "stream": dict(head_fold=False, flash_need_heads=True),
                   "r4": dict(head_fold=False, flash_need_heads=False)}
 # (requests, warm-up epochs, timed epochs) of each setting; "fold" is the
 # slice's main path, the other two its comparison
 LARGE_RUNS = {"fold": (2, 2, 5), "stream": (2, 1, 2), "r4": (2, 1, 2)}
-LARGE_ROUNDS = 5
+LARGE_ROUNDS = 3
 # The N=2048 model from random weights amplifies float32 rounding beyond
 # the SBM tolerances on the CPU's float32 route too: over 5 LapPE sign
 # patterns (`--rounding`) the CPU's own step misses the gradient tolerance
@@ -484,20 +543,22 @@ LARGE_ROUNDS = 5
 # within SLICE_TOL and the SBM tolerances, or, where float32 rounding
 # exceeds those, within a multiple of the error of the CPU's float32 route
 # on the same input, a witness that shares no operation with the card:
-# the sweep's worst ratios, rounded up (logits 1.70, a step's gradients
-# 3.99 on one pattern, 1.04 or less on the others). `--precision` shows
+# the sweep's worst ratios at 10 layers, rounded up (logits 1.70, a step's
+# gradients 3.99 on one pattern, 1.04 or less on the others). `--precision` shows
 # where the card's float32 parts from the CPU's, layer by layer
 LOGITS_CPU32_FACTOR = 2
 STEP_CPU32_FACTOR = 4
 LARGE_REQUEST_LAUNCHES = {
-    "fold": {**NONE, "flash_fwd_hf": 10, "colstat": 2},
-    "stream": {**NONE, "flash_fwd": 10, "colstat": 2},
-    "r4": {**NONE, "flash_fwd": 9, "modulation_fwd": 1}}
+    "fold": {**NONE, "flash_fwd_hf": LARGE_LAYERS, "colstat": 2},
+    "stream": {**NONE, "flash_fwd": LARGE_LAYERS, "colstat": 2},
+    "r4": {**NONE, "flash_fwd": LARGE_LAYERS - 1, "modulation_fwd": 1}}
 LARGE_STEP_LAUNCHES = {
-    "fold": {**NONE, "flash_fwd_hf": 10, "colstat": 2, "flash_bwd_q_hf": 10,
-             "flash_bwd_k_hf": 10},
-    "stream": STEP_LAUNCHES,
-    "r4": {**NONE, "flash_fwd": 9, "flash_bwd_q": 9, "flash_bwd_k": 9,
+    "fold": {**NONE, "flash_fwd_hf": LARGE_LAYERS, "colstat": 2,
+             "flash_bwd_q_hf": LARGE_LAYERS, "flash_bwd_k_hf": LARGE_LAYERS},
+    "stream": {**NONE, "flash_fwd": LARGE_LAYERS, "colstat": 2,
+               "flash_bwd_q": LARGE_LAYERS, "flash_bwd_k": LARGE_LAYERS},
+    "r4": {**NONE, **{k: LARGE_LAYERS - 1 for k in
+                      ("flash_fwd", "flash_bwd_q", "flash_bwd_k")},
            "modulation_fwd": 1, "modulation_bwd": 1}}
 # checks of the head-folded kernels: (B, N, padding) at the training shape,
 # the serving shape and a ragged N; the JSON rows are the first shape's
@@ -571,7 +632,20 @@ CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "lapeig_lspe": ["epoch", "loss", "time", "val_mae", "lr"],
                    "pattern_lspe": ["epoch", "loss", "time", "val_acc_sbm",
                                     "lr"],
-                   "ogbmol_lspe": ["epoch", "loss", "time", "val_ap", "lr"]}
+                   "ogbmol_lspe": ["epoch", "loss", "time", "val_ap", "lr"],
+                   "graphit_zinc": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "graphit_vanilla": ["epoch", "loss", "time", "val_mae",
+                                       "lr"],
+                   "graphit_gcn": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "graphit_cv": ["epoch", "loss", "time", "val_acc"],
+                   "graphit_gcn_cv": ["epoch", "loss", "time", "val_acc"],
+                   "graphit_sbm": ["epoch", "loss", "time", "val_acc_sbm"],
+                   "graphit_molhiv": ["epoch", "loss", "time",
+                                      "val_rocauc"],
+                   "zinc_arma": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "zinc_every": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "tu_san": ["epoch", "loss", "time", "val_acc", "lr"],
+                   "tu_lspe": ["epoch", "loss", "time", "val_acc", "lr"]}
 FLASH_ROUTE = {"flash_fwd", "colstat", "flash_bwd_q", "flash_bwd_k"}
 MLP_ROUTE = {"fused_mlp_fwd", "fused_mlp_bwd"}
 CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
@@ -580,7 +654,13 @@ CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
                "zinc": FLASH_ROUTE, "molhiv": FLASH_ROUTE,
                "sbm": FLASH_ROUTE, "tu": FLASH_ROUTE, "config_lspe": set(),
                "lapeig_lspe": set(), "pattern_lspe": set(),
-               "ogbmol_lspe": set()}
+               "ogbmol_lspe": set(),
+               **dict.fromkeys(("graphit_zinc", "graphit_vanilla",
+                                "graphit_gcn", "graphit_cv",
+                                "graphit_gcn_cv", "graphit_sbm",
+                                "graphit_molhiv"), FLASH_ROUTE - {"colstat"}),
+               "zinc_arma": FLASH_ROUTE, "zinc_every": FLASH_ROUTE,
+               "tu_san": MLP_ROUTE, "tu_lspe": set()}
 # the lpe phase: the LPE codebase's other nets at their configs' widths,
 # built by the port's config trainers (resolve_build / construct_model),
 # random weights from a seed, each served (LPE_REQUESTS requests of its
@@ -706,8 +786,94 @@ CLI_LSPE_RUNS = (
          ROOT, "configs/LSPE/GatedGCN_MOLPCBA_LSPE.json"),
       "--data-dir", CLI_FIXTURES]),
 )
+# the cli phase's GraphiT runs: the six baseline CLIs at their defaults
+# (ZINC and TU fixtures with --lappe, the SBM fixture, molhiv on its
+# synthetic fallback), feta-zinc with the ARMA filter and with the filter in
+# every layer, and the TU config trainer with a SAN and an LSPE config
+CLI_GRAPHIT_RUNS = (
+    ("graphit_zinc", cli_graphit.main,
+     ["--datadir", CLI_FIXTURES, "--lappe", "--pos-enc", "diffusion"]),
+    ("graphit_vanilla", cli_graphit.main,
+     ["--datadir", CLI_FIXTURES, "--lappe", "--vanilla"]),
+    ("graphit_gcn", cli_graphit_gcn.main,
+     ["--datadir", CLI_FIXTURES, "--lappe", "--pos-enc", "diffusion"]),
+    ("graphit_cv", cli_graphit_cv.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "TUFIX", "--lappe"]),
+    ("graphit_gcn_cv", cli_graphit_gcn_cv.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "TUFIX", "--lappe"]),
+    ("graphit_sbm", cli_graphit_sbm.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "FIXTURE", "--lappe"]),
+    ("graphit_molhiv", cli_graphit_molhiv.main, ["--datadir", "no-dataset"]),
+    ("zinc_arma", cli_zinc.main,
+     ["--datadir", CLI_FIXTURES, "--lappe", "--pos-enc", "diffusion",
+      "--gnn_type", "ARMAConvDynamic"]),
+    ("zinc_every", cli_zinc.main,
+     ["--datadir", CLI_FIXTURES, "--lappe", "--pos-enc", "diffusion",
+      "--last_layer_filter"]),
+    ("tu_san", cli_tu_config.main,
+     ["--config", os.path.join(ROOT, "configs/LPE/ZINC/optimized.json"),
+      "--dataset", "TUFIX", "--datadir", CLI_FIXTURES]),
+    ("tu_lspe", cli_tu_config.main,
+     ["--config", os.path.join(ROOT, "configs/LSPE/GraphiT_ZINC_LSPE.json"),
+      "--model", "GraphiT", "--dataset", "TUFIX", "--datadir",
+      CLI_FIXTURES]),
+)
 # serve_main from a GraphiT-Spectra-LSPE checkpoint of the ZINC trainer
 CLI_LSPE_SERVE = os.path.join(ROOT, "configs/LSPE/GraphiT_ZINC_LSPE.json")
+# the graphit phase: the GraphiT baselines and the FeTA filter's options
+# at bench.py's ZINC widths (ZINC_CFG) on 2 batches of 128 zinc_like_dataset
+# graphs padded to 48, and the molhiv baseline at MOLHIV_CFG's widths on 128
+# ogb_like_dataset molecules; random weights from a seed. Each serves
+# GRAPHIT_REQUESTS requests through Predictor (the first GRAPHIT_REF_GRAPHS
+# graphs held to a float64 CPU forward) and trains GRAPHIT_STEPS steps
+# through Trainer (finite loss, no host sync), then one step on 16 graphs
+# is held to a float64 CPU step. (label, class, its keyword arguments,
+# route, data, launches a request, launches a step, gradients held)
+GRAPHIT_REQUESTS = 3
+GRAPHIT_STEPS = 10
+GRAPHIT_REF_GRAPHS = 8
+BASE_CFG = {k: v for k, v in ZINC_CFG.items() if k != "filter_order"}
+VANILLA_CFG = {k: v for k, v in BASE_CFG.items() if k != "batch_norm"}
+MOLHIV_BASE_CFG = {k: v for k, v in MOLHIV_CFG.items()
+                   if k not in ("nb_class", "filter_order")}
+FLASH_10 = {**NONE, "flash_fwd": 10}
+FLASH_10_STEP = {**NONE, "flash_fwd": 10, "flash_bwd_q": 10,
+                 "flash_bwd_k": 10}
+FUSED_10 = {**NONE, "fused_attn_fwd": 10}
+FUSED_10_STEP = {**NONE, "fused_attn_fwd": 10, "fused_attn_bwd": 10}
+BASE_PARAMS = ("layers.0.qkv", "layers.9.qkv", "layers.9.out_proj_kernel",
+               "layers.9.ff2.weight", "classifier.fc2.weight")
+GRAPHIT_NETS = (
+    ("DiffGraphTransformer flash", DiffGraphTransformer, BASE_CFG, "flash",
+     "zinc", FLASH_10, FLASH_10_STEP, BASE_PARAMS),
+    ("DiffGraphTransformer fused", DiffGraphTransformer, BASE_CFG, "fused",
+     "zinc", FUSED_10, FUSED_10_STEP, BASE_PARAMS),
+    ("GraphTransformer flash", GraphTransformer, VANILLA_CFG, "flash",
+     "zinc", FLASH_10, FLASH_10_STEP, BASE_PARAMS),
+    ("GraphTransformer fused", GraphTransformer, VANILLA_CFG, "fused",
+     "zinc", FUSED_10, FUSED_10_STEP, BASE_PARAMS),
+    ("GenGCN ARMA", DiffGraphTransformerGenGCN,
+     dict(ZINC_CFG, gnn_type="ARMAConvDynamic"), "flash", "zinc",
+     {**FLASH_10, "colstat": 2}, {**FLASH_10_STEP, "colstat": 2},
+     ("encoder.layers.0.qkv", "encoder.layers.9.qkv",
+      "encoder.arma_init_weight", "encoder.arma_root_weight",
+      "encoder.coeff_head.gcn_kernel", "classifier.fc2.weight")),
+    ("GenGCN every-layer filter", DiffGraphTransformerGenGCN,
+     dict(ZINC_CFG, last_layer_filter=False), "flash", "zinc",
+     {**FLASH_10, "colstat": 20}, {**FLASH_10_STEP, "colstat": 20},
+     ("encoder.layers.0.qkv", "encoder.layers.5.out_proj_kernel",
+      "encoder.layers.9.qkv", "encoder.coeff_head.gcn_kernel",
+      "encoder.linear_cat.weight", "classifier.fc2.weight")),
+    # the recomputed forward of each layer launches its kernels again
+    ("GenGCN remat", DiffGraphTransformerGenGCN, dict(ZINC_CFG, remat=True),
+     "flash", "zinc", {**FLASH_10, "colstat": 2},
+     {**FLASH_10_STEP, "flash_fwd": 20, "colstat": 4}, STEP_PARAMS),
+    ("DiffGraphTransformerMolHiv", DiffGraphTransformerMolHiv,
+     MOLHIV_BASE_CFG, "flash", "molhiv", {**NONE, "flash_fwd": 4},
+     {**NONE, "flash_fwd": 4, "flash_bwd_q": 4, "flash_bwd_k": 4},
+     ("embedding.atom_emb_0.weight", "layers.0.qkv", "layers.3.qkv",
+      "layers.3.out_proj_kernel", "cls_fc2.weight")),
+)
 # `--precision`'s backward probe: the canonical signs and the `--rounding`
 # sign pattern on which the N=2048 step's CUDA gradients were furthest
 # from float64 against the CPU's float32 route (3.99x, PERF.md)
@@ -1546,6 +1712,77 @@ def check_fused_attention(device, h=8, d=64, shapes=FUSED_SHAPES):
     return rows
 
 
+def check_unmodulated(device, h=8, d=64, shape=(ZINC_GRAPHS, ZINC_NODES,
+                                                  11)):
+    """Phase 3, the operands' absent case: the flash forward and both
+    backward passes (#1, #3, #4) and the fused pair (#10, #11) with
+    pe=None and deg=None (the vanilla GraphTransformer's attention) at the
+    ZINC batch, against their plain versions (ones in place of pe and
+    deg), two runs of each bit-identical, each fused output's error from
+    float64 within FUSED_CPU32_FACTOR of the CPU float32 route's; returns
+    each kernel's largest absolute error."""
+    b, n, pad = shape
+    ops, vw = attention_inputs(b + n + 5, b, h, n, d, d, pad, device)
+    ops.update(pe=None, deg=None)
+    errs, line = {}, []
+    with torch.inference_mode():
+        got, again = (fl_mod.flash_fwd(vw=vw, **ops) for _ in range(2))
+        want = fl_mod.flash_fwd_plain(vw=vw, **ops)
+        errs["flash_fwd"] = max(check_outputs(
+            "flash_fwd", got, again, want, ("outh", "m", "se", "su"),
+            "pe/deg absent"))
+        outh, m, se, su = want
+        g = torch.randn(outh.shape, device=device,
+                        generator=torch.Generator(device).manual_seed(n))
+        args = (ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"], vw,
+                None, None, ops["mask"], ops["inv_sqrt"], g, m,
+                *bwd_row_constants(g, outh, se, su, ops["mask"]))
+        for name, kernel, plain, outs in (
+                ("flash_bwd_q", fl_mod.flash_bwd_q, fl_mod.flash_bwd_q_plain,
+                 ("dxa", "dcq")),
+                ("flash_bwd_k", fl_mod.flash_bwd_k, fl_mod.flash_bwd_k_plain,
+                 ("dvw", "dck", "dx"))):
+            errs[name] = max(check_outputs(
+                name, kernel(*args), kernel(*args), plain(*args), outs,
+                "pe/deg absent"))
+        gf = 0.1 * torch.randn((b, n, d), device=device,
+                               generator=torch.Generator(device).manual_seed(
+                                   n + 1))
+        f_got = fa_mod.fused_attn_fwd(vw=vw, **ops)
+        f_again = fa_mod.fused_attn_fwd(vw=vw, **ops)
+        errs["fused_attn_fwd"] = max(check_outputs(
+            "fused_attn_fwd", [f_got], [f_again],
+            [fa_mod.fused_attn_fwd_plain(vw=vw, **ops)], ("out",),
+            "pe/deg absent"))
+        b_outs = ("dxa", "dx", "dcq", "dck", "dc0", "dvw")
+        b_got = fa_mod.fused_attn_bwd(vw=vw, g=gf, **ops)
+        errs["fused_attn_bwd"] = max(check_outputs(
+            "fused_attn_bwd", b_got, fa_mod.fused_attn_bwd(vw=vw, g=gf, **ops),
+            fa_mod.fused_attn_bwd_plain(vw=vw, g=gf, **ops), b_outs,
+            "pe/deg absent"))
+        times = {name: time_ms(fn) for name, fn in (
+            ("flash_fwd", lambda: fl_mod.flash_fwd(vw=vw, **ops)),
+            ("flash_bwd_q", lambda: fl_mod.flash_bwd_q(*args)),
+            ("flash_bwd_k", lambda: fl_mod.flash_bwd_k(*args)),
+            ("fused_attn_fwd", lambda: fa_mod.fused_attn_fwd(vw=vw, **ops)),
+            ("fused_attn_bwd",
+             lambda: fa_mod.fused_attn_bwd(vw=vw, g=gf, **ops)))}
+    f_args = [ops[k] for k in ("xa", "x", "cq", "ck", "c0")] + [vw] + [
+        None, None, ops["mask"], ops["inv_sqrt"], gf]
+    r_f = cpu32_ratios([f_got],
+                       lambda a: [fa_mod.fused_attn_fwd_plain(*a[:-1])],
+                       ("out",), f_args, "fused_attn_fwd pe/deg absent")
+    r_b = cpu32_ratios(b_got, lambda a: fa_mod.fused_attn_bwd_plain(*a),
+                       b_outs, f_args, "fused_attn_bwd pe/deg absent")
+    print(f"unmodulated check B={b} H={h} N={n} D={d} pad~{pad}, pe and deg "
+          f"absent (nullptr): max abs err " + ", ".join(
+              f"{k} {v:.3e} ({times[k]:.4f} ms)" for k, v in errs.items())
+          + f"; two runs of each bit-identical; tolerance rtol 1e-4 atol "
+          f"1e-5; fused error from float64 over the CPU float32 route's: "
+          f"{r_f} {r_b} (at most {FUSED_CPU32_FACTOR})", flush=True)
+    return errs
+
+
 def canonical_signs(vecs):
     """Each eigenvector column with its largest-magnitude entry positive.
     An eigenvector's sign is arbitrary and LAPACK builds return different
@@ -2145,7 +2382,7 @@ def large_serve(graphs, device, card, setting, profile=False):
     n_req = LARGE_RUNS[setting][0]
     collate = {"max_nodes": LARGE_N, "node_labels": True}
     model = DiffGraphTransformerGenGCNSBM(
-        **MODEL_CFG, **LARGE_SETTINGS[setting], seed=0, device=device)
+        **LARGE_CFG, **LARGE_SETTINGS[setting], seed=0, device=device)
     calibrate_batch_norm(model, collate_graphs(graphs[:2], **collate), device)
     pred = Predictor(model, device=device, max_batch=2, node_level=True,
                      collate_kwargs=collate)
@@ -2204,7 +2441,7 @@ def large_train(graphs, device, card, setting, profile=False):
     epoch and returns its ms/step."""
     _, warm, timed = LARGE_RUNS[setting]
     model = DiffGraphTransformerGenGCNSBM(
-        **MODEL_CFG, **LARGE_SETTINGS[setting], seed=1, device=device)
+        **LARGE_CFG, **LARGE_SETTINGS[setting], seed=1, device=device)
     initial = copy.deepcopy(model)
     batches = [collate_graphs([g], max_nodes=LARGE_N, node_labels=True)
                .to(device) for g in graphs]
@@ -2250,7 +2487,7 @@ def large_train(graphs, device, card, setting, profile=False):
         step_parity(initial, graphs[:1], device, f"large train [{setting}]",
                     dict(max_nodes=LARGE_N, node_labels=True),
                     TrainConfig(regularization=0.1, sign_flip=False),
-                    STEP_PARAMS, loss_rtol=SBM_STEP_LOSS_RTOL,
+                    LARGE_STEP_PARAMS, loss_rtol=SBM_STEP_LOSS_RTOL,
                     cpu_factor=STEP_CPU32_FACTOR)
 
     def step_ms():
@@ -2764,6 +3001,191 @@ def lspe_slice(device, card, profile=False):
     return runs
 
 
+def graphit_data():
+    """The graphit phase's graphs: 2 batches of bench.py's ZINC data (as
+    `make_zinc_graphs`) and one of 128 ogb_like_dataset molecules, each
+    with its padded size."""
+    t0 = time.perf_counter()
+    zinc = zinc_like_dataset(seed=0, n_graphs=2 * ZINC_GRAPHS)
+    DiffusionEncoding(beta=1.0).apply_to(zinc)
+    LapEncoding(dim=ZINC_CFG["lap_pos_enc_dim"]).apply_to(zinc)
+    mol = ogb_like_dataset(seed=0, n_graphs=MOLHIV_GRAPHS)
+    print(f"graphit: host PE of {len(zinc)} ZINC-like graphs "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"zinc": (zinc, ZINC_NODES),
+            "molhiv": (mol, max(g.num_nodes for g in mol))}
+
+
+def first_output(out):
+    """The logits of a model that returns them bare or first in a tuple."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def graphit_net(spec, data, device, card):
+    """One model of GRAPHIT_NETS: GRAPHIT_REQUESTS requests of 128 graphs
+    through Predictor with exact launches, the first GRAPHIT_REF_GRAPHS
+    logits held to a float64 CPU forward; GRAPHIT_STEPS steps through
+    Trainer with exact launches, finite losses and no host sync in one
+    more; one step on 16 graphs held to a float64 CPU step. Returns the
+    launches of the requests and of the steps."""
+    label, cls, cfg, impl, kind, req_launches, step_launches, params = spec
+    graphs, n_nodes = data[kind]
+    collate = dict(max_nodes=n_nodes)
+    request = graphs[:ZINC_GRAPHS]
+    model = cls(**cfg, attention_impl=impl, seed=0, device=device)
+    calibrate_batch_norm(model, collate_graphs(request, **collate), device)
+    pred = Predictor(model, device=device, max_batch=len(request),
+                     collate_kwargs=collate)
+    reset_launches()
+    outs, call_ms = [], []
+    for _ in range(GRAPHIT_REQUESTS):
+        t0 = time.perf_counter()
+        outs.append(pred.predict(request))
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    served = read_launches()
+    want = {k: GRAPHIT_REQUESTS * v for k, v in req_launches.items()}
+    if served != want:
+        raise AssertionError(f"graphit {label}: launch counts {served} for "
+                             f"{GRAPHIT_REQUESTS} requests; expected "
+                             f"{req_launches} each")
+    shape = (len(request), 1) if kind == "zinc" else (len(request),)
+    for out in outs:
+        if out.shape != shape or not np.isfinite(out).all():
+            raise AssertionError(f"graphit {label}: bad logits {out.shape}")
+    ref_batch = collate_graphs(request[:GRAPHIT_REF_GRAPHS], **collate)
+    with torch.inference_mode():
+        ref = first_output(copy.deepcopy(model).to("cpu", torch.float64)(
+            as_float64(ref_batch))).numpy()
+        ref32 = first_output(copy.deepcopy(model).to("cpu")(
+            ref_batch)).numpy()
+    got = outs[0][:GRAPHIT_REF_GRAPHS]
+    gap = lambda a: float(np.abs(a - ref).max())
+    np.testing.assert_allclose(got, ref, **SLICE_TOL)
+
+    task = "graph_reg" if kind == "zinc" else "binary_graph"
+    train_model = cls(**cfg, attention_impl=impl, seed=1, device=device)
+    initial = copy.deepcopy(train_model)
+    batches = [collate_graphs(graphs[i:i + ZINC_GRAPHS], **collate)
+               .to(device) for i in range(0, len(graphs), ZINC_GRAPHS)]
+    trainer = Trainer(train_model, TrainConfig(
+        task=task, lr=1e-3, weight_decay=1e-5, sign_flip=True, seed=0))
+    reset_launches()
+    losses, rows = timed_epochs(trainer, batches,
+                                GRAPHIT_STEPS // len(batches))
+    trained = read_launches()
+    syncs = step_syncs(trainer, batches[0])
+    per_step = [r[0] / len(batches) for r in rows]
+    print(f"graphit {label} [{impl}]: {GRAPHIT_REQUESTS} requests of "
+          f"{len(request)} graphs at N={n_nodes}, ms/call "
+          f"{[round(t, 2) for t in call_ms]}, steady "
+          f"{statistics.median(call_ms[1:]):.2f} ms/request; logits of "
+          f"{GRAPHIT_REF_GRAPHS} graphs against float64 on the CPU: max abs "
+          f"err CUDA {gap(got):.3e}, CPU float32 {gap(ref32):.3e} (max |y| "
+          f"{float(np.abs(ref).max()):.3f}; tolerance rtol 1e-3 atol 1e-3); "
+          f"{GRAPHIT_STEPS} steps ({task}, AdamW lr 1e-3) on {len(batches)} "
+          f"batches: ms/step per epoch {[round(t, 2) for t in per_step]}, "
+          f"median {statistics.median(per_step):.2f}; epoch losses "
+          f"{[round(x, 6) for x in losses]}; host syncs in one more step: "
+          f"{len(syncs)} {syncs[:3]}; launches a request "
+          f"{ {k: v // GRAPHIT_REQUESTS for k, v in served.items() if v} }, "
+          f"a step { {k: v // GRAPHIT_STEPS for k, v in trained.items() if v} }"
+          f"; on {card}", flush=True)
+    want = {k: GRAPHIT_STEPS * v for k, v in step_launches.items()}
+    if trained != want:
+        raise AssertionError(f"graphit {label}: launch counts {trained} for "
+                             f"{GRAPHIT_STEPS} steps; expected "
+                             f"{step_launches} each")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"graphit {label}: epoch losses {losses}")
+    if syncs:
+        raise AssertionError(f"graphit {label}: a training step syncs the "
+                             f"host: {syncs}")
+    step_parity(initial, graphs[:16], device, f"graphit {label} [{impl}]",
+                collate, TrainConfig(task=task, regularization=0.1,
+                                     sign_flip=False), params)
+    return [served, trained]
+
+
+def remat_check(data, device, card):
+    """The FeTA ZINC model's step with `remat` against the same step
+    without it, from the same weights on the same batch: the loss, every
+    gradient, every updated weight and batch-norm statistic bit-equal, and
+    exactly one more forward's launches (flash_fwd a layer, colstat twice
+    for the filtered one). Returns the remat step's launches."""
+    graphs, n_nodes = data["zinc"]
+    batch = collate_graphs(graphs[:ZINC_GRAPHS], max_nodes=n_nodes).to(device)
+    cfg = TrainConfig(task="graph_reg", lr=1e-3, weight_decay=1e-5,
+                      sign_flip=False, seed=0)
+    steps, launches = {}, {}
+    for remat in (False, True):
+        model = DiffGraphTransformerGenGCN(**ZINC_CFG, remat=remat, seed=2,
+                                           device=device)
+        trainer = Trainer(model, cfg)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[remat] = read_launches()
+        steps[remat] = (loss, model, ms)
+    (l0, m0, ms0), (l1, m1, ms1) = steps[False], steps[True]
+    differ = [n for (n, p0), p1 in zip(m0.named_parameters(),
+                                       m1.parameters())
+              if not (torch.equal(p0, p1) and torch.equal(p0.grad, p1.grad))]
+    differ += [n for (n, b0), b1 in zip(m0.named_buffers(), m1.buffers())
+               if not torch.equal(b0, b1)]
+    extra = {k: launches[True][k] - launches[False][k] for k in NONE}
+    print(f"graphit remat: one step of {ZINC_GRAPHS} graphs with and without "
+          f"remat: loss {float(l1):.8f} / {float(l0):.8f}, bit-equal "
+          f"{torch.equal(l0, l1)}; parameters, gradients and batch-norm "
+          f"statistics differing {len(differ)} {differ[:4]}; extra launches "
+          f"{ {k: v for k, v in extra.items() if v} }; {ms1:.2f} / "
+          f"{ms0:.2f} ms (one step each, first of its model) on {card}",
+          flush=True)
+    if not torch.equal(l0, l1) or differ:
+        raise AssertionError(f"graphit remat: the step differs ({differ})")
+    if extra != {**NONE, "flash_fwd": ZINC_CFG["nb_layers"], "colstat": 2}:
+        raise AssertionError(f"graphit remat: extra launches {extra}")
+    return launches[True]
+
+
+def expect_refusal(label, fn):
+    """fn must raise ValueError: a route whose kernels do not take the
+    shape refuses, it does not fall back."""
+    try:
+        fn()
+    except ValueError as err:
+        print(f"graphit {label}: refused ({str(err).splitlines()[0]})",
+              flush=True)
+        return
+    raise AssertionError(f"graphit {label}: ran instead of refusing")
+
+
+def graphit_slice(device, card):
+    """The graphit phase: every model of GRAPHIT_NETS, the remat step's
+    bit-equality, and the molhiv baseline's refusals at d_model 128 on
+    "fused" and with head_fold; returns the launches of each run."""
+    t0 = time.perf_counter()
+    data = graphit_data()
+    runs = []
+    for spec in GRAPHIT_NETS:
+        runs += graphit_net(spec, data, device, card)
+    runs.append(remat_check(data, device, card))
+    mol, n_mol = data["molhiv"]
+    batch = collate_graphs(mol[:4], max_nodes=n_mol).to(device)
+    for label, kw in (("molhiv fused", dict(attention_impl="fused")),
+                      ("molhiv head_fold", dict(head_fold=True))):
+        model = DiffGraphTransformerMolHiv(**MOLHIV_BASE_CFG, seed=0,
+                                           device=device, **kw).eval()
+        reset_launches()
+        with torch.inference_mode():
+            expect_refusal(label, lambda: model(batch))
+        if any(read_launches().values()):
+            raise AssertionError(f"graphit {label}: launched a kernel")
+    print(f"graphit phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
 def cli_train(name, main, argv, workdir, card, device="cuda"):
     """One CLI trainer for CLI_EPOCHS epochs into a checkpoint directory,
     then one more epoch resumed from it; returns the launches of both runs
@@ -3065,6 +3487,9 @@ def cli_slice(card, device="cuda"):
                                       timed=CLI_TIMED_REQUESTS // 4,
                                       label="serve_lpe"))
         runs += cli_lspe(workdir, card, device)
+        for name, main, argv in CLI_GRAPHIT_RUNS:
+            runs.append(cli_train(name, main, argv, workdir, card,
+                                  device)[0])
     return runs
 
 
@@ -3273,7 +3698,9 @@ def rounding_sweep(graphs, device, n_nodes, n_step, patterns,
     served logits of one graph, and each CUDA error over the CPU float32
     route's: the basis of LOGITS_CPU32_FACTOR and STEP_CPU32_FACTOR."""
     large = settings is not None
-    initial = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, **(settings or {}),
+    model_cfg, params = ((LARGE_CFG, LARGE_STEP_PARAMS) if large
+                         else (MODEL_CFG, STEP_PARAMS))
+    initial = DiffGraphTransformerGenGCNSBM(**model_cfg, **(settings or {}),
                                             seed=1, device=device)
     collate = dict(max_nodes=n_nodes, node_labels=True)
     cfg = TrainConfig(regularization=0.1, sign_flip=False)
@@ -3281,10 +3708,10 @@ def rounding_sweep(graphs, device, n_nodes, n_step, patterns,
     for p in range(patterns + 1):
         gs = sign_pattern(graphs, p)
         loss, rel, _, _ = step_errors(initial, gs[:n_step], device, collate,
-                                      cfg, STEP_PARAMS)
+                                      cfg, params)
         logits = {}
         if large:
-            model = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, **settings,
+            model = DiffGraphTransformerGenGCNSBM(**model_cfg, **settings,
                                                   seed=0, device=device)
             calibrate_batch_norm(model, collate_graphs(gs[:2], **collate),
                                  device)
@@ -3336,7 +3763,7 @@ def precision_probe(device):
     graphs = make_graphs(2, LARGE_N)
     collate = dict(max_nodes=LARGE_N, node_labels=True)
     model = DiffGraphTransformerGenGCNSBM(
-        **MODEL_CFG, **LARGE_SETTINGS["fold"], seed=0, device=device)
+        **LARGE_CFG, **LARGE_SETTINGS["fold"], seed=0, device=device)
     # batch norm set by the float64 forward, so that every layer's inputs
     # are the same whatever kernels the card runs (`kernel_ab.py
     # --precision` compares kernel trees)
@@ -3362,7 +3789,7 @@ def precision_probe(device):
         layer_probe(model.encoder.layers[i], inputs, routes,
                     f"precision N={LARGE_N} layer {i}")
     # the "r4" filtered layer (the last) from the same float64 inputs
-    r4_kw = dict(**MODEL_CFG, **LARGE_SETTINGS["r4"], device=device)
+    r4_kw = dict(**LARGE_CFG, **LARGE_SETTINGS["r4"], device=device)
     model_r4 = DiffGraphTransformerGenGCNSBM(**r4_kw, seed=0)
     model_r4.load_state_dict(model.state_dict())
     last = len(layer_inputs) - 1
@@ -3378,7 +3805,7 @@ def precision_probe(device):
           f"cpu32 {errs['cpu32']:.3e} (max |logit| {errs['scale']:.3f})",
           flush=True)
     step_model = DiffGraphTransformerGenGCNSBM(
-        **MODEL_CFG, **LARGE_SETTINGS["fold"], seed=1, device=device)
+        **LARGE_CFG, **LARGE_SETTINGS["fold"], seed=1, device=device)
     cfg = TrainConfig(regularization=0.1, sign_flip=False)
     step_r4 = DiffGraphTransformerGenGCNSBM(**r4_kw, seed=1)
     for p in PROBE_PATTERNS:
@@ -3387,7 +3814,7 @@ def precision_probe(device):
         backward_probe(step_model, one, collate, cfg, routes, label)
         backward_probe(step_r4, one, collate, cfg, routes, f"{label} r4",
                        names=[f"encoder.layers.{last}"])
-        step_spread(step_model, one, device, collate, cfg, STEP_PARAMS,
+        step_spread(step_model, one, device, collate, cfg, LARGE_STEP_PARAMS,
                     label)
 
 
@@ -3670,6 +4097,14 @@ def main() -> int:
     build.build_all()
     print(f"built {', '.join(build.SOURCES)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    clock = [t0]
+
+    def lap(label):
+        """Print the seconds since the previous lap (the script's time
+        limit is a budget shared by its phases)."""
+        now = time.perf_counter()
+        print(f"time: {label} {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
 
     if "--rounding" in sys.argv:
         rounding_sweep(make_graphs()[:2], device, N_NODES, 2, 8)
@@ -3695,6 +4130,9 @@ def main() -> int:
     rows.update(check_fused_mlp(device))
     rows.update(check_modulation(device))
     rows.update(check_fused_attention(device))
+    for name, err in check_unmodulated(device).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    lap("build and kernel checks")
     profile = "--profile" in sys.argv
     graphs = make_graphs()
     runs = [serve_slice(graphs, device, card, profile=profile),
@@ -3702,12 +4140,23 @@ def main() -> int:
     san_graphs = make_san_graphs()
     runs += [san_serve_slice(san_graphs, device, card, profile=profile),
              san_train_slice(san_graphs, device, card, profile=profile)]
+    lap("sbm and san phases")
     runs += zinc_slice(device, card, profile=profile)
+    lap("zinc phase")
     runs += large_slice(device, card, profile=profile)
+    lap("N=2048 phase")
     runs += molhiv_slice(device, card, profile=profile)
+    lap("molhiv phase")
     runs += lpe_slice(device, card, profile=profile)
+    lap("lpe phase")
     runs += lspe_slice(device, card, profile=profile)
+    lap("lspe phase")
+    runs += graphit_slice(device, card)
+    lap("graphit phase")
     runs += cli_slice(card)
+    lap("cli phase")
+    print(f"time: build to the end of the cli phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     pallas = "feta_tmlr_tpu/ops/pallas/"
     meta = {"flash_fwd": ("fwd.cuh", "flash_attention.py:95"),
@@ -3725,8 +4174,9 @@ def main() -> int:
             "fused_attn_bwd": ("fused_attention.cu", "fused_attention.py:85")}
     # launches: the main paths' runs (SBM at N=1024, SAN, ZINC on its
     # three routes, SBM at N=2048 under its three settings, molhiv, the
-    # LPE codebase's other nets, and the entry points of the cli phase,
-    # serving and training)
+    # LPE codebase's other nets, the GraphiT baselines and the FeTA
+    # options, and the entry points of the cli phase, serving and
+    # training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,

@@ -21,7 +21,15 @@ names its flax leaf:
     first; the PNA GRU's `gru.ir` ... `gru.hn` are flax GRUCell's Dense
     layers; the LSPE nets' `embedding_p`, `p_out` and `Whp` are Dense
     layers like any other;
-  - buffers (MaskedBatchNorm `mean`/`var`) come from `batch_stats`.
+  - buffers (MaskedBatchNorm `mean`/`var`) come from `batch_stats`;
+  - flax's `nn.scan` scope `<scope>/scan_layers/layer` (the JAX FeTA
+    encoder built with `scan_layers`) stacks layers 0..S-1 of `<scope>`
+    on every leaf's leading axis, batch statistics too: each leaf is
+    split into `<scope>/layer_<i>`, so a port model of the same depth
+    loads either layout;
+  - the GCN modules' `kernel_proj`, `bias`, `h` and `eps`, the ARMA
+    filter's `arma_init_weight`, `arma_root_weight` and `arma_bias`, and
+    the scalar-coefficient filter's `cheb_weight` keep their flax names.
 
 Every torch tensor must find its leaf and every flax leaf must be used,
 or the load raises.
@@ -60,11 +68,26 @@ def _flax_scope(module_name: str) -> str:
     return "/".join(out)
 
 
+def _unstack_scans(leaves: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Each `<scope>/scan_layers/layer/<leaf>` [S, ...] split into
+    `<scope>/layer_<i>/<leaf>`, i < S."""
+    out = {}
+    for key, arr in leaves.items():
+        scope, stacked, rest = key.partition("/scan_layers/layer/")
+        if not stacked:
+            out[key] = arr
+            continue
+        for i in range(arr.shape[0]):
+            out[f"{scope}/layer_{i}/{rest}"] = arr[i]
+    return out
+
+
 def from_flax(variables: Mapping, model: nn.Module) -> nn.Module:
     """Copy flax `variables` into `model` in place; returns `model`."""
-    leaves = {f"{coll}/{path}": arr
-              for coll in ("params", "batch_stats")
-              for path, arr in _flatten(variables.get(coll, {})).items()}
+    leaves = _unstack_scans(
+        {f"{coll}/{path}": arr
+         for coll in ("params", "batch_stats")
+         for path, arr in _flatten(variables.get(coll, {})).items()})
     used = set()
     with torch.no_grad():
         for mod_name, mod in model.named_modules():

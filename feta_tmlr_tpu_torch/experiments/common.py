@@ -9,7 +9,10 @@ The port adds flags the JAX parser lacks: `--device` (default `cuda`; the
 port never falls back to the CPU quietly, so `--device cuda` without a
 card raises), `--ckpt-dir` (per-epoch checkpoints, `train/checkpoint.py`)
 and `--resume` (continue from the latest of them). `--wire` and
-`--quantize`, JAX serving options, are not ported and refuse.
+`--quantize`, JAX serving options, are not ported and refuse. The FeTA
+CLIs hand `--gnn_type` (ChebConvDynamic, ARMAConvDynamic, or a name
+without "Dynamic": no filter) and `--last_layer_filter` (given: the
+filter in every layer) to the model, as the JAX CLIs do.
 """
 
 from __future__ import annotations
@@ -93,15 +96,6 @@ def base_parser(dataset_default: str) -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in --ckpt-dir")
     return p
-
-
-def check_ported_feta(args) -> None:
-    """The FeTA CLIs' options the port's models do not take."""
-    if args.gnn_type != "ChebConvDynamic":
-        refuse(f"--gnn_type {args.gnn_type}", "Queue 1 item 5")
-    if not args.last_layer_filter:
-        refuse("--last_layer_filter (the filter in every layer)",
-               "Queue 1 item 5")
 
 
 def resolve_outdir(args, family: str = "transformer") -> Optional[str]:

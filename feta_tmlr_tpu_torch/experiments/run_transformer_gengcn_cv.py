@@ -19,7 +19,6 @@ from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.experiments.common import (
     apply_position_encodings,
     base_parser,
-    check_ported_feta,
     load_tu_or_synthetic,
     make_batches,
     resolve_outdir,
@@ -31,7 +30,6 @@ from feta_tmlr_tpu_torch.train.trainer import TrainConfig, Trainer
 
 def main(argv=None):
     args = base_parser("NCI1").parse_args(argv)
-    check_ported_feta(args)
     device = resolve_device(args.device)
     outdir = resolve_outdir(args)
 
@@ -62,6 +60,7 @@ def main(argv=None):
         dropout=args.dropout, nb_layers=args.nb_layers,
         batch_norm=args.batch_norm, lap_pos_enc=args.lappe,
         lap_pos_enc_dim=args.lap_dim, filter_order=args.filter_order,
+        gnn_type=args.gnn_type, last_layer_filter=args.last_layer_filter,
         seed=args.seed, device=device)
     trainer = Trainer(
         model,

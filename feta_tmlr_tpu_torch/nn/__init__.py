@@ -6,6 +6,11 @@ from feta_tmlr_tpu_torch.nn.gat import (
     GATLayer,
     GATNet,
 )
+from feta_tmlr_tpu_torch.nn.gnn import (
+    DenseGCNConv,
+    DenseGENGCN,
+    DenseGINEPlus,
+)
 from feta_tmlr_tpu_torch.nn.gatedgcn import (
     GatedGCNLSPELayer,
     GatedGCNLSPENet,
@@ -23,9 +28,15 @@ from feta_tmlr_tpu_torch.nn.lspe import (
 )
 from feta_tmlr_tpu_torch.nn.models import (
     ClassifierMLP,
+    DiffGraphTransformer,
+    DiffGraphTransformerGCN,
     DiffGraphTransformerGenGCN,
     DiffGraphTransformerGenGCNSBM,
+    DiffGraphTransformerMolHiv,
+    DiffGraphTransformerSBM,
+    GraphTransformer,
     coefficient_regularizer,
+    masked_max_pool,
 )
 from feta_tmlr_tpu_torch.nn.ogb import (
     ATOM_FEATURE_DIMS,
@@ -58,11 +69,14 @@ from feta_tmlr_tpu_torch.nn.san import (
 from feta_tmlr_tpu_torch.nn.san_lspe import SANGTLSPELayer, SANLSPENet
 
 __all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
-           "ClassifierMLP", "DenseGATConv", "DiffGraphTransformerGenGCN",
+           "ClassifierMLP", "DenseGATConv", "DenseGCNConv", "DenseGENGCN",
+           "DenseGINEPlus", "DiffGraphTransformer",
+           "DiffGraphTransformerGCN", "DiffGraphTransformerGenGCN",
            "DiffGraphTransformerGenGCNMolHiv",
            "DiffGraphTransformerGenGCNMolPcba",
            "DiffGraphTransformerGenGCNPCQM4M",
-           "DiffGraphTransformerGenGCNSBM", "OGBAtomEncoder",
+           "DiffGraphTransformerGenGCNSBM", "DiffGraphTransformerMolHiv",
+           "DiffGraphTransformerSBM", "GraphTransformer", "OGBAtomEncoder",
            "OGBBondEncoder",
            "EdgeLPETransformer", "FeTAEncoder", "FilterCoefficientHead",
            "FreqTransformer", "GATFeTALayer", "GATFeTANet", "GATLayer",
@@ -73,4 +87,5 @@ __all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
            "PNATower", "SANAttention", "SANCoeffHead", "SANGTLSPELayer",
            "SANLSPENet", "SANNet", "SANNodeSpectra", "SANSpectraLayer",
            "average_log_degree", "coefficient_regularizer", "lapeig_loss",
+           "masked_max_pool",
            "san_structure_laplacian", "typed_edge_scores"]

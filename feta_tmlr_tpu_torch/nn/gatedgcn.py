@@ -154,8 +154,10 @@ class GatedGCNLSPENet(LSPENetBase):
     pre-weighted lapeig term) with `use_lapeig_loss`. `pe_init="lap_pe"`
     adds Linear(lap_pe) to h and keeps p zero (the reference's LapPE
     variant). Sparse mode when the batch carries COO edges, unless
-    `sparse_edges` says. Weights from a `torch.Generator` seeded with
-    `seed`, on `device` (default CUDA)."""
+    `sparse_edges` says. Without `edge_features` (the TU graphs carry no
+    bond types) the edge channel starts at zero, with no bond embedding.
+    Weights from a `torch.Generator` seeded with `seed`, on `device`
+    (default CUDA)."""
 
     def __init__(self, num_atom_type: int, num_bond_type: int,
                  hidden_dim: int = 64, out_dim: int = 64, n_layers: int = 16,
@@ -166,7 +168,7 @@ class GatedGCNLSPENet(LSPENetBase):
                  alpha_loss: float = 1e-4, readout: str = "mean",
                  n_out: int = 1, sparse_edges: Optional[bool] = None,
                  categorical_input: bool = True, in_feat_dim: int = 0,
-                 seed: int = 0, device=None):
+                 edge_features: bool = True, seed: int = 0, device=None):
         super().__init__()
         g = self._init_base(
             num_atom_type=num_atom_type, hidden_dim=hidden_dim,
@@ -178,7 +180,9 @@ class GatedGCNLSPENet(LSPENetBase):
         self.pos_enc_dim, self.sparse_edges = pos_enc_dim, sparse_edges
         self.use_lapeig_loss = use_lapeig_loss
         self.lambda_loss, self.alpha_loss = lambda_loss, alpha_loss
-        self.embedding_e = embedding(num_bond_type, hidden_dim, g)
+        self.hidden_dim, self.edge_features = hidden_dim, edge_features
+        if edge_features:
+            self.embedding_e = embedding(num_bond_type, hidden_dim, g)
         self.layers = nn.ModuleList(
             GatedGCNLSPELayer(
                 hidden_dim, out_dim if i + 1 == n_layers else hidden_dim,
@@ -190,15 +194,18 @@ class GatedGCNLSPENet(LSPENetBase):
     def forward(self, batch: GraphBatch):
         sparse = (batch.edge_index is not None if self.sparse_edges is None
                   else self.sparse_edges)
-        et = bond_types(self, batch)
+        et = bond_types(self, batch) if self.edge_features else None
         h, p = self._input(batch)
         edges = None
         if sparse:
             edges = make_sparse_edges(batch, dtype=h.dtype)
-            e = self.embedding_e(edge_ids_from_dense(et, edges.src,
-                                                     edges.dst))
+            e = (self.embedding_e(edge_ids_from_dense(et, edges.src,
+                                                      edges.dst))
+                 if et is not None else
+                 h.new_zeros(edges.src.shape + (self.hidden_dim,)))
         else:
-            e = self.embedding_e(et)
+            e = (self.embedding_e(et) if et is not None
+                 else h.new_zeros(batch.adj.shape + (self.hidden_dim,)))
         if self.pe_init == "lap_pe":
             h = h + self.embedding_p(batch.lap_pe)
         mask_f = batch.node_mask.to(h.dtype)

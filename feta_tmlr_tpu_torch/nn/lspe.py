@@ -85,22 +85,25 @@ class LSPEAttention(nn.Module):
         width = num_heads * out_dim
         lin = lambda d_in: dense(d_in, width, g, bias=False)
         self.Q, self.K, self.V = lin(in_dim), lin(in_dim), lin(in_dim)
-        self.E = lin(edge_dim)
+        edge = lambda: lin(edge_dim) if edge_dim else None
+        self.E = edge()
         if full_graph:
-            self.Q_2, self.K_2, self.E_2 = (lin(in_dim), lin(in_dim),
-                                            lin(edge_dim))
+            self.Q_2, self.K_2, self.E_2 = lin(in_dim), lin(in_dim), edge()
 
     def forward(self, x, adj, node_mask, k_rw=None, e_table=None,
                 edge_ids=None, e_emb=None):
         """x [B, N, in_dim]; adj [B, N, N] real edges (src, dst); k_rw
         [B, N, N] or None; the bond types as in `SANAttention`: e_table
         [T, edge_dim] with edge_ids [B, N, N], or the field e_emb [B, N, N,
-        edge_dim]."""
+        edge_dim]; neither with `edge_dim` 0 (scores q·k alone)."""
         b, n, _ = x.shape
         hh, dh = self.num_heads, self.out_dim
         split = lambda t: t.reshape(b, n, hh, dh).transpose(1, 2)
         scale = 1.0 / math.sqrt(dh)
-        if e_emb is None:
+        if self.E is None:
+            scores = lambda q, k, _e: (split(q(x)) @ split(k(x)).transpose(
+                -1, -2)) * scale
+        elif e_emb is None:
             et = edge_ids.transpose(1, 2)
             scores = lambda q, k, e_lin: typed_edge_scores(
                 split(q(x)), split(k(x)),
@@ -264,7 +267,9 @@ class GraphiTSpectraNet(LSPENetBase):
     GraphiT-LSPE net). forward(batch) returns [B, n_out], or [B, N, n_out]
     with `node_level`. Bond types take the typed route when there are at
     most 16 (or as `typed_edges` says), else the dense edge field.
-    `adaptive_edge_pe` reads the p-step kernel from `batch.pe`. Weights
+    `adaptive_edge_pe` reads the p-step kernel from `batch.pe`. Without
+    `edge_features` (the TU graphs carry no bond types) there is no bond
+    embedding and the attention reads no edge features. Weights
     come from a `torch.Generator` seeded with `seed`; built on `device`
     (default CUDA). `gamma` is kept for the configs (the attention has no
     gamma weighting)."""
@@ -282,7 +287,7 @@ class GraphiTSpectraNet(LSPENetBase):
                  node_level: bool = False,
                  typed_edges: Optional[bool] = None,
                  categorical_input: bool = True, in_feat_dim: int = 0,
-                 seed: int = 0, device=None):
+                 edge_features: bool = True, seed: int = 0, device=None):
         super().__init__()
         g = self._init_base(
             num_atom_type=num_atom_type, hidden_dim=hidden_dim,
@@ -292,11 +297,14 @@ class GraphiTSpectraNet(LSPENetBase):
         self.use_lapeig_loss, self.node_level = use_lapeig_loss, node_level
         self.typed_edges = (num_bond_type <= 16 if typed_edges is None
                             else typed_edges)
-        self.embedding_e = embedding(num_bond_type, hidden_dim, g)
+        self.edge_features = edge_features
+        if edge_features:
+            self.embedding_e = embedding(num_bond_type, hidden_dim, g)
         self.layers = nn.ModuleList(
             GraphiTSpectraLSPELayer(
                 hidden_dim, out_dim if i + 1 == n_layers else hidden_dim,
-                n_heads, hidden_dim, full_graph=full_graph, dropout=dropout,
+                n_heads, hidden_dim if edge_features else 0,
+                full_graph=full_graph, dropout=dropout,
                 layer_norm=layer_norm, batch_norm=batch_norm,
                 residual=residual, adaptive_edge_pe=adaptive_edge_pe,
                 filter_order=filter_order, spectra=spectra, generator=g,
@@ -309,9 +317,12 @@ class GraphiTSpectraNet(LSPENetBase):
             raise NotImplementedError(
                 "use_lapeig_loss raises in the reference spectra net too "
                 "(graphit_spectra_net.py:140-143)")
-        et = bond_types(self, batch)
-        edges = (dict(e_table=self.embedding_e.weight, edge_ids=et)
-                 if self.typed_edges else dict(e_emb=self.embedding_e(et)))
+        edges = {}
+        if self.edge_features:
+            et = bond_types(self, batch)
+            edges = (dict(e_table=self.embedding_e.weight, edge_ids=et)
+                     if self.typed_edges
+                     else dict(e_emb=self.embedding_e(et)))
         h, p = self._input(batch)
         for layer in self.layers:
             h, p = layer(h, p, batch.adj, batch.node_mask, batch.pe, **edges)

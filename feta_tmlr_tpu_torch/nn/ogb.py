@@ -6,7 +6,7 @@ The OGB atom and bond encoders are sums of one embedding per categorical
 feature column (ogb.graphproppred.mol_encoder; the vocabularies are
 `data/ogb_raw.py`'s ATOM_FEATURE_DIMS and BOND_FEATURE_DIMS). The three
 models share one trunk: the atom encoder, the optional Laplacian PE, the
-FeTA encoder with its last layer filtered, and the masked mean over each
+FeTA encoder (its last layer filtered by default), and the masked mean over each
 graph's real nodes; then a Linear -> leaky ReLU -> Linear head (`cls_fc1`,
 `cls_fc2`). Their CLIs run d_model 128 (molhiv: 8 heads, 4 layers, ff
 256), which the unfolded flash kernels take through their wide-row
@@ -29,7 +29,7 @@ from feta_tmlr_tpu_torch.data.ogb_raw import (
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.feta import FeTAEncoder
 from feta_tmlr_tpu_torch.nn.layers import dense
-from feta_tmlr_tpu_torch.nn.models import coefficient_regularizer
+from feta_tmlr_tpu_torch.nn.models import coefficient_regularizer, embed
 from feta_tmlr_tpu_torch.ops.masking import masked_mean
 
 
@@ -87,15 +87,19 @@ class _OGBFeTA(nn.Module):
     `torch.Generator` seeded with `seed`; the module is built on `device`
     (default CUDA; raises if CUDA is absent and the CPU was not asked for).
     `attention_impl`, `head_fold` and `flash_need_heads` pick the layers'
-    kernel route as in `nn/models.py`. Only the JAX models' default
-    variant is ported: gnn_type 'ChebConvDynamic', last_layer_filter,
-    dynamic coefficients and use_skip_conn."""
+    kernel route as in `nn/models.py`; `gnn_type`, `last_layer_filter`,
+    `learn_only_filter_order_coeff` and `use_skip_conn` are the FeTA
+    encoder's filter options (`nn/feta.py`), with the JAX models'
+    defaults."""
 
     def __init__(self, nb_class: int, d_model: int = 128, nb_heads: int = 8,
                  dim_feedforward: int = 256, dropout: float = 0.1,
                  nb_layers: int = 4, batch_norm: bool = False,
                  lap_pos_enc: bool = False, lap_pos_enc_dim: int = 0,
-                 filter_order: int = 4, attention_impl: str = "flash",
+                 filter_order: int = 4, gnn_type: str = "ChebConvDynamic",
+                 last_layer_filter: bool = True,
+                 learn_only_filter_order_coeff: bool = False,
+                 use_skip_conn: bool = True, attention_impl: str = "flash",
                  head_fold: bool = False, flash_need_heads: bool = True,
                  seed: int = 0, device=None):
         super().__init__()
@@ -107,7 +111,10 @@ class _OGBFeTA(nn.Module):
             self.embedding_lap_pos_enc = dense(lap_pos_enc_dim, d_model, g)
         self.encoder = FeTAEncoder(
             d_model, nb_heads, nb_layers, dim_feedforward, dropout,
-            batch_norm, filter_order, generator=g,
+            batch_norm, filter_order, gnn_type=gnn_type,
+            last_layer_filter=last_layer_filter,
+            learn_only_filter_order_coeff=learn_only_filter_order_coeff,
+            use_skip_conn=use_skip_conn, generator=g,
             attention_impl=attention_impl, head_fold=head_fold,
             flash_need_heads=flash_need_heads)
         self.cls_fc1 = dense(d_model, d_model, g)
@@ -117,11 +124,8 @@ class _OGBFeTA(nn.Module):
     def trunk(self, batch: GraphBatch):
         """(masked mean of the encoder's node features [B, D],
         coefficients)."""
-        x = self.embedding(batch.x)
-        if self.lap_pos_enc and batch.lap_pe is not None:
-            x = x + self.embedding_lap_pos_enc(batch.lap_pe)
-        out, _attn, coeff = self.encoder(x, batch.pe, batch.adj,
-                                         batch.node_mask,
+        out, _attn, coeff = self.encoder(embed(self, batch), batch.pe,
+                                         batch.adj, batch.node_mask,
                                          degree=batch.degree)
         return masked_mean(out, batch.node_mask, dim=1), coeff
 

@@ -150,8 +150,9 @@ def field_scores(q: torch.Tensor, k: torch.Tensor, e: torch.Tensor,
 
 class SANAttention(nn.Module):
     """Multi-head gamma-weighted attention over the full or the sparse
-    graph, with typed edges or a dense edge field. forward returns (h_out
-    [B, N, H*dh], attn [B, H, N, N], struct_adj [B, N, N])."""
+    graph, with typed edges, a dense edge field or (`edge_dim` 0) no edge
+    features. forward returns (h_out [B, N, H*dh], attn [B, H, N, N],
+    struct_adj [B, N, N])."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int,
                  gamma: float = 1e-5, edge_dim: Optional[int] = None,
@@ -164,24 +165,29 @@ class SANAttention(nn.Module):
         width = num_heads * out_dim
         lin = lambda d_in: dense(d_in, width, g, bias=False)
         self.Q, self.K, self.V = lin(in_dim), lin(in_dim), lin(in_dim)
-        self.E = lin(edge_dim or in_dim)
+        edge = lambda: None if edge_dim == 0 else lin(edge_dim or in_dim)
+        self.E = edge()
         if full_graph:
             self.Q_2, self.K_2 = lin(in_dim), lin(in_dim)
-            self.E_2 = lin(edge_dim or in_dim)
+            self.E_2 = edge()
 
     def forward(self, h, adj, node_mask, e_table=None, edge_ids=None,
                 e_emb=None, gamma_value=None):
         """h [B, N, in_dim]; adj [B, N, N] real edges (src, dst); either
         e_table [T, edge_dim] the bond-type embeddings and edge_ids [B, N,
         N] int types (src, dst), or e_emb [B, N, N, edge_dim] the dense
-        edge field (src, dst). gamma_value: a tensor in place of the
-        static `gamma` (SAN-LSPE learns one, `nn/san_lspe.py`)."""
+        edge field (src, dst); neither with `edge_dim` 0 (no edge
+        features: the scores are q·k alone). gamma_value: a tensor in place
+        of the static `gamma` (SAN-LSPE learns one, `nn/san_lspe.py`)."""
         b, n, _ = h.shape
         hh, dh = self.num_heads, self.out_dim
         split = lambda t: t.reshape(b, n, hh, dh).transpose(1, 2)
         real = in_edge_mask(adj, node_mask)
         scale = 1.0 / math.sqrt(dh)
-        if e_emb is None:
+        if self.E is None:
+            scores = lambda q, k, _e: (split(q(h)) @ split(k(h)).transpose(
+                -1, -2)) * scale
+        elif e_emb is None:
             et = edge_ids.transpose(1, 2)
             scores = lambda q, k, e_lin: typed_edge_scores(
                 split(q(h)), split(k(h)),
@@ -482,6 +488,10 @@ class SANFamily(nn.Module):
     (`spectra[i]` says whether layer i filters), and the readout (per node
     with `node_level`, else masked mean, sum or max and an MLP).
 
+    Without `edge_features` (the TU graphs carry no bond types) there is
+    no bond embedding: the attention reads no edge features, and the edge
+    eigen-PE alone is the SAN_EdgeLPE edge field.
+
     forward(batch) returns the bare outputs, [B, n_out] or [B, N, n_out]
     with `node_level`. Parameters come from a `torch.Generator` seeded with
     `seed`; `dropout_generator` (CPU, seeded with `seed` too) draws every
@@ -496,7 +506,8 @@ class SANFamily(nn.Module):
                  layer_norm: bool, batch_norm: bool, residual: bool,
                  filter_order: int, spectra: Sequence[bool], readout: str,
                  n_out: int, node_level: bool, categorical_input: bool,
-                 typed_edges: bool, in_feat_dim: int, seed: int, device):
+                 typed_edges: bool, in_feat_dim: int, edge_features: bool,
+                 seed: int, device):
         super().__init__()
         if lpe not in LPE_KINDS:
             raise ValueError(f"lpe {lpe!r} is not one of {LPE_KINDS}")
@@ -508,6 +519,7 @@ class SANFamily(nn.Module):
         dev = resolve_device(device)
         self.lpe, self.readout, self.node_level = lpe, readout, node_level
         self.typed_edges, self.in_feat_dropout = typed_edges, in_feat_dropout
+        self.edge_features = edge_features
         g = torch.Generator().manual_seed(seed)
         self.dropout_generator = torch.Generator().manual_seed(seed)
         h_dim = hidden_dim - lpe_dim if lpe == "node" else hidden_dim
@@ -515,13 +527,15 @@ class SANFamily(nn.Module):
         self.embedding_h = (embedding(num_atom_type, h_dim, g)
                             if categorical_input
                             else dense(in_feat_dim, h_dim, g))
-        self.embedding_e = embedding(num_bond_type, e_dim, g)
+        if edge_features:
+            self.embedding_e = embedding(num_bond_type, e_dim, g)
         head = {"node": LPETransformer, "edge": EdgeLPETransformer}.get(lpe)
         if head is not None:
             self.pe_transformer = head(
                 lpe_dim, lpe_heads, lpe_layers, generator=g,
                 dropout_generator=self.dropout_generator)
-        edge_dim = hidden_dim if lpe == "edge" else e_dim
+        edge_dim = ((hidden_dim if lpe == "edge" else e_dim) if edge_features
+                    else (lpe_dim if lpe == "edge" else 0))
         self.layers = nn.ModuleList(
             SANSpectraLayer(hidden_dim,
                             out_dim if i + 1 == n_layers else hidden_dim,
@@ -537,18 +551,22 @@ class SANFamily(nn.Module):
 
     def _edges(self, batch: GraphBatch, h: torch.Tensor) -> dict:
         """The layers' edge inputs, and h with the node eigen-PE."""
-        if batch.edge_type is None:
-            raise ValueError(f"{type(self).__name__} reads bond types: the "
-                             "batch has no edge_type")
-        edges = (dict(e_table=self.embedding_e.weight,
-                      edge_ids=batch.edge_type) if self.typed_edges
-                 else dict(e_emb=self.embedding_e(batch.edge_type)))
+        edges = {}
+        if self.edge_features:
+            if batch.edge_type is None:
+                raise ValueError(f"{type(self).__name__} reads bond types: "
+                                 "the batch has no edge_type")
+            edges = (dict(e_table=self.embedding_e.weight,
+                          edge_ids=batch.edge_type) if self.typed_edges
+                     else dict(e_emb=self.embedding_e(batch.edge_type)))
         if self.lpe == "node":
             h = torch.cat([h, self.pe_transformer(
                 batch.eigvecs, batch.eigvals, batch.node_mask)], -1)
         elif self.lpe == "edge":
-            edges["e_emb"] = torch.cat([edges["e_emb"], self.pe_transformer(
-                batch.eigvecs, batch.eigvals, batch.node_mask)], -1)
+            epos = self.pe_transformer(batch.eigvecs, batch.eigvals,
+                                       batch.node_mask)
+            edges["e_emb"] = (torch.cat([edges["e_emb"], epos], -1)
+                              if self.edge_features else epos)
         return h, edges
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
@@ -582,7 +600,7 @@ class SANNet(SANFamily):
                  n_out: int = 1, node_level: bool = False,
                  categorical_input: bool = True,
                  typed_edges: Optional[bool] = None, in_feat_dim: int = 0,
-                 seed: int = 0, device=None):
+                 edge_features: bool = True, seed: int = 0, device=None):
         typed = (num_bond_type <= 16 and lpe != "edge"
                  if typed_edges is None else typed_edges)
         if typed and lpe == "edge":
@@ -598,7 +616,8 @@ class SANNet(SANFamily):
             filter_order=4, spectra=[False] * n_layers, readout=readout,
             n_out=n_out, node_level=node_level,
             categorical_input=categorical_input, typed_edges=typed,
-            in_feat_dim=in_feat_dim, seed=seed, device=device)
+            in_feat_dim=in_feat_dim, edge_features=edge_features, seed=seed,
+            device=device)
 
 
 class SANNodeSpectra(SANFamily):
@@ -619,7 +638,7 @@ class SANNodeSpectra(SANFamily):
                  readout: str = "mean", n_out: int = 1,
                  node_level: bool = False, categorical_input: bool = True,
                  typed_edges: Optional[bool] = None, in_feat_dim: int = 0,
-                 seed: int = 0, device=None):
+                 edge_features: bool = True, seed: int = 0, device=None):
         spectra = [i + 1 == n_layers if last_layer_filter else True
                    for i in range(n_layers)]
         super().__init__(
@@ -635,4 +654,5 @@ class SANNodeSpectra(SANFamily):
             categorical_input=categorical_input,
             typed_edges=(num_bond_type <= 16 if typed_edges is None
                          else typed_edges),
-            in_feat_dim=in_feat_dim, seed=seed, device=device)
+            in_feat_dim=in_feat_dim, edge_features=edge_features, seed=seed,
+            device=device)

@@ -1,8 +1,11 @@
-"""Dense batched graph Laplacians and the directed GCN normalization.
+"""Dense batched graph Laplacians and GCN normalizations.
 
 `cheb_scaled_laplacian` builds Lhat = 2 L / lambda_max - I as one dense
 [B, N, N] matrix (self loops removed first; PyG get_laplacian diagonal of 1
-on every real node under 'sym'); padded rows and columns are zero.
+on every real node under 'sym'); `graph_laplacian_dense` the unscaled L of
+the same normalizations; `gcn_norm_dense` the symmetric GCN normalization
+(with the missing self loops filled) and `gcn_norm_directed` its directed
+form over the attention graph. Padded rows and columns are zero.
 """
 
 from __future__ import annotations
@@ -64,6 +67,48 @@ def cheb_scaled_laplacian(adj: torch.Tensor, node_mask: torch.Tensor,
             scale = scale[:, None, None]
     lhat = scale * (off + diag[..., :, None] * eye) - mask[..., :, None] * eye
     return lhat * pm
+
+
+def gcn_norm_dense(adj: torch.Tensor, node_mask: torch.Tensor,
+                   add_self_loops: bool = True) -> torch.Tensor:
+    """D^-1/2 A D^-1/2 of a symmetric weighted adjacency: with
+    `add_self_loops`, each real node's missing self loop filled with 1 (an
+    existing one keeps its weight), degrees the row sums (d^-1/2 = 0 where
+    d = 0)."""
+    a = adj * pair_mask(node_mask).to(adj.dtype)
+    if add_self_loops:
+        n = a.shape[-1]
+        eye = torch.eye(n, dtype=a.dtype, device=a.device)
+        diag = torch.diagonal(a, dim1=-2, dim2=-1)
+        missing = (diag == 0) & node_mask.bool()
+        a = a + missing.to(a.dtype)[..., :, None] * eye
+    dis = rsqrt_pos(a.sum(-1))
+    return dis[..., :, None] * a * dis[..., None, :]
+
+
+def graph_laplacian_dense(adj: torch.Tensor, node_mask: torch.Tensor,
+                          normalization: Optional[str] = "sym"
+                          ) -> torch.Tensor:
+    """Unscaled Laplacian, self loops removed first: None D - A, 'sym'
+    I - D^-1/2 A D^-1/2, 'rw' I - D^-1 A (the identity on real nodes
+    only)."""
+    pm = pair_mask(node_mask).to(adj.dtype)
+    n = adj.shape[-1]
+    eye = torch.eye(n, dtype=adj.dtype, device=adj.device)
+    a = adj * pm * (1.0 - eye)
+    deg = a.sum(-1)
+    mask = node_mask.to(adj.dtype)
+    if normalization == "sym":
+        dis = rsqrt_pos(deg)
+        lap = -dis[..., :, None] * a * dis[..., None, :] \
+            + mask[..., :, None] * eye
+    elif normalization == "rw":
+        dinv = torch.where(deg > 0, 1.0 / torch.where(
+            deg > 0, deg, torch.ones_like(deg)), torch.zeros_like(deg))
+        lap = -dinv[..., :, None] * a + mask[..., :, None] * eye
+    else:
+        lap = -a + deg[..., :, None] * eye
+    return lap * pm
 
 
 def gcn_norm_directed(a: torch.Tensor, node_mask: torch.Tensor,

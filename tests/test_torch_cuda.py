@@ -23,7 +23,11 @@ nets (GraphiT-Spectra-LSPE, GraphiT-LSPE, SAN-LSPE, GatedGCN-LSPE dense
 and sparse, PNA-LSPE dense and sparse with the GRU) at two layers: a
 train-mode step on CUDA against the CPU's from the same weights (loss
 rtol 1e-4, gradients within 1e-3 of each tensor's largest entry), the
-served logits rtol 1e-4 / atol 1e-4, and no kernel launched.
+served logits rtol 1e-4 / atol 1e-4, and no kernel launched. The
+GraphiT baselines at two layers as the ZINC model; the attention kernels
+with pe and deg absent at the ZINC batch; a step of the FeTA model with
+`remat` bit-equal to the same step without it; the molhiv baseline's
+refusal of the fused and folded kernels at d_model 128.
 """
 
 import copy
@@ -42,8 +46,12 @@ from feta_tmlr_tpu_torch.data.synthetic import (
     zinc_like_dataset,
 )
 from feta_tmlr_tpu_torch.nn.models import (
+    DiffGraphTransformer,
+    DiffGraphTransformerGCN,
     DiffGraphTransformerGenGCN,
     DiffGraphTransformerGenGCNSBM,
+    DiffGraphTransformerMolHiv,
+    GraphTransformer,
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
 from feta_tmlr_tpu_torch.nn.gat import GATFeTANet
@@ -941,3 +949,173 @@ def test_cuda_lspe_nets_match_cpu(cuda, net):
     ref = Predictor(cpu_model, device="cpu", **kw).predict(graphs)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
     assert [k.launches for k in kernels] == before
+
+
+# ------------------------------------- the GraphiT baselines, the options
+
+@pytest.mark.cuda
+def test_cuda_unmodulated_kernels_match_plain_at_the_zinc_batch(cuda):
+    """pe and deg absent (nullptr: the vanilla GraphTransformer's
+    attention) at B=128, N=48: the flash forward and both backward passes
+    and the fused pair against their plain versions (ones in place of pe
+    and deg), two runs of each bit-identical."""
+    ops, vw = _ops(21, 128, 8, 48, 64, 64, 11, with_mod=False)
+    gops, gvw = _to(ops, cuda), vw.to(cuda)
+    with torch.no_grad():
+        got = tfl.flash_fwd(vw=gvw, **gops)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, tfl.flash_fwd(vw=gvw, **gops)))
+        want = tfl.flash_fwd_plain(vw=vw, **ops)
+        _close(got, want)
+        g = torch.from_numpy(np.random.default_rng(22).standard_normal(
+            tuple(want[0].shape)).astype(np.float32))
+        outh, m, se, su = want
+        args = (ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"], vw,
+                None, None, ops["mask"], ops["inv_sqrt"], g, m,
+                *bwd_row_constants(g, outh, se, su, ops["mask"]))
+        gargs = tuple(a.to(cuda) if torch.is_tensor(a) else a for a in args)
+        for kernel, plain in ((tfl.flash_bwd_q, tfl.flash_bwd_q_plain),
+                              (tfl.flash_bwd_k, tfl.flash_bwd_k_plain)):
+            got = kernel(*gargs)
+            assert all(torch.equal(a, b) for a, b in zip(got,
+                                                         kernel(*gargs)))
+            _close(got, plain(*args))
+        gf = torch.from_numpy(np.random.default_rng(23).standard_normal(
+            (128, 48, 64)).astype(np.float32))
+        got_f = tfa.fused_attn_fwd(vw=gvw, **gops)
+        assert torch.equal(got_f, tfa.fused_attn_fwd(vw=gvw, **gops))
+        _close([got_f], [tfa.fused_attn_fwd_plain(vw=vw, **ops)])
+        got_b = tfa.fused_attn_bwd(vw=gvw, g=gf.to(cuda), **gops)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got_b, tfa.fused_attn_bwd(vw=gvw, g=gf.to(cuda), **gops)))
+        _close(got_b, tfa.fused_attn_bwd_plain(vw=vw, g=gf, **ops))
+
+
+_BASE = dict(in_size=28, nb_class=1, d_model=64, nb_heads=8,
+             dim_feedforward=128, dropout=0.0, nb_layers=2,
+             lap_pos_enc=True, lap_pos_enc_dim=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,impl,launches", [
+    (GraphTransformer, "flash", (2, 2, 2, 0, 0)),
+    (GraphTransformer, "fused", (0, 0, 0, 2, 2)),
+    (DiffGraphTransformer, "flash", (2, 2, 2, 0, 0)),
+    (DiffGraphTransformerGCN, "fused", (0, 0, 0, 2, 2))])
+def test_cuda_graphit_baseline_step_and_predictor_match_cpu(cuda, cls, impl,
+                                                            launches):
+    """Two-layer baselines on the ZINC batch: one step's loss and
+    gradients and the served logits on CUDA against the CPU, and the
+    launches of a step (a forward and both backward passes a layer on
+    "flash", the fused pair a layer on "fused")."""
+    graphs = zinc_like_dataset(seed=4, n_graphs=6)
+    DiffusionEncoding(beta=1.0).apply_to(graphs)
+    LapEncoding(8).apply_to(graphs)
+    batch = collate_graphs(graphs[:4], max_nodes=48)
+    kw = (_BASE if cls is GraphTransformer
+          else dict(_BASE, batch_norm=True))
+    cpu_model = cls(**kw, attention_impl=impl, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(task="graph_reg", sign_flip=False)
+    counts = lambda: (tfl.flash_fwd.launches, tfl.flash_bwd_q.launches,
+                      tfl.flash_bwd_k.launches, tfa.fused_attn_fwd.launches,
+                      tfa.fused_attn_bwd.launches)
+    before = counts()
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    assert tuple(a - b for a, b in zip(counts(), before)) == launches
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   want[name].grad.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    pkw = dict(max_batch=4, collate_kwargs={"max_nodes": 48})
+    got = Predictor(gpu_model, **pkw).predict(graphs)
+    ref = Predictor(cpu_model, device="cpu", **pkw).predict(graphs)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(), dict(last_layer_filter=False),
+                                  dict(gnn_type="ARMAConvDynamic")])
+def test_cuda_remat_step_is_bit_equal(cuda, opts):
+    """The FeTA ZINC model (2 layers, dropout 0.1) with `remat`: one step
+    on CUDA bit-equal to the step without it from the same weights and
+    global seed (loss, gradients, updated weights, batch-norm statistics),
+    with one more forward's launches (a flash forward a layer, two colstat
+    launches a filtered layer)."""
+    graphs = zinc_like_dataset(seed=5, n_graphs=4)
+    DiffusionEncoding(beta=1.0).apply_to(graphs)
+    LapEncoding(8).apply_to(graphs)
+    batch = collate_graphs(graphs, max_nodes=48).to(cuda)
+    base = DiffGraphTransformerGenGCN(**_ZINC, **opts, device=cuda)
+    base.encoder.layers.apply(lambda m: setattr(m, "p", 0.1)
+                              if isinstance(m, torch.nn.Dropout) else None)
+    runs = []
+    for remat in (False, True):
+        model = copy.deepcopy(base)
+        model.encoder.remat = remat
+        torch.manual_seed(3)
+        before = tfl.flash_fwd.launches, tcs.colstat.launches
+        loss = Trainer(model, TrainConfig(task="graph_reg",
+                                          sign_flip=False)).step(batch)
+        runs.append((loss, model, (tfl.flash_fwd.launches - before[0],
+                                   tcs.colstat.launches - before[1])))
+    (l0, m0, c0), (l1, m1, c1) = runs
+    assert torch.equal(l0, l1)
+    for (name, p0), p1 in zip(m0.named_parameters(), m1.parameters()):
+        assert torch.equal(p0.grad, p1.grad) and torch.equal(p0, p1), name
+    for (name, b0), b1 in zip(m0.named_buffers(), m1.buffers()):
+        assert torch.equal(b0, b1), name
+    layers = _ZINC["nb_layers"]
+    filtered = layers if opts.get("last_layer_filter") is False else 1
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (layers, 2 * filtered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(attention_impl="fused"),
+                                dict(head_fold=True)])
+def test_cuda_molhiv_baseline_refuses_width_128(cuda, kw):
+    """The fused pair and the folded kernels take D <= 64: the molhiv
+    baseline at d_model 128 raises on them, with no fallback and no
+    launch."""
+    graphs = ogb_like_dataset(seed=3, n_graphs=4)
+    batch = collate_graphs(graphs, max_nodes=32).to(cuda)
+    model = DiffGraphTransformerMolHiv(
+        d_model=128, nb_heads=8, dim_feedforward=256, dropout=0.0,
+        nb_layers=2, device=cuda, **kw).eval()
+    before = (tfa.fused_attn_fwd.launches, tfl.flash_fwd_hf.launches,
+              tfl.flash_fwd.launches)
+    with torch.no_grad(), pytest.raises(ValueError, match="64"):
+        model(batch)
+    assert (tfa.fused_attn_fwd.launches, tfl.flash_fwd_hf.launches,
+            tfl.flash_fwd.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalization", ["rw", None])
+def test_cuda_lambda_max_within_the_cpu_float32_error(cuda, normalization):
+    """The power iteration's lambda_max on the card in float32 at the ZINC
+    batch: each graph's error from float64 within 2x the CPU float32
+    route's error on that graph plus two float32 ulps of its value, with
+    no host sync."""
+    from feta_tmlr_tpu_torch.ops.lambda_max import laplacian_lambda_max
+    graphs = zinc_like_dataset(seed=6, n_graphs=128)
+    batch = collate_graphs(graphs, max_nodes=48)
+    want = laplacian_lambda_max(batch.adj.double(), batch.node_mask,
+                                normalization)
+    cpu32 = laplacian_lambda_max(batch.adj, batch.node_mask, normalization)
+    gb = batch.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = laplacian_lambda_max(gb.adj, gb.node_mask, normalization)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    err = (got.cpu().double() - want).abs().numpy()
+    bound = (2 * (cpu32.double() - want).abs().numpy()
+             + 2 * np.spacing(want.abs().numpy().astype(np.float32)))
+    over = np.flatnonzero(err > bound)
+    assert over.size == 0, (over, err[over], bound[over])

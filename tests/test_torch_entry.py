@@ -487,8 +487,6 @@ def test_ported_registry_names_resolve_like_jax(name):
 
 @pytest.mark.parametrize("argv,what", [
     (["--packed"], "--packed"),
-    (["--gnn_type", "GCN"], "--gnn_type"),
-    (["--last_layer_filter"], "--last_layer_filter"),
 ])
 def test_zinc_cli_refuses_unported_options(argv, what):
     with pytest.raises(SystemExit, match=f"{what}.*not ported.*ROADMAP"):
