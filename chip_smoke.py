@@ -175,7 +175,18 @@ Phases (any failure raises and the script exits non-zero):
      bit-equal to the same step without it, with one more forward's
      launches; the molhiv baseline refusing "fused" and `head_fold` at
      d_model 128 (`graphit_slice`, ~30 s);
- 15. cli: the port's command-line entry points, as a user runs them (each
+ 15. packed: the same FeTA ZINC model at bench.py's widths on 128
+     zinc_like_dataset graphs packed into ~24 rows of 128 nodes
+     (data/pack.py, PackedDiffGraphTransformerGenGCN: every layer on the
+     plain pair-masked attention, no kernel) against the same graphs
+     padded to 48 on "flash", the same weights: 3 eval requests and 10
+     Trainer steps each, ms a request and a step side by side; no launch
+     on the packed path (exact on the padded one), no host sync in a
+     packed step; the packed logits, mapped back to the graphs, held to
+     the padded ones on the card within 1e-4 and to a float64 CPU forward
+     (the CPU float32 route's error beside); one packed step on 32 graphs
+     held to a float64 CPU step (`packed_slice`);
+ 16. cli: the port's command-line entry points, as a user runs them (each
      module's main() with its argv, in this process so the launch counters
      see it): the config-driven trainer
      (experiments/main_ZINC_graph_regression.py) trains SAN_NodeSpectra at
@@ -224,8 +235,13 @@ Phases (any failure raises and the script exits non-zero):
      and the TU config trainer (main_TU_graph_classification.py) on TUFIX
      with configs/LPE/ZINC/optimized.json (SAN_NodeLPE: #12/#13) and with
      configs/LSPE/GraphiT_ZINC_LSPE.json --model GraphiT (no kernel), 2
-     epochs and one resumed each (`CLI_GRAPHIT_RUNS`);
- 16. print the kernels' JSON line, the card line, and the final status line
+     epochs and one resumed each (`CLI_GRAPHIT_RUNS`); then feta-zinc
+     --packed on the ZINC fixture (no launch), feta-molpcba at d_model 128
+     on 640 synthetic molecules (batches of 256, 128 tasks) and
+     feta-pcqm4m on the LSC fixture through data/smiles.py, each 2 epochs
+     and a resume to 4 held bit for bit to 4 epochs in one run, #1-#4
+     launched exactly as counted (`CLI_OGB_RUNS`, `cli_flash_launches`);
+ 17. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
@@ -272,6 +288,7 @@ import numpy as np
 import torch
 
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
+from feta_tmlr_tpu_torch.data.pack import pack_graphs, pack_rows
 from feta_tmlr_tpu_torch.data.sbm import load_sbm_or_synthetic
 from feta_tmlr_tpu_torch.data.ogb_raw import (
     ATOM_FEATURE_DIMS,
@@ -292,6 +309,12 @@ from feta_tmlr_tpu_torch.experiments import (
 )
 from feta_tmlr_tpu_torch.experiments import (
     run_transformer_gengcn_molhiv as cli_molhiv,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gengcn_molpcba as cli_molpcba,
+)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gengcn_pcqm4m as cli_pcqm4m,
 )
 from feta_tmlr_tpu_torch.experiments import (
     run_transformer_gengcn_SBM_cv as cli_sbm,
@@ -335,6 +358,7 @@ from feta_tmlr_tpu_torch.nn.models import (
     GraphTransformer,
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
+from feta_tmlr_tpu_torch.nn.packed import PackedDiffGraphTransformerGenGCN
 from feta_tmlr_tpu_torch.nn.pna import average_log_degree
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra, hash_dropout
 from feta_tmlr_tpu_torch.ops.kernels import build
@@ -645,7 +669,10 @@ CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "zinc_arma": ["epoch", "loss", "time", "val_mae", "lr"],
                    "zinc_every": ["epoch", "loss", "time", "val_mae", "lr"],
                    "tu_san": ["epoch", "loss", "time", "val_acc", "lr"],
-                   "tu_lspe": ["epoch", "loss", "time", "val_acc", "lr"]}
+                   "tu_lspe": ["epoch", "loss", "time", "val_acc", "lr"],
+                   "zinc_packed": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "molpcba": ["epoch", "loss", "time", "val_ap"],
+                   "pcqm4m": ["epoch", "loss", "time", "val_mae"]}
 FLASH_ROUTE = {"flash_fwd", "colstat", "flash_bwd_q", "flash_bwd_k"}
 MLP_ROUTE = {"fused_mlp_fwd", "fused_mlp_bwd"}
 CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
@@ -660,7 +687,9 @@ CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
                                 "graphit_gcn_cv", "graphit_sbm",
                                 "graphit_molhiv"), FLASH_ROUTE - {"colstat"}),
                "zinc_arma": FLASH_ROUTE, "zinc_every": FLASH_ROUTE,
-               "tu_san": MLP_ROUTE, "tu_lspe": set()}
+               "tu_san": MLP_ROUTE, "tu_lspe": set(),
+               "zinc_packed": set(), "molpcba": FLASH_ROUTE,
+               "pcqm4m": FLASH_ROUTE}
 # the lpe phase: the LPE codebase's other nets at their configs' widths,
 # built by the port's config trainers (resolve_build / construct_model),
 # random weights from a seed, each served (LPE_REQUESTS requests of its
@@ -818,6 +847,24 @@ CLI_GRAPHIT_RUNS = (
       "--model", "GraphiT", "--dataset", "TUFIX", "--datadir",
       CLI_FIXTURES]),
 )
+# the cli phase's runs of packed batches and the last two FeTA OGB CLIs:
+# feta-zinc --packed on the ZINC fixture (no kernel: packed rows take the
+# plain pair-masked attention), feta-molpcba on CLI_MOLPCBA_GRAPHS synthetic
+# molecules (2 training batches of its CLI's 256) and feta-pcqm4m on the LSC
+# fixture through data/smiles.py, each 2 epochs and a resume to 4 held bit
+# for bit to 4 epochs in one run. (label, main, argv, the run's training,
+# validation and test batches, from which `cli_flash_launches` counts its
+# exact #1-#4 launches, or None where no kernel may launch)
+CLI_MOLPCBA_GRAPHS = 640      # 512 / 64 / 64
+CLI_OGB_RUNS = (
+    ("zinc_packed", cli_zinc.main,
+     ["--datadir", CLI_FIXTURES, "--lappe", "--pos-enc", "diffusion",
+      "--packed"], None),
+    ("molpcba", cli_molpcba.main,
+     ["--datadir", "no-dataset", "--synthetic-graphs",
+      str(CLI_MOLPCBA_GRAPHS)], (2, 1, 1)),
+    ("pcqm4m", cli_pcqm4m.main, ["--datadir", CLI_FIXTURES], (1, 1, 1)),
+)
 # serve_main from a GraphiT-Spectra-LSPE checkpoint of the ZINC trainer
 CLI_LSPE_SERVE = os.path.join(ROOT, "configs/LSPE/GraphiT_ZINC_LSPE.json")
 # the graphit phase: the GraphiT baselines and the FeTA filter's options
@@ -877,6 +924,20 @@ GRAPHIT_NETS = (
 # `--precision`'s backward probe: the canonical signs and the `--rounding`
 # sign pattern on which the N=2048 step's CUDA gradients were furthest
 # from float64 against the CPU's float32 route (3.99x, PERF.md)
+# the packed phase: the flagship ZINC regressor at ZINC_CFG's widths on
+# ZINC_GRAPHS zinc_like_dataset graphs packed into rows of PACKED_ROW nodes
+# (data/pack.py) against the same graphs padded to ZINC_NODES on the
+# "flash" route: PACKED_REQUESTS eval forwards and PACKED_STEPS Trainer
+# steps each; every layer of a packed row takes the plain pair-masked
+# chain, so the packed path launches no kernel. Packed logits are held to
+# the padded model's on the card (same weights) within PACKED_TOL, and to a
+# float64 CPU forward within SLICE_TOL; a step on PACKED_STEP_GRAPHS graphs
+# to a float64 CPU step
+PACKED_ROW = 128
+PACKED_REQUESTS = 3
+PACKED_STEPS = 10
+PACKED_TOL = dict(rtol=1e-4, atol=1e-4)
+PACKED_STEP_GRAPHS = 32
 PROBE_PATTERNS = (0, 4)
 
 
@@ -3186,6 +3247,159 @@ def graphit_slice(device, card):
     return runs
 
 
+def packed_request(model, batch, device):
+    """One eval forward of a host batch: the copy to the card, the forward
+    and the logits back on the host."""
+    with torch.inference_mode():
+        return model(batch.to(device))[0].cpu().numpy()
+
+
+def packed_slice(device, card):
+    """The packed phase: the ZINC regressor at ZINC_CFG's widths on
+    ZINC_GRAPHS graphs packed into rows of PACKED_ROW nodes against the same
+    graphs padded to ZINC_NODES on the "flash" route, the same weights:
+    PACKED_REQUESTS eval forwards and PACKED_STEPS Trainer steps each, ms a
+    request and a step side by side; no launch on the packed path (exact
+    "flash" launches on the padded one), no host sync in a packed step;
+    the packed logits, mapped back to the graphs, held to the padded
+    model's on the card (PACKED_TOL) and to a float64 CPU forward
+    (SLICE_TOL, the CPU float32 route's error beside); one packed step held
+    to a float64 CPU step. Returns the launches of each run."""
+    t0 = time.perf_counter()
+    graphs = zinc_like_dataset(seed=0, n_graphs=ZINC_GRAPHS)
+    DiffusionEncoding(beta=1.0).apply_to(graphs)
+    LapEncoding(dim=ZINC_CFG["lap_pos_enc_dim"]).apply_to(graphs)
+    rows = pack_rows([g.num_nodes for g in graphs], PACKED_ROW)
+    batches = {"packed": pack_graphs(graphs, row_len=PACKED_ROW),
+               "padded": collate_graphs(graphs, max_nodes=ZINC_NODES)}
+    real = sum(g.num_nodes for g in graphs)
+    print(f"packed: {len(graphs)} ZINC-like graphs ({real} nodes, host PE "
+          f"{time.perf_counter() - t0:.2f} s) in {len(rows)} rows of "
+          f"{PACKED_ROW} ({real / (len(rows) * PACKED_ROW):.1%} real, up to "
+          f"{max(map(len, rows))} graphs a row) against {len(graphs)} rows "
+          f"of {ZINC_NODES} ({real / (len(graphs) * ZINC_NODES):.1%} real)",
+          flush=True)
+
+    def in_graph_order(logits):
+        out = np.zeros((len(graphs),) + logits.shape[2:], np.float32)
+        for r, members in enumerate(rows):
+            for slot, gi in enumerate(members):
+                out[gi] = logits[r, slot]
+        return out
+
+    padded = DiffGraphTransformerGenGCN(**ZINC_CFG, attention_impl="flash",
+                                        seed=0, device=device)
+    calibrate_batch_norm(padded, batches["padded"], device)
+    models = {"packed": PackedDiffGraphTransformerGenGCN(
+        **ZINC_CFG, seed=0, device=device), "padded": padded}
+    models["packed"].load_state_dict(padded.state_dict())
+    models["packed"].eval()
+    runs, served, ms = [], {}, {}
+    want = {"packed": NONE, "padded": {
+        k: PACKED_REQUESTS * v
+        for k, v in ZINC_REQUEST_LAUNCHES["flash"].items()}}
+    for label, model in models.items():
+        reset_launches()
+        call_ms = []
+        for _ in range(PACKED_REQUESTS):
+            t1 = time.perf_counter()
+            served[label] = packed_request(model, batches[label], device)
+            call_ms.append((time.perf_counter() - t1) * 1e3)
+        launches = read_launches()
+        runs.append(launches)
+        ms[label] = call_ms
+        if launches != want[label]:
+            raise AssertionError(f"packed {label}: launches {launches} for "
+                                 f"{PACKED_REQUESTS} requests; expected "
+                                 f"{want[label]}")
+    got = in_graph_order(served["packed"])
+    if not np.isfinite(got).all():
+        raise AssertionError("packed: non-finite logits")
+    gap = lambda a, b: float(np.abs(a - b).max())
+    np.testing.assert_allclose(got, served["padded"], **PACKED_TOL)
+    cpu = copy.deepcopy(models["packed"]).to("cpu")
+    with torch.inference_mode():
+        ref32 = in_graph_order(cpu(batches["packed"])[0].numpy())
+        ref = in_graph_order(cpu.to(torch.float64)(
+            as_float64(batches["packed"]))[0].numpy())
+    np.testing.assert_allclose(got, ref, **SLICE_TOL)
+    print(f"packed serve: {PACKED_REQUESTS} requests of {len(graphs)} "
+          f"graphs, ms/request packed "
+          f"{[round(t, 2) for t in ms['packed']]} (median "
+          f"{statistics.median(ms['packed'][1:]):.2f} after the first), "
+          f"padded flash {[round(t, 2) for t in ms['padded']]} (median "
+          f"{statistics.median(ms['padded'][1:]):.2f}); launches packed "
+          f"{ {k: v for k, v in runs[0].items() if v} }, padded "
+          f"{ {k: v // PACKED_REQUESTS for k, v in runs[1].items() if v} } a "
+          f"request; logits of {len(graphs)} graphs: packed vs padded on the "
+          f"card max abs err {gap(got, served['padded']):.3e} (tolerance "
+          f"rtol 1e-4 atol 1e-4), against float64 on the CPU CUDA "
+          f"{gap(got, ref):.3e}, CPU float32 {gap(ref32, ref):.3e} (max |y| "
+          f"{float(np.abs(ref).max()):.3f}; tolerance rtol 1e-3 atol 1e-3); "
+          f"on {card}", flush=True)
+
+    cfg = TrainConfig(task="graph_reg", lr=1e-3, weight_decay=1e-5,
+                      sign_flip=True, seed=0)
+    initial = None
+    step = {}
+    for label in ("packed", "padded"):
+        model = (PackedDiffGraphTransformerGenGCN(**ZINC_CFG, seed=1,
+                                                  device=device)
+                 if label == "packed" else DiffGraphTransformerGenGCN(
+                     **ZINC_CFG, attention_impl="flash", seed=1,
+                     device=device))
+        if label == "packed":
+            initial = copy.deepcopy(model)
+        batch = batches[label].to(device)
+        trainer = Trainer(model, cfg)
+        reset_launches()
+        losses, window = timed_epochs(trainer, [batch], PACKED_STEPS)
+        launches = read_launches()
+        runs.append(launches)
+        syncs = step_syncs(trainer, batch)
+        step[label] = [r[0] for r in window]
+        expect = (NONE if label == "packed" else {
+            k: PACKED_STEPS * v
+            for k, v in ZINC_STEP_LAUNCHES["flash"].items()})
+        print(f"packed train [{label}]: {PACKED_STEPS} steps of "
+              f"{len(graphs)} graphs in {batch.x.shape[0]} rows of "
+              f"{batch.x.shape[1]} (L1, AdamW lr 1e-3, sign flip on): "
+              f"ms/step {[round(t, 2) for t in step[label]]}, median "
+              f"{statistics.median(step[label][1:]):.2f} after the first; "
+              f"losses {[round(x, 6) for x in losses]}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; host syncs in "
+              f"one more step: {len(syncs)} {syncs[:3]}; on {card}",
+              flush=True)
+        if launches != expect:
+            raise AssertionError(f"packed train [{label}]: launches "
+                                 f"{launches}; expected {expect}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"packed train [{label}]: losses {losses}")
+        if syncs:
+            raise AssertionError(f"packed train [{label}]: a step syncs the "
+                                 f"host: {syncs}")
+    print(f"packed against padded (flash) at B={len(graphs)} graphs: "
+          f"ms/request {statistics.median(ms['packed'][1:]):.2f} / "
+          f"{statistics.median(ms['padded'][1:]):.2f}, ms/step "
+          f"{statistics.median(step['packed'][1:]):.2f} / "
+          f"{statistics.median(step['padded'][1:]):.2f}; on {card}",
+          flush=True)
+    step_parity(initial, graphs[:PACKED_STEP_GRAPHS], device, "packed step",
+                lambda gs: pack_graphs(gs, row_len=PACKED_ROW),
+                TrainConfig(task="graph_reg", regularization=0.1,
+                            sign_flip=False), STEP_PARAMS)
+    return runs
+
+
+def logs_columns(out):
+    """The header of the logs.csv a CLI wrote under `out` (the GraphiT
+    CLIs nest it in directories named after their flags)."""
+    (path,) = [os.path.join(root, "logs.csv")
+               for root, _, files in os.walk(out) if "logs.csv" in files]
+    with open(path) as f:
+        return f.readline().strip().split(",")
+
+
 def cli_train(name, main, argv, workdir, card, device="cuda"):
     """One CLI trainer for CLI_EPOCHS epochs into a checkpoint directory,
     then one more epoch resumed from it; returns the launches of both runs
@@ -3204,10 +3418,7 @@ def cli_train(name, main, argv, workdir, card, device="cuda"):
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
     launches = read_launches()
-    logs = [os.path.join(root, "logs.csv")
-            for root, _, files in os.walk(out) if "logs.csv" in files]
-    with open(logs[0]) as f:
-        columns = f.readline().strip().split(",")
+    columns = logs_columns(out)
     losses = [r["loss"] for r in result["history"] + resumed["history"]]
     print(f"cli {name}: {CLI_EPOCHS} epochs in {train_s:.2f} s and one "
           f"resumed epoch in {resume_s:.2f} s on {card}; epoch losses "
@@ -3228,12 +3439,13 @@ def cli_train(name, main, argv, workdir, card, device="cuda"):
     return launches, ckpt
 
 
-def cli_exact_resume(name, main, argv, workdir, card, device="cuda"):
+def cli_exact_resume(name, main, argv, workdir, card, device="cuda",
+                     exact=None):
     """A CLI trainer for CLI_EPOCHS epochs into a checkpoint directory,
     resumed to 2 * CLI_EPOCHS, against 2 * CLI_EPOCHS epochs in one run:
     every logged number but the times, best_val and every weight bit for
     bit. Holds logs.csv's columns and the kernels launched (none, for the
-    LSPE nets); returns the launches."""
+    LSPE nets; `exact` times each, if given); returns the launches."""
     ckpt = os.path.join(workdir, f"{name}_ckpt")
     out = os.path.join(workdir, f"{name}_out")
     common = argv + ["--device", device]
@@ -3252,8 +3464,7 @@ def cli_exact_resume(name, main, argv, workdir, card, device="cuda"):
     launches = read_launches()
     rows = lambda r: [{k: v for k, v in row.items() if k != "time"}
                       for row in r["history"]]
-    with open(os.path.join(out, "logs.csv")) as f:
-        columns = f.readline().strip().split(",")
+    columns = logs_columns(out)
     differ = sorted(k for k, v in full["state"].items()
                     if not torch.equal(resumed["state"][k], v))
     losses = [r["loss"] for r in full["history"]]
@@ -3274,8 +3485,23 @@ def cli_exact_resume(name, main, argv, workdir, card, device="cuda"):
                              f"uninterrupted one (weights {differ[:5]})")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"cli {name}: losses {losses}")
-    check_cli_launches(name, launches, CLI_KERNELS[name])
+    check_cli_launches(name, launches, CLI_KERNELS[name], exact)
     return launches
+
+
+def cli_flash_launches(batches, layers=MOLHIV_CFG["nb_layers"]):
+    """The exact #1-#4 launches of `cli_exact_resume`'s three fits (4 *
+    CLI_EPOCHS epochs in all) of a FeTA CLI with `layers` layers, its last
+    one filtered, on (training, validation, test) batches a fit: a forward
+    launches flash_fwd a layer and colstat twice, a step one forward and
+    both backward passes a layer; each epoch evaluates the validation
+    batches, each fit ends on the test batches."""
+    train, val, test = batches
+    epochs = 4 * CLI_EPOCHS
+    steps = epochs * train
+    forwards = steps + epochs * val + 3 * test
+    return {"flash_fwd": layers * forwards, "colstat": 2 * forwards,
+            "flash_bwd_q": layers * steps, "flash_bwd_k": layers * steps}
 
 
 def check_cli_launches(label, launches, kernels, exact=None):
@@ -3490,6 +3716,10 @@ def cli_slice(card, device="cuda"):
         for name, main, argv in CLI_GRAPHIT_RUNS:
             runs.append(cli_train(name, main, argv, workdir, card,
                                   device)[0])
+        for name, main, argv, batches in CLI_OGB_RUNS:
+            runs.append(cli_exact_resume(
+                name, main, argv, workdir, card, device,
+                exact=batches and {**NONE, **cli_flash_launches(batches)}))
     return runs
 
 
@@ -3584,8 +3814,11 @@ def step_errors(initial, graphs, device, collate, cfg, params, optional=()):
     the reference: from random weights the 10-layer network's gradients
     reach |g| ~ 40 and amplify f32 rounding, so each float32 route is held
     to it, not to the other. A name in `optional` whose parameter gets no
-    gradient is left out; any other name must get one."""
-    batch = collate_graphs(graphs, **collate)
+    gradient is left out; any other name must get one. `collate` is
+    collate_graphs' keyword arguments, or a function of the graphs that
+    builds the batch (`pack_graphs`)."""
+    batch = (collate(graphs) if callable(collate)
+             else collate_graphs(graphs, **collate))
     runs = {"cuda": (copy.deepcopy(initial), batch.to(device)),
             "cpu32": (copy.deepcopy(initial).to("cpu"), batch),
             "cpu64": (copy.deepcopy(initial).to("cpu", torch.float64),
@@ -4153,6 +4386,8 @@ def main() -> int:
     lap("lspe phase")
     runs += graphit_slice(device, card)
     lap("graphit phase")
+    runs += packed_slice(device, card)
+    lap("packed phase")
     runs += cli_slice(card)
     lap("cli phase")
     print(f"time: build to the end of the cli phase "
@@ -4175,8 +4410,8 @@ def main() -> int:
     # launches: the main paths' runs (SBM at N=1024, SAN, ZINC on its
     # three routes, SBM at N=2048 under its three settings, molhiv, the
     # LPE codebase's other nets, the GraphiT baselines and the FeTA
-    # options, and the entry points of the cli phase, serving and
-    # training)
+    # options, packed batches and their padded twin, and the entry points
+    # of the cli phase, serving and training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,

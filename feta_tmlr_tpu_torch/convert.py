@@ -31,6 +31,11 @@ names its flax leaf:
     filter's `arma_init_weight`, `arma_root_weight` and `arma_bias`, and
     the scalar-coefficient filter's `cheb_weight` keep their flax names.
 
+The packed FeTA model (`nn/packed.py`) has the unpacked model's flax tree
+and the port's unpacked model's names, so the JAX
+`PackedDiffGraphTransformerGenGCN`'s variables (or the unpacked model's)
+load into the port's `PackedDiffGraphTransformerGenGCN` as they are.
+
 Every torch tensor must find its leaf and every flax leaf must be used,
 or the load raises.
 """

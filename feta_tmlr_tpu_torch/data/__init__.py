@@ -11,6 +11,7 @@ from feta_tmlr_tpu_torch.data.ogb_raw import (
     load_ogb_or_synthetic,
     load_ogb_split_idx,
 )
+from feta_tmlr_tpu_torch.data.pack import pack_graphs
 from feta_tmlr_tpu_torch.data.synthetic import (
     ogb_like_dataset,
     random_connected_graph,
@@ -28,7 +29,8 @@ from feta_tmlr_tpu_torch.data.zinc import (
 
 __all__ = ["Graph", "GraphBatch", "collate_graphs", "find_ogb_root",
            "load_ogb", "load_ogb_graphs", "load_ogb_or_synthetic",
-           "load_ogb_split_idx", "ogb_like_dataset", "pad_bucket",
+           "load_ogb_split_idx", "ogb_like_dataset", "pack_graphs",
+           "pad_bucket",
            "find_zinc_dir", "load_zinc", "load_zinc_or_synthetic",
            "load_zinc_split", "random_connected_graph",
            "random_graph_dataset", "sbm_like_dataset",

@@ -6,7 +6,10 @@ attention, Laplacian builds and Chebyshev recurrences are batched matmuls.
 Collation runs in numpy on the host (`node_mask == True` means a real node);
 `GraphBatch.to(device)` moves the tensors to the card. With `with_coo` the
 batch also carries the padded COO edge list and each node's in-edge table,
-which the sparse GatedGCN / PNA layers read (`ops/sparse_agg.py`).
+which the sparse GatedGCN / PNA layers read (`ops/sparse_agg.py`). A packed
+batch (`data/pack.py`) holds several graphs a row and carries `graph_id`
+(each node's graph slot in its row, -1 on padding) and `graph_mask` (the
+row's valid slots).
 """
 
 from __future__ import annotations
@@ -83,6 +86,8 @@ class GraphBatch:
     edge_attr: Optional[torch.Tensor] = None    # [B, E, Fe] float32
     in_edges: Optional[torch.Tensor] = None     # [B, N, K] int32 edge ids
     in_edge_mask: Optional[torch.Tensor] = None  # [B, N, K] bool
+    graph_id: Optional[torch.Tensor] = None     # [B, N] int32 slot (packed)
+    graph_mask: Optional[torch.Tensor] = None   # [B, G] bool valid slots
 
     @property
     def num_graphs(self) -> int:

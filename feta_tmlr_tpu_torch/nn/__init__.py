@@ -47,6 +47,13 @@ from feta_tmlr_tpu_torch.nn.ogb import (
     OGBAtomEncoder,
     OGBBondEncoder,
 )
+from feta_tmlr_tpu_torch.nn.packed import (
+    PackedDiffGraphTransformerGenGCN,
+    PackedFeTAEncoder,
+    PackedFilterCoefficientHead,
+    membership,
+    per_graph_mean,
+)
 from feta_tmlr_tpu_torch.nn.pna import (
     PNALSPELayer,
     PNALSPENet,
@@ -84,8 +91,10 @@ __all__ = ["ATOM_FEATURE_DIMS", "AttnColStats", "BOND_FEATURE_DIMS",
            "GraphiTEncoderLayer", "GraphiTSpectraLSPELayer",
            "GraphiTSpectraNet", "LPETransformer", "LSPEAttention",
            "MLPReadout", "MaskedBatchNorm", "PNALSPELayer", "PNALSPENet",
+           "PackedDiffGraphTransformerGenGCN", "PackedFeTAEncoder",
+           "PackedFilterCoefficientHead",
            "PNATower", "SANAttention", "SANCoeffHead", "SANGTLSPELayer",
            "SANLSPENet", "SANNet", "SANNodeSpectra", "SANSpectraLayer",
            "average_log_degree", "coefficient_regularizer", "lapeig_loss",
-           "masked_max_pool",
+           "masked_max_pool", "membership", "per_graph_mean",
            "san_structure_laplacian", "typed_edge_scores"]

@@ -103,6 +103,8 @@ class FeTAEncoder(nn.Module):
     `flash_need_heads` refine the "flash" route (`nn/layers.py`).
     """
 
+    coeff_head_cls = FilterCoefficientHead
+
     def __init__(self, d_model: int, n_heads: int, n_layers: int,
                  dim_feedforward: int = 2048, dropout: float = 0.1,
                  batch_norm: bool = False, filter_order: int = 4,
@@ -140,7 +142,7 @@ class FeTAEncoder(nn.Module):
             for _ in range(n_layers))
         if not self.dynamic:
             return
-        self.coeff_head = FilterCoefficientHead(
+        self.coeff_head = self.coeff_head_cls(
             self.num_coefficients, generator=g)
         glorot = lambda: nn.Parameter(glorot_uniform_(
             torch.empty(k, dh, dh), g, k * dh, k * dh))

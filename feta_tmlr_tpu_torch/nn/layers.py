@@ -32,6 +32,12 @@ environment switches refine its flash dispatch (they change nothing under
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors.
 
+A `pair_mask` (packed rows, `nn/packed.py`: attention within each packed
+graph only) takes every layer onto the score route with the plain
+pair-masked chain (`ops/attention.py`) on every device, whatever
+`attention_impl` says: no kernel takes a pair mask, and the JAX package
+routes packed rows the same way.
+
 Parameters keep the JAX package's layout so that `convert.from_flax` copies
 them one to one: `qkv` [d, 3d] and `out_proj_kernel` [d, d] are [in, out]
 matrices; `nn.Linear` weights are the transposed flax kernels.
@@ -45,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from feta_tmlr_tpu_torch.ops.attention import modulated_attention_from_scores
 from feta_tmlr_tpu_torch.ops.cheb import head_sum_matmul, node_matmul
 from feta_tmlr_tpu_torch.ops.kernels.flash_attention import (
     flash_graphit_attention,
@@ -141,7 +148,7 @@ class GraphiTEncoderLayer(nn.Module):
     need_heads=True: out_each_head holds the per-head outputs that the FeTA
     block filters spectrally, and attn is `AttnColStats` on the "flash"
     route (unless flash_need_heads is off), the dense attention
-    [B, H, N, N] on the others.
+    [B, H, N, N] on the others and under a pair mask.
     """
 
     def __init__(self, d_model: int, n_heads: int,
@@ -179,7 +186,8 @@ class GraphiTEncoderLayer(nn.Module):
     def _norm(self, norm, x, node_mask):
         return norm(x, node_mask) if self.batch_norm else norm(x)
 
-    def forward(self, x, pe, node_mask, degree=None, need_heads=True):
+    def forward(self, x, pe, node_mask, degree=None, need_heads=True,
+                pair_mask=None):
         b, n, d = x.shape
         h = self.n_heads
         dh = d // h
@@ -207,13 +215,15 @@ class GraphiTEncoderLayer(nn.Module):
         project = lambda heads: (node_matmul(heads.reshape(b, n, d),
                                              self.out_proj_kernel)
                                  + self.out_proj_bias)
-        if need_heads and impl == "flash" and self.flash_need_heads:
+        kernels = pair_mask is None
+        if kernels and need_heads and impl == "flash" \
+                and self.flash_need_heads:
             out_each_head, s = flash_graphit_attention_heads(
                 xa, x, c_q, c_k, c_0, v_nhd.transpose(1, 2), node_mask,
                 pe=pe, degree=degree, head_fold=self.head_fold)
             attn_out = project(out_each_head)
             attn = AttnColStats(s=s)
-        elif not need_heads and impl != "modulation":
+        elif kernels and not need_heads and impl != "modulation":
             kw = {} if impl == "fused" else {"head_fold": self.head_fold}
             fused = (fused_graphit_attention if impl == "fused"
                      else flash_graphit_attention)
@@ -221,15 +231,20 @@ class GraphiTEncoderLayer(nn.Module):
                              degree=degree, **kw) + self.out_proj_bias
             attn = out_each_head = None
         else:
-            # the score route: a plain product, then the modulation kernel;
-            # the products whose sums run over the nodes (the scores'
+            # the score route: a plain product, then the modulation kernel
+            # (under a pair mask, the plain pair-masked chain); the products whose sums run over the nodes (the scores'
             # gradients, attn @ v) in blocks (ops/cheb.py's note)
             scores = (node_matmul(xa, x[:, None].transpose(-1, -2))
                       + c_q.transpose(1, 2)[:, :, :, None]
                       + c_k.transpose(1, 2)[:, :, None, :]
                       + c_0[None, :, None, None]) / math.sqrt(dh)
-            attn = fused_modulated_attention(scores, node_mask, pe=pe,
-                                             degree=degree)
+            if kernels:
+                attn = fused_modulated_attention(scores, node_mask, pe=pe,
+                                                 degree=degree)
+            else:
+                _, attn = modulated_attention_from_scores(
+                    scores, None, node_mask, pe=pe, degree=degree,
+                    pair_mask=pair_mask)
             if need_heads:
                 heads = node_matmul(attn, v_nhd.transpose(1, 2))
                 out_each_head = heads.transpose(1, 2)        # [B,N,H,dh]

@@ -90,8 +90,10 @@ class _FeTATransformer(nn.Module):
     """Embedding (+ LapPE) and the FeTA encoder (`nn/feta.py`: its filter
     options `gnn_type`, `last_layer_filter`,
     `learn_only_filter_order_coeff`, `use_skip_conn`, with the JAX models'
-    defaults); subclasses add the head. Construction as the module
-    docstring says."""
+    defaults); subclasses add the head (and may take another encoder
+    class, `encoder_cls`). Construction as the module docstring says."""
+
+    encoder_cls = FeTAEncoder
 
     def __init__(self, in_size: int, nb_class: int, d_model: int,
                  nb_heads: int, dim_feedforward: int = 2048,
@@ -111,7 +113,7 @@ class _FeTATransformer(nn.Module):
         self.embedding = dense(in_size, d_model, g, bias=False)
         if lap_pos_enc:
             self.embedding_lap_pos_enc = dense(lap_pos_enc_dim, d_model, g)
-        self.encoder = FeTAEncoder(
+        self.encoder = self.encoder_cls(
             d_model, nb_heads, nb_layers, dim_feedforward, dropout,
             batch_norm, filter_order, gnn_type=gnn_type,
             last_layer_filter=last_layer_filter,

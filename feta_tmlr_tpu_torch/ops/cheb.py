@@ -6,6 +6,9 @@
 Heads stay a batch axis and each order is one per-head product.
 `cheb_filter_scalar_coeff` is the static-weight variant of the SAN layers:
 W_k shared by all graphs and heads, scaled by a scalar per (graph, head).
+`cheb_filter_dynamic_per_node` is the packed rows' variant (`nn/packed.py`):
+each node carries its own graph's W_k, so the graphs sharing a row are
+filtered with their own weights under one block-diagonal Laplacian.
 
 Summation order. `cheb_filter_dynamic`'s products reduce over the N nodes
 twice: `Lhat Tx` in the forward (and its transpose in the backward), and
@@ -114,6 +117,31 @@ def cheb_filter_dynamic(x: torch.Tensor, lhat: torch.Tensor,
         for k in range(2, k_order):
             tx_next = 2.0 * node_matmul(lh, tx_cur) - tx_prev
             out = out + node_matmul(tx_next, weights[:, :, k])
+            tx_prev, tx_cur = tx_cur, tx_next
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def cheb_filter_dynamic_per_node(x: torch.Tensor, lhat: torch.Tensor,
+                                 weights: torch.Tensor,
+                                 bias: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """x [B, H, N, Din], lhat [B, N, N], weights [B, H, N, K, Din, Dout]
+    per node, bias [Dout] -> [B, H, N, Dout]. The Laplacian products sum
+    over the nodes through `node_matmul`; each node's product with its own
+    weights sums over Din only."""
+    k_order = weights.shape[3]
+    lh = lhat[:, None]                                   # [B, 1, N, N]
+    per_node = lambda t, k: (t[..., None, :] @ weights[:, :, :, k])[..., 0, :]
+    tx_prev = x
+    out = per_node(tx_prev, 0)
+    if k_order > 1:
+        tx_cur = node_matmul(lh, x)
+        out = out + per_node(tx_cur, 1)
+        for k in range(2, k_order):
+            tx_next = 2.0 * node_matmul(lh, tx_cur) - tx_prev
+            out = out + per_node(tx_next, k)
             tx_prev, tx_cur = tx_cur, tx_next
     if bias is not None:
         out = out + bias

@@ -45,8 +45,7 @@ import torch.nn.functional as F
 
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.train.checkpoint import CheckpointManager
-from feta_tmlr_tpu_torch.train.losses import (cross_entropy,
-                                              sample_cross_entropy)
+from feta_tmlr_tpu_torch.train.losses import sample_cross_entropy
 from feta_tmlr_tpu_torch.train.metrics import (
     accuracy_graph,
     accuracy_sbm,
@@ -113,12 +112,17 @@ def task_loss(task: str, logits: torch.Tensor,
     graph_clf: mean cross-entropy of one logit row per graph;
     binary_graph: sigmoid binary cross-entropy with logits, summed over the
     entries whose label is not NaN and divided by their count (at least
-    1)."""
+    1). A packed batch (`graph_mask` [B, G]; logits [B, G, C], y [B, G])
+    takes graph_reg's and graph_clf's means over its valid slots."""
     _check_task(task)
-    if task == "graph_reg":
-        return (logits.reshape(batch.y.shape) - batch.y).abs().mean()
-    if task == "graph_clf":
-        return cross_entropy(logits, batch.y, logits.shape[-1])
+    if task in ("graph_reg", "graph_clf"):
+        per = ((logits.reshape(batch.y.shape) - batch.y).abs()
+               if task == "graph_reg"
+               else sample_cross_entropy(logits, batch.y))
+        if getattr(batch, "graph_mask", None) is None:
+            return per.mean()
+        m = batch.graph_mask.to(per.dtype)
+        return (per * m).sum() / m.sum().clamp_min(1.0)
     if task == "binary_graph":
         y = batch.y.to(logits.dtype)
         if y.dim() < logits.dim():
@@ -250,17 +254,25 @@ class Trainer:
 
     def evaluate(self, batches: Sequence[GraphBatch]) -> dict:
         """Split-level metrics over the concatenated predictions of all
-        batches (node-level batches must share a padded length)."""
+        batches (node-level batches must share a padded length; a packed
+        batch gives the predictions of its valid graph slots)."""
         self.model.eval()
         logits_all, y_all, mask_all = [], [], []
         with torch.inference_mode():
             for b in batches:
                 logits, _ = _model_outputs(self.model(b))
-                logits_all.append(logits.cpu().numpy())
-                y_all.append(b.y.cpu().numpy())
-                mask_all.append(b.node_mask.cpu().numpy())
+                logits, y = logits.cpu().numpy(), b.y.cpu().numpy()
+                if b.graph_mask is not None:
+                    valid = b.graph_mask.cpu().numpy().reshape(-1)
+                    logits = logits.reshape((-1,) + logits.shape[2:])[valid]
+                    y = y.reshape((-1,) + y.shape[2:])[valid]
+                else:
+                    mask_all.append(b.node_mask.cpu().numpy())
+                logits_all.append(logits)
+                y_all.append(y)
         return task_metric(self.cfg.task, np.concatenate(logits_all),
-                           np.concatenate(y_all), np.concatenate(mask_all),
+                           np.concatenate(y_all),
+                           np.concatenate(mask_all) if mask_all else None,
                            binary_metric=self.cfg.binary_metric)
 
     def state_dict(self) -> dict:

@@ -77,8 +77,8 @@ def test_graphit_cli_matches_jax_cli(module, extra, tmp_path):
                          ids=["arma", "every-layer"])
 def test_zinc_cli_filter_options_match_jax_cli(option, tmp_path):
     """feta-zinc with the ARMA filter and with the filter in every layer
-    (once refused); `--packed` still refuses
-    (tests/test_torch_entry.py)."""
+    (once refused); `--packed`, once refused too, runs in
+    tests/test_torch_entry.py."""
     from feta_tmlr_tpu.experiments import run_transformer_gengcn as jzinc
     got = _run_pair(jzinc.main, tzinc.main, ZINC + option, tmp_path)
     assert "mae" in got["test"]

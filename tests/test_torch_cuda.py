@@ -27,7 +27,9 @@ served logits rtol 1e-4 / atol 1e-4, and no kernel launched. The
 GraphiT baselines at two layers as the ZINC model; the attention kernels
 with pe and deg absent at the ZINC batch; a step of the FeTA model with
 `remat` bit-equal to the same step without it; the molhiv baseline's
-refusal of the fused and folded kernels at d_model 128.
+refusal of the fused and folded kernels at d_model 128. The packed ZINC
+model (rows of 128 nodes) as the ZINC model, launching no kernel, and the
+unpacked model's flash launches unchanged beside it.
 """
 
 import copy
@@ -39,6 +41,7 @@ import torch
 from chip_smoke import (EDGE_ROWS, FUSED_CPU32_FACTOR, PATTERN_ROWS,
                         masked_cells, mlp_g_scale, mlp_inputs, mlp_masks)
 from feta_tmlr_tpu_torch.data.batch import collate_graphs
+from feta_tmlr_tpu_torch.data.pack import pack_graphs, pack_rows
 from feta_tmlr_tpu_torch.data.synthetic import (
     ogb_like_dataset,
     sbm_like_dataset,
@@ -54,6 +57,7 @@ from feta_tmlr_tpu_torch.nn.models import (
     GraphTransformer,
 )
 from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
+from feta_tmlr_tpu_torch.nn.packed import PackedDiffGraphTransformerGenGCN
 from feta_tmlr_tpu_torch.nn.gat import GATFeTANet
 from feta_tmlr_tpu_torch.nn.gatedgcn import GatedGCNLSPENet
 from feta_tmlr_tpu_torch.nn.lspe import GraphiTSpectraNet
@@ -1119,3 +1123,110 @@ def test_cuda_lambda_max_within_the_cpu_float32_error(cuda, normalization):
              + 2 * np.spacing(want.abs().numpy().astype(np.float32)))
     over = np.flatnonzero(err > bound)
     assert over.size == 0, (over, err[over], bound[over])
+
+
+# ------------------------------------------------------ packed batches
+
+_ALL_KERNELS = (tfl.flash_fwd, tcs.colstat, tfl.flash_bwd_q, tfl.flash_bwd_k,
+                tfl.flash_fwd_hf, tfl.flash_bwd_q_hf, tfl.flash_bwd_k_hf,
+                tfm.fused_mlp_fwd, tfm.fused_mlp_bwd, tmod.modulation_fwd,
+                tmod.modulation_bwd, tfa.fused_attn_fwd, tfa.fused_attn_bwd)
+
+
+def _launch_counts():
+    return tuple(k.launches for k in _ALL_KERNELS)
+
+
+def _packed_graphs(n=12):
+    graphs = zinc_like_dataset(seed=6, n_graphs=n)
+    DiffusionEncoding(beta=1.0).apply_to(graphs)
+    LapEncoding(8).apply_to(graphs)
+    return graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash", "fused"])
+def test_cuda_packed_step_and_forward_match_cpu(cuda, impl):
+    """The packed ZINC model (2 layers, rows of 128) on CUDA against the
+    CPU from the same weights: one train-mode step's loss (rtol 1e-4) and
+    gradients (rtol 1e-3 / atol 1e-5), then the eval logits (rtol 1e-4 /
+    atol 1e-4); no kernel launched, whatever `attention_impl` says (packed
+    rows take the plain pair-masked chain)."""
+    batch = pack_graphs(_packed_graphs(), row_len=128)
+    cpu_model = PackedDiffGraphTransformerGenGCN(**_ZINC, device="cpu")
+    for layer in cpu_model.encoder.layers:
+        layer.attention_impl = impl
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    cfg = TrainConfig(task="graph_reg", regularization=0.1, sign_flip=False)
+    before = _launch_counts()
+    loss_gpu = Trainer(gpu_model, cfg).step(batch.to(cuda))
+    assert _launch_counts() == before
+    loss_cpu = Trainer(cpu_model, cfg).step(batch)
+    np.testing.assert_allclose(float(loss_gpu), float(loss_cpu), rtol=1e-4)
+    want = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   want[name].grad.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+    # the parameters whose gradient is 0 by construction (biases before a
+    # batch norm) take Adam steps of +-lr from rounding noise: serve the
+    # same weights on both
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    before = _launch_counts()
+    with torch.no_grad():
+        got = gpu_model.eval()(batch.to(cuda))[0].cpu().numpy()
+        ref = cpu_model.eval()(batch)[0].numpy()
+    assert _launch_counts() == before
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_counts_unchanged_without_a_pair_mask(cuda):
+    """The unpacked ZINC model on "flash" (pair_mask None) keeps its
+    launches: a step 2 + 2 + 2 + 2 (flash forward and both backward passes
+    a layer, colstat twice on the filtered one), and its packed twin's
+    logits on the same graphs within rtol 1e-4 / atol 1e-4 of its own."""
+    graphs = _packed_graphs()
+    batch = collate_graphs(graphs, max_nodes=48).to(cuda)
+    model = DiffGraphTransformerGenGCN(**_ZINC, device=cuda)
+    counts = lambda: (tfl.flash_fwd.launches, tcs.colstat.launches,
+                      tfl.flash_bwd_q.launches, tfl.flash_bwd_k.launches)
+    before = counts()
+    Trainer(model, TrainConfig(task="graph_reg", sign_flip=False)).step(batch)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 2, 2)
+    packed = PackedDiffGraphTransformerGenGCN(**_ZINC, device=cuda)
+    packed.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = model.eval()(batch)[0].cpu().numpy()
+        got = packed.eval()(pack_graphs(graphs, row_len=128).to(cuda))[0]
+    rows = pack_rows([g.num_nodes for g in graphs], 128)
+    got = got.cpu().numpy()
+    for r, members in enumerate(rows):
+        for slot, gi in enumerate(members):
+            np.testing.assert_allclose(got[r, slot], want[gi], rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_ogb_atom_encoder_gradient_is_deterministic(cuda):
+    """The OGB atom encoder at a molpcba batch's ~7,000 ids a column: two
+    backward passes give the same table gradients bit for bit (one-hot
+    products; `nn.Embedding`'s backward sums these with atomics on the
+    card), within 1e-5 of each table's largest entry of the CPU's (a row
+    sums up to ~3,500 products in float32 in another order)."""
+    from feta_tmlr_tpu_torch.nn.ogb import OGBAtomEncoder
+    graphs = ogb_like_dataset(seed=0, n_graphs=256)
+    x = collate_graphs(graphs, max_nodes=27).x
+    enc = OGBAtomEncoder(128, generator=torch.Generator().manual_seed(0))
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (256, 27, 128)).astype(np.float32))
+    grads = []
+    for model, dev in ((copy.deepcopy(enc).to(cuda), cuda),
+                       (copy.deepcopy(enc).to(cuda), cuda), (enc, "cpu")):
+        (model(x.to(dev)) * w.to(dev)).sum().backward()
+        grads.append([getattr(model, n).weight.grad.cpu() for n in
+                      model.names])
+    for name, a, b, c in zip(enc.names, *grads):
+        assert torch.equal(a, b), name
+        err = float((a - c).abs().max() / c.abs().max())
+        assert err <= 1e-5, f"{name}: {err:.2e} of max |g|"

@@ -485,12 +485,20 @@ def test_ported_registry_names_resolve_like_jax(name):
     assert (cls.__name__, kwargs) == (jcls.__name__, jkwargs)
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--packed"], "--packed"),
-])
-def test_zinc_cli_refuses_unported_options(argv, what):
-    with pytest.raises(SystemExit, match=f"{what}.*not ported.*ROADMAP"):
-        tzinc_cli.main(argv + ["--device", "cpu"])
+def test_zinc_cli_packed_matches_jax_cli(tmp_path):
+    """feta-zinc --packed (once refused) on the ZINC fixture against the
+    JAX CLI's packed branch with the same argv (tests/test_torch_cli.py's
+    `_run_pair`: result keys, logs.csv and results.csv columns, finite
+    losses, a checkpoint per epoch, a resumed epoch), its batches packed
+    rows of 128 nodes."""
+    from feta_tmlr_tpu.experiments import run_transformer_gengcn as jzinc
+    from test_torch_cli import _run_pair
+    got = _run_pair(jzinc.main, tzinc_cli.main,
+                    ["--datadir", str(ROOT / "tests/fixtures"), "--lappe",
+                     "--lap-dim", "4", "--pos-enc", "diffusion", "--packed"],
+                    tmp_path)
+    assert sorted(got["test"]) == ["mae"] and np.isfinite(got["best_val"])
+    assert "encoder.coeff_head.gcn_kernel" in got["state"]
 
 
 @pytest.mark.parametrize("flag", ["--wire", "--quantize"])
@@ -501,9 +509,15 @@ def test_serve_main_refuses_unported_options(flag):
 
 def test_cli_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for main in (tzinc_cli.main, tmain.main, tserve_main.main):
+    from feta_tmlr_tpu_torch.experiments import (
+        run_transformer_gengcn_molpcba as tmolpcba,
+        run_transformer_gengcn_pcqm4m as tpcqm4m)
+    for main in (tzinc_cli.main, tmain.main, tserve_main.main,
+                 tmolpcba.main, tpcqm4m.main):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tzinc_cli.main(["--packed"])
     from feta_tmlr_tpu_torch.experiments import (
         run_transformer_gengcn_molhiv as tmolhiv)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
