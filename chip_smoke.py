@@ -241,7 +241,29 @@ Phases (any failure raises and the script exits non-zero):
      feta-pcqm4m on the LSC fixture through data/smiles.py, each 2 epochs
      and a resume to 4 held bit for bit to 4 epochs in one run, #1-#4
      launched exactly as counted (`CLI_OGB_RUNS`, `cli_flash_launches`);
- 17. print the kernels' JSON line, the card line, and the final status line
+     then feta-zinc-gckn at its defaults on the ZINC fixture (2 epochs
+     and a resume to 4 held bit for bit to 4 in one run, the GCKN codes
+     recomputed in every run, #1-#4 exact), the nine other GCKN CLIs once
+     each (`CLI_GCKN_RUNS`, k-means over 10,000 sampled paths), and the
+     GAT config (configs/LPE/ZINC/optimized_gat_1.json, batches of 128) on
+     320 synthetic molecules, 2 epochs and a resume to 4 held bit for bit
+     (`CLI_GAT_B128`: the one-hot table gradients of nn/lookup.py);
+ 17. gckn (run before the cli phase): 128 zinc_like_dataset graphs at
+     feta-zinc-gckn's GCKN settings (paths of up to 8 nodes, 32 anchors,
+     sigma 0.6, sum pooling, k-means over 100,000 sampled paths): the
+     native enumeration and path batch and the numpy k-means timed on the
+     host, the encode on the card timed with its peak device memory, two
+     encodes bit-equal, held to a float64 encode on the card and (16
+     graphs) to the CPU's float32 encode within 1e-4 of the largest code;
+     the standardised codes as the lap-PE input of the ZINC regressor
+     (d_model 64, 8 heads, 10 layers, lap_pos_enc_dim 32) on "flash": one
+     request of the 128 graphs (10 + 2 launches, 8 graphs' logits held to
+     a float64 CPU forward), 5 steps (exact launches) and one step on 16
+     graphs held to a float64 CPU step; GCKNSupervised at gckn_sup.py's
+     defaults (paths of 4 nodes, hidden 32, sigma 0.5, sum pooling) on 76
+     graphs: 5 Adam steps, no launch, its first step (two runs bit-equal)
+     held to float64 on the card (`gckn_slice`);
+ 18. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
@@ -348,6 +370,31 @@ from feta_tmlr_tpu_torch.experiments import (
     run_transformer_SBM_cv as cli_graphit_sbm,
 )
 from feta_tmlr_tpu_torch.experiments import serve_main as cli_serve_main
+from feta_tmlr_tpu_torch.experiments import gckn_sup as cli_gckn_sup
+from feta_tmlr_tpu_torch.experiments import gckn_sup_cv as cli_gckn_sup_cv
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn as cli_gckn_graphit)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_cv as cli_gckn_graphit_cv)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_gengcn as cli_zinc_gckn)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_gengcn_cv as cli_gckn_cv)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_gengcn_molpcba as cli_gckn_molpcba)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_gengcn_SBM_cv as cli_gckn_sbm)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_molhiv as cli_gckn_graphit_molhiv)
+from feta_tmlr_tpu_torch.experiments import (
+    run_transformer_gckn_SBM_cv as cli_gckn_graphit_sbm)
+from feta_tmlr_tpu_torch.gckn.layer import sample_paths, unsup_train_layer
+from feta_tmlr_tpu_torch.gckn.models import (
+    GCKNFeature,
+    GCKNSupervised,
+    attach_codes,
+)
+from feta_tmlr_tpu_torch.gckn.paths import build_path_batch
 from feta_tmlr_tpu_torch.nn import feta as feta_mod
 from feta_tmlr_tpu_torch.nn.layers import MaskedBatchNorm
 from feta_tmlr_tpu_torch.nn.models import (
@@ -672,7 +719,19 @@ CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "tu_lspe": ["epoch", "loss", "time", "val_acc", "lr"],
                    "zinc_packed": ["epoch", "loss", "time", "val_mae", "lr"],
                    "molpcba": ["epoch", "loss", "time", "val_ap"],
-                   "pcqm4m": ["epoch", "loss", "time", "val_mae"]}
+                   "pcqm4m": ["epoch", "loss", "time", "val_mae"],
+                   "zinc_gckn": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "gckn_cv": ["epoch", "loss", "time", "val_acc"],
+                   "gckn_sbm": ["epoch", "loss", "time", "val_acc_sbm"],
+                   "gckn_molpcba": ["epoch", "loss", "time", "val_ap"],
+                   "gckn_graphit_zinc": ["epoch", "loss", "time", "val_mae",
+                                         "lr"],
+                   "gckn_graphit_cv": ["epoch", "loss", "time", "val_acc"],
+                   "gckn_graphit_sbm": ["epoch", "loss", "time",
+                                        "val_acc_sbm"],
+                   "gckn_graphit_molhiv": ["epoch", "loss", "time",
+                                           "val_rocauc"],
+                   "gat_b128": ["epoch", "loss", "time", "val_mae", "lr"]}
 FLASH_ROUTE = {"flash_fwd", "colstat", "flash_bwd_q", "flash_bwd_k"}
 MLP_ROUTE = {"fused_mlp_fwd", "fused_mlp_bwd"}
 CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
@@ -689,7 +748,13 @@ CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
                "zinc_arma": FLASH_ROUTE, "zinc_every": FLASH_ROUTE,
                "tu_san": MLP_ROUTE, "tu_lspe": set(),
                "zinc_packed": set(), "molpcba": FLASH_ROUTE,
-               "pcqm4m": FLASH_ROUTE}
+               "pcqm4m": FLASH_ROUTE,
+               **dict.fromkeys(("zinc_gckn", "gckn_cv", "gckn_sbm",
+                                "gckn_molpcba"), FLASH_ROUTE),
+               **dict.fromkeys(("gckn_graphit_zinc", "gckn_graphit_cv",
+                                "gckn_graphit_sbm", "gckn_graphit_molhiv"),
+                               FLASH_ROUTE - {"colstat"}),
+               "gckn_sup": set(), "gckn_sup_cv": set(), "gat_b128": set()}
 # the lpe phase: the LPE codebase's other nets at their configs' widths,
 # built by the port's config trainers (resolve_build / construct_model),
 # random weights from a seed, each served (LPE_REQUESTS requests of its
@@ -865,6 +930,41 @@ CLI_OGB_RUNS = (
       str(CLI_MOLPCBA_GRAPHS)], (2, 1, 1)),
     ("pcqm4m", cli_pcqm4m.main, ["--datadir", CLI_FIXTURES], (1, 1, 1)),
 )
+# the cli phase's GCKN runs: feta-zinc-gckn at its defaults (paths of 8
+# nodes, 100,000 sampled paths, 10 layers of width 64) on the ZINC fixture,
+# 2 epochs and a resume to 4 held bit for bit to 4 epochs in one run (the
+# GCKN codes are recomputed in each run); then each other GCKN CLI once,
+# CLI_EPOCHS epochs at its defaults on a fixture or CLI_GCKN_GRAPHS
+# synthetic graphs, k-means over CLI_GCKN_SAMPLES sampled paths
+CLI_GCKN_SAMPLES = ["--n-sampling-paths", "10000"]
+CLI_GCKN_GRAPHS = ["--synthetic-graphs", "64"]
+CLI_GCKN_RUNS = (
+    ("gckn_cv", cli_gckn_cv.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "TUFIX", "--gckn-agg"]),
+    ("gckn_sbm", cli_gckn_sbm.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "FIXTURE"]),
+    ("gckn_molpcba", cli_gckn_molpcba.main,
+     ["--datadir", "no-dataset"] + CLI_GCKN_GRAPHS),
+    ("gckn_graphit_zinc", cli_gckn_graphit.main, ["--datadir", CLI_FIXTURES]),
+    ("gckn_graphit_cv", cli_gckn_graphit_cv.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "TUFIX"]),
+    ("gckn_graphit_sbm", cli_gckn_graphit_sbm.main,
+     ["--datadir", CLI_FIXTURES, "--dataset", "FIXTURE"]),
+    ("gckn_graphit_molhiv", cli_gckn_graphit_molhiv.main,
+     ["--datadir", "no-dataset"] + CLI_GCKN_GRAPHS),
+    ("gckn_sup", cli_gckn_sup.main, CLI_GCKN_GRAPHS),
+    ("gckn_sup_cv", cli_gckn_sup_cv.main,
+     ["--datadir", "no-dataset"] + CLI_GCKN_GRAPHS),
+)
+# the LPE codebase's GAT config as written (16 layers, batch 128) on 320
+# synthetic ZINC molecules (2 training batches of 128 graphs, ~4,000 atom
+# ids each), 2 epochs and a resume to 4 held bit for bit to 4 epochs in
+# one run: the table gradients of `nn/san.py::embedding()` are one-hot
+# products (nn/lookup.py), not atomic sums
+CLI_GAT_B128 = ("gat_b128", cli_zinc_config.main,
+                ["--config", os.path.join(ROOT,
+                                          "configs/LPE/ZINC/optimized_gat_1.json"),
+                 "--data-dir", "no-dataset", "--synthetic-graphs", "320"])
 # serve_main from a GraphiT-Spectra-LSPE checkpoint of the ZINC trainer
 CLI_LSPE_SERVE = os.path.join(ROOT, "configs/LSPE/GraphiT_ZINC_LSPE.json")
 # the graphit phase: the GraphiT baselines and the FeTA filter's options
@@ -938,6 +1038,29 @@ PACKED_REQUESTS = 3
 PACKED_STEPS = 10
 PACKED_TOL = dict(rtol=1e-4, atol=1e-4)
 PACKED_STEP_GRAPHS = 32
+# the gckn phase: feta-zinc-gckn's GCKN settings (paths of up to 8 nodes,
+# one path layer of 32 anchors, sigma 0.6, sum pooling, k-means over
+# 100,000 sampled paths) on GCKN_GRAPHS zinc_like_dataset graphs; the
+# card's codes held to a float64 encode on the card and, on the first
+# GCKN_CPU_GRAPHS graphs, to the CPU's float32 encode, within GCKN_TOL of
+# the largest code; the standardised codes as the lap-PE input of the
+# ZINC regressor at ZINC_CFG's widths with lap_pos_enc_dim 32 on the
+# "flash" route: one request of the 128 graphs, GCKN_STEPS Trainer steps
+# (L1, plateau schedule), one step on 16 graphs held to a float64 CPU
+# step; then GCKNSupervised at gckn_sup.py's defaults (paths of 4 nodes,
+# hidden 32, sigma 0.5, sum pooling; k-means over GCKN_SUP_SAMPLES paths)
+# on GCKN_SUP_GRAPHS graphs: GCKN_SUP_STEPS Adam steps (L1), the first
+# step's loss and gradients held to float64 on the card
+GCKN_GRAPHS = 128
+GCKN_PE = dict(dim=32, path_size=8, kernel_arg=0.6, pooling="sum",
+               n_sampling_paths=100000)
+GCKN_CFG = dict(ZINC_CFG, lap_pos_enc_dim=GCKN_PE["dim"])
+GCKN_TOL = 1e-4
+GCKN_CPU_GRAPHS = 16
+GCKN_STEPS = 5
+GCKN_SUP_GRAPHS = 96
+GCKN_SUP_SAMPLES = 20000
+GCKN_SUP_STEPS = 5
 PROBE_PATTERNS = (0, 4)
 
 
@@ -3391,6 +3514,204 @@ def packed_slice(device, card):
     return runs
 
 
+def gckn_encode(model, graphs, batch, device, dtype=torch.float32):
+    """(codes [nodes, 32], ms, peak MiB) of one encode on `device`."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    codes = np.concatenate(model.encode(graphs, batch, device=device,
+                                        dtype=dtype))
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 20
+            if device.type == "cuda" else float("nan"))
+    return codes, ms, peak
+
+
+def gckn_supervised_check(graphs, device, card):
+    """GCKNSupervised at gckn_sup.py's defaults on the first 80 % of
+    `graphs`: k-means init, GCKN_SUP_STEPS Adam steps (L1) on the card
+    with finite losses and no kernel launched; its first step's loss and
+    gradients (two runs bit-equal) held to a float64 step on the card
+    (loss rtol STEP_LOSS_RTOL, gradients STEP_GRAD_REL of their largest
+    entry, or of 1e-3 of the largest of all). Returns the launches."""
+    tr = graphs[: int(0.8 * len(graphs))]
+    t0 = time.perf_counter()
+    model = GCKNSupervised(28, [32], [4], 1, kernel_args=0.5, pooling="sum",
+                           seed=0, device=device)
+    model.unsup_init(tr, GCKN_SUP_SAMPLES, seed=0)
+    batch = build_path_batch(tr, 4)
+    init_s = time.perf_counter() - t0
+    y = torch.tensor([float(g.y) for g in tr], device=device)
+    initial = copy.deepcopy(model)
+
+    def first_step(dtype):
+        m = copy.deepcopy(initial).to(dtype=dtype)
+        loss = torch.abs(m(batch)[:, 0] - y.to(dtype)).mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.double().cpu()
+                             for n, p in m.named_parameters()}
+
+    (l32, g32), (l32b, g32b), (l64, g64) = (
+        first_step(torch.float32), first_step(torch.float32),
+        first_step(torch.float64))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(GCKN_SUP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad()
+        loss = torch.abs(model(batch)[:, 0] - y).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = read_launches()
+    # a parameter whose float64 gradient is below 1e-3 of the largest
+    # (the biases when the L1 residuals' signs balance) is held to that
+    floor = 1e-3 * max(float(g.abs().max()) for g in g64.values())
+    rel = {n: float((g32[n] - g).abs().max()) / max(float(g.abs().max()),
+                                                    floor)
+           for n, g in g64.items()}
+    loss_err = abs(l32 - l64) / abs(l64)
+    bits = all(torch.equal(g32[n], g32b[n]) for n in g32) and l32 == l32b
+    print(f"gckn supervised: {len(tr)} graphs, {batch.path_indices[3].shape[0]}"
+          f" paths of 4 nodes, k-means init over {GCKN_SUP_SAMPLES} paths "
+          f"{init_s:.2f} s; {GCKN_SUP_STEPS} Adam steps (L1, lr 1e-3): ms "
+          f"{[round(t, 2) for t in step_ms]}, losses "
+          f"{[round(x, 6) for x in losses]}; first step against float64 on "
+          f"the card: loss {l32:.8f} vs {l64:.8f} (rel {loss_err:.2e}), "
+          f"grad max abs err / max |g| "
+          + ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
+          + f"; two float32 steps bit-equal {bits}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; on {card}",
+          flush=True)
+    if not all(np.isfinite(losses)) or launches != NONE:
+        raise AssertionError(f"gckn supervised: losses {losses}, launches "
+                             f"{launches}")
+    if loss_err > STEP_LOSS_RTOL or max(rel.values()) > STEP_GRAD_REL \
+            or not bits:
+        raise AssertionError(f"gckn supervised: step off float64 (loss "
+                             f"{loss_err:.2e}, grads {rel}) or not "
+                             f"repeatable ({bits})")
+    return launches
+
+
+def gckn_slice(device, card):
+    """The gckn phase (GCKN_* above): enumeration and path batch, k-means
+    and the encode timed; the codes twice bit-equal, held to float64 and
+    to the CPU; the FeTA + GCKN regressor served and trained on "flash"
+    with exact launches; GCKNSupervised stepped. Returns the launches."""
+    graphs = zinc_like_dataset(seed=0, n_graphs=GCKN_GRAPHS)
+    cpu = torch.device("cpu")
+    k = GCKN_PE["path_size"]
+    t0 = time.perf_counter()
+    batch = build_path_batch(graphs, k)
+    enum_s = time.perf_counter() - t0
+    real = sum(int(m.sum()) for m in batch.path_mask)
+    held = sum(p.nbytes for p in batch.path_indices) / 2 ** 20
+    model = GCKNFeature.create(28, [GCKN_PE["dim"]], [k],
+                               GCKN_PE["kernel_arg"],
+                               pooling=GCKN_PE["pooling"], seed=0)
+    t0 = time.perf_counter()
+    paths = sample_paths(model.layers[0], batch.features, batch,
+                         GCKN_PE["n_sampling_paths"], seed=0)
+    model.layers[0] = unsup_train_layer(model.layers[0], paths, seed=0)
+    kmeans_s = time.perf_counter() - t0
+    codes, first_ms, peak = gckn_encode(model, graphs, batch, device)
+    again, ms, peak2 = gckn_encode(model, graphs, batch, device)
+    c64, ms64, _ = gckn_encode(model, graphs, batch, device, torch.float64)
+    sub = graphs[:GCKN_CPU_GRAPHS]
+    sub_batch = build_path_batch(sub, k)
+    sub_card, _, _ = gckn_encode(model, sub, sub_batch, device)
+    sub_cpu, cpu_ms, _ = gckn_encode(model, sub, sub_batch, cpu)
+    scale = float(np.abs(c64).max())
+    err64 = float(np.abs(codes - c64).max()) / scale
+    sub_scale = float(np.abs(sub_cpu).max())
+    err_cpu = float(np.abs(sub_card - sub_cpu).max()) / sub_scale
+    n_nodes = sum(g.num_nodes for g in graphs)
+    print(f"gckn: {len(graphs)} ZINC-like graphs ({n_nodes} nodes), paths "
+          f"of 1-{k} nodes: {real} ({batch.path_mask[k - 1].sum()} of {k} "
+          f"nodes), enumerated (native, built from native/pathenum.cpp) "
+          f"and batched in {enum_s:.2f} s on the host, {held:.0f} MiB of "
+          f"path indices; k-means ({GCKN_PE['dim']} anchors over "
+          f"{paths.shape[0]} sampled paths, numpy) {kmeans_s:.2f} s on the "
+          f"host; encode on the card {first_ms:.1f} ms (paths uploaded), "
+          f"{ms:.1f} ms again, float64 {ms64:.1f} ms; peak device memory "
+          f"{peak:.0f} / {peak2:.0f} MiB; two encodes bit-equal "
+          f"{np.array_equal(codes, again)}; max abs err / max |code| "
+          f"({scale:.3f}) against float64 on the card {err64:.2e}, on "
+          f"{GCKN_CPU_GRAPHS} graphs against the CPU's float32 encode "
+          f"({cpu_ms:.0f} ms) {err_cpu:.2e} (tolerance {GCKN_TOL}); on "
+          f"{card}", flush=True)
+    if not np.array_equal(codes, again):
+        raise AssertionError("gckn: two encodes on the card differ")
+    if not (err64 <= GCKN_TOL and err_cpu <= GCKN_TOL):
+        raise AssertionError(f"gckn: codes off float64 ({err64:.2e}) or "
+                             f"the CPU ({err_cpu:.2e})")
+    attach_codes(graphs, [codes[o - g.num_nodes:o] for g, o in zip(
+        graphs, np.cumsum([g.num_nodes for g in graphs]))])
+
+    net = DiffGraphTransformerGenGCN(**GCKN_CFG, attention_impl="flash",
+                                     seed=0, device=device)
+    collate = dict(max_nodes=ZINC_NODES)
+    calibrate_batch_norm(net, collate_graphs(graphs, **collate), device)
+    pred = Predictor(net, device=device, collate_kwargs=collate,
+                     max_batch=GCKN_GRAPHS)
+    runs = []
+    reset_launches()
+    t0 = time.perf_counter()
+    served = pred.predict(graphs)
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    runs.append(read_launches())
+    if runs[-1] != ZINC_REQUEST_LAUNCHES["flash"]:
+        raise AssertionError(f"gckn serve: launches {runs[-1]}")
+    ref_b = collate_graphs(graphs[:8], **collate)
+    with torch.inference_mode():
+        ref = copy.deepcopy(net).to("cpu", torch.float64)(
+            as_float64(ref_b))[0].numpy()
+        ref32 = copy.deepcopy(net).to("cpu")(ref_b)[0].numpy()
+    gap = lambda a: float(np.abs(a - ref).max())
+    print(f"gckn serve: one request of {len(graphs)} graphs (lap-PE = GCKN "
+          f"codes, dim {GCKN_PE['dim']}) at N={ZINC_NODES} on \"flash\" "
+          f"{serve_ms:.2f} ms; launches "
+          f"{ {k: v for k, v in runs[-1].items() if v} }; logits of 8 "
+          f"graphs against float64 on the CPU: CUDA {gap(served[:8]):.3e}, "
+          f"CPU float32 {gap(ref32):.3e} (max |y| "
+          f"{float(np.abs(ref).max()):.3f}; tolerance rtol 1e-3 atol 1e-3);"
+          f" on {card}", flush=True)
+    np.testing.assert_allclose(served[:8], ref, **SLICE_TOL)
+
+    model = DiffGraphTransformerGenGCN(**GCKN_CFG, attention_impl="flash",
+                                       seed=1, device=device)
+    initial = copy.deepcopy(model)
+    trainer = Trainer(model, TrainConfig(
+        task="graph_reg", lr=1e-3, weight_decay=1e-4, schedule="plateau",
+        plateau_patience=15, plateau_factor=0.5, min_lr=1e-5,
+        sign_flip=False, seed=0))
+    train_b = collate_graphs(graphs, **collate).to(device)
+    reset_launches()
+    losses, window = timed_epochs(trainer, [train_b], GCKN_STEPS)
+    runs.append(read_launches())
+    want = {k: GCKN_STEPS * v for k, v in ZINC_STEP_LAUNCHES["flash"].items()}
+    print(f"gckn train: {GCKN_STEPS} steps of {len(graphs)} graphs (L1, "
+          f"AdamW lr 1e-3, plateau schedule) ms/step "
+          f"{[round(r[0], 2) for r in window]}; losses "
+          f"{[round(x, 6) for x in losses]}; launches "
+          f"{ {k: v for k, v in runs[-1].items() if v} }; on {card}",
+          flush=True)
+    if runs[-1] != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"gckn train: launches {runs[-1]} (expected "
+                             f"{want}), losses {losses}")
+    step_parity(initial, graphs[:16], device, "gckn train", collate,
+                TrainConfig(task="graph_reg", regularization=0.1,
+                            sign_flip=False), STEP_PARAMS)
+    runs.append(gckn_supervised_check(
+        zinc_like_dataset(seed=0, n_graphs=GCKN_SUP_GRAPHS), device, card))
+    return runs
+
+
 def logs_columns(out):
     """The header of the logs.csv a CLI wrote under `out` (the GraphiT
     CLIs nest it in directories named after their flags)."""
@@ -3486,6 +3807,36 @@ def cli_exact_resume(name, main, argv, workdir, card, device="cuda",
     if not all(np.isfinite(losses)):
         raise AssertionError(f"cli {name}: losses {losses}")
     check_cli_launches(name, launches, CLI_KERNELS[name], exact)
+    return launches
+
+
+def cli_once(name, main, argv, workdir, card, device="cuda"):
+    """One run of a CLI for CLI_EPOCHS epochs: logs.csv's columns (the
+    supervised GCKN CLIs write none: their result), finite losses, the
+    kernels of its path and no other; returns the launches."""
+    out = os.path.join(workdir, f"{name}_out")
+    sup = name.startswith("gckn_sup")
+    reset_launches()
+    t0 = time.perf_counter()
+    result = main(argv + ["--epochs", str(CLI_EPOCHS), "--device", device]
+                  + ([] if sup else ["--outdir", out]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    values = ([result] if sup else
+              [r["loss"] for r in result["history"]])
+    print(f"cli {name}: {CLI_EPOCHS} epochs in {secs:.2f} s on {card}; "
+          + (f"test metric {result}" if sup else
+             f"epoch losses {[round(x, 6) for x in values]}, test "
+             f"{result.get('test')}, logs.csv columns {logs_columns(out)}")
+          + f"; launches { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    if not sup and logs_columns(out) != CLI_LOG_COLUMNS[name]:
+        raise AssertionError(f"cli {name}: logs.csv columns "
+                             f"{logs_columns(out)}")
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"cli {name}: {values}")
+    check_cli_launches(name, launches, CLI_KERNELS[name])
     return launches
 
 
@@ -3720,6 +4071,15 @@ def cli_slice(card, device="cuda"):
             runs.append(cli_exact_resume(
                 name, main, argv, workdir, card, device,
                 exact=batches and {**NONE, **cli_flash_launches(batches)}))
+        runs.append(cli_exact_resume(
+            "zinc_gckn", cli_zinc_gckn.main, ["--datadir", CLI_FIXTURES],
+            workdir, card, device, exact={**NONE, **cli_flash_launches(
+                (1, 1, 1), layers=ZINC_CFG["nb_layers"])}))
+        for name, main, argv in CLI_GCKN_RUNS:
+            runs.append(cli_once(name, main, argv + CLI_GCKN_SAMPLES,
+                                 workdir, card, device))
+        runs.append(cli_exact_resume(*CLI_GAT_B128, workdir, card, device,
+                                     exact=NONE))
     return runs
 
 
@@ -4388,6 +4748,8 @@ def main() -> int:
     lap("graphit phase")
     runs += packed_slice(device, card)
     lap("packed phase")
+    runs += gckn_slice(device, card)
+    lap("gckn phase")
     runs += cli_slice(card)
     lap("cli phase")
     print(f"time: build to the end of the cli phase "
@@ -4410,8 +4772,9 @@ def main() -> int:
     # launches: the main paths' runs (SBM at N=1024, SAN, ZINC on its
     # three routes, SBM at N=2048 under its three settings, molhiv, the
     # LPE codebase's other nets, the GraphiT baselines and the FeTA
-    # options, packed batches and their padded twin, and the entry points
-    # of the cli phase, serving and training)
+    # options, packed batches and their padded twin, the FeTA + GCKN
+    # regressor, and the entry points of the cli phase, serving and
+    # training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,

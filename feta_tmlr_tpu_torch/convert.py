@@ -38,10 +38,15 @@ load into the port's `PackedDiffGraphTransformerGenGCN` as they are.
 
 Every torch tensor must find its leaf and every flax leaf must be used,
 or the load raises.
+
+The GCKN models hold no flax variables: `path_layers_from_jax` and
+`gckn_supervised_from_jax` take the JAX package's `PathLayerParams`
+anchors and `GCKNSupervised` parameter dict as numpy arrays.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import numpy as np
@@ -122,4 +127,42 @@ def from_flax(variables: Mapping, model: nn.Module) -> nn.Module:
     unused = sorted(set(leaves) - used)
     if unused:
         raise KeyError(f"flax leaves without a torch counterpart: {unused}")
+    return model
+
+
+def path_layers_from_jax(weights, feature):
+    """The JAX `PathLayerParams` anchors (`[np.asarray(l.weight) for l in
+    jax_feature.layers]`) into the port's `gckn.models.GCKNFeature`
+    `feature`, in place (float32, on the CPU); returns `feature`."""
+    if len(weights) != len(feature.layers):
+        raise ValueError(f"{len(weights)} JAX layers for "
+                         f"{len(feature.layers)} port layers")
+    for i, (w, layer) in enumerate(zip(weights, feature.layers)):
+        if tuple(np.shape(w)) != tuple(layer.weight.shape):
+            raise ValueError(f"layer {i}: JAX shape {np.shape(w)} vs "
+                             f"torch {tuple(layer.weight.shape)}")
+        feature.layers[i] = dataclasses.replace(
+            layer, weight=torch.from_numpy(np.array(w, np.float32)))
+    return feature
+
+
+def gckn_supervised_from_jax(params: Mapping, model: nn.Module) -> nn.Module:
+    """The JAX `GCKNSupervised`'s parameter dict (numpy arrays under its
+    keys, which are the port's parameter names) into the port's
+    `gckn.models.GCKNSupervised` `model`, in place; the path layers'
+    anchors follow `layer_<i>_weight`. Every key must match."""
+    own = dict(model.named_parameters())
+    if sorted(own) != sorted(params):
+        raise KeyError(f"JAX keys {sorted(params)} vs port parameters "
+                       f"{sorted(own)}")
+    with torch.no_grad():
+        for name, tensor in own.items():
+            arr = np.asarray(params[name])
+            if tuple(arr.shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: JAX shape {arr.shape} vs torch "
+                                 f"{tuple(tensor.shape)}")
+            tensor.copy_(torch.from_numpy(np.array(arr, np.float32)))
+    path_layers_from_jax([params[f"layer_{i}_weight"]
+                          for i in range(len(model.feature.layers))],
+                         model.feature)
     return model

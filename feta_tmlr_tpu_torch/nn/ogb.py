@@ -29,31 +29,9 @@ from feta_tmlr_tpu_torch.data.ogb_raw import (
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.feta import FeTAEncoder
 from feta_tmlr_tpu_torch.nn.layers import dense
+from feta_tmlr_tpu_torch.nn.lookup import Lookup
 from feta_tmlr_tpu_torch.nn.models import coefficient_regularizer, embed
 from feta_tmlr_tpu_torch.ops.masking import masked_mean
-
-
-class _Lookup(torch.autograd.Function):
-    """weight[ids], whose weight gradient is the one-hot product
-    onehot(ids)^T @ g: a product sums in a fixed order, where
-    `nn.Embedding`'s backward on the card sums past ~3,000 ids with
-    atomics, in an order that changes from run to run (a molpcba batch of
-    256 molecules: ~7,000 ids a column), so that a resumed run would not
-    be the uninterrupted one bit for bit."""
-
-    @staticmethod
-    def forward(ctx, weight, ids):
-        ctx.save_for_backward(ids)
-        ctx.vocab = weight.shape[0]
-        return weight[ids]
-
-    @staticmethod
-    def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        flat = ids.reshape(-1, 1)
-        onehot = (flat == torch.arange(ctx.vocab, device=ids.device)
-                  ).to(g.dtype)                          # [R, V]
-        return onehot.t() @ g.reshape(flat.shape[0], -1), None
 
 
 class _EmbeddingSum(nn.Module):
@@ -64,7 +42,7 @@ class _EmbeddingSum(nn.Module):
     id < 0 counts from the end of a vocabulary of V rows, and an id outside
     [-V, V) makes its row of the output NaN (an out-of-range index would
     fault the CUDA gather). No host sync checks the ids. The tables'
-    gradients are one-hot products (`_Lookup`), the same bits run to
+    gradients are one-hot products (`nn/lookup.py`), the same bits run to
     run."""
 
     def __init__(self, dims, emb_dim: int, prefix: str,
@@ -85,7 +63,7 @@ class _EmbeddingSum(nn.Module):
         for i, (name, vocab) in enumerate(zip(self.names, self.dims)):
             ids = x[..., i]
             bad = (ids < -vocab) | (ids >= vocab)
-            e = _Lookup.apply(getattr(self, name).weight,
+            e = Lookup.apply(getattr(self, name).weight,
                               torch.where(bad, 0, ids % vocab))
             out = e if out is None else out + e
             outside = bad if outside is None else outside | bad

@@ -59,6 +59,7 @@ from feta_tmlr_tpu_torch.nn.layers import (
     glorot_uniform_,
     lecun_normal_,
 )
+from feta_tmlr_tpu_torch.nn.lookup import OneHotEmbedding
 from feta_tmlr_tpu_torch.ops.cheb import cheb_filter_scalar_coeff
 from feta_tmlr_tpu_torch.ops.kernels.fused_mlp import dropout_scale, fused_mlp
 from feta_tmlr_tpu_torch.ops.masking import (
@@ -91,8 +92,10 @@ def hash_dropout(t: torch.Tensor, rate: float,
 
 
 def embedding(num: int, dim: int, g: torch.Generator) -> nn.Embedding:
-    """nn.Embedding with N(0, 1/num) weights from an explicit generator."""
-    emb = nn.Embedding(num, dim)
+    """nn.Embedding with N(0, 1/num) weights from an explicit generator,
+    its table gradient a one-hot product (`nn/lookup.py`): the same bits
+    run to run on the card."""
+    emb = OneHotEmbedding(num, dim)
     with torch.no_grad():
         emb.weight.normal_(0.0, 1.0 / math.sqrt(num), generator=g)
     return emb

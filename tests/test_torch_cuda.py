@@ -1230,3 +1230,99 @@ def test_cuda_ogb_atom_encoder_gradient_is_deterministic(cuda):
         assert torch.equal(a, b), name
         err = float((a - c).abs().max() / c.abs().max())
         assert err <= 1e-5, f"{name}: {err:.2e} of max |g|"
+
+
+@pytest.mark.cuda
+def test_cuda_one_hot_embedding_gradient_is_deterministic(cuda):
+    """`nn/san.py::embedding()`'s tables (OneHotEmbedding) at a batch of
+    128 graphs of 32 nodes (4,096 atom ids) and its [B, N, N] bond types
+    (131,072 ids): two backward passes give the same table gradients bit
+    for bit, within 1e-5 of each table's largest entry of the CPU's."""
+    from feta_tmlr_tpu_torch.nn.san import embedding
+    g = torch.Generator().manual_seed(0)
+    for vocab, shape in ((28, (128, 32)), (4, (128, 32, 32))):
+        emb = embedding(vocab, 56, g)
+        ids = torch.randint(0, vocab, shape, generator=g, dtype=torch.int32)
+        w = torch.randn(*shape, 56, generator=g)
+        grads = []
+        for model, dev in ((copy.deepcopy(emb).to(cuda), cuda),
+                           (copy.deepcopy(emb).to(cuda), cuda),
+                           (emb, "cpu")):
+            (model(ids.to(dev)) * w.to(dev)).sum().backward()
+            grads.append(model.weight.grad.cpu())
+        assert torch.equal(grads[0], grads[1]), shape
+        err = float((grads[0] - grads[2]).abs().max()
+                    / grads[2].abs().max())
+        assert err <= 1e-5, f"{shape}: {err:.2e} of max |g|"
+
+
+@pytest.mark.cuda
+def test_cuda_segment_ops_are_deterministic(cuda):
+    """segment_sum over 1M unsorted rows into 3,000 segments and
+    gather_rows' backward: the same bits in two runs, within 1e-5 of the
+    largest entry of the CPU's."""
+    from feta_tmlr_tpu_torch.ops.segment import gather_rows, segment_sum
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.standard_normal((1 << 20, 16)).astype(
+        np.float32))
+    ids = torch.from_numpy(rng.integers(0, 3000, 1 << 20))
+    x = torch.from_numpy(rng.standard_normal((3000, 16)).astype(np.float32))
+    runs = []
+    for dev in (cuda, cuda, "cpu"):
+        xs = x.to(dev).requires_grad_(True)
+        gather_rows(xs, ids.to(dev)).mul(data.to(dev)).sum().backward()
+        runs.append((segment_sum(data.to(dev), ids.to(dev), 3000).cpu(),
+                     xs.grad.cpu()))
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max() / c.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_gckn_encode_is_deterministic(cuda, monkeypatch):
+    """GCKN codes of 16 ZINC-like graphs at paths of 6 nodes: two encodes
+    on the card bit-equal, the same bits with blocks of 4,096 path rows,
+    and within 1e-4 of the largest code of the CPU's float32 encode."""
+    from feta_tmlr_tpu_torch.gckn import layer as glayer
+    from feta_tmlr_tpu_torch.gckn.models import GCKNFeature
+    from feta_tmlr_tpu_torch.gckn.paths import build_path_batch
+    graphs = zinc_like_dataset(seed=0, n_graphs=16)
+    model = GCKNFeature.create(28, [32], [6], 0.6, pooling="sum")
+    batch = model.unsup_train(graphs, 20000, seed=0)
+    encode = lambda dev: np.concatenate(model.encode(graphs, batch,
+                                                     device=dev))
+    runs = [encode(cuda), encode(cuda)]
+    monkeypatch.setattr(glayer, "BLOCK_ROWS", 4096)
+    runs += [encode(cuda), encode("cpu")]
+    assert np.array_equal(runs[0], runs[1])
+    assert np.array_equal(runs[0], runs[2])
+    scale = np.abs(runs[3]).max()
+    assert np.abs(runs[0] - runs[3]).max() <= 1e-4 * scale
+    assert build_path_batch(graphs, 6).path_indices[5].shape[0] > 4096
+
+
+@pytest.mark.cuda
+def test_cuda_gckn_supervised_step_matches_cpu(cuda):
+    """A GCKNSupervised step (paths of 4 nodes, hidden 32, sum pooling,
+    L1): two runs' gradients bit-equal on the card, each within 1e-3 of
+    its largest entry of the CPU's, the loss rtol 1e-5."""
+    from feta_tmlr_tpu_torch.gckn.models import GCKNSupervised
+    from feta_tmlr_tpu_torch.gckn.paths import build_path_batch
+    graphs = zinc_like_dataset(seed=0, n_graphs=32)
+    base = GCKNSupervised(28, [32], [4], 1, 0.5, "sum", device="cpu")
+    base.unsup_init(graphs, 5000)
+    batch = build_path_batch(graphs, 4)
+    y = torch.tensor([float(g.y) for g in graphs])
+    runs = []
+    for dev in (cuda, cuda, "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        loss = torch.abs(model(batch)[:, 0] - y.to(dev)).mean()
+        loss.backward()
+        runs.append((loss.item(), {n: p.grad.cpu()
+                                   for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    np.testing.assert_allclose(runs[0][0], runs[2][0], rtol=1e-5)
+    for name, g in runs[2][1].items():
+        assert torch.equal(runs[0][1][name], runs[1][1][name]), name
+        err = float((runs[0][1][name] - g).abs().max() / g.abs().max())
+        assert err <= 1e-3, f"{name}: {err:.2e}"
