@@ -263,7 +263,31 @@ Phases (any failure raises and the script exits non-zero):
      defaults (paths of 4 nodes, hidden 32, sigma 0.5, sum pooling) on 76
      graphs: 5 Adam steps, no launch, its first step (two runs bit-equal)
      held to float64 on the card (`gckn_slice`);
- 18. print the kernels' JSON line, the card line, and the final status line
+ 18. bf16 (run before the cli phase): the bf16 compute policy
+     (FETA_COMPUTE_DTYPE=bfloat16, `bf16_slice`): the unfolded flash forward,
+     colstat and both backward passes with bf16 operands at the SBM training
+     batch (B=4, N=1024, H=8) at D=64 (value widths 64 and 8) and D=128 (128
+     and 16), and at D=64 at the SBM request (B=8) and the ZINC batch (B=128,
+     N=48), pe and deg in bf16 and in float32, each against its plain bf16
+     version on the card, two runs bit-identical; on the training and the ZINC
+     batch some held to float64 within 2x the CPU plain bf16 route's error; on
+     the training batch timed beside the float32 kernel on the same values with
+     bounds at the bf16 peak and 2-byte operands (the JSON rows' `*_bf16` and
+     `ms_f32_twin`); the SBM and ZINC models at 2 layers under each bf16 route
+     (pe/deg bf16 and float32) on the card against the CPU plain version of
+     that route, logits and gradients within 2x the CPU routes' spread, the
+     route by its entry points (`bf16_route_check`); the SBM model of phase 4
+     served (4 requests of 8 graphs) and trained (4 epochs of 2 steps, the
+     first a warm-up) under bf16 and float32 in turns on the same weights,
+     every launch counted by wrapper and by C entry point
+     (`entry_point_tally`), graph 0's served logits held to a float64 CPU
+     forward within 3x the CPU bf16 route's error; the ZINC regressor of phase
+     8 on "flash" and "modulation" under both policies (`zinc_serve`,
+     `zinc_train`), their requests and epochs in 3 interleaved rounds, one bf16
+     step on 16 graphs held to a float64 CPU step as the logits are;
+     feta-torch-zinc under bf16, 2 + 2 epochs bit for bit against 4, every
+     flash launch through a bf16 entry point;
+ 19. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
 `--profile` adds torch.profiler breakdowns of one request's and one
@@ -289,6 +313,7 @@ unavailable.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -408,6 +433,7 @@ from feta_tmlr_tpu_torch.nn.ogb import DiffGraphTransformerGenGCNMolHiv
 from feta_tmlr_tpu_torch.nn.packed import PackedDiffGraphTransformerGenGCN
 from feta_tmlr_tpu_torch.nn.pna import average_log_degree
 from feta_tmlr_tpu_torch.nn.san import SANNodeSpectra, hash_dropout
+from feta_tmlr_tpu_torch.ops.cheb import node_matmul
 from feta_tmlr_tpu_torch.ops.kernels import build
 from feta_tmlr_tpu_torch.ops.kernels import colstat as cs_mod
 from feta_tmlr_tpu_torch.ops.kernels import flash_attention as fl_mod
@@ -499,6 +525,66 @@ TIMED_EPOCHS = 10
 # the last is the ZINC batch, which the "flash" route runs at N=48
 CHECK_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (N_GRAPHS, N_NODES, 60),
                 (N_GRAPHS, 200, 9), (128, 48, 11))
+# the bf16 compute policy's kernel checks (`check_bf16_kernels`): (B, N,
+# padding) of the batches the bf16 paths give the kernels, the SBM
+# training batch (the JSON rows' shape), the SBM request and the ZINC
+# batch, whose partial key tiles take the one-element staging and the edge
+# masks; pe and deg in bf16 and in float32, at D=64 (value widths 64 and
+# 8) and, on the first shape, at the OGB width D=128 (128 and 16)
+PEAK_BF16_FLOPS = 989e12        # bf16 on the tensor cores, dense
+BF16_SHAPES = ((N_GRAPHS // 2, N_NODES, 60), (N_GRAPHS, N_NODES, 60),
+               (128, 48, 11))
+BF16_CHECKS = ((64, (64, 8)), (128, (128, 16)))
+# (D, dv, pe dtype): held to float64 on the first and the last shape (each
+# costs the CPU plain bf16 route at the full shape), and timed on the
+# first (the first gives the JSON row)
+BF16_F64 = ((64, 64, torch.bfloat16), (64, 8, torch.float32),
+            (128, 128, torch.bfloat16))
+BF16_TIMED = ((64, 64, torch.bfloat16), (64, 64, torch.float32),
+              (128, 128, torch.bfloat16))
+# a bf16 kernel against its plain bf16 version on the card: both round P,
+# ds, attn and the outputs to bf16 after float32 sums taken in other
+# orders, so an output next to a rounding edge may land one bf16 step
+# (at most 2^-7 of its size) away; two steps and a small floor. The
+# forward's outh besides: the kernel rounds P against its running row
+# maximum (as the JAX kernel does, per key block), the plain version
+# against the whole row's, so each P may differ by one rounding (2^-8 of
+# it) and outh, a P-weighted mean of vw, by up to 2^-8 max|vw|
+# (`bf16_outh_tol`, as tests/test_torch_mixed_precision.py holds the
+# plain version to the JAX kernel); over ~1000 keys these differences
+# average out, over the ZINC batch's 9-37 they do not
+BF16_KERNEL_TOL = dict(rtol=1.6e-2, atol=1e-3)
+# a bf16 kernel's error from float64 over the CPU plain bf16 route's
+BF16_CPU_FACTOR = 2
+# the served logits' and a step's error from float64 under the policy, on
+# the card over the CPU plain bf16 route's: both round at the same places
+# after float32 sums in other orders, and a flipped rounding grows layer
+# by layer on either route
+BF16_MODEL_FACTOR = 3
+# the route check (`bf16_route_check`): the card under each bf16 route
+# (FETA_COMPUTE_DTYPE=bfloat16 with FETA_BF16_MODULATION 1 and 0) against
+# the CPU plain version of the same route on the same weights, at a depth
+# where rounding has not grown to the output's size. A perturbation of one
+# bf16 rounding, the kernel's order against the plain version's, pe in
+# float32 or the whole policy off, moves the logits and gradients by the
+# same amount (the card's readings: 0.36-1.05 of the largest distance
+# between the CPU routes), so each distance is held to BF16_ROUTE_FACTOR
+# times the largest of the CPU route's distances from the other two, and
+# the route itself by its C entry points. {route: (FETA_COMPUTE_DTYPE,
+# FETA_BF16_MODULATION)}
+BF16_ROUTES = {"bf16": ("bfloat16", "1"), "bf16 pe f32": ("bfloat16", "0"),
+               "f32": (None, None)}
+BF16_ROUTE_FACTOR = 2
+BF16_ROUTE_LAYERS = 2
+BF16_ROUTE_PARAMS = ("encoder.layers.0.qkv", "encoder.layers.1.qkv",
+                     "encoder.layers.1.out_proj_kernel",
+                     "encoder.coeff_head.gcn_kernel",
+                     "classifier.fc2.weight")
+# the bf16 phase's SBM requests and epochs under each policy in turns (the
+# first epoch a warm-up), and its ZINC rounds (`compare_routes`)
+BF16_SBM_ROUNDS = 4
+BF16_SBM_EPOCHS = 4
+BF16_ZINC_ROUNDS = 3
 # the wrappers whose launches a run counts, and their launches per step
 KERNELS = {"flash_fwd": fl_mod.flash_fwd, "colstat": cs_mod.colstat,
            "flash_bwd_q": fl_mod.flash_bwd_q,
@@ -682,6 +768,10 @@ CLI_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs", "LPE", "ZINC", "optimized.json")
 CLI_FIXTURES = MOLHIV_FIXTURES
 CLI_EPOCHS = 2
+# feta-torch-zinc on the ZINC fixture (the cli phase; the bf16 phase under
+# FETA_COMPUTE_DTYPE=bfloat16)
+CLI_ZINC_ARGV = ["--datadir", CLI_FIXTURES, "--lappe", "--lap-dim", "8",
+                 "--pos-enc", "diffusion"]
 CLI_REQUESTS = 8
 CLI_REQUEST_GRAPHS = 32
 CLI_MAX_NODES = 64            # serve_main's default padded size
@@ -696,6 +786,7 @@ CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "molhiv_lpe": ["epoch", "loss", "time", "val_rocauc",
                                   "lr"],
                    "zinc": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "zinc_bf16": ["epoch", "loss", "time", "val_mae", "lr"],
                    "molhiv": ["epoch", "loss", "time", "val_rocauc"],
                    "sbm": ["epoch", "loss", "time", "val_acc_sbm"],
                    "tu": ["epoch", "loss", "time", "val_acc"],
@@ -737,7 +828,8 @@ MLP_ROUTE = {"fused_mlp_fwd", "fused_mlp_bwd"}
 CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
                "config_gat": set(), "sbm_lpe": MLP_ROUTE,
                "molhiv_lpe": MLP_ROUTE,
-               "zinc": FLASH_ROUTE, "molhiv": FLASH_ROUTE,
+               "zinc": FLASH_ROUTE, "zinc_bf16": FLASH_ROUTE,
+               "molhiv": FLASH_ROUTE,
                "sbm": FLASH_ROUTE, "tu": FLASH_ROUTE, "config_lspe": set(),
                "lapeig_lspe": set(), "pattern_lspe": set(),
                "ogbmol_lspe": set(),
@@ -1121,14 +1213,19 @@ def attention_inputs(seed, b, h, n, d, dv, pad, device):
     return ops, vw
 
 
-def max_err(got, want, name):
-    """Largest absolute error; raise where |got - want| > atol + rtol|want|."""
+def max_err(got, want, name, tol=KERNEL_TOL):
+    """Largest absolute error; raise where |got - want| > atol + rtol|want|
+    (bf16 outputs compared in float32)."""
     worst = 0.0
     for g, w in zip(got, want):
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}: non-finite output")
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{name}: dtype {g.dtype}, plain version "
+                                 f"{w.dtype}")
+        g, w = g.float(), w.float()
         worst = max(worst, float((g - w).abs().max()))
-        if not torch.allclose(g, w, **KERNEL_TOL):
+        if not torch.allclose(g, w, **tol):
             raise AssertionError(f"{name}: kernel and plain version differ "
                                  f"(max abs err {worst:.3e})")
     return worst
@@ -1143,27 +1240,30 @@ def real_counts(mask):
     return b, n, float(real.sum()), float((real * real).sum())
 
 
-def flash_cost(mask, h, d, dv):
+def flash_cost(mask, h, d, dv, vb=4, mb=4):
     """(flops, bytes) of the forward on these inputs, counted from the mask
     [B, N]: the score and P·V of each real pair; the real rows of each
     input and the real pairs of pe read once, the whole mask read, each
-    output (outh, m, se, su) written once."""
+    output (outh, m, se, su) written once. vb, mb: bytes of an element of
+    the values (xa, x, vw, outh) and of pe and deg, 2 for bf16 operands."""
     b, n, rows, pairs = real_counts(mask)
     flops = 2.0 * h * pairs * (d + dv)
-    nbytes = 4.0 * (h * rows * d + rows * d + h * rows * dv + pairs
-                    + rows + b * n + 2 * h * rows + h
-                    + b * h * n * dv + 3 * b * h * n)
+    nbytes = (vb * (h * rows * d + rows * d + h * rows * dv + b * h * n * dv)
+              + mb * (pairs + rows)
+              + 4.0 * (b * n + 2 * h * rows + h + 3 * b * h * n))
     return flops, nbytes
 
 
-def colstat_cost(mask, h, d):
+def colstat_cost(mask, h, d, vb=4, mb=4):
     """(flops, bytes) of colstat on these inputs, counted from the mask as
     `flash_cost`: the score of each real pair; the real rows of its inputs
-    (with m, se, su and wq) read once, each output written once."""
+    (with m, se, su and wq) read once, each output written once; vb, mb as
+    in `flash_cost`."""
     b, n, rows, pairs = real_counts(mask)
     flops = 2.0 * h * pairs * d
-    nbytes = 4.0 * (h * rows * d + rows * d + pairs + rows + b * n
-                    + 2 * h * rows + h + 4 * h * rows + 2 * b * h * n)
+    nbytes = (vb * (h * rows * d + rows * d) + mb * (pairs + rows)
+              + 4.0 * (b * n + 2 * h * rows + h + 4 * h * rows
+                       + 2 * b * h * n))
     return flops, nbytes
 
 
@@ -1319,20 +1419,23 @@ def check_kernels(device, h=8, d=64, shapes=CHECK_SHAPES, dvs=(64, 8),
     return rows
 
 
-def bwd_cost(mask, h, d, dv, which):
+def bwd_cost(mask, h, d, dv, which, vb=4, mb=4):
     """(flops, bytes) of one backward pass on these inputs, counted from
     the mask as `flash_cost`: the products of each real pair; the real rows
     of each input (the forward's operands, g and five row constants) and
     the real pairs of pe read once, each output written once (q: dxa, dcq;
-    k: dvw, dck, dx)."""
+    k: dvw, dck, dx); vb, mb as in `flash_cost` (g and the gradients of
+    the values take vb, dcq and dck 4)."""
     b, n, rows, pairs = real_counts(mask)
-    inputs = (h * rows * d + rows * d + 2 * h * rows + h + pairs + rows
-              + b * n + 2 * h * rows * dv + 5 * h * rows)
+    values = h * rows * d + rows * d + 2 * h * rows * dv
+    f32 = 2 * h * rows + h + b * n + 5 * h * rows
     if which == "q":
         return (2.0 * h * pairs * (2 * d + dv),
-                4.0 * (inputs + b * h * n * d + b * h * n))
+                vb * (values + b * h * n * d) + mb * (pairs + rows)
+                + 4.0 * (f32 + b * h * n))
     return (2.0 * h * pairs * (2 * d + 2 * dv),
-            4.0 * (inputs + b * h * n * dv + b * h * n + b * n * d))
+            vb * (values + b * h * n * dv + b * n * d) + mb * (pairs + rows)
+            + 4.0 * (f32 + b * h * n))
 
 
 def bwd_inputs(seed, b, h, n, d, dv, pad, device, guard_rows=8):
@@ -1717,12 +1820,15 @@ def fused_cost(mask, h, d, which):
                    + 2 * b * h * n + b * h))
 
 
-def check_outputs(name, got, again, want, outs, tag):
+def check_outputs(name, got, again, want, outs, tag, tol=KERNEL_TOL,
+                  tols=None):
     """Errors of each output of a kernel (forward or backward); raise
-    unless two runs are bit-identical."""
+    unless two runs are bit-identical. `tols` maps an output's name to its
+    own tolerance, in place of `tol`."""
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{name} {tag}: two runs differ")
-    return [max_err([g_], [w_], f"{name} {o} {tag}")
+    tols = tols or {}
+    return [max_err([g_], [w_], f"{name} {o} {tag}", tols.get(o, tol))
             for o, g_, w_ in zip(outs, got, want)]
 
 
@@ -1809,19 +1915,21 @@ def fused_inputs(seed, b, h, n, d, pad, device):
     return ops, vw, g
 
 
-def cpu32_ratios(got, plain, outs, args, tag, card32=None):
+def cpu32_ratios(got, plain, outs, args, tag, card32=None,
+                 cpu_dtype=torch.float32, factor=FUSED_CPU32_FACTOR):
     """Each of the kernel's outputs `got`: its max abs error against a
     float64 run of the plain version over the CPU float32 route's (the
     plain version in float32 on the CPU) on the same inputs; raise above
-    FUSED_CPU32_FACTOR. `plain` maps the operands `args` (the card's) to
+    `factor`. `plain` maps the operands `args` (the card's) to
     the list of outputs. With `card32`, the plain version's float32
     outputs on the card, the text adds each output's float64 error, the
-    kernel's beside that route's."""
-    on = lambda dev, dt: [t.to(dev, dt) if torch.is_tensor(t) else t
-                          for t in args]
+    kernel's beside that route's. `cpu_dtype` None: the CPU route takes
+    the operands in their own dtypes (the plain bf16 route)."""
+    on = lambda dev, dt: [(t.to(dev, dt) if dt else t.to(dev))
+                          if torch.is_tensor(t) else t for t in args]
     with torch.inference_mode():
         want = [w.cpu() for w in plain(on(args[0].device, torch.float64))]
-        cpu = plain(on("cpu", torch.float32))
+        cpu = plain(on("cpu", cpu_dtype))
     ratios = []
     gap = lambda a, w: float((a.cpu().double() - w).abs().max())
     for o, k, c, w in zip(outs, got, cpu, want):
@@ -1833,10 +1941,11 @@ def cpu32_ratios(got, plain, outs, args, tag, card32=None):
         text += "; float64 error, kernel / the plain version on the card: " \
             + " ".join(f"{o} {gap(k, w):.2e} / {gap(p, w):.2e}"
                        for o, k, p, w in zip(outs, got, card32, want))
-    if max(ratios) > FUSED_CPU32_FACTOR:
+    if max(ratios) > factor:
+        route = "float32" if cpu_dtype else "plain bf16"
         raise AssertionError(f"{tag}: an output's error from float64 is "
-                             f"above {FUSED_CPU32_FACTOR}x the CPU float32 "
-                             f"route's ({text})")
+                             f"above {factor}x the CPU {route} route's "
+                             f"({text})")
     return text
 
 
@@ -1965,6 +2074,175 @@ def check_unmodulated(device, h=8, d=64, shape=(ZINC_GRAPHS, ZINC_NODES,
           f"1e-5; fused error from float64 over the CPU float32 route's: "
           f"{r_f} {r_b} (at most {FUSED_CPU32_FACTOR})", flush=True)
     return errs
+
+
+def bf16_operands(ops, vw, mdt):
+    """The kernels' operands under the bf16 compute policy: xa, x and vw
+    in bf16, pe and deg in `mdt` (bf16, FETA_BF16_MODULATION=1, or float32,
+    =0), the masks, cq, ck and c0 float32 (`fl_mod.prepare`)."""
+    out = dict(ops, xa=ops["xa"].to(torch.bfloat16),
+               x=ops["x"].to(torch.bfloat16))
+    for k in ("pe", "deg"):
+        out[k] = None if ops[k] is None else ops[k].to(mdt)
+    return out, vw.to(torch.bfloat16)
+
+
+def bf16_bwd_args(seed, b, h, n, d, dv, pad, mdt, device, guard_rows=8):
+    """`bwd_inputs` under the bf16 compute policy: bf16 xa, x, vw and
+    cotangent g, pe and deg in `mdt`, the forward statistics from the plain
+    bf16 forward, su zeroed on guard rows as there, and the row
+    constants."""
+    ops, vw = attention_inputs(seed, b, h, n, d, dv, pad, device)
+    ops["pe"][0, :guard_rows] = 0.0
+    ops, vw = bf16_operands(ops, vw, mdt)
+    outh, m, se, su = fl_mod.flash_fwd_plain(vw=vw, **ops)
+    g = torch.randn(outh.shape, device=device,
+                    generator=torch.Generator(device).manual_seed(seed)
+                    ).to(torch.bfloat16)
+    first = guard_rows if b == 1 else 0
+    su[min(b - 1, 1), :, first:first + guard_rows] = 0.0
+    consts = bwd_row_constants(g, outh, se, su, ops["mask"])
+    return ops, vw, (ops["xa"], ops["x"], ops["cq"], ops["ck"], ops["c0"],
+                     vw, ops["pe"], ops["deg"], ops["mask"], ops["inv_sqrt"],
+                     g, m, *consts)
+
+
+def bf16_bound(cost):
+    """(ms, what bounds it) of a bf16 kernel's (flops, bytes): its
+    products at the bf16 tensor-core peak, its bytes (bf16 operands at 2
+    bytes) at the memory rate."""
+    t_ops, t_bytes = cost[0] / PEAK_BF16_FLOPS, cost[1] / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_outh_tol(vw):
+    """The tolerance of a bf16 forward's outh against the plain version
+    (BF16_KERNEL_TOL's note)."""
+    return dict(rtol=BF16_KERNEL_TOL["rtol"],
+                atol=2.0 ** -8 * float(vw.float().abs().max()))
+
+
+def check_bf16_kernels(device, h=8, shapes=BF16_SHAPES, checks=BF16_CHECKS):
+    """The bf16 phase's kernel checks: the unfolded flash forward (#1), colstat
+    (#2, wq 1 and random) and both backward passes (#3, #4) with bf16 operands
+    at each (B, N, padding) of `shapes`, for each (D, value widths) of `checks`
+    (the first only past the first shape) and pe/deg in bf16 and in float32:
+    each against its plain bf16 version on the card (BF16_KERNEL_TOL; colstat,
+    whose arithmetic after the staging is float32, at KERNEL_TOL), two runs
+    bit-identical, outputs in the JAX kernels' dtypes (outh at
+    `bf16_outh_tol`); on the first and the last shape, at the (D, dv, pe dtype)
+    of BF16_F64, each output's error from a float64 run of the plain version
+    within BF16_CPU_FACTOR of the CPU plain bf16 route's; on the first, the
+    timed combinations (BF16_TIMED) beside their float32 kernels on the same
+    values. Returns each kernel's row fields (`ms_bf16`, `plain_ms_bf16`,
+    `bound_ms_bf16`, `bound_by_bf16`, `ms_f32_twin`, `max_abs_err_bf16`:
+    numbers of the first shape at D=64, dv=64, pe bf16; errors over every
+    combination)."""
+    bf = torch.bfloat16
+    rows, errs = {}, dict.fromkeys(FLASH_ROUTE, 0.0)
+    combos = [(shape, d, dv, mdt) for shape in shapes
+              for d, dvs in (checks if shape == shapes[0] else checks[:1])
+              for dv in dvs for mdt in (bf, torch.float32)]
+    for (b, n, pad), d, dv, mdt in combos:
+        mb = 2 if mdt == bf else 4
+        first = (b, n, pad) == shapes[0]
+        f64 = (d, dv, mdt) in BF16_F64 and (first
+                                            or (b, n, pad) == shapes[-1])
+        timed = first and (d, dv, mdt) in BF16_TIMED
+        tag = (f"bf16 B={b} N={n} D={d} dv={dv} pe/deg "
+               f"{str(mdt).replace('torch.', '')}")
+        ops, vw, bargs = bf16_bwd_args(b + n + d + dv, b, h, n, d, dv, pad,
+                                       mdt, device)
+        stats = dict(zip(("m", "se", "su"),
+                         fl_mod.flash_fwd_plain(vw=vw, **ops)[1:]))
+        wq = torch.rand(stats["se"].shape, device=device,
+                        generator=torch.Generator(device).manual_seed(n))
+        runs = {
+            "flash_fwd": (lambda: fl_mod.flash_fwd(vw=vw, **ops),
+                          lambda: fl_mod.flash_fwd_plain(vw=vw, **ops),
+                          ("outh", "m", "se", "su"), BF16_KERNEL_TOL,
+                          {"outh": bf16_outh_tol(vw)}),
+            "colstat": (lambda: cs_mod.colstat(**ops, **stats, wq=wq),
+                        lambda: cs_mod.colstat_plain(**ops, **stats, wq=wq),
+                        ("colsum", "diag"), KERNEL_TOL, None),
+            "flash_bwd_q": (lambda: fl_mod.flash_bwd_q(*bargs),
+                            lambda: fl_mod.flash_bwd_q_plain(*bargs),
+                            ("dxa", "dcq"), BF16_KERNEL_TOL, None),
+            "flash_bwd_k": (lambda: fl_mod.flash_bwd_k(*bargs),
+                            lambda: fl_mod.flash_bwd_k_plain(*bargs),
+                            ("dvw", "dck", "dx"), BF16_KERNEL_TOL, None)}
+        line = [f"{tag}:"]
+        for name, (kernel, plain, outs, tol, tols) in runs.items():
+            with torch.inference_mode():
+                got, again, want = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+            each = check_outputs(name, got, again, want, outs, tag, tol,
+                                 tols)
+            errs[name] = max(errs[name], *each)
+            text = f"{name} err " + " ".join(
+                f"{o} {e:.3e}" for o, e in zip(outs, each))
+            if f64:
+                cargs = (list(bargs) if name.startswith("flash_bwd")
+                         else colstat_args(ops, stats, wq)
+                         if name == "colstat" else
+                         [ops[k] for k in ("xa", "x", "cq", "ck",
+                                           "c0")] + [vw]
+                         + [ops[k] for k in ("pe", "deg", "mask",
+                                             "inv_sqrt")])
+                fn = {"flash_fwd": fl_mod.flash_fwd_plain,
+                      "colstat": lambda *a: cs_mod.colstat_plain(
+                          *a[:12], wq=a[12]),
+                      "flash_bwd_q": fl_mod.flash_bwd_q_plain,
+                      "flash_bwd_k": fl_mod.flash_bwd_k_plain}[name]
+                text += ("; error from float64 over the CPU plain "
+                         "bf16 route's: " + cpu32_ratios(
+                             got, lambda a, f=fn: f(*a), outs, cargs,
+                             f"{name} {tag}", cpu_dtype=None,
+                             factor=BF16_CPU_FACTOR))
+            if timed:
+                with torch.inference_mode():
+                    t_k, t_p = time_ms(kernel), time_ms(plain)
+                cost = {"flash_fwd": flash_cost(ops["mask"], h, d, dv,
+                                                2, mb),
+                        "colstat": colstat_cost(ops["mask"], h, d, 2,
+                                                mb),
+                        "flash_bwd_q": bwd_cost(ops["mask"], h, d, dv,
+                                                "q", 2, mb),
+                        "flash_bwd_k": bwd_cost(ops["mask"], h, d, dv,
+                                                "k", 2, mb)}[name]
+                bms, bby = bf16_bound(cost)
+                text += (f"; {t_k:.4f} ms (plain {t_p:.4f} ms, bound "
+                         f"{bms:.4f} ms {bby}, {100 * bms / t_k:.2f} "
+                         f"%)")
+                if (d, dv, mdt) == BF16_TIMED[0]:
+                    # the float32 kernel on the same values
+                    up = lambda t: (t.float() if torch.is_tensor(t)
+                                    else t)
+                    o32 = {k: up(v) for k, v in ops.items()}
+                    twin = {"flash_fwd": lambda: fl_mod.flash_fwd(
+                                vw=vw.float(), **o32),
+                            "colstat": lambda: cs_mod.colstat(
+                                **o32, **stats, wq=wq),
+                            "flash_bwd_q": lambda: fl_mod.flash_bwd_q(
+                                *map(up, bargs)),
+                            "flash_bwd_k": lambda: fl_mod.flash_bwd_k(
+                                *map(up, bargs))}[name]
+                    with torch.inference_mode():
+                        t_32 = time_ms(twin)
+                    text += f"; float32 kernel {t_32:.4f} ms"
+                    rows[name] = dict(ms_bf16=t_k, plain_ms_bf16=t_p,
+                                      bound_ms_bf16=bms,
+                                      bound_by_bf16=bby,
+                                      ms_f32_twin=t_32)
+            line.append(text)
+        print("; ".join(line) + "; two runs of each bit-identical; "
+              f"tolerance {BF16_KERNEL_TOL} (outh atol "
+              f"{bf16_outh_tol(vw)['atol']:.3e}; colstat {KERNEL_TOL})",
+              flush=True)
+    for name in rows:
+        rows[name]["max_abs_err_bf16"] = errs[name]
+    return rows
 
 
 def canonical_signs(vecs):
@@ -2386,12 +2664,12 @@ def make_zinc_graphs():
     return graphs
 
 
-def zinc_serve(graphs, device, card, impl, profile=False):
+def zinc_serve(graphs, device, card, impl, profile=False, tag=""):
     """Phase 8: DiffGraphTransformerGenGCN served through Predictor on
     CUDA under one attention route, requests of 128 distinct graphs; on the
     "fused" route 8 graphs are also held against the CPU path. Returns the
     launches, the steady ms/request and a function that serves one more
-    request."""
+    request. `tag` marks the printed lines (the bf16 phase's runs)."""
     n_req = ZINC_RUNS[impl][0]
     model = DiffGraphTransformerGenGCN(**ZINC_CFG, attention_impl=impl,
                                        seed=0, device=device)
@@ -2411,14 +2689,14 @@ def zinc_serve(graphs, device, card, impl, profile=False):
     launches = read_launches()
     want = {k: n_req * v for k, v in ZINC_REQUEST_LAUNCHES[impl].items()}
     if launches != want:
-        raise AssertionError(f"zinc {impl}: launch counts {launches} for "
+        raise AssertionError(f"zinc {impl}{tag}: launch counts {launches} for "
                              f"{n_req} requests; expected "
                              f"{ZINC_REQUEST_LAUNCHES[impl]} each")
     for out in outs:
         if out.shape != (ZINC_GRAPHS, 1) or not np.isfinite(out).all():
             raise AssertionError(f"bad ZINC outputs {out.shape}")
     steady = statistics.median(call_ms[1:])
-    print(f"zinc serve [{impl}]: {n_req} requests of {ZINC_GRAPHS} graphs at "
+    print(f"zinc serve [{impl}{tag}]: {n_req} requests of {ZINC_GRAPHS} graphs at "
           f"N={ZINC_NODES}; ms/call {[round(t, 2) for t in call_ms]}; steady "
           f"(median after the first) {steady:.2f} ms/call = "
           f"{ZINC_GRAPHS / steady * 1e3:.1f} graphs/s on {card}; launches "
@@ -2430,23 +2708,23 @@ def zinc_serve(graphs, device, card, impl, profile=False):
             requests[0][:n_ref])
         err = float(np.abs(outs[0][:n_ref] - ref).max())
         np.testing.assert_allclose(outs[0][:n_ref], ref, **SLICE_TOL)
-        print(f"zinc serve [{impl}]: CUDA vs CPU outputs of {n_ref} graphs: "
+        print(f"zinc serve [{impl}{tag}]: CUDA vs CPU outputs of {n_ref} graphs: "
               f"max abs err {err:.3e}, max |y| {float(np.abs(ref).max()):.3f}"
               f" (tolerance rtol 1e-3 atol 1e-3)", flush=True)
     if profile:
-        profile_call(f"one ZINC request of {ZINC_GRAPHS} graphs [{impl}]",
+        profile_call(f"one ZINC request of {ZINC_GRAPHS} graphs [{impl}{tag}]",
                      lambda: pred.predict(requests[0]))
     return launches, steady, lambda: pred.predict(requests[0])
 
 
-def zinc_train(graphs, device, card, impl, profile=False):
+def zinc_train(graphs, device, card, impl, profile=False, tag=""):
     """Phase 9: DiffGraphTransformerGenGCN trained through Trainer
     (graph_reg, L1) on CUDA under one attention route, bench.py's step:
     AdamW at lr 1e-3, weight decay 1e-5, LapPE sign flip on, on 2 batches of
     128 graphs; warm-up epochs, then a timed window. On the "fused" route
     one step on 16 graphs is also held against a float64 CPU step. Returns
     the launches, the window's ms/step and a function that trains one more
-    epoch and returns its ms/step."""
+    epoch and returns its ms/step. `tag` as in `zinc_serve`."""
     _, warm, timed = ZINC_RUNS[impl]
     model = DiffGraphTransformerGenGCN(**ZINC_CFG, attention_impl=impl,
                                        seed=1, device=device)
@@ -2466,7 +2744,7 @@ def zinc_train(graphs, device, card, impl, profile=False):
     per_step = [r[0] / len(batches) for r in window]
     mean = sum(r[0] for r in window) / (timed * len(batches))
     spread = statistics.stdev(per_step) if len(per_step) > 1 else 0.0
-    print(f"zinc train [{impl}]: {warm} warm-up + {timed} timed epochs of "
+    print(f"zinc train [{impl}{tag}]: {warm} warm-up + {timed} timed epochs of "
           f"{len(batches)} steps of {ZINC_GRAPHS} graphs at N={ZINC_NODES} "
           f"(L1, AdamW lr 1e-3, weight decay 1e-5, sign flip on): "
           f"{mean:.2f} ms/step over the window; per epoch ms/step median "
@@ -2479,19 +2757,19 @@ def zinc_train(graphs, device, card, impl, profile=False):
           f"{syncs[:3]}; on {card}", flush=True)
     want = {k: total * v for k, v in ZINC_STEP_LAUNCHES[impl].items()}
     if launches != want:
-        raise AssertionError(f"zinc {impl}: launch counts {launches} for "
+        raise AssertionError(f"zinc {impl}{tag}: launch counts {launches} for "
                              f"{total} steps; expected "
                              f"{ZINC_STEP_LAUNCHES[impl]} per step")
     if not all(np.isfinite(losses + more)):
-        raise AssertionError(f"zinc {impl}: epoch losses {losses + more}")
+        raise AssertionError(f"zinc {impl}{tag}: epoch losses {losses + more}")
     if syncs:
-        raise AssertionError(f"a ZINC training step [{impl}] syncs the "
+        raise AssertionError(f"a ZINC training step [{impl}{tag}] syncs the "
                              f"host: {syncs}")
     if profile:
         profile_call(f"one ZINC training step of {ZINC_GRAPHS} graphs "
-                     f"[{impl}]", lambda: trainer.step(batches[0]))
+                     f"[{impl}{tag}]", lambda: trainer.step(batches[0]))
     if impl == "fused":
-        step_parity(initial, graphs[:16], device, f"zinc train [{impl}]",
+        step_parity(initial, graphs[:16], device, f"zinc train [{impl}{tag}]",
                     dict(max_nodes=ZINC_NODES),
                     TrainConfig(task="graph_reg", regularization=0.1,
                                 sign_flip=False), STEP_PARAMS)
@@ -3712,6 +3990,425 @@ def gckn_slice(device, card):
     return runs
 
 
+@contextlib.contextmanager
+def entry_point_tally():
+    """Count the launches of the unfolded flash kernels and colstat by C
+    entry point, {(wrapper, dtype suffix): launches} (suffix "" float32,
+    "_bf16", "_bf16_f32pe"; `common.dtype_suffix`): each launch looks its
+    entry point up once (`_kernel`), and a CPU tensor none."""
+    tally = collections.Counter()
+    fl_kernel, cs_kernel = fl_mod._kernel, cs_mod._kernel
+
+    def fl(name, suffix=""):
+        tally[name, suffix] += 1
+        return fl_kernel(name, suffix)
+
+    def cs(suffix=""):
+        tally["colstat", suffix] += 1
+        return cs_kernel(suffix)
+
+    fl_mod._kernel, cs_mod._kernel = fl, cs
+    try:
+        yield tally
+    finally:
+        fl_mod._kernel, cs_mod._kernel = fl_kernel, cs_kernel
+
+
+def check_tally(label, tally, want):
+    """The entry-point tally against {(wrapper, suffix): launches}."""
+    got = {k: v for k, v in tally.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{label}: entry points {got}, expected {want}")
+
+
+def policy_launches(launches, suffix):
+    """{(wrapper, suffix): n} of a run's flash-route launches."""
+    return {(k, suffix): launches[k] for k in FLASH_ROUTE}
+
+
+def bf16_step_parity(initial, graphs, device, label, collate, cfg, params):
+    """One step from the same weights under the bf16 policy on the card and
+    on the CPU (the plain bf16 route), and in float64 on the CPU with it
+    unset: the card's loss error and each named gradient's (max abs err /
+    max |g| of the float64 step) within BF16_MODEL_FACTOR of the CPU bf16
+    route's."""
+    loss, rel, scale, secs = step_errors(initial, graphs, device, collate,
+                                         cfg, params, policy="bfloat16")
+    err = {r: abs(loss[r] - loss["cpu64"]) / abs(loss["cpu64"])
+           for r in ("cuda", "cpu32")}
+    bad = [n for n in params
+           if rel["cuda"][n] > BF16_MODEL_FACTOR * rel["cpu32"][n]]
+    print(f"{label}: one step on {len(graphs)} graphs under the bf16 policy "
+          f"from the initial weights; loss cuda {loss['cuda']:.6f}, cpu bf16 "
+          f"{loss['cpu32']:.6f}, cpu64 (policy off) {loss['cpu64']:.6f} (rel "
+          f"err cuda {err['cuda']:.2e}, cpu bf16 {err['cpu32']:.2e}); grad max "
+          f"abs err / max |g| against cpu64: " + "; ".join(
+              f"{n} (max |g| {scale[n]:.3e}): cuda {rel['cuda'][n]:.2e}, cpu "
+              f"bf16 {rel['cpu32'][n]:.2e}" for n in params)
+          + f" (tolerance: {BF16_MODEL_FACTOR}x the CPU bf16 route's; CPU "
+          f"steps {secs['cpu32']:.1f} s bf16, {secs['cpu64']:.1f} s f64)",
+          flush=True)
+    if err["cuda"] > BF16_MODEL_FACTOR * err["cpu32"]:
+        raise AssertionError(f"{label}: bf16 step loss {loss}")
+    if bad:
+        raise AssertionError(f"{label}: bf16 gradients off float64: {bad}")
+
+
+@contextlib.contextmanager
+def policy_env(compute, modulation):
+    """FETA_COMPUTE_DTYPE and FETA_BF16_MODULATION set inside (None:
+    unset), as they were after."""
+    values = {"FETA_COMPUTE_DTYPE": compute,
+              "FETA_BF16_MODULATION": modulation}
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bf16_route_check(initial, graphs, device, label, collate,
+                     params=BF16_ROUTE_PARAMS):
+    """The card under each bf16 route of BF16_ROUTES against the CPU plain
+    version of that route, from the same weights (`initial`, its batch
+    norms calibrated) on the same graphs: the eval-mode logits at the real
+    nodes (max abs difference), and the named gradients of the train-mode
+    logits against a seeded cotangent (max abs difference over the CPU
+    route's max |g|; a smooth function of the logits, where a step's L1
+    loss flips sign with a rounding). Each at most BF16_ROUTE_FACTOR times
+    the larger of the CPU route's distances from the other two CPU routes
+    (the other bf16 route, float32), and the card's flash launches all
+    through the route's entry points (`_bf16`, `_bf16_f32pe`: what tells
+    the route, as the numbers cannot: BF16_ROUTES' note). Prints every
+    distance."""
+    batch = collate_graphs(graphs, **collate)
+    suffix = {"bf16": "_bf16", "bf16 pe f32": "_bf16_f32pe"}
+
+    def run(route, dev):
+        model = copy.deepcopy(initial).to(dev)
+        b = batch.to(dev)
+        with policy_env(*BF16_ROUTES[route]):
+            model.eval()
+            with torch.inference_mode():
+                out = model(b)[0].float()
+            model.train()
+            y = model(b)[0].float()
+            cot = torch.randn(y.shape, generator=torch.Generator()
+                              .manual_seed(len(graphs))).to(dev)
+            if y.dim() == 3:                     # node level: real nodes
+                out, cot = out[b.node_mask], cot * b.node_mask[..., None]
+            (y * cot).sum().backward()
+        got = {"logits": out.double().cpu()}
+        for n in params:
+            got[n] = model.get_parameter(n).grad.double().cpu()
+        return got
+
+    cpu = {r: run(r, "cpu") for r in BF16_ROUTES}
+    keys = ["logits", *params]
+
+    def dist(a, b, k):
+        d = float((a[k] - b[k]).abs().max())
+        return d / float(b[k].abs().max()) if k in params else d
+
+    lines, bad = [], []
+    for route in suffix:
+        with entry_point_tally() as tally:
+            card = run(route, device)
+        if {s for _, s in tally} != {suffix[route]}:
+            raise AssertionError(f"{label} [{route}]: entry points "
+                                 f"{dict(tally)}")
+        others = [r for r in BF16_ROUTES if r != route]
+        text = []
+        for k in keys:
+            d_card = dist(card, cpu[route], k)
+            d_cpu = [dist(cpu[r], cpu[route], k) for r in others]
+            text.append(f"{k} {d_card:.3e} / " + " ".join(
+                f"{d:.3e}" for d in d_cpu))
+            if not d_card <= BF16_ROUTE_FACTOR * max(d_cpu):
+                bad.append((route, k, d_card, d_cpu))
+        lines.append(f"[{route}, entry points {dict(tally)}] "
+                     + ", ".join(text))
+    print(f"{label}: {len(graphs)} graphs at {BF16_ROUTE_LAYERS} layers, "
+          f"the card against the CPU plain version of its bf16 route / that "
+          f"CPU route against the other bf16 one and against float32, "
+          f"logits max abs, gradients against a seeded cotangent max abs "
+          f"over max |g|: " + "; ".join(lines)
+          + f" (tolerance: {BF16_ROUTE_FACTOR}x the larger CPU distance)",
+          flush=True)
+    if bad:
+        raise AssertionError(f"{label}: the card's bf16 run is further "
+                             f"from its CPU route than {BF16_ROUTE_FACTOR}x "
+                             f"the CPU routes' spread: {bad}")
+
+
+def bf16_route_sbm(graphs, device):
+    """`bf16_route_check` on the SBM model at BF16_ROUTE_LAYERS layers and
+    MODEL_CFG's widths, on the first two graphs."""
+    model = DiffGraphTransformerGenGCNSBM(
+        **dict(MODEL_CFG, nb_layers=BF16_ROUTE_LAYERS), seed=0,
+        device=device)
+    collate = {"max_nodes": N_NODES, "node_labels": True}
+    calibrate_batch_norm(model, collate_graphs(graphs[:2], **collate),
+                         device)
+    bf16_route_check(model, graphs[:2], device, "bf16 route sbm", collate)
+
+
+def bf16_route_zinc(graphs, device):
+    """`bf16_route_check` on the ZINC regressor at BF16_ROUTE_LAYERS layers
+    and ZINC_CFG's widths on "flash", on 16 graphs."""
+    model = DiffGraphTransformerGenGCN(
+        **dict(ZINC_CFG, nb_layers=BF16_ROUTE_LAYERS),
+        attention_impl="flash", seed=1, device=device)
+    collate = {"max_nodes": ZINC_NODES}
+    calibrate_batch_norm(model, collate_graphs(graphs[:16], **collate),
+                         device)
+    bf16_route_check(model, graphs[:16], device, "bf16 route zinc [flash]",
+                     collate)
+
+
+def bf16_sbm(graphs, device, card):
+    """The bf16 phase on the SBM node classifier at N=1024
+    (DiffGraphTransformerGenGCNSBM at MODEL_CFG): served and trained under
+    the policy and with it unset on the same weights, in turns (the order
+    alternating round by round), the launches counted exactly by wrapper
+    and by entry point; graph 0's served logits off a float64 CPU forward
+    within BF16_MODEL_FACTOR of the CPU bf16 route's error (a step is held
+    so on the ZINC model, `bf16_zinc`: at N=1024 the CPU steps take ~20
+    s). Returns the launches and the medians {policy: (ms a request, ms a
+    step)}."""
+    policies = {"bf16": "bfloat16", "f32": None}
+    suffix = {"bf16": "_bf16", "f32": ""}
+    order = lambda r: list(policies)[::1 if r % 2 == 0 else -1]
+    model = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, seed=0, device=device)
+    collate = {"max_nodes": N_NODES, "node_labels": True}
+    calibrate_batch_norm(model, collate_graphs(graphs, **collate), device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    pred = Predictor(model, device=device, max_batch=N_GRAPHS,
+                     collate_kwargs=collate, node_level=True)
+    runs, ms, outs = [], {p: [] for p in policies}, {}
+    with entry_point_tally() as tally:
+        for r in range(BF16_SBM_ROUNDS):
+            for p in order(r):
+                with compute_dtype_env(policies[p]):
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    out = pred.predict(graphs)
+                    ms[p].append((time.perf_counter() - t0) * 1e3)
+                    launches = read_launches()
+                if launches != {**NONE, "colstat": 2,
+                                 "flash_fwd": MODEL_CFG["nb_layers"]}:
+                    raise AssertionError(f"bf16 sbm serve [{p}]: launches "
+                                         f"{launches}")
+                runs.append(launches)
+                outs.setdefault(p, out)
+    check_tally("bf16 sbm serve", tally, {
+        (k, suffix[p]): BF16_SBM_ROUNDS * n for p in policies
+        for k, n in (("flash_fwd", MODEL_CFG["nb_layers"]), ("colstat", 2))})
+    n0 = graphs[0].num_nodes
+    one = collate_graphs(graphs[:1], **collate)
+    with torch.inference_mode():
+        ref = copy.deepcopy(cpu_model).to(torch.float64)(
+            as_float64(one))[0][0, :n0].numpy()
+        with compute_dtype_env("bfloat16"):
+            cpu_bf16 = cpu_model(one)[0][0, :n0].numpy()
+    gap = lambda a: float(np.abs(a - ref).max())
+    err = {p: gap(outs[p][0]) for p in policies}
+    err_cpu = gap(cpu_bf16)
+    if not all(np.isfinite(o).all() for out in outs.values() for o in out):
+        raise AssertionError("bf16 sbm serve: non-finite logits")
+    print(f"bf16 sbm serve: {BF16_SBM_ROUNDS} requests of {N_GRAPHS} graphs "
+          f"at N={N_NODES} under each policy in turns; ms/request bf16 "
+          f"{[round(t, 2) for t in ms['bf16']]}, f32 "
+          f"{[round(t, 2) for t in ms['f32']]}; launches "
+          f"{MODEL_CFG['nb_layers']} flash_fwd + 2 colstat a request, by "
+          f"entry point {dict(tally)}; graph 0's "
+          f"logits off the float64 CPU forward: cuda bf16 {err['bf16']:.3e} "
+          f"(at most {BF16_MODEL_FACTOR}x the CPU bf16 route's {err_cpu:.3e}), "
+          f"cuda f32 {err['f32']:.3e}; max |logit| "
+          f"{float(np.abs(ref).max()):.3f}; on {card}", flush=True)
+    if err["bf16"] > BF16_MODEL_FACTOR * err_cpu:
+        raise AssertionError(f"bf16 sbm serve: logits {err}, cpu {err_cpu}")
+
+    model = DiffGraphTransformerGenGCNSBM(**MODEL_CFG, seed=1, device=device)
+    initial = copy.deepcopy(model)
+    per = N_GRAPHS // 2
+    batches = [collate_graphs(graphs[i:i + per], **collate).to(device)
+               for i in range(0, N_GRAPHS, per)]
+    steps = BF16_SBM_EPOCHS * len(batches)
+    trainers = {p: Trainer(copy.deepcopy(initial), TrainConfig(
+        lr=1e-3, weight_decay=1e-5, sign_flip=True, seed=0,
+        schedule="warmup", warmup_steps=steps)) for p in policies}
+    step_ms, losses = {p: [] for p in policies}, {p: [] for p in policies}
+    with entry_point_tally() as tally:
+        for r in range(BF16_SBM_EPOCHS):
+            for p in order(r):
+                with compute_dtype_env(policies[p]):
+                    reset_launches()
+                    loss, rows = timed_epochs(trainers[p], batches, 1)
+                    launches = read_launches()
+                want = {k: len(batches) * v for k, v in STEP_LAUNCHES.items()}
+                if launches != want:
+                    raise AssertionError(f"bf16 sbm train [{p}]: launches "
+                                         f"{launches}, expected {want}")
+                runs.append(launches)
+                losses[p] += loss
+                if r:                          # the first epoch warms up
+                    step_ms[p].append(rows[0][0] / len(batches))
+    check_tally("bf16 sbm train", tally, {
+        (k, suffix[p]): steps * STEP_LAUNCHES[k] for p in policies
+        for k in FLASH_ROUTE})
+    print(f"bf16 sbm train: {BF16_SBM_EPOCHS} epochs of {len(batches)} steps "
+          f"of {per} graphs at N={N_NODES} under each policy in turns (the "
+          f"first a warm-up; warmup lr as the train phase); ms/step bf16 "
+          f"{[round(t, 2) for t in step_ms['bf16']]}, f32 "
+          f"{[round(t, 2) for t in step_ms['f32']]}; epoch losses bf16 "
+          f"{[round(x, 6) for x in losses['bf16']]}, f32 "
+          f"{[round(x, 6) for x in losses['f32']]}; launches "
+          f"{STEP_LAUNCHES} a step, by entry point {dict(tally)}; on {card}",
+          flush=True)
+    if not all(np.isfinite(losses["bf16"] + losses["f32"])):
+        raise AssertionError(f"bf16 sbm train: losses {losses}")
+    med = lambda v: statistics.median(v)
+    return runs, {p: (med(ms[p]), med(step_ms[p])) for p in policies}
+
+
+def bf16_zinc(device, card):
+    """The bf16 phase on the ZINC regressor (DiffGraphTransformerGenGCN at
+    ZINC_CFG) on "flash" and "modulation": `zinc_serve` and `zinc_train`
+    under the policy and with it unset, their launches exact (on "flash"
+    by entry point too; "modulation" launches its float32 kernels on
+    float32 scores, as the JAX layer does), then each combination's
+    request and epoch in interleaved rounds (`compare_routes`), and one
+    step on 16 graphs under the policy (`bf16_step_parity`), and the
+    route check at 2 layers (`bf16_route_check`). Returns the
+    launches."""
+    graphs = make_zinc_graphs()
+    runs, request_fns, step_fns = [], {}, {}
+    for impl in ("flash", "modulation"):
+        for p, value, suffix in (("bf16", "bfloat16", "_bf16"),
+                                 ("f32", None, "")):
+            tag = f" {p}"
+            with entry_point_tally() as tally:
+                with compute_dtype_env(value):
+                    launches, _, req = zinc_serve(graphs, device, card, impl,
+                                                  tag=tag)
+                    runs.append(launches)
+                    launches2, _, step = zinc_train(graphs, device, card,
+                                                    impl, tag=tag)
+                    runs.append(launches2)
+            # the counters leave out the batch-norm calibration's forward
+            # (zinc_serve) and `step_syncs`'s step (zinc_train); the tally
+            # sees them
+            total = {k: launches[k] + launches2[k]
+                     + ZINC_REQUEST_LAUNCHES[impl][k]
+                     + ZINC_STEP_LAUNCHES[impl][k] for k in FLASH_ROUTE}
+            check_tally(f"bf16 zinc [{impl}{tag}]", tally,
+                        policy_launches(total, suffix))
+            request_fns[f"{impl}{tag}"] = _with_env(req, value)
+            step_fns[f"{impl}{tag}"] = _with_env(step, value)
+    compare_routes(request_fns, step_fns, card,
+                   f"bf16 zinc at B={ZINC_GRAPHS}, N={ZINC_NODES}",
+                   BF16_ZINC_ROUNDS)
+    model = DiffGraphTransformerGenGCN(**ZINC_CFG, attention_impl="flash",
+                                       seed=1, device=device)
+    bf16_step_parity(model, graphs[:16], device, "bf16 zinc train [flash]",
+                     dict(max_nodes=ZINC_NODES),
+                     TrainConfig(task="graph_reg", regularization=0.1,
+                                 sign_flip=False), STEP_PARAMS)
+    bf16_route_zinc(graphs, device)
+    return runs
+
+
+def _with_env(fn, value):
+    """`fn` run with FETA_COMPUTE_DTYPE set to `value` (None: unset)."""
+    def run():
+        with compute_dtype_env(value):
+            return fn()
+    return run
+
+
+def bf16_products(device, card, b=N_GRAPHS // 2, n=N_NODES, f=64):
+    """The policy's plain product with the longest sum, the Chebyshev
+    step Lhat Tx at the SBM batch ([B, N, N] by [B, N, H·dh], K = N), three
+    ways on bf16 operands: the port's (`ops/cheb.py`: the float32 product
+    of their values in blocks of 64 nodes, rounded once to bf16) and
+    cuBLAS's bf16 product with the reduced-precision reduction allowed
+    (torch's default) and not. Prints each one's ms (CUDA events, median
+    of 25), max abs error from float64 and share of entries off the
+    float64 product rounded to bf16; the port sets no cuBLAS flag, as it
+    sends no bf16 product to cuBLAS."""
+    gen = torch.Generator(device).manual_seed(n)
+    a = torch.rand((b, n, n), device=device, generator=gen).to(torch.bfloat16)
+    x = torch.randn((b, n, f), device=device, generator=gen).to(torch.bfloat16)
+    want = a.double() @ x.double()
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    text = []
+    try:
+        for label, fn, reduced in (
+                ("port (float32 blocks, one rounding)",
+                 lambda: node_matmul(a, x), flag),
+                ("cuBLAS bf16, reduced-precision reduction allowed",
+                 lambda: a @ x, True),
+                ("cuBLAS bf16, not allowed", lambda: a @ x, False)):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+                = reduced
+            with torch.inference_mode():
+                got = fn()
+                ms = time_ms(fn)
+            err = float((got.double() - want).abs().max())
+            off = float((got != want.to(torch.bfloat16)).double().mean())
+            text.append(f"{label} {ms:.4f} ms, err {err:.3e}, "
+                        f"{100 * off:.2f} % off the rounded float64")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    print(f"bf16 products: Lhat Tx [{b}, {n}, {n}] x [{b}, {n}, {f}]: "
+          + "; ".join(text) + f" (max |y| "
+          f"{float(want.abs().max()):.3f}); on {card}", flush=True)
+
+
+def bf16_slice(graphs, device, card, cli_device="cuda"):
+    """The bf16 phase (the bf16 compute policy, FETA_COMPUTE_DTYPE=
+    bfloat16): kernels #1-#4 in bf16 (`check_bf16_kernels`), the SBM model
+    at N=1024 (`bf16_sbm`), the ZINC regressor (`bf16_zinc`), and
+    feta-torch-zinc under the policy, 2 + 2 epochs bit for bit against 4,
+    every flash launch through a bf16 entry point; between the kernels and
+    the models, the policy's longest plain product three ways
+    (`bf16_products`) and the SBM model's route check at 2 layers
+    (`bf16_route_check`; the ZINC one is in `bf16_zinc`). Returns the
+    kernels' JSON fields and the launches."""
+    rows = check_bf16_kernels(device)
+    bf16_products(device, card)
+    bf16_route_sbm(graphs, device)
+    runs, med = bf16_sbm(graphs, device, card)
+    runs += bf16_zinc(device, card)
+    with tempfile.TemporaryDirectory() as workdir, \
+            compute_dtype_env("bfloat16"), entry_point_tally() as tally:
+        launches = cli_exact_resume("zinc_bf16", cli_zinc.main,
+                                    CLI_ZINC_ARGV, workdir, card,
+                                    cli_device)
+    check_tally("cli zinc_bf16", tally, policy_launches(launches, "_bf16"))
+    runs.append(launches)
+    print(f"bf16 against float32, SBM N={N_NODES} (medians, in turns): ms a "
+          f"request of {N_GRAPHS} graphs {med['bf16'][0]:.2f} / "
+          f"{med['f32'][0]:.2f} ({med['bf16'][0] / med['f32'][0]:.3f}x), ms "
+          f"a step of {N_GRAPHS // 2} {med['bf16'][1]:.2f} / "
+          f"{med['f32'][1]:.2f} ({med['bf16'][1] / med['f32'][1]:.3f}x); "
+          f"kernels bf16 / float32 ms on the same values " + ", ".join(
+              f"{k} {v['ms_bf16']:.4f} / {v['ms_f32_twin']:.4f}"
+              for k, v in rows.items()) + f"; on {card}", flush=True)
+    return rows, runs
+
+
 def logs_columns(out):
     """The header of the logs.csv a CLI wrote under `out` (the GraphiT
     CLIs nest it in directories named after their flags)."""
@@ -4038,10 +4735,8 @@ def cli_slice(card, device="cuda"):
             ["--config", CLI_CONFIG, "--model", "SAN_NodeSpectra",
              "--data-dir", CLI_FIXTURES], workdir, card, device)
         serve = cli_serve(ckpt, card, device)
-        zinc, _ = cli_train(
-            "zinc", cli_zinc.main,
-            ["--datadir", CLI_FIXTURES, "--lappe", "--lap-dim", "8",
-             "--pos-enc", "diffusion"], workdir, card, device)
+        zinc, _ = cli_train("zinc", cli_zinc.main, CLI_ZINC_ARGV, workdir,
+                            card, device)
         molhiv, _ = cli_train(
             "molhiv", cli_molhiv.main,
             ["--datadir", os.path.join(workdir, "no-dataset")], workdir,
@@ -4100,6 +4795,26 @@ def cli_lspe(workdir, card, device="cuda"):
                           label="serve_lspe", config=CLI_LSPE_SERVE,
                           mlp_launches=0, stage_reps=CLI_STAGE_REPS // 5))
     return runs
+
+
+@contextlib.contextmanager
+def compute_dtype_env(value, apply=True):
+    """FETA_COMPUTE_DTYPE set to `value` (None: unset) inside, as it was
+    after; nothing where `apply` is false."""
+    old = os.environ.get("FETA_COMPUTE_DTYPE")
+    if apply:
+        if value is None:
+            os.environ.pop("FETA_COMPUTE_DTYPE", None)
+        else:
+            os.environ["FETA_COMPUTE_DTYPE"] = value
+    try:
+        yield
+    finally:
+        if apply:
+            if old is None:
+                os.environ.pop("FETA_COMPUTE_DTYPE", None)
+            else:
+                os.environ["FETA_COMPUTE_DTYPE"] = old
 
 
 def as_float64(batch):
@@ -4165,7 +4880,8 @@ def logits_errors(model, graphs, collate, serve, plain=False):
     return errs
 
 
-def step_errors(initial, graphs, device, collate, cfg, params, optional=()):
+def step_errors(initial, graphs, device, collate, cfg, params, optional=(),
+                policy=None):
     """One step from the same weights (sign flip off, so no random numbers
     enter) on CUDA in float32, on the CPU in float32 and on the CPU in
     float64. Returns the losses, each float32 route's gradient error per
@@ -4176,7 +4892,9 @@ def step_errors(initial, graphs, device, collate, cfg, params, optional=()):
     to it, not to the other. A name in `optional` whose parameter gets no
     gradient is left out; any other name must get one. `collate` is
     collate_graphs' keyword arguments, or a function of the graphs that
-    builds the batch (`pack_graphs`)."""
+    builds the batch (`pack_graphs`). `policy`: the FETA_COMPUTE_DTYPE of
+    the CUDA and "cpu32" routes (then the CPU's route under that policy),
+    the float64 step running with it unset."""
     batch = (collate(graphs) if callable(collate)
              else collate_graphs(graphs, **collate))
     runs = {"cuda": (copy.deepcopy(initial), batch.to(device)),
@@ -4186,7 +4904,9 @@ def step_errors(initial, graphs, device, collate, cfg, params, optional=()):
     loss, grads, secs = {}, {}, {}
     for route, (model, b) in runs.items():
         t0 = time.perf_counter()
-        loss[route] = float(Trainer(model, cfg).step(b))
+        with compute_dtype_env(policy if route != "cpu64" else None,
+                               policy is not None):
+            loss[route] = float(Trainer(model, cfg).step(b))
         secs[route] = time.perf_counter() - t0
         grads[route] = {name: model.get_parameter(name).grad.double().cpu()
                         for name in params
@@ -4750,6 +5470,11 @@ def main() -> int:
     lap("packed phase")
     runs += gckn_slice(device, card)
     lap("gckn phase")
+    bf16_rows, bf16_runs = bf16_slice(graphs, device, card)
+    runs += bf16_runs
+    for name, row in bf16_rows.items():
+        rows[name].update(row)
+    lap("bf16 phase")
     runs += cli_slice(card)
     lap("cli phase")
     print(f"time: build to the end of the cli phase "
@@ -4773,8 +5498,8 @@ def main() -> int:
     # three routes, SBM at N=2048 under its three settings, molhiv, the
     # LPE codebase's other nets, the GraphiT baselines and the FeTA
     # options, packed batches and their padded twin, the FeTA + GCKN
-    # regressor, and the entry points of the cli phase, serving and
-    # training)
+    # regressor, the bf16 phase's runs under either policy, and the entry
+    # points of the cli phase, serving and training)
     kernels = [dict(name=name, route="cuda",
                     source=f"feta_tmlr_tpu_torch/csrc/{src}",
                     replaces=pallas + line,
@@ -4786,7 +5511,8 @@ def main() -> int:
                     **{k: v for k, v in rows[name].items()
                        if k == "bound_f32_ms" or k.endswith("_rate0")
                        or k.endswith("_d128") or "_d16" in k
-                       or "_pairs" in k})
+                       or "_pairs" in k or "bf16" in k
+                       or k == "ms_f32_twin"})
                for name, (src, line) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -51,6 +51,13 @@
 // peak (PERF.md). Rows and keys >= N contribute exactly 0 and are not
 // stored; rows of width w < 64 are zero-filled to 64, so the K edge of
 // D and DV not multiples of 8 adds exact zeros.
+//
+// bf16 operands (the bf16 compute policy; flash_bwd.cu's bf16 entry
+// points, the unfolded grid only): xa, x, vw and g bf16, pe and deg bf16
+// or float, staged into the float tiles converted (mma_tf32.cuh's note).
+// ga is one TF32 product of bf16-exact operands; ds is rounded to bf16
+// for ds·x (JAX's cast of ds to x's dtype), which is one TF32 product
+// too, while dcq sums the unrounded ds; dxa is rounded once to bf16.
 
 #pragma once
 
@@ -73,16 +80,19 @@ __host__ __device__ inline size_t smem_floats(Shape sh) {
          2 * (size_t)key_floats<kW>(sh) + 2 * rows;
 }
 
-// kW: the widest rows (strips.cuh), kMaxW or (unfolded) kWideW
-template <bool kFold, int kW>
+// kW: the widest rows (strips.cuh), kMaxW or (unfolded) kWideW; TV, TM:
+// the types of xa, x, vw, g, dxa and of pe, deg (the note on bf16
+// operands above)
+template <bool kFold, int kW, class TV = float, class TM = float>
 __global__ void __launch_bounds__(kFold ? 64 * kMaxHeads : 256,
                                   kFold ? 1 : 2)
-bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
+bwd_q_kernel(graphit::OperandsT<TV, TM> op, TV* __restrict__ dxa,
              float* __restrict__ dcq, int H, int N, int D, int DV,
              float inv_sqrt) {
   static_assert(kW == kMaxW || (!kFold && kW == kWideW), "row width");
   constexpr int kLDX = ld(kW);
   constexpr bool kChunked = kW > kMaxW;
+  constexpr bool kBf = tc::is_bf16<TV>();
   extern __shared__ float smem[];
   const Shape sh = shape(kFold, H);
   const int rows = sh.S * kStrip, stage = key_floats<kW>(sh);
@@ -100,7 +110,6 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
   const int s = warp >> 1, u = warp & 1;
   const int hs = blk.head(s), qs0 = blk.first(s);
   const size_t bhs = (size_t)blk.b * H + hs;
-  const float* pe_b = op.pe ? op.pe + (size_t)blk.b * N * N : nullptr;
 
   // the query side, once; then key tile 0 and its values
   stage_strips<kW>(xas, blk, sh, op.xa, D, H, N, op.x);
@@ -159,7 +168,8 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
         const tc::FragA a = tc::load_a(gq, kLDX, 0, kk);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
-          tc::mma3(ga[n], a, tc::load_b_nk(vk, kLDX, 16 * u + 8 * n, kk));
+          tc::mma_add<kBf>(ga[n], a,
+                           tc::load_b_nk(vk, kLDX, 16 * u + 8 * n, kk));
       }
       if (kk < D8) {
 #pragma unroll
@@ -184,7 +194,7 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int ql = g + 8 * e, kl = 16 * u + 8 * n + 2 * t;
-        const float2 pe2 = pe_b ? *reinterpret_cast<const float2*>(
+        const float2 pe2 = op.pe ? *reinterpret_cast<const float2*>(
                                       pst + ql * kLDP + kl)
                                 : make_float2(1.f, 1.f);
         float d2[2];
@@ -200,7 +210,9 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
                                     ga[n][2 * e + f], attn);
           }
           tile[e] += d;
-          d2[f] = d;
+          // ds x takes ds rounded to bf16 where x is (JAX's cast of ds to
+          // x's dtype); dcq sums it unrounded
+          d2[f] = kBf ? tc::round_bf16(d) : d;
         }
         *reinterpret_cast<float2*>(dss + (kStrip * s + ql) * kLDS + kl) =
             make_float2(d2[0], d2[1]);
@@ -222,7 +234,8 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int c0 = col0 + 32 * u + 8 * n;
-        if (c0 < D8) tc::mma3(part[n], a, tc::load_b_kn(xst, kLDX, kk, c0));
+        if (c0 < D8)
+          tc::mma_add<kBf>(part[n], a, tc::load_b_kn(xst, kLDX, kk, c0));
       }
     }
 #pragma unroll
@@ -237,7 +250,8 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
     for (int i = 0; i < 4; ++i) {
       const int q = qs0 + g + 8 * (i >> 1);
       const int col = col0 + 32 * u + 8 * n + 2 * t + (i & 1);
-      if (q < N && col < D) dxa[(bhs * N + q) * D + col] = acc[n][i];
+      if (q < N && col < D)
+        tc::store(dxa + (bhs * N + q) * D + col, acc[n][i]);
     }
   // dcq: each thread's rows, then the 4 lanes of a row, then the two warps
 #pragma unroll
@@ -258,16 +272,16 @@ bwd_q_kernel(graphit::Operands op, float* __restrict__ dxa,
 
 // Launch either grid at row width kW: blocks of 2 S warps, times the
 // chunks of dxa's columns, dynamic shared memory set first.
-template <bool kFold, int kW = kMaxW>
-int launch(graphit::Operands op, float* dxa, float* dcq, int B, int H,
+template <bool kFold, int kW = kMaxW, class TV = float, class TM = float>
+int launch(graphit::OperandsT<TV, TM> op, TV* dxa, float* dcq, int B, int H,
            int N, int D, int DV, float inv_sqrt, cudaStream_t stream) {
   const Shape sh = shape(kFold, H);
   const size_t smem = sizeof(float) * smem_floats<kW>(sh);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_q_kernel<kFold, kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      bwd_q_kernel<kFold, kW, TV, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_q_kernel<kFold, kW>
+  bwd_q_kernel<kFold, kW, TV, TM>
       <<<blocks(kFold, B, H, N, chunks(kW, D)), 64 * sh.S, smem, stream>>>(
           op, dxa, dcq, H, N, D, DV, inv_sqrt);
   return (int)cudaGetLastError();

@@ -1,4 +1,5 @@
-// Detached attention column statistics, f32, for sm_90a.
+// Detached attention column statistics, f32 (and bf16 operands), for
+// sm_90a.
 //
 // Replaces the TPU kernel feta_tmlr_tpu/ops/pallas/flash_attention.py
 // `_colstat_kernel` (launched by `_call_colstat`). From the row statistics
@@ -71,6 +72,17 @@
 // forwards' chain at that width; nothing else changes. Shared memory
 // 140,544 bytes (one block an SM).
 //
+// bf16 operands (the bf16 compute policy, FETA_COMPUTE_DTYPE=bfloat16):
+// `feta_colstat_bf16` takes xa and x in bf16 with pe and deg in bf16
+// (FETA_BF16_MODULATION=1), `feta_colstat_bf16_f32pe` with pe and deg in
+// float (=0); the statistics, wq and both outputs stay float. They
+// replace the same TPU kernel under its bf16 operands (attn recomputed in
+// float from a bf16 dot, flash_attention.py:82, :841-842). The bf16 tiles
+// are staged into the float ones converted (mma_tf32.cuh's note), which
+// halves their bytes; the score's chain then runs on bf16-exact values,
+// the JAX kernel's bf16 dot with an f32 accumulator up to the order of
+// the sum, and nothing after the staging changes.
+//
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
 
@@ -118,13 +130,14 @@ __host__ __device__ constexpr size_t smem_floats() {
   return (size_t)kKT * ld(kW) + 2 * stage_floats<kW>() + kKT + kQG * kKT;
 }
 
-// kW: the widest rows of xa and x, kMaxW or kWideW
-template <int kW>
+// kW: the widest rows of xa and x, kMaxW or kWideW; TV, TM: the types of
+// xa, x and of pe, deg (float, or bf16: the note on bf16 operands above)
+template <int kW, class TV = float, class TM = float>
 __global__ void __launch_bounds__(kThreads, 2)
-colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
+colstat_kernel(const TV* __restrict__ xa, const TV* __restrict__ x,
                const float* __restrict__ cq, const float* __restrict__ ck,
-               const float* __restrict__ c0, const float* __restrict__ pe,
-               const float* __restrict__ deg, const float* __restrict__ mask,
+               const float* __restrict__ c0, const TM* __restrict__ pe,
+               const TM* __restrict__ deg, const float* __restrict__ mask,
                const float* __restrict__ m, const float* __restrict__ se,
                const float* __restrict__ su, const float* __restrict__ wq,
                float* __restrict__ colsum, float* __restrict__ diag, int H,
@@ -150,14 +163,14 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
   const int wg = warp / kKH;             // its query group
 
   const size_t bh = (size_t)b * H + h;
-  const float* xa_bh = xa + bh * N * D;
-  const float* pe_b = pe ? pe + (size_t)b * N * N : nullptr;
+  const TV* xa_bh = xa + bh * N * D;
+  const TM* pe_b = pe ? pe + (size_t)b * N * N : nullptr;
   const float* const rows[kNRS] = {cq + bh * N, m + bh * N, se + bh * N,
                                    su + bh * N, mask + (size_t)b * N,
                                    wq ? wq + bh * N : nullptr};
   const int n_rows = wq ? kNRS : kNRS - 1;
 
-  // 16-byte copies where every row allows them, else 4-byte ones
+  // 4-element copies where every row allows them, else one at a time
   const bool vec_xa = tc::vec_ok(xa_bh, D, 0, 0, D);
   bool vec_keys = N % 4 == 0 && (!pe_b || tc::vec_ok(pe_b, N, 0, k0, kKT));
   for (int j = 0; j < n_rows; ++j)
@@ -172,8 +185,8 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
       constexpr int kVecs = kW / 4, kShift = kW == kWideW ? 5 : 4;
       for (int i = tid; i < kQT * kVecs; i += kThreads) {
         const int r = i >> kShift, c = (i & (kVecs - 1)) * 4, q = q0 + r;
-        tc::cp_async16(xst + r * kLDX + c, xa_bh + (size_t)q * D + c,
-                       q < N && c < D);
+        tc::copy4(xst + r * kLDX + c, xa_bh + (size_t)q * D + c,
+                  q < N && c < D);
       }
     } else {
       tc::stage_rows(xst, kLDX, xa_bh, D, q0, kQT, N, 0, D, D, tid,
@@ -182,8 +195,8 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
     if (vec_keys) {
       for (int i = tid; pe_b && i < kQT * kKT / 4; i += kThreads) {
         const int r = i >> 4, c = (i & 15) * 4, q = q0 + r;
-        tc::cp_async16(pst + r * kLD64 + c, pe_b + (size_t)q * N + k0 + c,
-                       q < N && k0 + c < N);
+        tc::copy4(pst + r * kLD64 + c, pe_b + (size_t)q * N + k0 + c,
+                  q < N && k0 + c < N);
       }
       if (tid < n_rows * kQT / 4) {
         const int j = tid / (kQT / 4), c = (tid % (kQT / 4)) * 4;
@@ -212,7 +225,7 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
     const int key = k0 + kr0 + g + 8 * e;
     const bool in = key < N;
     ckr[e] = in ? ck[bh * N + key] : 0.f;
-    dgr[e] = in ? (deg ? deg[(size_t)b * N + key] : 1.f) : 0.f;
+    dgr[e] = in ? (deg ? tc::to_f32(deg[(size_t)b * N + key]) : 1.f) : 0.f;
     kmr[e] = in ? mask[(size_t)b * N + key] : 0.f;
   }
   const float c0h = c0[h];
@@ -321,7 +334,7 @@ colstat_kernel(const float* __restrict__ xa, const float* __restrict__ x,
 }
 
 // Launch at row width kW: one block per (b, 64-key tile, h).
-template <int kW>
+template <int kW, class TV, class TM>
 int launch(const void* xa, const void* x, const void* cq, const void* ck,
            const void* c0, const void* pe, const void* deg, const void* mask,
            const void* m, const void* se, const void* su, const void* wq,
@@ -329,32 +342,58 @@ int launch(const void* xa, const void* x, const void* cq, const void* ck,
            float inv_sqrt, void* stream) {
   const size_t smem = sizeof(float) * smem_floats<kW>();
   cudaError_t err = cudaFuncSetAttribute(
-      colstat_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      colstat_kernel<kW, TV, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nk = (N + kKT - 1) / kKT;
-  colstat_kernel<kW><<<B * H * nk, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)xa, (const float*)x, (const float*)cq, (const float*)ck,
-      (const float*)c0, (const float*)pe, (const float*)deg,
+  colstat_kernel<kW, TV, TM>
+      <<<B * H * nk, kThreads, smem, (cudaStream_t)stream>>>(
+      (const TV*)xa, (const TV*)x, (const float*)cq, (const float*)ck,
+      (const float*)c0, (const TM*)pe, (const TM*)deg,
       (const float*)mask, (const float*)m, (const float*)se,
       (const float*)su, (const float*)wq, (float*)colsum, (float*)diag, H, N,
       D, inv_sqrt);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int feta_colstat(const void* xa, const void* x, const void* cq,
-                            const void* ck, const void* c0, const void* pe,
-                            const void* deg, const void* mask, const void* m,
-                            const void* se, const void* su, const void* wq,
-                            void* colsum, void* diag, int B, int H, int N,
-                            int D, float inv_sqrt, void* stream) {
+template <class TV, class TM>
+int run(const void* xa, const void* x, const void* cq, const void* ck,
+        const void* c0, const void* pe, const void* deg, const void* mask,
+        const void* m, const void* se, const void* su, const void* wq,
+        void* colsum, void* diag, int B, int H, int N, int D, float inv_sqrt,
+        void* stream) {
   if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > kWideW)
     return (int)cudaErrorInvalidValue;
-  return (D > kMaxW ? launch<kWideW> : launch<kMaxW>)(
+  return (D > kMaxW ? launch<kWideW, TV, TM> : launch<kMaxW, TV, TM>)(
       xa, x, cq, ck, c0, pe, deg, mask, m, se, su, wq, colsum, diag, B, H, N,
       D, inv_sqrt, stream);
+}
+
+}  // namespace
+
+#define FETA_COLSTAT_ARGS                                                  \
+  const void *xa, const void *x, const void *cq, const void *ck,           \
+      const void *c0, const void *pe, const void *deg, const void *mask,   \
+      const void *m, const void *se, const void *su, const void *wq,       \
+      void *colsum, void *diag, int B, int H, int N, int D, float inv_sqrt, \
+      void *stream
+#define FETA_COLSTAT_CALL                                                  \
+  xa, x, cq, ck, c0, pe, deg, mask, m, se, su, wq, colsum, diag, B, H, N, \
+      D, inv_sqrt, stream
+
+// float operands
+extern "C" int feta_colstat(FETA_COLSTAT_ARGS) {
+  return run<float, float>(FETA_COLSTAT_CALL);
+}
+
+// bf16 xa and x; bf16 pe and deg (FETA_BF16_MODULATION=1)
+extern "C" int feta_colstat_bf16(FETA_COLSTAT_ARGS) {
+  return run<tc::bf16, tc::bf16>(FETA_COLSTAT_CALL);
+}
+
+// bf16 xa and x; float pe and deg (FETA_BF16_MODULATION=0)
+extern "C" int feta_colstat_bf16_f32pe(FETA_COLSTAT_ARGS) {
+  return run<tc::bf16, float>(FETA_COLSTAT_CALL);
 }
 
 extern "C" const char* feta_cuda_error_string(int err) {

@@ -1,4 +1,5 @@
-// Backward of the online-softmax GraphiT attention, f32, for sm_90a.
+// Backward of the online-softmax GraphiT attention, f32 (and bf16
+// operands), for sm_90a.
 //
 // Replaces the two TPU kernels of feta_tmlr_tpu/ops/pallas/flash_attention.py
 // launched by `_call_bwd`: `_bwd_q_kernel` (dxa, dcq) and `_bwd_k_kernel`
@@ -80,6 +81,21 @@
 // keys >= N contribute exactly 0 and are not stored; padded queries inside
 // N have qa = 0 and r = 0, so ds = 0 there without a special case.
 //
+// bf16 operands (the bf16 compute policy, FETA_COMPUTE_DTYPE=bfloat16):
+// the `_bf16` entry points take xa, x, vw and g in bf16 with pe and deg
+// in bf16 (FETA_BF16_MODULATION=1), the `_bf16_f32pe` ones with pe and deg
+// in float (=0); dxa, dvw and dx are bf16, dcq and dck float. They replace
+// the same TPU kernels under their bf16 operands (bf16 dots with f32
+// accumulators, ds and attn cast to the operand dtype before the update
+// products, flash_attention.py:546-547, :582-586; outputs in the
+// operands' dtypes, :651-668). The query pass is bwd_q.cuh's bf16
+// instantiation (its note). The key pass stages its bf16 tiles converted
+// to float (mma_tf32.cuh's note); ga and the update products are one TF32
+// product each of bf16-exact operands, attn and ds rounded to bf16 before
+// their products as JAX casts them, dck summing the unrounded ds; dvw is
+// rounded once to bf16, and the dx partials stay float until the head sum
+// rounds their sum once.
+//
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
 
@@ -140,14 +156,17 @@ __device__ inline KLayout k_layout(float* smem) {
 
 // kW: the widest rows of xa, x, g and vw, kMaxW or kWideW; at kWideW a
 // grid axis of kChunk-wide chunks of the update products' columns (dvw's
-// and dx's), the fastest, each block recomputing s and ga for its chunk
-template <int kW>
+// and dx's), the fastest, each block recomputing s and ga for its chunk;
+// TV, TM: the types of xa, x, vw, g, dvw and of pe, deg (the note on bf16
+// operands above)
+template <int kW, class TV = float, class TM = float>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
+flash_bwd_k_kernel(OperandsT<TV, TM> op, TV* __restrict__ dvw,
                    float* __restrict__ dck, float* __restrict__ dx_heads,
                    int H, int N, int D, int DV, float inv_sqrt) {
   constexpr int kLDX = strips::ld(kW), kStage = k_stage<kW>();
   constexpr bool kChunked = kW > kMaxW;
+  constexpr bool kBf = tc::is_bf16<TV>();
   extern __shared__ float smem[];
   const KLayout l = k_layout<kW>(smem);
 
@@ -169,13 +188,13 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   const int wq = warp / 4;               // its query half / column half
 
   const size_t bh = (size_t)b * H + h;
-  const float* xa_bh = op.xa + bh * N * D;
-  const float* g_bh = op.g + bh * N * DV;
-  const float* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
+  const TV* xa_bh = op.xa + bh * N * D;
+  const TV* g_bh = op.g + bh * N * DV;
+  const TM* pe_b = op.pe ? op.pe + (size_t)b * N * N : nullptr;
   const float* const rows[kNRC] = {op.cq, op.m, op.ise, op.qa, op.beta,
                                    op.c};
 
-  // 16-byte copies where every row allows them: each thread then stages
+  // 4-element copies where every row allows them: each thread then stages
   // fixed chunks of rows of kW floats, chunk i at row i / (kW / 4),
   // column 4 (i % (kW / 4)), zero beyond the width and the ragged edge
   const bool vec_rows = tc::vec_ok(xa_bh, D, 0, 0, D) &&
@@ -194,10 +213,10 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
       constexpr int kVecs = kW / 4, kShift = strips::log2w(kW) - 2;
       for (int i = tid; i < kQT * kVecs; i += kThreads) {
         const int r = i >> kShift, c = (i & (kVecs - 1)) * 4, q = q0 + r;
-        tc::cp_async16(xst + r * kLDX + c, xa_bh + (size_t)q * D + c,
-                       q < N && c < D);
-        tc::cp_async16(gst + r * kLDX + c, g_bh + (size_t)q * DV + c,
-                       q < N && c < DV);
+        tc::copy4(xst + r * kLDX + c, xa_bh + (size_t)q * D + c,
+                  q < N && c < D);
+        tc::copy4(gst + r * kLDX + c, g_bh + (size_t)q * DV + c,
+                  q < N && c < DV);
       }
     } else {
       tc::stage_rows(xst, kLDX, xa_bh, D, q0, kQT, N, 0, D, D, tid,
@@ -208,8 +227,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     if (vec_keys) {
       for (int i = tid; pe_b && i < kQT * kKT / 4; i += kThreads) {
         const int r = i >> 4, c = (i & 15) * 4, q = q0 + r;
-        tc::cp_async16(pst + r * kLDP + c, pe_b + (size_t)q * N + k0 + c,
-                       q < N && k0 + c < N);
+        tc::copy4(pst + r * kLDP + c, pe_b + (size_t)q * N + k0 + c,
+                  q < N && k0 + c < N);
       }
       if (tid < kNRC * kQT / 4) {
         const int j = tid / (kQT / 4), c = (tid % (kQT / 4)) * 4;
@@ -237,7 +256,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
     const int key = k0 + tid;
     const bool in = key < N;
     l.cks[tid] = in ? op.ck[bh * N + key] : 0.f;
-    l.dgs[tid] = in ? (op.deg ? op.deg[(size_t)b * N + key] : 1.f) : 0.f;
+    l.dgs[tid] =
+        in ? (op.deg ? tc::to_f32(op.deg[(size_t)b * N + key]) : 1.f) : 0.f;
     l.kms[tid] = in ? op.mask[(size_t)b * N + key] : 0.f;
   }
   const float c0h = op.c0[h];
@@ -281,7 +301,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
         const tc::FragA a = tc::load_a(l.vws, kLDX, kr0, kk);
 #pragma unroll
         for (int n = 0; n < 2; ++n)
-          tc::mma3(ga[n], a, tc::load_b_nk(gs, kLDX, 16 * wq + 8 * n, kk));
+          tc::mma_add<kBf>(ga[n], a,
+                           tc::load_b_nk(gs, kLDX, 16 * wq + 8 * n, kk));
       }
       if (kk == 0 && DV8 == 8) {   // ga as an FMA chain
         const float* vrow = l.vws + (kr0 + g) * kLDX;
@@ -331,8 +352,10 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
                          rcs[5 * kQT + ql], pd, ga[n][i], attn);
         }
         tile[i >> 1] += d;
-        l.ats[kl * kLDT + ql] = attn;
-        l.dss[kl * kLDT + ql] = d;
+        // the update products take attn and ds rounded to bf16 where g and
+        // xa are (JAX's casts); dck sums ds unrounded
+        l.ats[kl * kLDT + ql] = kBf ? tc::round_bf16(attn) : attn;
+        l.dss[kl * kLDT + ql] = kBf ? tc::round_bf16(d) : d;
       }
     colsum[0].add(tile[0], it);
     colsum[1].add(tile[1], it);
@@ -354,8 +377,8 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
         const int c0 = 32 * ch + 8 * n;
         if (c0 < w8) {
           const tc::FragB bf = tc::load_b_kn(bm, kLDX, kk, col0 + c0);
-          tc::mma3(part[0][n], a0, bf);
-          tc::mma3(part[1][n], a1, bf);
+          tc::mma_add<kBf>(part[0][n], a0, bf);
+          tc::mma_add<kBf>(part[1][n], a1, bf);
         }
       }
     }
@@ -380,7 +403,6 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
   __syncthreads();
   if (tid < kKT && k0 + tid < N && chunk == 0)
     dck[bh * N + k0 + tid] = l.red[tid] + l.red[kKT + tid];
-  float* const out = up ? dx_heads : dvw;
   const int width = up ? D : DV;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -390,14 +412,21 @@ flash_bwd_k_kernel(Operands op, float* __restrict__ dvw,
       for (int i = 0; i < 4; ++i) {
         const int key = k0 + 32 * kh + 16 * mt + g + 8 * (i >> 1);
         const int col = col0 + 32 * ch + 8 * n + 2 * t + (i & 1);
-        if (key < N && col < width)
-          out[(bh * N + key) * width + col] = acc[mt][n][i];
+        if (key < N && col < width) {
+          const size_t at = (bh * N + key) * width + col;
+          if (up)        // dx_h: a float partial, rounded after the head sum
+            dx_heads[at] = acc[mt][n][i];
+          else
+            tc::store(dvw + at, acc[mt][n][i]);
+        }
       }
 }
 
-// dx[b, n, k] = sum_h dx_heads[b, h, n, k], heads added in order 0..H-1.
+// dx[b, n, k] = sum_h dx_heads[b, h, n, k], heads added in order 0..H-1
+// in float, rounded once to TO.
+template <class TO>
 __global__ void head_sum_kernel(const float* __restrict__ dx_heads,
-                                float* __restrict__ dx, int B, int H,
+                                TO* __restrict__ dx, int B, int H,
                                 size_t ND) {
   const size_t total = (size_t)B * ND;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -406,7 +435,7 @@ __global__ void head_sum_kernel(const float* __restrict__ dx_heads,
     const float* src = dx_heads + b * H * ND + rest;
     float t = 0.f;
     for (int h = 0; h < H; ++h) t += src[h * ND];
-    dx[i] = t;
+    tc::store(dx + i, t);
   }
 }
 
@@ -419,66 +448,116 @@ bool wide(int D, int DV) { return D > kMaxW || DV > kMaxW; }
 
 // the key pass at row width kW: its blocks per (b, key tile, h), times the
 // chunks of the update products' columns
-template <int kW>
-cudaError_t launch_k(const Operands& op, float* dvw, float* dck,
+template <int kW, class TV, class TM>
+cudaError_t launch_k(const OperandsT<TV, TM>& op, TV* dvw, float* dck,
                      float* dx_heads, int B, int H, int N, int D, int DV,
                      float inv_sqrt, cudaStream_t stream) {
   const size_t smem = sizeof(float) * k_smem_floats<kW>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_k_kernel<kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_k_kernel<kW, TV, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nk = (N + kKT - 1) / kKT;
   const int nc = strips::chunks(kW, D > DV ? D : DV);
-  flash_bwd_k_kernel<kW><<<B * H * nk * nc, kThreads, smem, stream>>>(
+  flash_bwd_k_kernel<kW, TV, TM><<<B * H * nk * nc, kThreads, smem, stream>>>(
       op, dvw, dck, dx_heads, H, N, D, DV, inv_sqrt);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int feta_flash_bwd_q(const void* xa, const void* x, const void* cq,
-                                const void* ck, const void* c0,
-                                const void* vw, const void* pe,
-                                const void* deg, const void* mask,
-                                const void* g, const void* m, const void* ise,
-                                const void* qa, const void* beta,
-                                const void* c, void* dxa, void* dcq, int B,
-                                int H, int N, int D, int DV, float inv_sqrt,
-                                void* stream) {
+// The unfolded query pass at TV (xa, x, vw, g, dxa) and TM (pe, deg).
+template <class TV, class TM>
+int run_bwd_q(const void* xa, const void* x, const void* cq, const void* ck,
+              const void* c0, const void* vw, const void* pe,
+              const void* deg, const void* mask, const void* g,
+              const void* m, const void* ise, const void* qa,
+              const void* beta, const void* c, void* dxa, void* dcq, int B,
+              int H, int N, int D, int DV, float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  auto run = wide(D, DV) ? bwdq::launch<false, kWideW>
-                         : bwdq::launch<false, kMaxW>;
-  return run(
-      operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
-      (float*)dxa, (float*)dcq, B, H, N, D, DV, inv_sqrt,
-      (cudaStream_t)stream);
+  auto run = wide(D, DV) ? bwdq::launch<false, kWideW, TV, TM>
+                         : bwdq::launch<false, kMaxW, TV, TM>;
+  return run(operands<TV, TM>(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m,
+                              ise, qa, beta, c),
+             (TV*)dxa, (float*)dcq, B, H, N, D, DV, inv_sqrt,
+             (cudaStream_t)stream);
 }
 
-// dx_heads is scratch of B*H*N*D floats that the caller allocates.
-extern "C" int feta_flash_bwd_k(const void* xa, const void* x, const void* cq,
-                                const void* ck, const void* c0,
-                                const void* vw, const void* pe,
-                                const void* deg, const void* mask,
-                                const void* g, const void* m, const void* ise,
-                                const void* qa, const void* beta,
-                                const void* c, void* dvw, void* dck,
-                                void* dx_heads, void* dx, int B, int H, int N,
-                                int D, int DV, float inv_sqrt, void* stream) {
+// The unfolded key pass and its head sum at TV (xa, x, vw, g, dvw, dx)
+// and TM (pe, deg); dx_heads is float scratch of B*H*N*D that the caller
+// allocates.
+template <class TV, class TM>
+int run_bwd_k(const void* xa, const void* x, const void* cq, const void* ck,
+              const void* c0, const void* vw, const void* pe,
+              const void* deg, const void* mask, const void* g,
+              const void* m, const void* ise, const void* qa,
+              const void* beta, const void* c, void* dvw, void* dck,
+              void* dx_heads, void* dx, int B, int H, int N, int D, int DV,
+              float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D, DV)) return (int)cudaErrorInvalidValue;
-  auto run = wide(D, DV) ? launch_k<kWideW> : launch_k<kMaxW>;
+  auto run = wide(D, DV) ? launch_k<kWideW, TV, TM> : launch_k<kMaxW, TV, TM>;
   cudaError_t err = run(
-      operands(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c),
-      (float*)dvw, (float*)dck, (float*)dx_heads, B, H, N, D, DV, inv_sqrt,
+      operands<TV, TM>(xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa,
+                       beta, c),
+      (TV*)dvw, (float*)dck, (float*)dx_heads, B, H, N, D, DV, inv_sqrt,
       (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   const size_t nd = (size_t)N * D;
   const size_t total = (size_t)B * nd;
   const int blocks = (int)((total + kThreads - 1) / kThreads);
-  head_sum_kernel<<<blocks < 4096 ? blocks : 4096, kThreads, 0,
-                    (cudaStream_t)stream>>>((const float*)dx_heads,
-                                            (float*)dx, B, H, nd);
+  head_sum_kernel<TV><<<blocks < 4096 ? blocks : 4096, kThreads, 0,
+                        (cudaStream_t)stream>>>((const float*)dx_heads,
+                                                (TV*)dx, B, H, nd);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define FETA_BWD_Q_ARGS                                                   \
+  const void *xa, const void *x, const void *cq, const void *ck,          \
+      const void *c0, const void *vw, const void *pe, const void *deg,    \
+      const void *mask, const void *g, const void *m, const void *ise,    \
+      const void *qa, const void *beta, const void *c, void *dxa,         \
+      void *dcq, int B, int H, int N, int D, int DV, float inv_sqrt,      \
+      void *stream
+#define FETA_BWD_Q_CALL                                                   \
+  xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c, dxa, dcq, \
+      B, H, N, D, DV, inv_sqrt, stream
+#define FETA_BWD_K_ARGS                                                   \
+  const void *xa, const void *x, const void *cq, const void *ck,          \
+      const void *c0, const void *vw, const void *pe, const void *deg,    \
+      const void *mask, const void *g, const void *m, const void *ise,    \
+      const void *qa, const void *beta, const void *c, void *dvw,         \
+      void *dck, void *dx_heads, void *dx, int B, int H, int N, int D,    \
+      int DV, float inv_sqrt, void *stream
+#define FETA_BWD_K_CALL                                                   \
+  xa, x, cq, ck, c0, vw, pe, deg, mask, g, m, ise, qa, beta, c, dvw, dck, \
+      dx_heads, dx, B, H, N, D, DV, inv_sqrt, stream
+
+// float operands
+extern "C" int feta_flash_bwd_q(FETA_BWD_Q_ARGS) {
+  return run_bwd_q<float, float>(FETA_BWD_Q_CALL);
+}
+
+extern "C" int feta_flash_bwd_k(FETA_BWD_K_ARGS) {
+  return run_bwd_k<float, float>(FETA_BWD_K_CALL);
+}
+
+// bf16 xa, x, vw, g and outputs dxa, dvw, dx; bf16 pe and deg
+// (FETA_BF16_MODULATION=1)
+extern "C" int feta_flash_bwd_q_bf16(FETA_BWD_Q_ARGS) {
+  return run_bwd_q<tc::bf16, tc::bf16>(FETA_BWD_Q_CALL);
+}
+
+extern "C" int feta_flash_bwd_k_bf16(FETA_BWD_K_ARGS) {
+  return run_bwd_k<tc::bf16, tc::bf16>(FETA_BWD_K_CALL);
+}
+
+// the same with float pe and deg (FETA_BF16_MODULATION=0)
+extern "C" int feta_flash_bwd_q_bf16_f32pe(FETA_BWD_Q_ARGS) {
+  return run_bwd_q<tc::bf16, float>(FETA_BWD_Q_CALL);
+}
+
+extern "C" int feta_flash_bwd_k_bf16_f32pe(FETA_BWD_K_ARGS) {
+  return run_bwd_k<tc::bf16, float>(FETA_BWD_K_CALL);
 }
 
 extern "C" const char* feta_cuda_error_string(int err) {

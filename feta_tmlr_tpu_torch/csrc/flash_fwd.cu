@@ -1,4 +1,5 @@
-// Online-softmax GraphiT attention forward, f32, for sm_90a.
+// Online-softmax GraphiT attention forward, f32 (and bf16 operands), for
+// sm_90a.
 //
 // Replaces the TPU kernel feta_tmlr_tpu/ops/pallas/flash_attention.py
 // `_fwd_kernel` (launched by `_call_fwd`). For one (graph b, head h):
@@ -32,6 +33,16 @@
 // are adjacent in launch order, so the pe tile they share comes from L2
 // (50 MB holds the whole [B, N, N] pe at B=8, N=1024).
 //
+// bf16 operands (the bf16 compute policy, FETA_COMPUTE_DTYPE=bfloat16):
+// `feta_flash_fwd_bf16` takes xa, x and vw in bf16 with pe and deg in bf16
+// (FETA_BF16_MODULATION=1, the default), `feta_flash_fwd_bf16_f32pe` with
+// pe and deg in float (FETA_BF16_MODULATION=0); outh is bf16, m, se, su
+// float. They replace the same TPU kernel under its bf16 operands
+// (`_fwd_kernel`'s bf16 dots with f32 accumulators and P cast to vw's
+// dtype, flash_attention.py:82, :124-125) and run fwd.cuh's bf16
+// instantiation (its note says what changes: the staging converts, P is
+// rounded to bf16, P·V is one exact TF32 product).
+//
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launch.
 
@@ -40,24 +51,52 @@
 #include "fwd.cuh"
 #include "graphit_tile.cuh"
 
-extern "C" int feta_flash_fwd(const void* xa, const void* x, const void* cq,
-                              const void* ck, const void* c0, const void* vw,
-                              const void* pe, const void* deg,
-                              const void* mask, void* outh, void* m, void* se,
-                              void* su, int B, int H, int N, int D, int DV,
-                              float inv_sqrt, void* stream) {
+namespace {
+
+// The unfolded forward at TV (xa, x, vw, outh) and TM (pe, deg): rows of
+// up to 64 floats, or the wide rows and their value chunks.
+template <class TV, class TM>
+int run_fwd(const void* xa, const void* x, const void* cq, const void* ck,
+            const void* c0, const void* vw, const void* pe, const void* deg,
+            const void* mask, void* outh, void* m, void* se, void* su, int B,
+            int H, int N, int D, int DV, float inv_sqrt, void* stream) {
   if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D > strips::kWideW ||
       DV <= 0 || DV > strips::kWideW)
     return (int)cudaErrorInvalidValue;
-  const graphit::Operands op = graphit::operands(
+  const graphit::OperandsT<TV, TM> op = graphit::operands<TV, TM>(
       xa, x, cq, ck, c0, vw, pe, deg, mask, nullptr, nullptr, nullptr,
       nullptr, nullptr, nullptr);
-  // rows of up to 64 floats, or the wide rows and their value chunks
   auto run = D > strips::kMaxW || DV > strips::kMaxW
-                 ? fwd::launch<false, strips::kWideW>
-                 : fwd::launch<false, strips::kMaxW>;
-  return run(op, (float*)outh, (float*)m, (float*)se, (float*)su, B, H, N, D,
+                 ? fwd::launch<false, strips::kWideW, TV, TM>
+                 : fwd::launch<false, strips::kMaxW, TV, TM>;
+  return run(op, (TV*)outh, (float*)m, (float*)se, (float*)su, B, H, N, D,
              DV, inv_sqrt, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+#define FETA_FWD_ARGS                                                     \
+  const void *xa, const void *x, const void *cq, const void *ck,          \
+      const void *c0, const void *vw, const void *pe, const void *deg,    \
+      const void *mask, void *outh, void *m, void *se, void *su, int B,   \
+      int H, int N, int D, int DV, float inv_sqrt, void *stream
+#define FETA_FWD_CALL \
+  xa, x, cq, ck, c0, vw, pe, deg, mask, outh, m, se, su, B, H, N, D, DV, \
+      inv_sqrt, stream
+
+// float operands
+extern "C" int feta_flash_fwd(FETA_FWD_ARGS) {
+  return run_fwd<float, float>(FETA_FWD_CALL);
+}
+
+// bf16 xa, x, vw and outh; bf16 pe and deg (FETA_BF16_MODULATION=1)
+extern "C" int feta_flash_fwd_bf16(FETA_FWD_ARGS) {
+  return run_fwd<tc::bf16, tc::bf16>(FETA_FWD_CALL);
+}
+
+// bf16 xa, x, vw and outh; float pe and deg (FETA_BF16_MODULATION=0)
+extern "C" int feta_flash_fwd_bf16_f32pe(FETA_FWD_ARGS) {
+  return run_fwd<tc::bf16, float>(FETA_FWD_CALL);
 }
 
 extern "C" const char* feta_cuda_error_string(int err) {

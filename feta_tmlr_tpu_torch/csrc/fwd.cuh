@@ -55,6 +55,15 @@
 // staging a small share. Keys >= N get e = 0 and never enter m; rows >= N
 // are not stored; D and DV not multiples of 8 add exact zeros at the K
 // edge (zero-filled columns).
+//
+// bf16 operands (the bf16 compute policy; flash_fwd.cu's bf16 entry
+// points, the unfolded grid only): xa, x and vw bf16, pe and deg bf16 or
+// float, staged into the float tiles converted (mma_tf32.cuh's note), so
+// their global bytes halve and the score's chain runs on bf16-exact
+// values: the JAX kernel's bf16 dot with an f32 accumulator, up to the
+// order of the sum. P is rounded to bf16 where the JAX kernel casts it,
+// P·V is one TF32 product of bf16-exact operands (`mma1`), and outh is
+// rounded once to bf16; m, se and su stay float, from the unrounded e.
 
 #pragma once
 
@@ -81,17 +90,20 @@ __host__ __device__ inline size_t smem_floats(Shape sh) {
   return (size_t)sh.S * kStrip * ld(kW) + 2 * (size_t)stage_floats<kW>(sh);
 }
 
-// kW: the widest rows of xa and x (strips.cuh), kMaxW or (unfolded) kWideW
-template <bool kFold, int kW>
+// kW: the widest rows of xa and x (strips.cuh), kMaxW or (unfolded)
+// kWideW; TV, TM: the types of xa, x, vw, outh and of pe, deg (float, or
+// bf16: the note on bf16 operands above)
+template <bool kFold, int kW, class TV = float, class TM = float>
 __global__ void __launch_bounds__(kFold ? 64 * kMaxHeads : 256,
                                   kFold ? 1 : 2)
-fwd_kernel(graphit::Operands op, float* __restrict__ outh,
+fwd_kernel(graphit::OperandsT<TV, TM> op, TV* __restrict__ outh,
            float* __restrict__ m_out, float* __restrict__ se_out,
            float* __restrict__ su_out, int H, int N, int D, int DV,
            float inv_sqrt) {
   static_assert(kW == kMaxW || (!kFold && kW == kWideW), "row width");
   constexpr int kLDX = ld(kW);
   constexpr bool kChunked = kW > kMaxW;
+  constexpr bool kBf = tc::is_bf16<TV>();
   extern __shared__ float smem[];
   const Shape sh = shape(kFold, H);
   const int stage = stage_floats<kW>(sh);
@@ -233,7 +245,9 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
                                 (op.deg ? dgs[kl + f] : 1.f));
           es[e] += ex;
           ws[e] += w;
-          sc[n][i] = w * kms[kl + f];   // P
+          // P, rounded to bf16 where the values are (JAX's cast of P
+          // to vw's dtype before P·V)
+          sc[n][i] = kBf ? tc::round_bf16(w * kms[kl + f]) : w * kms[kl + f];
         }
       }
 #pragma unroll
@@ -254,8 +268,8 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
     for (int j = 0; j < 8; ++j)
       if (8 * j < DV8) {
         float part[4];
-        tc::mma3_fresh(part, p0, tc::load_b_kn_pairs(vws, kLD, 0, 8 * j));
-        tc::mma3(part, p1, tc::load_b_kn_pairs(vws, kLD, 8, 8 * j));
+        tc::mma_set<kBf>(part, p0, tc::load_b_kn_pairs(vws, kLD, 0, 8 * j));
+        tc::mma_add<kBf>(part, p1, tc::load_b_kn_pairs(vws, kLD, 8, 8 * j));
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           acc[j][i] = fmaf(acc[j][i], scale[i >> 1], part[i]);
@@ -313,24 +327,24 @@ fwd_kernel(graphit::Operands op, float* __restrict__ outh,
       if (q < N && col < DVc) {
         const float a = fmaf(tot[j][i], a0[e],
                              mrg[(g + 8 * e) * kLDX + col] * a1[e]);
-        outh[(bhs * N + q) * DV + col0 + col] = a / div[e] * qm[e];
+        tc::store(outh + (bhs * N + q) * DV + col0 + col, a / div[e] * qm[e]);
       }
     }
 }
 
 // Launch either grid at row width kW: blocks of 2 S warps, times the
 // chunks of the value columns, dynamic shared memory set first.
-template <bool kFold, int kW = kMaxW>
-int launch(graphit::Operands op, float* outh, float* m, float* se, float* su,
-           int B, int H, int N, int D, int DV, float inv_sqrt,
+template <bool kFold, int kW = kMaxW, class TV = float, class TM = float>
+int launch(graphit::OperandsT<TV, TM> op, TV* outh, float* m, float* se,
+           float* su, int B, int H, int N, int D, int DV, float inv_sqrt,
            cudaStream_t stream) {
   const Shape sh = shape(kFold, H);
   const size_t smem = sizeof(float) * smem_floats<kW>(sh);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<kFold, kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fwd_kernel<kFold, kW, TV, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<kFold, kW>
+  fwd_kernel<kFold, kW, TV, TM>
       <<<blocks(kFold, B, H, N, chunks(kW, DV)), 64 * sh.S, smem, stream>>>(
           op, outh, m, se, su, H, N, D, DV, inv_sqrt);
   return (int)cudaGetLastError();

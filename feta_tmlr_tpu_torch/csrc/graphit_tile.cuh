@@ -56,22 +56,37 @@ __device__ __forceinline__ float grad_score(float dot, float cq, float ck,
 }
 
 // The backward passes' operands (flash_bwd.cu's note): the forward's, the
-// per-head cotangent g and the row statistics and constants.
-struct Operands {
-  const float *xa, *x, *cq, *ck, *c0, *vw, *pe, *deg, *mask, *g;
+// per-head cotangent g and the row statistics and constants. TV is the type
+// of xa, x, vw and g, TM that of pe and deg: float, or bf16 under the bf16
+// compute policy (TV bf16 with TM bf16 or float; mma_tf32.cuh's note).
+// The masks, cq, ck, c0 and the statistics stay float.
+template <class TV, class TM>
+struct OperandsT {
+  const TV *xa, *x;
+  const float *cq, *ck, *c0;
+  const TV* vw;
+  const TM *pe, *deg;
+  const float* mask;
+  const TV* g;
   const float *m, *ise, *qa, *beta, *c;
 };
+using Operands = OperandsT<float, float>;
 
-inline Operands operands(const void* xa, const void* x, const void* cq,
-                         const void* ck, const void* c0, const void* vw,
-                         const void* pe, const void* deg, const void* mask,
-                         const void* g, const void* m, const void* ise,
-                         const void* qa, const void* beta, const void* c) {
-  return Operands{(const float*)xa,   (const float*)x,   (const float*)cq,
-                  (const float*)ck,   (const float*)c0,  (const float*)vw,
-                  (const float*)pe,   (const float*)deg, (const float*)mask,
-                  (const float*)g,    (const float*)m,   (const float*)ise,
-                  (const float*)qa,   (const float*)beta, (const float*)c};
+template <class TV = float, class TM = float>
+inline OperandsT<TV, TM> operands(const void* xa, const void* x,
+                                  const void* cq, const void* ck,
+                                  const void* c0, const void* vw,
+                                  const void* pe, const void* deg,
+                                  const void* mask, const void* g,
+                                  const void* m, const void* ise,
+                                  const void* qa, const void* beta,
+                                  const void* c) {
+  return OperandsT<TV, TM>{
+      (const TV*)xa,     (const TV*)x,      (const float*)cq,
+      (const float*)ck,  (const float*)c0,  (const TV*)vw,
+      (const TM*)pe,     (const TM*)deg,    (const float*)mask,
+      (const TV*)g,      (const float*)m,   (const float*)ise,
+      (const float*)qa,  (const float*)beta, (const float*)c};
 }
 
 // A thread's sum over the tiles of a block's loop in a bounded order (dcq

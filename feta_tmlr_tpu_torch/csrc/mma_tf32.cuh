@@ -45,9 +45,22 @@
 // zero-filled by the copy itself (src-size 0). A kernel stages tile t + 1
 // into one half of a two-stage ring while it computes tile t from the
 // other half.
+//
+// bf16 operands (the bf16 compute policy, FETA_COMPUTE_DTYPE=bfloat16).
+// The attention kernels' bf16 instantiations stage a bf16 tile into the
+// same float tile: `copy4` / `copy1` load 8 or 2 bytes, convert them to
+// float and store them (a plain load and store where the float
+// instantiation issues cp.async), so the global bytes halve and the tile
+// code after the staging runs unchanged. Every operand of their tensor-core
+// products is then bf16-exact (P, ds and attn are rounded to bf16 first,
+// where the JAX kernels cast them): TF32's 10-bit mantissa holds a bf16
+// value without loss, the lo term of `split` is zero, and one TF32 product
+// (`mma1`) is the exact bf16 product with an f32 accumulator that 3xTF32
+// would give, at a third of the tensor-core instructions.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,6 +140,42 @@ __device__ __forceinline__ void mma3_fresh(float (&d)[4], const FragA& a,
   mma_fresh(d, a.lo, b.hi);
   mma(d, a.hi, b.lo);
   mma(d, a.hi, b.hi);
+}
+
+// d += a·b for bf16-exact operands: one TF32 product (hi·hi; the lo terms
+// are zero, the note above) into a fresh fragment, added to d as mma3 adds
+__device__ __forceinline__ void mma1(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  float p[4];
+  mma_fresh(p, a.hi, b.hi);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += p[i];
+}
+
+// d = a·b for bf16-exact operands where d is fresh (zero)
+__device__ __forceinline__ void mma1_fresh(float (&d)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_fresh(d, a.hi, b.hi);
+}
+
+// d (+)= a·b: one TF32 product where the operands are bf16-exact (kBf),
+// else 3xTF32
+template <bool kBf>
+__device__ __forceinline__ void mma_add(float (&d)[4], const FragA& a,
+                                        const FragB& b) {
+  if constexpr (kBf)
+    mma1(d, a, b);
+  else
+    mma3(d, a, b);
+}
+
+template <bool kBf>
+__device__ __forceinline__ void mma_set(float (&d)[4], const FragA& a,
+                                        const FragB& b) {
+  if constexpr (kBf)
+    mma1_fresh(d, a, b);
+  else
+    mma3_fresh(d, a, b);
 }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
@@ -239,20 +288,76 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Whether `stage_rows` may copy 16 bytes at a time from `src`.
-__device__ __forceinline__ bool vec_ok(const float* src, size_t row_stride,
+// ------------------------------------------------------ bf16 operands
+
+using bf16 = __nv_bfloat16;
+
+template <class T>
+__host__ __device__ constexpr bool is_bf16() {
+  return sizeof(T) == 2;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// v rounded to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// one output element, rounded once where the output is bf16
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// dst[0..3] = src[0..3] as float, or zeros where !valid (src is then not
+// read): a 16-byte cp.async from float, an 8-byte load from bf16
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void copy4(float* dst, const bf16* src,
+                                      bool valid) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid) {
+    const uint2 r = *reinterpret_cast<const uint2*>(src);
+    v = make_float4(__uint_as_float(r.x << 16),
+                    __uint_as_float(r.x & 0xffff0000u),
+                    __uint_as_float(r.y << 16),
+                    __uint_as_float(r.y & 0xffff0000u));
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// dst[0] = src[0] as float, or zero where !valid
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void copy1(float* dst, const bf16* src,
+                                      bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
+}
+
+// Whether `stage_rows` may copy 4 elements at a time from `src` (16 bytes
+// of float, 8 of bf16).
+template <class T>
+__device__ __forceinline__ bool vec_ok(const T* src, size_t row_stride,
                                        size_t src_mat, int col0, int w) {
   return w % 4 == 0 && row_stride % 4 == 0 && src_mat % 4 == 0 &&
-         col0 % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0;
+         col0 % 4 == 0 && reinterpret_cast<size_t>(src) % (4 * sizeof(T)) == 0;
 }
 
 // For each of `nmat` matrices m (source src + m * src_mat, destination
 // dst + m * dst_mat): dst[r * ld + c] = src[(row0 + r) * row_stride +
 // col0 + c] for r < rows and c < round8(w), zero where row0 + r >= n_rows,
 // col0 + c >= n_cols or c >= w. Issued by threads tid = 0 .. nthreads - 1
-// as cp.async, without a commit or a wait.
+// as cp.async (float; a bf16 src is converted by plain loads and stores,
+// `copy4`), without a commit or a wait.
+template <class T>
 __device__ __forceinline__ void stage_rows(
-    float* dst, int ld, const float* src, size_t row_stride, int row0,
+    float* dst, int ld, const T* src, size_t row_stride, int row0,
     int rows, int n_rows, int col0, int w, int n_cols, int tid, int nthreads,
     int nmat = 1, size_t src_mat = 0, int dst_mat = 0) {
   const int w8 = round8(w);
@@ -263,14 +368,14 @@ __device__ __forceinline__ void stage_rows(
       const int m = i / per_mat, rest = i - m * per_mat, r = rest / per;
       const int c = (rest - r * per) * 4, row = row0 + r;
       float* d = dst + m * dst_mat + r * ld + c;
-      const float* sp = src + m * src_mat + (size_t)row * row_stride + col0 + c;
+      const T* sp = src + m * src_mat + (size_t)row * row_stride + col0 + c;
       if (row < n_rows && c < cols && c + 4 > cols) {
-        // a chunk across the column edge n_cols, one float at a time
-        for (int u = 0; u < 4; ++u) cp_async4(d + u, sp + u, c + u < cols);
+        // a chunk across the column edge n_cols, one element at a time
+        for (int u = 0; u < 4; ++u) copy1(d + u, sp + u, c + u < cols);
         continue;
       }
       const bool valid = row < n_rows && c < cols;
-      cp_async16(d, valid ? sp : src, valid);
+      copy4(d, valid ? sp : src, valid);
     }
   } else {
     const int per_mat = rows * w8, total = nmat * per_mat;
@@ -278,10 +383,10 @@ __device__ __forceinline__ void stage_rows(
       const int m = i / per_mat, rest = i - m * per_mat, r = rest / w8;
       const int c = rest - r * w8, row = row0 + r;
       const bool valid = row < n_rows && c < cols;
-      cp_async4(dst + m * dst_mat + r * ld + c,
-                valid ? src + m * src_mat + (size_t)row * row_stride + col0 + c
-                      : src,
-                valid);
+      copy1(dst + m * dst_mat + r * ld + c,
+            valid ? src + m * src_mat + (size_t)row * row_stride + col0 + c
+                  : src,
+            valid);
     }
   }
 }

@@ -123,46 +123,48 @@ __device__ __forceinline__ Block block_of(int H, int N, int nc = 1) {
 
 // cp.async of `rows` rows of width w <= kW into dst [rows][ld(kW)], columns
 // w .. kW - 1 zero: row r from src_row(r), or all zero where that is
-// nullptr. 16 bytes a copy where `vec` (w and the rows' offsets multiples
-// of 4 floats), chunk i at row i / (kW / 4), columns 4 (i % (kW / 4)) ..
-// + 3; else 4 bytes. kW is 64 or 128 (`log2w`).
-template <int kW, class Src>
+// nullptr. 4 elements a copy where `vec` (w and the rows' offsets multiples
+// of 4 elements), chunk i at row i / (kW / 4), columns 4 (i % (kW / 4)) ..
+// + 3; else one. kW is 64 or 128 (`log2w`). A bf16 source (T) is
+// converted to float on the way in (mma_tf32.cuh's `copy4`).
+template <int kW, class T, class Src>
 __device__ __forceinline__ void stage_rows_w(float* dst, int rows, int w,
                                              bool vec, Src src_row,
-                                             const float* dummy) {
+                                             const T* dummy) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
   constexpr int kVecs = kW / 4, kShift = log2w(kW) - 2;
   if (vec) {
     for (int i = tid; i < rows * kVecs; i += nthreads) {
       const int r = i >> kShift, c = (i & (kVecs - 1)) * 4;
-      const float* p = src_row(r);
+      const T* p = src_row(r);
       const bool valid = p != nullptr && c < w;
-      tc::cp_async16(dst + r * ld(kW) + c, valid ? p + c : dummy, valid);
+      tc::copy4(dst + r * ld(kW) + c, valid ? p + c : dummy, valid);
     }
   } else {
     for (int i = tid; i < rows * kW; i += nthreads) {
       const int r = i >> log2w(kW), c = i & (kW - 1);
-      const float* p = src_row(r);
+      const T* p = src_row(r);
       const bool valid = p != nullptr && c < w;
-      tc::cp_async4(dst + r * ld(kW) + c, valid ? p + c : dummy, valid);
+      tc::copy1(dst + r * ld(kW) + c, valid ? p + c : dummy, valid);
     }
   }
 }
 
-__device__ __forceinline__ bool vec_rows(const float* base, int w) {
-  return w % 4 == 0 && reinterpret_cast<size_t>(base) % 16 == 0;
+template <class T>
+__device__ __forceinline__ bool vec_rows(const T* base, int w) {
+  return w % 4 == 0 && reinterpret_cast<size_t>(base) % (4 * sizeof(T)) == 0;
 }
 
 // The strips' rows of a per-head operand `base` [B, H, N, w] into dst
 // [16 S][ld(kW)], rows past N zero.
-template <int kW>
+template <int kW, class T>
 __device__ __forceinline__ void stage_strips(float* dst, const Block& blk,
-                                             Shape sh, const float* base,
+                                             Shape sh, const T* base,
                                              int w, int H, int N,
-                                             const float* dummy) {
+                                             const T* dummy) {
   stage_rows_w<kW>(
       dst, sh.S * kStrip, w, vec_rows(base, w),
-      [&](int r) -> const float* {
+      [&](int r) -> const T* {
         const int sr = r >> 4, q = blk.first(sr) + (r & 15);
         return q < N ? base + (((size_t)blk.b * H + blk.head(sr)) * N + q) * w
                      : nullptr;
@@ -172,61 +174,67 @@ __device__ __forceinline__ void stage_strips(float* dst, const Block& blk,
 
 // Key tile k0's x, pe, ck, deg and key mask into `st` (key_floats<kW>(sh)
 // floats, laid out as the note says).
-template <int kW>
-__device__ __forceinline__ void stage_keys(float* st, const Block& blk,
-                                           Shape sh,
-                                           const graphit::Operands& op,
-                                           int k0, int H, int N, int D) {
+template <int kW, class TV, class TM>
+__device__ __forceinline__ void stage_keys(
+    float* st, const Block& blk, Shape sh,
+    const graphit::OperandsT<TV, TM>& op, int k0, int H, int N, int D) {
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int b = blk.b;
-  const float* dummy = op.x;
+  const TV* dummy = op.x;
   float* pst = st + kKeys * ld(kW);
   float* vst = pst + sh.P * kLDP;     // ck [V][32], deg [32], mask [32]
   stage_rows_w<kW>(
       st, kKeys, D, vec_rows(op.x, D),
-      [&](int r) -> const float* {
+      [&](int r) -> const TV* {
         return k0 + r < N ? op.x + ((size_t)b * N + k0 + r) * D : nullptr;
       },
       dummy);
   if (op.pe) {
-    const float* pe_b = op.pe + (size_t)b * N * N;
-    if (N % 4 == 0 && reinterpret_cast<size_t>(op.pe) % 16 == 0) {
+    const TM* pe_b = op.pe + (size_t)b * N * N;
+    if (N % 4 == 0 &&
+        reinterpret_cast<size_t>(op.pe) % (4 * sizeof(TM)) == 0) {
       for (int i = tid; i < sh.P * kKeys / 4; i += nthreads) {
         const int r = i >> 3, c = (i & 7) * 4, q = blk.q0 + r;
         const bool valid = q < N && k0 + c < N;
-        tc::cp_async16(pst + r * kLDP + c,
-                       valid ? pe_b + (size_t)q * N + k0 + c : dummy, valid);
+        tc::copy4(pst + r * kLDP + c,
+                  valid ? pe_b + (size_t)q * N + k0 + c : pe_b, valid);
       }
     } else {
       for (int i = tid; i < sh.P * kKeys; i += nthreads) {
         const int r = i >> 5, c = i & (kKeys - 1), q = blk.q0 + r;
         const bool valid = q < N && k0 + c < N;
-        tc::cp_async4(pst + r * kLDP + c,
-                      valid ? pe_b + (size_t)q * N + k0 + c : dummy, valid);
+        tc::copy1(pst + r * kLDP + c,
+                  valid ? pe_b + (size_t)q * N + k0 + c : pe_b, valid);
       }
     }
   }
   for (int i = tid; i < (sh.V + 2) * kKeys; i += nthreads) {
     const int j = i >> 5, key = k0 + (i & (kKeys - 1));
+    if (j == sh.V) {                  // deg, of the modulation's type
+      const bool valid = key < N && op.deg;
+      tc::copy1(vst + i, valid ? op.deg + (size_t)b * N + key
+                               : reinterpret_cast<const TM*>(op.mask),
+                valid);
+      continue;
+    }
     const float* src = j < sh.V ? op.ck + ((size_t)b * H + blk.head(j)) * N
-                       : j == sh.V ? op.deg + (size_t)b * N
-                                   : op.mask + (size_t)b * N;
-    const bool valid = key < N && (j != sh.V || op.deg);
-    tc::cp_async4(vst + i, valid ? src + key : dummy, valid);
+                                : op.mask + (size_t)b * N;
+    const bool valid = key < N;
+    tc::cp_async4(vst + i, valid ? src + key : op.mask, valid);
   }
 }
 
 // Key tile k0's vw rows of every staged head into dst [V][32][ld(kWV)]:
 // columns col0 .. col0 + w - 1 of rows of DV floats (w <= kWV).
-template <int kWV>
+template <int kWV, class TV, class TM>
 __device__ __forceinline__ void stage_vw(float* dst, const Block& blk,
                                          Shape sh,
-                                         const graphit::Operands& op, int k0,
-                                         int H, int N, int DV, int col0,
-                                         int w) {
+                                         const graphit::OperandsT<TV, TM>& op,
+                                         int k0, int H, int N, int DV,
+                                         int col0, int w) {
   stage_rows_w<kWV>(
       dst, sh.V * kKeys, w, vec_rows(op.vw, DV),
-      [&](int r) -> const float* {
+      [&](int r) -> const TV* {
         const int key = k0 + (r & (kKeys - 1));
         return key < N ? op.vw + (((size_t)blk.b * H + blk.head(r >> 5)) * N +
                                   key) * DV + col0

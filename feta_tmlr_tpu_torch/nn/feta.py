@@ -14,6 +14,12 @@ Per filtered layer (the last one, or every one without
      encoder output by a concatenation and a linear map; without it, the
      filtered signal replaces the layer's output and feeds the next layer.
 A `gnn_type` without "Dynamic" in its name filters nothing.
+
+Under the bf16 compute policy (`config.py`, FETA_COMPUTE_DTYPE read each
+time the encoder runs) the layers take it and the Chebyshev filter runs in
+bf16 (the per-head signals, the scaled Laplacian, the coefficients, the
+weights and the bias), back to float32 after it, as the JAX encoder does;
+the ARMA filter and the coefficient head stay float32.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from feta_tmlr_tpu_torch import config
 from feta_tmlr_tpu_torch.nn.layers import (
     AttnColStats,
     GraphiTEncoderLayer,
@@ -192,11 +199,18 @@ class FeTAEncoder(nn.Module):
             return arma_filter_dynamic(
                 heads, graph, coeff, self.arma_init_weight,
                 self.arma_root_weight, self.arma_bias, activation=torch.relu)
+        bf16 = config.default_compute_dtype() == torch.bfloat16
+        # the Chebyshev chain in bf16, back to float32 after it
+        lo = (lambda t: t.to(torch.bfloat16)) if bf16 else (lambda t: t)
+        heads, graph, coeff = lo(heads), lo(graph), lo(coeff)
         if self.learn_only_filter_order_coeff:
-            return cheb_filter_scalar_coeff(heads, graph, coeff,
-                                            self.cheb_weight, self.cheb_bias)
-        w = coeff.reshape(b, h, self.filter_order, dh, dh)
-        return cheb_filter_dynamic(heads, graph, w, self.cheb_bias)
+            filt = cheb_filter_scalar_coeff(heads, graph, coeff,
+                                            lo(self.cheb_weight),
+                                            lo(self.cheb_bias))
+        else:
+            w = coeff.reshape(b, h, self.filter_order, dh, dh)
+            filt = cheb_filter_dynamic(heads, graph, w, lo(self.cheb_bias))
+        return filt.float() if bf16 else filt
 
     def forward(self, x, pe, adj, node_mask, degree=None):
         b, n, d = x.shape

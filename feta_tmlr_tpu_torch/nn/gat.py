@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from feta_tmlr_tpu_torch.config import refuse_bf16
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.layers import (
@@ -154,7 +155,8 @@ class GATStack(nn.Module):
     from a `torch.Generator` seeded with `seed`, dropout seeds from
     `dropout_generator` (CPU, seeded with `seed`), built on `device`
     (default CUDA; raises if CUDA is absent and the CPU was not asked
-    for)."""
+    for). Under the bf16 compute policy (`config.py`) the constructor
+    raises (ROADMAP Queue 1 item 4)."""
 
     def __init__(self, *, num_atom_type: int, hidden_dim: int, out_dim: int,
                  num_heads: int, n_layers: int, dropout: float,
@@ -162,6 +164,7 @@ class GATStack(nn.Module):
                  readout: str, n_out: int, node_level: bool,
                  filter_order: Optional[int], seed: int, device):
         super().__init__()
+        refuse_bf16(type(self).__name__, "Queue 1 item 4")
         if readout not in READOUTS:
             raise ValueError(f"readout {readout!r} is not one of {READOUTS}")
         dev = resolve_device(device)

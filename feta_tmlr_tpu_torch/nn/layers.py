@@ -38,6 +38,16 @@ pair-masked chain (`ops/attention.py`) on every device, whatever
 `attention_impl` says: no kernel takes a pair mask, and the JAX package
 routes packed rows the same way.
 
+The bf16 compute policy (`config.py`, FETA_COMPUTE_DTYPE read each time
+the layer runs) follows the JAX layer's casts: the
+score, value and output products and the FFN take bf16 operands, each
+product's float32 sums rounded once (`ops/cheb.py`'s note); the pe and
+degree streams go to the flash kernels in bf16 unless
+FETA_BF16_MODULATION=0, as they go to the plain pair-masked chain; the
+parameters, cq, ck, c0, the residual stream, the softmax and the norms
+stay float32. The "fused" route and `head_fold` have no bf16 kernels in
+the port yet and raise under it (ROADMAP Queue 2 item A2).
+
 Parameters keep the JAX package's layout so that `convert.from_flax` copies
 them one to one: `qkv` [d, 3d] and `out_proj_kernel` [d, d] are [in, out]
 matrices; `nn.Linear` weights are the transposed flax kernels.
@@ -51,8 +61,9 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from feta_tmlr_tpu_torch import config
 from feta_tmlr_tpu_torch.ops.attention import modulated_attention_from_scores
-from feta_tmlr_tpu_torch.ops.cheb import head_sum_matmul, node_matmul
+from feta_tmlr_tpu_torch.ops.cheb import head_sum_matmul, matmul, node_matmul
 from feta_tmlr_tpu_torch.ops.kernels.flash_attention import (
     flash_graphit_attention,
     flash_graphit_attention_heads,
@@ -186,11 +197,29 @@ class GraphiTEncoderLayer(nn.Module):
     def _norm(self, norm, x, node_mask):
         return norm(x, node_mask) if self.batch_norm else norm(x)
 
+    @staticmethod
+    def _dense(lin, x, cdt):
+        """lin(x) with x, the weight and the bias in `cdt`."""
+        return matmul(x.to(cdt), lin.weight.t().to(cdt)) + lin.bias.to(cdt)
+
     def forward(self, x, pe, node_mask, degree=None, need_heads=True,
                 pair_mask=None):
         b, n, d = x.shape
         h = self.n_heads
         dh = d // h
+        impl = self.attention_impl
+        cdt = config.default_compute_dtype()
+        bf16 = cdt == torch.bfloat16
+        if bf16 and (impl == "fused" or self.head_fold):
+            what = ("head_fold (kernels #5-#7)" if self.head_fold
+                    else 'attention_impl="fused" (kernels #10, #11)')
+            config.refuse_bf16(f"the GraphiT layer's {what}",
+                               "Queue 2 item A2")
+        # a float32 tensor's bf16 copy, and a bf16 result back in float32
+        # (both the tensor itself off the policy, at float32 or float64)
+        lo = (lambda t: t.to(cdt)) if bf16 else (lambda t: t)
+        up = (lambda t: t.float()) if bf16 else (lambda t: t)
+        mod_dtype = config.modulation_dtype(cdt)
         # scores as x (Wq_h Wk_h^T) x^T plus rank-1 bias terms: the kernel
         # contracts over the full d_model instead of dh
         wqkv = self.qkv.reshape(d, 3, h, dh)
@@ -198,33 +227,36 @@ class GraphiTEncoderLayer(nn.Module):
         wq, wk, wv = wqkv[:, 0], wqkv[:, 1], wqkv[:, 2]      # [d, h, dh]
         bq, bk, bv = bqkv[0], bqkv[1], bqkv[2]               # [h, dh]
         a_mix = torch.einsum("dhe,ghe->hdg", wq, wk)         # [h, d, d]
+        xc = lo(x)
         # the input projections' weight gradients reduce over the B·N rows:
         # node_matmul takes them in blocks (ops/cheb.py's note)
-        xa = node_matmul(x[:, None], a_mix)                  # [B,H,N,d]
+        xa = node_matmul(xc[:, None], lo(a_mix))             # [B,H,N,d]
         c_q = node_matmul(x, torch.einsum("dhe,he->dh", wq, bk))  # [B,N,H]
         c_k = node_matmul(x, torch.einsum("dhe,he->dh", wk, bq))
         c_0 = torch.einsum("he,he->h", bq, bk)
-        v_nhd = node_matmul(x, wv.reshape(d, h * dh)).reshape(
-            b, n, h, dh) + bv                                 # [B,N,H,dh]
+        v_nhd = node_matmul(xc, lo(wv.reshape(d, h * dh))).reshape(
+            b, n, h, dh) + lo(bv)                             # [B,N,H,dh]
 
-        impl = self.attention_impl
         # the output projection's weight gradient reduces over the B·N
         # rows: node_matmul takes it in blocks (ops/cheb.py's note)
         vw = lambda: node_matmul(v_nhd.transpose(1, 2),
-                                 self.out_proj_kernel.reshape(h, dh, d))
-        project = lambda heads: (node_matmul(heads.reshape(b, n, d),
-                                             self.out_proj_kernel)
+                                 lo(self.out_proj_kernel.reshape(h, dh, d)))
+        project = lambda heads: (up(node_matmul(lo(heads.reshape(b, n, d)),
+                                                lo(self.out_proj_kernel)))
                                  + self.out_proj_bias)
         kernels = pair_mask is None
         if kernels and need_heads and impl == "flash" \
                 and self.flash_need_heads:
             out_each_head, s = flash_graphit_attention_heads(
                 xa, x, c_q, c_k, c_0, v_nhd.transpose(1, 2), node_mask,
-                pe=pe, degree=degree, head_fold=self.head_fold)
+                pe=pe, degree=degree, head_fold=self.head_fold,
+                mod_dtype=mod_dtype)
+            out_each_head = up(out_each_head)
             attn_out = project(out_each_head)
             attn = AttnColStats(s=s)
         elif kernels and not need_heads and impl != "modulation":
-            kw = {} if impl == "fused" else {"head_fold": self.head_fold}
+            kw = ({} if impl == "fused"
+                  else {"head_fold": self.head_fold, "mod_dtype": mod_dtype})
             fused = (fused_graphit_attention if impl == "fused"
                      else flash_graphit_attention)
             attn_out = fused(xa, x, c_q, c_k, c_0, vw(), node_mask, pe=pe,
@@ -234,7 +266,7 @@ class GraphiTEncoderLayer(nn.Module):
             # the score route: a plain product, then the modulation kernel
             # (under a pair mask, the plain pair-masked chain); the products whose sums run over the nodes (the scores'
             # gradients, attn @ v) in blocks (ops/cheb.py's note)
-            scores = (node_matmul(xa, x[:, None].transpose(-1, -2))
+            scores = (up(node_matmul(xa, xc[:, None].transpose(-1, -2)))
                       + c_q.transpose(1, 2)[:, :, :, None]
                       + c_k.transpose(1, 2)[:, :, None, :]
                       + c_0[None, :, None, None]) / math.sqrt(dh)
@@ -244,17 +276,25 @@ class GraphiTEncoderLayer(nn.Module):
             else:
                 _, attn = modulated_attention_from_scores(
                     scores, None, node_mask, pe=pe, degree=degree,
-                    pair_mask=pair_mask)
+                    pair_mask=pair_mask, modulation_dtype=mod_dtype)
             if need_heads:
-                heads = node_matmul(attn, v_nhd.transpose(1, 2))
+                heads = node_matmul(lo(attn), v_nhd.transpose(1, 2))
                 out_each_head = heads.transpose(1, 2)        # [B,N,H,dh]
                 attn_out = project(out_each_head)
+                out_each_head = up(out_each_head)
             else:
-                attn_out = head_sum_matmul(attn, vw()) + self.out_proj_bias
+                attn_out = (up(head_sum_matmul(lo(attn), vw()))
+                            + self.out_proj_bias)
                 out_each_head = None
 
         x = self._norm(self.norm1, x + self.dropout(attn_out), node_mask)
-        ff = self.ff2(self.dropout(torch.relu(self.ff1(x))))
+        if bf16:
+            # flax's Dense(dtype=bf16): bf16 product and bias, relu and
+            # dropout in bf16, back to float32 at the residual add
+            ff = self.dropout(torch.relu(self._dense(self.ff1, x, cdt)))
+            ff = self._dense(self.ff2, ff, cdt).float()
+        else:
+            ff = self.ff2(self.dropout(torch.relu(self.ff1(x))))
         x = self._norm(self.norm2, x + self.dropout(ff), node_mask)
 
         mask_f = node_mask.to(x.dtype)[..., None]

@@ -49,6 +49,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from feta_tmlr_tpu_torch.config import refuse_bf16
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.layers import dense
@@ -202,12 +203,15 @@ class LSPENetBase(nn.Module):
     Linear of `in_feat_dim` float features), the positional input
     `embedding_p` (a Linear of the pos_enc_dim-wide `lap_pe`) with
     `pe_init="rand_walk"`, the fusion `p_out` / `Whp` after the layers,
-    the readout, the seeded generators and the device."""
+    the readout, the seeded generators and the device. Under the bf16
+    compute policy (`config.py`) `_init_base` raises (ROADMAP Queue 1
+    item 4)."""
 
     def _init_base(self, *, num_atom_type, hidden_dim, pos_enc_dim,
                    pe_init, readout, categorical_input, in_feat_dim,
                    in_feat_dropout, seed):
         """The shared modules; returns the weights' generator."""
+        refuse_bf16(type(self).__name__, "Queue 1 item 4")
         if pe_init not in PE_INITS:
             raise ValueError(f"pe_init {pe_init!r} is not one of {PE_INITS}")
         if readout not in READOUTS:

@@ -51,6 +51,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from feta_tmlr_tpu_torch.config import refuse_bf16
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.layers import (
@@ -500,7 +501,9 @@ class SANFamily(nn.Module):
     `seed`; `dropout_generator` (CPU, seeded with `seed` too) draws every
     dropout seed. Built on `device` (default CUDA; raises if CUDA is
     absent and the CPU was not asked for). The eigen-PE head keeps the
-    reference's FFN width 2048 and dropout 0.1."""
+    reference's FFN width 2048 and dropout 0.1. Under the bf16 compute
+    policy (`config.py`) the constructor raises (ROADMAP Queue 1 item
+    4)."""
 
     def __init__(self, *, num_atom_type: int, num_bond_type: int, lpe: str,
                  hidden_dim: int, out_dim: int, n_heads: int, n_layers: int,
@@ -512,6 +515,7 @@ class SANFamily(nn.Module):
                  typed_edges: bool, in_feat_dim: int, edge_features: bool,
                  seed: int, device):
         super().__init__()
+        refuse_bf16(type(self).__name__, "Queue 1 item 4")
         if lpe not in LPE_KINDS:
             raise ValueError(f"lpe {lpe!r} is not one of {LPE_KINDS}")
         if readout not in READOUTS:

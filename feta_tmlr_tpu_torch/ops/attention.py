@@ -12,6 +12,11 @@ query are those of its own graph: the others take -1e30 before the softmax,
 and after the chain the rows of padded queries and the inadmissible cells
 are zeroed. No kernel takes a pair mask: this plain chain is the packed
 rows' route on every device, as in the JAX package.
+
+`modulation_dtype` (bf16 under the bf16 compute policy with
+FETA_BF16_MODULATION=1, as the JAX layer passes it): the chain after the
+softmax runs in that dtype, each step rounded to it as in JAX; the
+softmax itself stays in the scores' dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ def modulated_attention_from_scores(
     pe: Optional[torch.Tensor] = None,
     degree: Optional[torch.Tensor] = None,
     pair_mask: Optional[torch.Tensor] = None,
+    modulation_dtype: Optional[torch.dtype] = None,
 ):
     """scores [B, H, N, N] (already scaled by 1/sqrt(dh)), v [B, H, N, dv]
     or None, pair_mask [B, N, N] bool (query, key) or None.
@@ -43,6 +49,8 @@ def modulated_attention_from_scores(
     m = scores.amax(-1, keepdim=True)
     e = torch.exp(scores - m)
     attn = e / e.sum(-1, keepdim=True)
+    if modulation_dtype is not None:
+        attn = attn.to(modulation_dtype)
     if pe is not None:
         attn = attn * pe[:, None, :, :].to(attn.dtype)
     if degree is not None:

@@ -21,6 +21,20 @@ axis in blocks of NODE_BLOCK rows, each block's product (a plain
 function, and the same summation order on every device. The GraphiT
 layer's score route (`nn/layers.py`) takes its products over the keys and
 queries through the same blocks (`node_matmul`, `head_sum_matmul`).
+
+bf16 operands (the bf16 compute policy, `config.py`). JAX takes a bf16
+product as one einsum: float32 sums, rounded once to bf16. Products of
+bf16 blocks would round each block's partial and add the partials in bf16.
+So every product here (`matmul`, `blocked_matmul`, `node_matmul`,
+`head_sum_matmul`) takes bf16 operands as their exact float32 values,
+runs the float32 product with its blocks, and rounds the result once to
+bf16; autograd's casts then round each gradient once as well, after its
+float32 sums (the sums over broadcast batch axes included), as the JAX
+product's transpose does. The float32 products are untouched. So no bf16
+product reaches cuBLAS, and torch's
+`allow_bf16_reduced_precision_reduction` (on by default) has nothing to
+act on: the port sets no such flag (`chip_smoke.bf16_products` times the
+three ways on the card).
 """
 
 from __future__ import annotations
@@ -33,11 +47,31 @@ import torch.nn.functional as F
 NODE_BLOCK = 64
 
 
+def _bf16(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+
+
+def _in_f32(product, a, b, *args):
+    """`product` of bf16 a and b from their float32 values, rounded once
+    to bf16 (the module's note)."""
+    return product(a.float(), b.float(), *args).to(torch.bfloat16)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b; bf16 operands as the module's note says."""
+    if _bf16(a, b):
+        return _in_f32(matmul, a, b)
+    return a @ b
+
+
 def blocked_matmul(a: torch.Tensor, b: torch.Tensor,
                    block: int = NODE_BLOCK) -> torch.Tensor:
     """a [..., M, K] @ b [..., K, N] (batch dims broadcast) with the
     contraction over K in blocks of `block`: one fresh partial product per
-    block, then the sum of the partials."""
+    block, then the sum of the partials (bf16 operands: the module's
+    note)."""
+    if _bf16(a, b):
+        return _in_f32(blocked_matmul, a, b, block)
     k = a.shape[-1]
     if k <= block:
         return a @ b
@@ -85,7 +119,10 @@ def node_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with every contraction over the node axis in blocks of
     NODE_BLOCK rows, forward and backward. Where no contraction is longer
     than one block (small graphs, as ZINC's), it is the plain product with
-    autograd's own backward: one op, no pads or reshapes."""
+    autograd's own backward: one op, no pads or reshapes. bf16 operands:
+    the module's note."""
+    if _bf16(a, b):
+        return _in_f32(node_matmul, a, b)
     if max(a.shape[-2], a.shape[-1], b.shape[-1]) <= NODE_BLOCK:
         return a @ b
     return NodeMatmul.apply(a, b)
@@ -96,7 +133,10 @@ def head_sum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Where K fits one block, one product over (head, K) as before; else
     each head's product over K through `node_matmul`, then the sum over
     the heads (a contraction of H·K terms would otherwise be one cuBLAS
-    sum)."""
+    sum). bf16 operands: the module's note (the heads summed in float32
+    before the one rounding)."""
+    if _bf16(a, b):
+        return _in_f32(head_sum_matmul, a, b)
     if a.shape[-1] <= NODE_BLOCK:
         return torch.einsum("bhnm,bhmf->bnf", a, b)
     return node_matmul(a, b).sum(1)
@@ -160,13 +200,13 @@ def cheb_filter_scalar_coeff(x: torch.Tensor, lhat: torch.Tensor,
     lh = lhat[:, None]                                   # [B, 1, N, N]
     c = coeff[..., None, None]                           # [B, H, K, 1, 1]
     tx_prev = x
-    out = (tx_prev * c[:, :, 0]) @ weight[0]
+    out = matmul(tx_prev * c[:, :, 0], weight[0])
     if k_order > 1:
-        tx_cur = lh @ x
-        out = out + (tx_cur * c[:, :, 1]) @ weight[1]
+        tx_cur = matmul(lh, x)
+        out = out + matmul(tx_cur * c[:, :, 1], weight[1])
         for k in range(2, k_order):
-            tx_next = 2.0 * (lh @ tx_cur) - tx_prev
-            out = out + (tx_next * c[:, :, k]) @ weight[k]
+            tx_next = 2.0 * matmul(lh, tx_cur) - tx_prev
+            out = out + matmul(tx_next * c[:, :, k], weight[k])
             tx_prev, tx_cur = tx_cur, tx_next
     if bias is not None:
         out = out + bias

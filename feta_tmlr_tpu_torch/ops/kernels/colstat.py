@@ -14,6 +14,12 @@ order).
 counts the launch in `colstat.launches`; on a CPU tensor it runs
 `colstat_plain`. `attention_column_gcn_sums` is the glue between the two
 launches that yields gcn_norm_directed(attn).sum(source axis).
+
+bf16 operands (the bf16 compute policy): the kernel also takes xa and x in
+bf16, with pe and deg in bf16 or float32 (its `_bf16` and `_bf16_f32pe`
+entry points, `common.py`); the statistics and outputs stay float32, and
+attn is formed in float32 as in the JAX kernel. The plain version computes
+from such operands in float32.
 """
 
 from __future__ import annotations
@@ -27,28 +33,33 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     check_launch,
     check_operands,
     cuda_or_plain,
+    dtype_suffix,
     plain_pd,
     plain_scores,
     ptr,
     stream_ptr,
+    upcast,
 )
 from feta_tmlr_tpu_torch.ops.laplacian import rsqrt_pos
 
 MAX_WIDTH = 128       # csrc/colstat.cu's kWideW
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(suffix=""):
+    """(lib, bound C function) at the operand dtypes that `suffix` names
+    (`common.dtype_suffix`)."""
+    if suffix not in _fns:
         lib = build.load("colstat")
-        _fn = (lib, bind(lib, "feta_colstat", 14, 4))
-    return _fn
+        _fns[suffix] = (lib, bind(lib, "feta_colstat" + suffix, 14, 4))
+    return _fns[suffix]
 
 
 def colstat_plain(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su,
                   wq=None):
-    """Dense version of the kernel: (colsum, diag), each [B, H, N]."""
+    """Dense version of the kernel: (colsum, diag), each [B, H, N]; from
+    bf16 operands in float32."""
+    xa, x, pe, deg = (upcast(t) for t in (xa, x, pe, deg))
     s = plain_scores(xa, x, cq, ck, c0, mask, inv_sqrt)
     e = torch.exp(s - m[..., None])
     denom = su / se
@@ -67,12 +78,13 @@ def colstat(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt, m, se, su, wq=None):
         return colstat_plain(xa, x, cq, ck, c0, pe, deg, mask, inv_sqrt,
                              m, se, su, wq)
     b, h, n, d = xa.shape
-    check_operands("colstat", xa, x, cq, ck, c0, pe, deg, mask,
-                   extra=[(k, t, (b, h, n)) for k, t in
-                          (("m", m), ("se", se), ("su", su), ("wq", wq))])
+    dts = check_operands("colstat", xa, x, cq, ck, c0, pe, deg, mask,
+                         extra=[(k, t, (b, h, n)) for k, t in
+                                (("m", m), ("se", se), ("su", su),
+                                 ("wq", wq))], bf16=True)
     if d > MAX_WIDTH:
         raise ValueError(f"colstat: width {d} > {MAX_WIDTH}")
-    lib, fn = _kernel()
+    lib, fn = _kernel(dtype_suffix(*dts))
     colsum, diag = (torch.empty((b, h, n), dtype=torch.float32,
                                 device=xa.device) for _ in range(2))
     err = fn(ptr(xa), ptr(x), ptr(cq), ptr(ck), ptr(c0), ptr(pe), ptr(deg),

@@ -1,8 +1,15 @@
 """Pieces shared by the attention kernels' wrappers and plain versions.
 
-Operand layout of the kernels (all float32, contiguous):
+Operand layout of the kernels (contiguous):
   xa [B, H, N, D]   x [B, N, D]   cq, ck [B, H, N]   c0 [H]
   pe [B, N, N] or None   deg [B, N] or None   mask [B, N] (1 = real node)
+
+All float32, except under the bf16 compute policy (`config.py`), which the
+unfolded flash kernels and colstat take: there the values (xa, x, and vw
+and g where a kernel has them) are bf16, and pe and deg bf16 as well or
+float32 (FETA_BF16_MODULATION 1 or 0); the masks, cq, ck, c0 and the row
+statistics stay float32 (`operand_dtypes`). Every other kernel takes
+float32 only and raises on a bf16 operand.
 """
 
 from __future__ import annotations
@@ -35,6 +42,20 @@ def plain_pd(pe, deg, ref):
     return pd
 
 
+def upcast(t):
+    """A bf16 tensor as float32 (exactly); any other tensor, or None, as it
+    is: the plain versions compute from bf16 operands in float32, as the
+    JAX kernels' dots take bf16 operands into f32 accumulators."""
+    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
+
+
+def rounded(t, dtype):
+    """t rounded to bf16 (and kept in its own dtype) where `dtype` is bf16,
+    else t: where the JAX kernels cast P, ds or attn to their operands'
+    dtype before a product."""
+    return t.to(dtype).to(t.dtype) if dtype == torch.bfloat16 else t
+
+
 def cuda_or_plain(name, t) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one (run
     the plain version); any other device raises."""
@@ -43,17 +64,23 @@ def cuda_or_plain(name, t) -> bool:
     return t.device.type == "cuda"
 
 
-def check_f32(name, device, items, entry) -> None:
+def check_f32(name, device, items, entry, dtypes=None) -> None:
     """Raise unless every (key, tensor, shape) of `items` is a contiguous
-    float32 tensor of that shape on `device` (the optional pe, deg and wq
-    may be None), and unless none requires grad while grad mode is on: a
-    raw kernel wrapper is not differentiable, `entry` is."""
+    tensor of that shape on `device`, float32 or the dtype that `dtypes`
+    gives its key (the optional pe, deg and wq may be None), and unless
+    none requires grad while grad mode is on: a raw kernel wrapper is not
+    differentiable, `entry` is."""
     for key, t, shape in items:
         if t is None and key in ("pe", "deg", "wq"):
             continue
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be float32 on {device}, "
-                             f"got {t.dtype} on {t.device}")
+        want = (dtypes or {}).get(key, torch.float32)
+        if t.device != device or t.dtype != want:
+            hint = ("; this kernel takes float32 operands only (bf16 "
+                    "operands: ROADMAP Queue 2 item A2)"
+                    if dtypes is None and t.dtype == torch.bfloat16 else "")
+            raise ValueError(f"{name}: {key} must be "
+                             f"{str(want).replace('torch.', '')} on {device}, "
+                             f"got {t.dtype} on {t.device}{hint}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -66,19 +93,53 @@ def check_f32(name, device, items, entry) -> None:
             f"under torch.no_grad(), or use {entry} for gradients")
 
 
+VALUES = ("xa", "x", "vw", "g")   # bf16 under the bf16 compute policy
+MODULATION = ("pe", "deg")        # bf16 too, unless FETA_BF16_MODULATION=0
+
+
+def operand_dtypes(xa, pe, deg):
+    """(values dtype, modulation dtype) of a bf16-capable kernel's
+    operands, read off xa and pe (else deg): (float32, float32), (bf16,
+    bf16) or (bf16, float32). Every operand must then have its key's
+    dtype (`check_operands`), so any other combination raises."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    vdt = bf16 if xa.dtype == bf16 else f32
+    mod = pe if pe is not None else deg
+    mdt = bf16 if vdt == bf16 and (mod is None or mod.dtype == bf16) else f32
+    return vdt, mdt
+
+
 def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask, extra=(),
-                   entry="flash_graphit_attention(_heads) (FlashGraphiT)"
-                   ) -> None:
-    """Raise unless every operand is a contiguous float32 CUDA tensor of
-    the layout above, on one device."""
+                   entry="flash_graphit_attention(_heads) (FlashGraphiT)",
+                   bf16=False):
+    """Raise unless every operand is a contiguous CUDA tensor of the layout
+    above, on one device, all float32; with `bf16` (a kernel that has bf16
+    instantiations) the operands may instead follow the bf16 compute
+    policy (`operand_dtypes`). Returns (values dtype, modulation dtype)."""
     b, h, n, d = xa.shape
     shapes = {"xa": (xa, (b, h, n, d)), "x": (x, (b, n, d)),
               "cq": (cq, (b, h, n)), "ck": (ck, (b, h, n)),
               "c0": (c0, (h,)), "pe": (pe, (b, n, n)),
               "deg": (deg, (b, n)), "mask": (mask, (b, n))}
+    vdt, mdt = (operand_dtypes(xa, pe, deg) if bf16
+                else (torch.float32, torch.float32))
+    dtypes = None
+    if bf16:
+        dtypes = {**dict.fromkeys(VALUES, vdt),
+                  **dict.fromkeys(MODULATION, mdt)}
     check_f32(name, xa.device,
               [(k, t, s) for k, (t, s) in shapes.items()] + list(extra),
-              entry)
+              entry, dtypes)
+    return vdt, mdt
+
+
+def dtype_suffix(vdt, mdt) -> str:
+    """The C entry point's suffix of a bf16-capable kernel for these
+    operand dtypes: "" (float32), "_bf16" (bf16 values and modulation) or
+    "_bf16_f32pe" (bf16 values, float32 pe and deg)."""
+    if vdt != torch.bfloat16:
+        return ""
+    return "_bf16" if mdt == torch.bfloat16 else "_bf16_f32pe"
 
 
 def bwd_row_constants(g_heads, outh, se, su, mask):
@@ -91,7 +152,7 @@ def bwd_row_constants(g_heads, outh, se, su, mask):
       ise  = 1/se      qa = qmask/safe
       beta = guard * r / safe^2             c = (1 - guard) * r
     """
-    delta = (g_heads * outh).sum(-1)
+    delta = (upcast(g_heads) * upcast(outh)).sum(-1)
     denom = su / se
     guard = (denom.abs() > EPS).to(denom.dtype)
     safe = torch.where(guard > 0, denom, torch.ones_like(denom))

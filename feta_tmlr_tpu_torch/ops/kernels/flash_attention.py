@@ -28,6 +28,16 @@ dense [B, H, N, N] tensors. There is no other route and no fallback.
 `FlashGraphiT` is the `torch.autograd.Function` that ties the forward to
 the two backward kernels, folded or not (`head_fold`).
 
+bf16 operands (the bf16 compute policy, `config.py`): the unfolded
+kernels also take xa, x, vw and g in bf16, with pe and deg in bf16 or
+float32 (their `_bf16` and `_bf16_f32pe` entry points; `common.py`), as the
+JAX kernels take them under FETA_COMPUTE_DTYPE=bfloat16. Outputs follow
+the JAX kernels' dtypes: outh and dvw take vw's, dxa xa's and dx x's; m,
+se, su, dcq and dck stay float32. The plain versions compute from such
+operands in float32 and round P, ds and attn to bf16 where the JAX kernels
+cast them, then each output once to its dtype. The folded kernels take
+float32 only (ROADMAP Queue 2 item A2).
+
 Public entry points mirror the JAX package:
   flash_graphit_attention        need_heads=False layers: sum_h attn_h @ vw_h
   flash_graphit_attention_heads  the filtered layer: per-head outputs plus
@@ -51,10 +61,13 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     check_launch,
     check_operands,
     cuda_or_plain,
+    dtype_suffix,
     plain_pd,
     plain_scores,
     ptr,
+    rounded,
     stream_ptr,
+    upcast,
 )
 
 
@@ -68,14 +81,15 @@ class _Kernel(NamedTuple):
     max_heads: Optional[int] = None
     splits: bool = False         # the folded k pass splits its query loop
     max_width: int = 128         # D and dv (csrc/strips.cuh: kWideW, kMaxW)
+    bf16: bool = False           # has the `_bf16` / `_bf16_f32pe` entries
 
 
 # wrapper name -> its kernel; the folded kernels run the heads side by side
 _SYMBOLS = {
-    "flash_fwd": _Kernel("flash_fwd", "feta_flash_fwd", 13),
-    "flash_bwd_q": _Kernel("flash_bwd", "feta_flash_bwd_q", 17),
+    "flash_fwd": _Kernel("flash_fwd", "feta_flash_fwd", 13, bf16=True),
+    "flash_bwd_q": _Kernel("flash_bwd", "feta_flash_bwd_q", 17, bf16=True),
     "flash_bwd_k": _Kernel("flash_bwd", "feta_flash_bwd_k", 19,
-                           dx_scratch=True),
+                           dx_scratch=True, bf16=True),
     "flash_fwd_hf": _Kernel("flash_hf", "feta_flash_fwd_hf", 13,
                             max_heads=8, max_width=64),
     "flash_bwd_q_hf": _Kernel("flash_hf", "feta_flash_bwd_q_hf", 17,
@@ -87,14 +101,15 @@ K_HF_MAX_SPLITS = 4
 _fns = {}
 
 
-def _kernel(name):
-    """(lib, bound C function) of the wrapper `name`."""
-    if name not in _fns:
+def _kernel(name, suffix=""):
+    """(lib, bound C function) of the wrapper `name` at the operand dtypes
+    that `suffix` names (`common.dtype_suffix`)."""
+    if (name, suffix) not in _fns:
         k = _SYMBOLS[name]
         lib = build.load(k.source)
-        _fns[name] = (lib, bind(lib, k.symbol, k.n_ptrs,
-                                6 if k.splits else 5))
-    return _fns[name]
+        _fns[name, suffix] = (lib, bind(lib, k.symbol + suffix, k.n_ptrs,
+                                        6 if k.splits else 5))
+    return _fns[name, suffix]
 
 
 def _check_shape(name, h, d, dv):
@@ -107,27 +122,32 @@ def _check_shape(name, h, d, dv):
 
 
 def flash_fwd_plain(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
-    """Dense version of the kernel: (outh [B,H,N,dv], m, se, su [B,H,N])."""
+    """Dense version of the kernel: (outh [B,H,N,dv], m, se, su [B,H,N]).
+    From bf16 operands: in float32, P rounded to bf16, outh to vw's
+    dtype."""
+    vdt = vw.dtype
+    xa, x, vw, pe, deg = (upcast(t) for t in (xa, x, vw, pe, deg))
     s = plain_scores(xa, x, cq, ck, c0, mask, inv_sqrt)
     m = s.amax(-1)
     e = torch.exp(s - m[..., None])
     w = e * plain_pd(pe, deg, xa)
     se = e.sum(-1)
     su = w.sum(-1)
-    acc = (w * mask[:, None, None, :]) @ vw
+    acc = rounded(w * mask[:, None, None, :], vdt) @ vw
     div = torch.where((su / se).abs() > EPS, su, se)
     outh = acc / div[..., None] * mask[:, None, :, None]
-    return outh, m, se, su
+    return outh.to(vdt), m, se, su
 
 
 def _launch_fwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt):
     b, h, n, d = xa.shape
     dv = vw.shape[-1]
-    check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
-                   extra=[("vw", vw, (b, h, n, dv))])
+    dts = check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
+                         extra=[("vw", vw, (b, h, n, dv))],
+                         bf16=_SYMBOLS[name].bf16)
     _check_shape(name, h, d, dv)
-    lib, fn = _kernel(name)
-    outh = torch.empty((b, h, n, dv), dtype=torch.float32, device=xa.device)
+    lib, fn = _kernel(name, dtype_suffix(*dts))
+    outh = torch.empty((b, h, n, dv), dtype=dts[0], device=xa.device)
     m, se, su = (torch.empty((b, h, n), dtype=torch.float32,
                              device=xa.device) for _ in range(3))
     err = fn(ptr(xa), ptr(x), ptr(cq), ptr(ck), ptr(c0), ptr(vw), ptr(pe),
@@ -177,7 +197,9 @@ flash_fwd_hf.launches = 0
 
 def _plain_tiles(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
                  qa, beta, c):
-    """Dense (ds, attn) [B, H, N, N], recomputed as the kernels do."""
+    """Dense (ds, attn) [B, H, N, N], recomputed as the kernels do (from
+    bf16 operands in float32)."""
+    xa, x, vw, pe, deg, g = (upcast(t) for t in (xa, x, vw, pe, deg, g))
     s = plain_scores(xa, x, cq, ck, c0, mask, inv_sqrt)
     a = torch.exp(s - m[..., None]) * ise[..., None]
     pd = plain_pd(pe, deg, xa)
@@ -189,18 +211,24 @@ def _plain_tiles(xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m, ise,
 
 
 def flash_bwd_q_plain(*args):
-    """Dense version of the q pass: (dxa [B,H,N,D], dcq [B,H,N])."""
+    """Dense version of the q pass: (dxa [B,H,N,D], dcq [B,H,N]); from
+    bf16 operands ds is rounded to bf16 for ds x, and dxa to xa's dtype."""
     ds, _ = _plain_tiles(*args)
-    return ds @ args[1][:, None], ds.sum(-1)
+    xa, x = args[0], args[1]
+    return ((rounded(ds, x.dtype) @ upcast(x)[:, None]).to(xa.dtype),
+            ds.sum(-1))
 
 
 def flash_bwd_k_plain(*args):
     """Dense version of the k pass: (dvw [B,H,N,dv], dck [B,H,N],
-    dx [B,N,D])."""
+    dx [B,N,D]); from bf16 operands attn and ds are rounded to bf16 for
+    their products, dvw to vw's dtype and the head sum dx to x's."""
     ds, attn = _plain_tiles(*args)
-    xa, g = args[0], args[10]
-    return (attn.transpose(-1, -2) @ g, ds.sum(-2),
-            (ds.transpose(-1, -2) @ xa).sum(1))
+    xa, x, vw, g = args[0], args[1], args[5], args[10]
+    return ((rounded(attn, g.dtype).transpose(-1, -2) @ upcast(g))
+            .to(vw.dtype), ds.sum(-2),
+            (rounded(ds, xa.dtype).transpose(-1, -2) @ upcast(xa))
+            .sum(1).to(x.dtype))
 
 
 def flash_bwd_plain(*args):
@@ -214,18 +242,19 @@ def _check_bwd(name, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt, g, m,
     dv = vw.shape[-1]
     rows = [(k, t, (b, h, n)) for k, t in (("m", m), ("ise", ise), ("qa", qa),
                                            ("beta", beta), ("c", c))]
-    check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
-                   extra=[("vw", vw, (b, h, n, dv)), ("g", g, (b, h, n, dv)),
-                          *rows])
+    dts = check_operands(name, xa, x, cq, ck, c0, pe, deg, mask,
+                         extra=[("vw", vw, (b, h, n, dv)),
+                                ("g", g, (b, h, n, dv)), *rows],
+                         bf16=_SYMBOLS[name].bf16)
     _check_shape(name, h, d, dv)
-    return b, h, n, d, dv
+    return (b, h, n, d, dv), dts
 
 
 def _launch_bwd_q(name, *args):
-    b, h, n, d, dv = _check_bwd(name, *args)
+    (b, h, n, d, dv), dts = _check_bwd(name, *args)
     xa, inv_sqrt = args[0], args[9]
-    lib, fn = _kernel(name)
-    dxa = torch.empty((b, h, n, d), dtype=torch.float32, device=xa.device)
+    lib, fn = _kernel(name, dtype_suffix(*dts))
+    dxa = torch.empty((b, h, n, d), dtype=dts[0], device=xa.device)
     dcq = torch.empty((b, h, n), dtype=torch.float32, device=xa.device)
     err = fn(*(ptr(t) for t in args[:9]), *(ptr(t) for t in args[10:]),
              ptr(dxa), ptr(dcq), b, h, n, d, dv, float(inv_sqrt),
@@ -246,16 +275,16 @@ def k_hf_splits(device, b, n):
 
 
 def _launch_bwd_k(name, *args):
-    """The k pass; the unfolded kernel takes one dx partial per head as
-    scratch, the folded one sums the heads itself and takes the partials
-    of its query splits as scratch where it splits."""
-    b, h, n, d, dv = _check_bwd(name, *args)
+    """The k pass; the unfolded kernel takes one float32 dx partial per
+    head as scratch, the folded one sums the heads itself and takes the
+    partials of its query splits as scratch where it splits."""
+    (b, h, n, d, dv), dts = _check_bwd(name, *args)
     xa, inv_sqrt = args[0], args[9]
-    lib, fn = _kernel(name)
+    lib, fn = _kernel(name, dtype_suffix(*dts))
     dev = xa.device
-    dvw = torch.empty((b, h, n, dv), dtype=torch.float32, device=dev)
+    dvw = torch.empty((b, h, n, dv), dtype=dts[0], device=dev)
     dck = torch.empty((b, h, n), dtype=torch.float32, device=dev)
-    dx = torch.empty((b, n, d), dtype=torch.float32, device=dev)
+    dx = torch.empty((b, n, d), dtype=dts[0], device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     if _SYMBOLS[name].dx_scratch:
         outs = (dvw, dck, torch.empty((b, h, n, d), **f32), dx)
@@ -351,7 +380,8 @@ class FlashGraphiT(torch.autograd.Function):
     nondiff argument of the JAX package's `_flash`) picks the folded
     kernels for the forward and the backward alike. m, se and su are not
     differentiable: they feed only the detached coefficient head (the JAX
-    package's `_flash_heads_bwd` drops their cotangents too)."""
+    package's `_flash_heads_bwd` drops their cotangents too). Each
+    gradient comes back in its input's dtype (bf16 for bf16 xa, x, vw)."""
 
     @staticmethod
     def forward(ctx, xa, x, cq, ck, c0, vw, pe, deg, mask, inv_sqrt,
@@ -379,18 +409,24 @@ class FlashGraphiT(torch.autograd.Function):
                 None, None)
 
 
-def prepare(xa, x, cq, ck, c0, node_mask, pe, degree):
+def prepare(xa, x, cq, ck, c0, node_mask, pe, degree, mod_dtype=None):
     """Public-layout operands -> the kernels' layout (see `common`):
     cq/ck [B, N, H] -> [B, H, N], a float mask, 1/sqrt(head dim). Operands
-    become float32, except that float64 xa keeps everything in float64: a
-    reference run on the CPU (the CUDA kernels take float32 only)."""
+    become float32, except that bf16 xa keeps bf16 and x takes it (the
+    bf16 compute policy, as the JAX package's `x.astype(xa.dtype)`), pe
+    and degree take `mod_dtype` where it is given (JAX's `_prepare`), and
+    float64 xa keeps everything in float64: a reference run on the CPU
+    (the CUDA kernels take float32 and bf16 only)."""
     b, h, n, d = xa.shape
-    dt = torch.float64 if xa.dtype == torch.float64 else torch.float32
-    cast = lambda t: None if t is None else t.to(dt).contiguous()
+    f64 = xa.dtype == torch.float64
+    dt = torch.float64 if f64 else torch.float32
+    vdt = torch.bfloat16 if xa.dtype == torch.bfloat16 else dt
+    mdt = mod_dtype if mod_dtype is not None and not f64 else dt
+    cast = lambda t, to=dt: None if t is None else t.to(to).contiguous()
     return dict(
-        xa=cast(xa), x=cast(x), cq=cast(cq.transpose(1, 2)),
-        ck=cast(ck.transpose(1, 2)), c0=cast(c0.reshape(h)), pe=cast(pe),
-        deg=cast(degree), mask=cast(node_mask),
+        xa=cast(xa, vdt), x=cast(x, vdt), cq=cast(cq.transpose(1, 2)),
+        ck=cast(ck.transpose(1, 2)), c0=cast(c0.reshape(h)),
+        pe=cast(pe, mdt), deg=cast(degree, mdt), mask=cast(node_mask),
         inv_sqrt=1.0 / math.sqrt(d // h))
 
 
@@ -402,31 +438,37 @@ def _flash(ops, vw, head_fold):
 
 
 def flash_graphit_attention(xa, x, cq, ck, c0, vw, node_mask, pe=None,
-                            degree=None, head_fold: bool = False):
+                            degree=None, head_fold: bool = False,
+                            mod_dtype=None):
     """out [B, N, D] = sum_h modulated_attn_h @ vw_h.
 
     xa [B,H,N,D] = x @ Wq_h Wk_h^T, x [B,N,D], cq/ck [B,N,H] rank-1 bias
     terms, c0 [H], vw [B,H,N,D] = v_h @ Wout_h, node_mask [B,N], optional
     pe [B,N,N] and degree [B,N]. head_fold: the head-folded kernels (JAX's
-    FETA_FLASH_HEAD_FOLD=1), forward and backward."""
-    outh, _, _, _ = _flash(prepare(xa, x, cq, ck, c0, node_mask, pe, degree),
-                           vw, head_fold)
+    FETA_FLASH_HEAD_FOLD=1), forward and backward. mod_dtype: the dtype of
+    the pe and degree streams (None: float32; bf16 under the bf16 compute
+    policy with FETA_BF16_MODULATION=1). With bf16 xa and vw the output is
+    bf16, the heads summed in float32 first (JAX's `_head_sum`)."""
+    outh, _, _, _ = _flash(prepare(xa, x, cq, ck, c0, node_mask, pe, degree,
+                                   mod_dtype), vw, head_fold)
+    if outh.dtype == torch.bfloat16:
+        return outh.float().sum(1).to(outh.dtype)
     return outh.sum(1)       # autograd hands every head the same cotangent
 
 
 def flash_graphit_attention_heads(xa, x, cq, ck, c0, v_heads, node_mask,
                                   pe=None, degree=None,
                                   coeff_fill: float = 1.0,
-                                  head_fold: bool = False):
+                                  head_fold: bool = False, mod_dtype=None):
     """The filtered layer's attention: per-head outputs and the detached
     coefficient-head signal s[b, h, j] = sum_i gcn_norm_directed(attn)[i, j],
     with no [B, H, N, N] tensor on the CUDA route.
 
     v_heads [B, H, N, dh] per-head values (not folded with W_out);
-    head_fold as in `flash_graphit_attention` (the column statistics have
-    one kernel either way, as in the JAX package).
-    Returns (out_each_head [B, N, H, dh], s [B, H, N])."""
-    ops = prepare(xa, x, cq, ck, c0, node_mask, pe, degree)
+    head_fold and mod_dtype as in `flash_graphit_attention` (the column
+    statistics have one kernel either way, as in the JAX package).
+    Returns (out_each_head [B, N, H, dh] in v_heads' dtype, s [B, H, N])."""
+    ops = prepare(xa, x, cq, ck, c0, node_mask, pe, degree, mod_dtype)
     outh, m, se, su = _flash(ops, v_heads, head_fold)
     with torch.no_grad():                    # s is detached by definition
         s = attention_column_gcn_sums(m=m, se=se, su=su, fill=coeff_fill,

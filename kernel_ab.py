@@ -192,7 +192,7 @@ def use(src: Path) -> None:
     fa_mod._fns.clear()
     fm_mod._fns.clear()
     mod_mod._fns.clear()
-    cs_mod._fn = None
+    cs_mod._fns.clear()
 
 
 def build_all(dirs, libs=LIBS) -> None:

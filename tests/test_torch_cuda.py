@@ -1326,3 +1326,145 @@ def test_cuda_gckn_supervised_step_matches_cpu(cuda):
         assert torch.equal(runs[0][1][name], runs[1][1][name]), name
         err = float((runs[0][1][name] - g).abs().max() / g.abs().max())
         assert err <= 1e-3, f"{name}: {err:.2e}"
+
+
+# ------------------------------------------------- the bf16 compute policy
+#
+# Kernels #1-#4 with bf16 operands (FETA_COMPUTE_DTYPE=bfloat16): xa, x,
+# vw and g bf16, pe and deg bf16 (FETA_BF16_MODULATION=1) or float32 (=0),
+# against their plain bf16 versions on the card, which round at the same
+# places after float32 sums in other orders. Tolerances as
+# tests/test_torch_mixed_precision.py: bf16 outputs rtol 1.6e-2 / atol
+# 1e-3 (two bf16 steps), outh with atol 2^-8 max|vw| (each rounds P
+# against its own running row maximum), float32 outputs as TOL.
+
+BF16_TOL = dict(rtol=1.6e-2, atol=1e-3)
+
+
+def _bf16(ops, vw, mdt):
+    out = dict(ops, xa=ops["xa"].to(torch.bfloat16),
+               x=ops["x"].to(torch.bfloat16))
+    for k in ("pe", "deg"):
+        out[k] = None if ops[k] is None else ops[k].to(mdt)
+    return out, vw.to(torch.bfloat16)
+
+
+def _close_dtype(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol)
+
+
+# (B, H, N, padding, D, dv, pe and deg, their dtype): the slice's widths,
+# the wide rows (two value chunks, the filtered layer's dv 16), the K edge
+# of one-element staging (D = 70), the ZINC batch and the SBM batch
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,pad,d,dv,with_mod,mdt", [
+    (2, 4, 200, 7, 64, 8, True, torch.bfloat16),
+    (2, 4, 256, 0, 64, 64, True, torch.float32),
+    (2, 8, 70, 9, 128, 16, False, torch.bfloat16),
+    (2, 8, 200, 7, 128, 128, True, torch.bfloat16),
+    (1, 1, 13, 2, 70, 70, True, torch.bfloat16),
+    (1, 3, 65, 3, 100, 100, True, torch.float32),
+    (128, 8, 48, 11, 64, 64, True, torch.bfloat16),
+    (4, 8, 1024, 60, 64, 8, True, torch.bfloat16)])
+def test_cuda_bf16_kernels_match_plain(cuda, b, h, n, pad, d, dv, with_mod,
+                                       mdt):
+    """#1-#4 and colstat's two passes with bf16 operands: each output in
+    its JAX dtype and within the tolerance of the plain bf16 version on
+    the card, two runs bit-identical, one launch counted per call."""
+    ops, vw = _bf16(*_ops(11, b, h, n, d, dv, pad, with_mod), mdt)
+    gops, gvw = _to(ops, cuda), vw.to(cuda)
+    before = (tfl.flash_fwd.launches, tcs.colstat.launches,
+              tfl.flash_bwd_q.launches, tfl.flash_bwd_k.launches)
+    got, again = (tfl.flash_fwd(vw=gvw, **gops) for _ in range(2))
+    want = tfl.flash_fwd_plain(vw=gvw, **gops)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    assert all(map(torch.equal, got, again))
+    _close_dtype(got[:1], want[:1], dict(
+        rtol=BF16_TOL["rtol"], atol=2.0 ** -8 * float(vw.float().abs().max())))
+    _close_dtype(got[1:], want[1:], TOL)
+    stats = dict(m=want[1], se=want[2], su=want[3])
+    for wq in (None, want[2]):
+        cs, cs2 = (tcs.colstat(**gops, **stats, wq=wq) for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, cs, cs2))
+        _close_dtype(cs, tcs.colstat_plain(**gops, **stats, wq=wq), TOL)
+    g = torch.randn(want[0].shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(n)
+                    ).to(torch.bfloat16)
+    su = want[3].clone()
+    su[min(b - 1, 1), :, :min(n, 4)] = 0.0        # the guard branch
+    args = (gops["xa"], gops["x"], gops["cq"], gops["ck"], gops["c0"], gvw,
+            gops["pe"], gops["deg"], gops["mask"], gops["inv_sqrt"], g,
+            want[1], *bwd_row_constants(g, want[0], want[2], su,
+                                        gops["mask"]))
+    got, again = tfl.flash_bwd(*args), tfl.flash_bwd(*args)
+    want = tfl.flash_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    dxa, dcq, dvw, dck, dx = zip(got, want)
+    for pair in (dxa, dvw, dx):
+        assert pair[0].dtype == torch.bfloat16
+        _close_dtype(*([t] for t in pair), BF16_TOL)
+    for pair in (dcq, dck):
+        _close_dtype(*([t] for t in pair), TOL)
+    assert (tfl.flash_fwd.launches, tcs.colstat.launches,
+            tfl.flash_bwd_q.launches, tfl.flash_bwd_k.launches) == (
+        before[0] + 2, before[1] + 4, before[2] + 2, before[3] + 2)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_operands_raise_where_a_kernel_takes_float32_only(cuda):
+    """A bf16 operand reaching a float32-only kernel (#5-#13: the folded
+    flash kernels, modulation, fused attention, the fused MLP) raises,
+    naming ROADMAP Queue 2 item A2; the bf16-capable kernels raise on an
+    operand combination outside the policy's three."""
+    bf = torch.bfloat16
+    ops, vw = _ops(21, 1, 2, 32, 16, 8, 3)
+    gops, gvw = _to(ops, cuda), vw.to(cuda)
+    bops, bvw = _to(_bf16(ops, vw, bf)[0], cuda), gvw.to(bf)
+    for fn in (tfl.flash_fwd_hf,):
+        with pytest.raises(ValueError, match="Queue 2 item A2"):
+            fn(vw=bvw, **bops)
+    args = [t.to(cuda) if torch.is_tensor(t) else t
+            for t in _bwd_args(ops, vw, guard_rows=0)]
+    bargs = list(args)
+    bargs[0], bargs[1], bargs[5], bargs[10] = (
+        args[0].to(bf), args[1].to(bf), args[5].to(bf), args[10].to(bf))
+    for fn in (tfl.flash_bwd_q_hf, tfl.flash_bwd_k_hf):
+        with pytest.raises(ValueError, match="Queue 2 item A2"):
+            fn(*bargs)
+    scores, pe, deg, mask, g = (t.to(cuda) for t in
+                                _mod_inputs(22, 2, 2, 16, 3, True))
+    with pytest.raises(ValueError, match="Queue 2 item A2"):
+        tmod.modulation_fwd(scores.to(bf), pe, deg, mask)
+    with pytest.raises(ValueError, match="Queue 2 item A2"):
+        tmod.modulation_bwd(scores, pe.to(bf), deg, mask, g)
+    with pytest.raises(ValueError, match="Queue 2 item A2"):
+        tfa.fused_attn_fwd(vw=bvw, **bops)
+    with pytest.raises(ValueError, match="Queue 2 item A2"):
+        tfa.fused_attn_bwd(vw=bvw, g=torch.zeros(1, 32, 16, device=cuda,
+                                                 dtype=bf), **bops)
+    x, w1, b1, w2, b2, g = _mlp_inputs(23, 64, 8, 64, 8)
+    with pytest.raises(ValueError, match="float32"):
+        tfm.fused_mlp_fwd(x.to(cuda, bf), w1.to(cuda), b1.to(cuda),
+                          w2.to(cuda), b2.to(cuda))
+    with pytest.raises(ValueError, match="float32"):
+        tfm.fused_mlp_bwd(x.to(cuda), w1.to(cuda, bf), b1.to(cuda),
+                          w2.to(cuda), g.to(cuda))
+    # outside the policy: float32 values with bf16 pe; bf16 xa with float32
+    # x; bf16 pe with float32 deg; bf16 values with a float32 vw
+    _, m, se, su = tfl.flash_fwd_plain(vw=bvw, **bops)
+    mixed = [(dict(gops, pe=gops["pe"].to(bf)), gvw),
+             (dict(bops, x=gops["x"]), bvw),
+             (dict(bops, deg=gops["deg"]), bvw)]
+    for case, v in mixed:
+        with pytest.raises(ValueError, match="must be"):
+            tfl.flash_fwd(vw=v, **case)
+        with pytest.raises(ValueError, match="must be"):
+            tcs.colstat(**case, m=m, se=se, su=su)
+    with pytest.raises(ValueError, match="vw must be bfloat16"):
+        tfl.flash_fwd(vw=gvw, **bops)
