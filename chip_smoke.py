@@ -286,7 +286,20 @@ Phases (any failure raises and the script exits non-zero):
      `zinc_train`), their requests and epochs in 3 interleaved rounds, one bf16
      step on 16 graphs held to a float64 CPU step as the logits are;
      feta-torch-zinc under bf16, 2 + 2 epochs bit for bit against 4, every
-     flash launch through a bf16 entry point;
+     flash launch through a bf16 entry point. Then the fused
+     pair #10/#11 in bf16 at the ZINC batch and at B=32, N=128, and the
+     fused MLP pair #12/#13 in bf16 at 40,960 rows (d 8, rates 0 and 0.1),
+     30,080 (d 16) and the pair head's 462,080 (`check_bf16_fused`,
+     `check_bf16_mlp`): each against its plain bf16 version, two runs
+     bit-identical, timed beside the float32 kernel on the same values
+     with the bf16 bound; the ZINC regressor on "fused", SANNodeSpectra at
+     the san phase's widths and the lpe phase's four nets, each served
+     and trained under bf16 and float32 in turns on the same weights,
+     launches counted by wrapper and by entry point, 2 graphs' logits
+     and one step held to float64 within 3x the CPU bf16 route's error
+     (`bf16_policy_net`); the route check at 2 layers for "fused" and
+     SANNodeSpectra; the LPE config trainer (SAN_NodeLPE) under bf16, 2 +
+     2 epochs bit for bit against 4, every MLP launch through `_bf16`;
  19. print the kernels' JSON line, the card line, and the final status line
      `{"ok": true, "device": {...}}`.
 
@@ -585,6 +598,19 @@ BF16_ROUTE_PARAMS = ("encoder.layers.0.qkv", "encoder.layers.1.qkv",
 BF16_SBM_ROUNDS = 4
 BF16_SBM_EPOCHS = 4
 BF16_ZINC_ROUNDS = 3
+# the bf16 phase's runs of the fused pair's and the fused MLP's paths
+# (`bf16_policy_net`): rounds of one request and one step under each
+# policy in turns, the order alternating; then, warm, the requests and
+# steps timed under each policy in turns (medians)
+BF16_NET_ROUNDS = 2
+BF16_NET_TIMED_REQUESTS = 16
+BF16_NET_TIMED_STEPS = 6
+# graphs held to float64 on the CPU there (logits and one step): the ZINC
+# regressor's 16, as `bf16_zinc`'s step (a mean over 2 graphs left the
+# card's loss error 4.9x the CPU bf16 route's in one call, its gradients
+# 1.5-5x), SANNodeSpectra's 4, the lpe nets' 2 (their CPU float64 and
+# plain bf16 routes at full width are most of the phase's time)
+BF16_REF_GRAPHS = {"zinc": 16, "san": 4, "lpe": 2}
 # the wrappers whose launches a run counts, and their launches per step
 KERNELS = {"flash_fwd": fl_mod.flash_fwd, "colstat": cs_mod.colstat,
            "flash_bwd_q": fl_mod.flash_bwd_q,
@@ -640,6 +666,11 @@ MLP_SHAPES = ((SAN_ROWS, 8, 2048, 8, (0.0, 0.1), "main"),
               (10007, 8, 2048, 8, (0.0, 0.1), None),
               (PATTERN_ROWS, 16, 2048, 16, (0.0, 0.1), "d16"),
               (EDGE_ROWS, 8, 2048, 8, (0.1,), "pairs"))
+# the fused MLP pair's bf16 checks (`check_bf16_mlp`), the same heads: the
+# SAN head's 40,960 rows at d 8 (rates 0 and 0.1), the PATTERN node head's
+# 30,080 at d 16 and the SAN_EdgeLPE pair head's 462,080 (rate 0.1)
+BF16_MLP_SHAPES = (MLP_SHAPES[0], (PATTERN_ROWS, 16, 2048, 16, (0.1,), "d16"),
+                   MLP_SHAPES[3])
 # DiffGraphTransformerGenGCN at bench.py's flagship widths (bench.py:133-136)
 # on its ZINC batch: 128 zinc_like_dataset graphs of 9-37 nodes padded to 48
 ZINC_CFG = dict(in_size=28, nb_class=1, d_model=64, nb_heads=8,
@@ -781,6 +812,8 @@ CLI_TIMED_REQUESTS = 100      # requests timed after the checked ones
 CLI_STAGE_REPS = 50           # in-process runs of one request's stages
 CLI_LOG_COLUMNS = {"config": ["epoch", "loss", "time", "val_mae", "lr"],
                    "config_lpe": ["epoch", "loss", "time", "val_mae", "lr"],
+                   "config_lpe_bf16": ["epoch", "loss", "time", "val_mae",
+                                       "lr"],
                    "config_gat": ["epoch", "loss", "time", "val_mae", "lr"],
                    "sbm_lpe": ["epoch", "loss", "time", "val_acc_sbm", "lr"],
                    "molhiv_lpe": ["epoch", "loss", "time", "val_rocauc",
@@ -829,6 +862,7 @@ CLI_KERNELS = {"config": MLP_ROUTE, "config_lpe": MLP_ROUTE,
                "config_gat": set(), "sbm_lpe": MLP_ROUTE,
                "molhiv_lpe": MLP_ROUTE,
                "zinc": FLASH_ROUTE, "zinc_bf16": FLASH_ROUTE,
+               "config_lpe_bf16": MLP_ROUTE,
                "molhiv": FLASH_ROUTE,
                "sbm": FLASH_ROUTE, "tu": FLASH_ROUTE, "config_lspe": set(),
                "lapeig_lspe": set(), "pattern_lspe": set(),
@@ -888,6 +922,15 @@ LPE_NETS = (
                      "layers.15.coeff_head.gcn_linear.weight",
                      "mlp_readout.fc_out.weight")),
 )
+# the bf16 phase's models on the fused MLP pair, one lpe net at a time
+# (`bf16_lpe`): SANNodeSpectra at SAN_CFG (the san phase's widths) and
+# the lpe phase's four nets; the route check at BF16_ROUTE_LAYERS layers
+# reads these SANNodeSpectra gradients
+BF16_SAN_ROUTE_PARAMS = ("layers.0.attention.Q.weight",
+                         "layers.1.attention.Q_2.weight",
+                         "layers.1.cheb_weight",
+                         "pe_transformer.freq_transformer.ff1_0.kernel",
+                         "mlp_readout.fc_out.weight")
 # the cli phase's runs of the LPE configs as written (no --model override)
 CLI_LPE_RUNS = (
     ("config_lpe", cli_zinc_config.main,
@@ -1611,16 +1654,19 @@ def mlp_g_scale(r):
     return 0.005 * min(1.0, SAN_ROWS / r)
 
 
-def mlp_cost(r, din, f, dout, which):
+def mlp_cost(r, din, f, dout, which, vb=4):
     """(flops, bytes) of one call: the forward's two products, or the
     backward's five (g W2^T, dx, dW1, dW2 and the recomputed x W1); each
-    input read once, each output written once."""
-    weights = din * f + f + f * dout
+    input read once, each output written once. vb: bytes of an element of
+    x, w1, w2, g, y and dx (2 under the bf16 policy; the biases and the
+    weight gradients stay float32)."""
+    mats = din * f + f * dout
     if which == "fwd":
         return (2.0 * r * f * (din + dout),
-                4.0 * (r * din + weights + dout + r * dout))
+                vb * (r * din + mats + r * dout) + 4.0 * (f + dout))
     return (2.0 * r * f * (3 * din + 2 * dout),
-            4.0 * (r * din + weights + r * dout + r * din + weights + dout))
+            vb * (r * din + mats + r * dout + r * din)
+            + 4.0 * (mats + 2 * f + dout))
 
 
 def mlp_bounds(r, din, f, dout, rate, which):
@@ -1805,19 +1851,20 @@ def masked_cells(mask):
     return ~(real[:, None, :, None] & real[:, None, None, :])
 
 
-def fused_cost(mask, h, d, which):
+def fused_cost(mask, h, d, which, vb=4):
     """(operations, bytes), counted from the mask as `flash_cost`: the
     forward's 2 products of 2·H·D flops a real pair, the backward's 5; the
     real rows of each input and the real pairs of pe read once, each output
-    written once."""
+    written once. vb: bytes of an element of xa, x, vw, g, out, dxa, dx
+    and dvw (2 under the bf16 policy; the rest stays float32)."""
     b, n, rows, pairs = real_counts(mask)
-    inputs = 2 * h * rows * d + rows * d + 2 * h * rows + h + pairs \
-        + rows + b * n
+    values = 2 * h * rows * d + rows * d
+    rest = 2 * h * rows + h + pairs + rows + b * n
     if which == "fwd":
-        return 4.0 * h * pairs * d, 4.0 * (inputs + b * n * d)
+        return 4.0 * h * pairs * d, vb * (values + b * n * d) + 4.0 * rest
     return (10.0 * h * pairs * d,
-            4.0 * (inputs + rows * d + 2 * b * h * n * d + b * n * d
-                   + 2 * b * h * n + b * h))
+            vb * (values + rows * d + 2 * b * h * n * d + b * n * d)
+            + 4.0 * (rest + 2 * b * h * n + b * h))
 
 
 def check_outputs(name, got, again, want, outs, tag, tol=KERNEL_TOL,
@@ -2240,6 +2287,178 @@ def check_bf16_kernels(device, h=8, shapes=BF16_SHAPES, checks=BF16_CHECKS):
               f"tolerance {BF16_KERNEL_TOL} (outh atol "
               f"{bf16_outh_tol(vw)['atol']:.3e}; colstat {KERNEL_TOL})",
               flush=True)
+    for name in rows:
+        rows[name]["max_abs_err_bf16"] = errs[name]
+    return rows
+
+
+def bf16_fused_operands(ops, vw, g):
+    """The fused pair's operands under the bf16 compute policy: xa, x, vw
+    and g in bf16, pe, deg, the masks, cq, ck and c0 float32 (the JAX
+    wrapper's casts)."""
+    bf = torch.bfloat16
+    return (dict(ops, xa=ops["xa"].to(bf), x=ops["x"].to(bf)), vw.to(bf),
+            g.to(bf))
+
+
+def bf16_twin(name, kernel, plain, twin, outs, tag, tols=None):
+    """One bf16 kernel of #10-#13 on the card: two runs bit-identical and
+    each output in its plain bf16 version's dtype and within
+    BF16_KERNEL_TOL of it (or `tols`' tolerance for an output); its time,
+    its plain version's and the float32 kernel's on the same values
+    (`twin`). Returns (errors, (ms, plain ms, float32 twin ms))."""
+    with torch.inference_mode():
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        each = check_outputs(name, got, again, want, outs, tag,
+                             BF16_KERNEL_TOL, tols)
+        times = tuple(time_ms(fn) for fn in (kernel, plain, twin))
+    return each, times
+
+
+def check_bf16_fused(device, h=8, d=64, shapes=FUSED_SHAPES):
+    """The bf16 phase's checks of the fused pair (#10, #11) with bf16 xa,
+    x, vw and g at each (B, N, padding) of `shapes` (the ZINC batch and
+    B=32, N=128; guard rows in graph 0): each against its plain bf16
+    version on the card (`bf16_twin`: BF16_KERNEL_TOL; dcq, dck and dc0,
+    float32 sums of unrounded ds, at KERNEL_TOL), two runs bit-identical,
+    timed beside the float32 kernel on the same values and the bf16 bound
+    (`bf16_bound`: the products at the bf16 tensor-core peak, bf16 values
+    at 2 bytes); on the first shape each output's error from float64
+    within BF16_CPU_FACTOR of the CPU plain bf16 route's. Returns each
+    kernel's row fields (as `check_bf16_kernels`', of the first shape)."""
+    rows, errs = {}, {"fused_attn_fwd": 0.0, "fused_attn_bwd": 0.0}
+    outs = ("dxa", "dx", "dcq", "dck", "dc0", "dvw")
+    f32_outs = dict.fromkeys(("dcq", "dck", "dc0"), KERNEL_TOL)
+    for b, n, pad in shapes:
+        ops32, vw32, g32 = fused_inputs(b + n + 5, b, h, n, d, pad, device)
+        ops, vw, g = bf16_fused_operands(ops32, vw32, g32)
+        # the float32 twin on the same (bf16-valued) operands
+        o32 = {k: (v.float() if torch.is_tensor(v) else v)
+               for k, v in ops.items()}
+        tag = f"bf16 B={b} N={n}"
+        e_f, t_f = bf16_twin(
+            "fused_attn_fwd",
+            lambda: [fa_mod.fused_attn_fwd(vw=vw, **ops)],
+            lambda: [fa_mod.fused_attn_fwd_plain(vw=vw, **ops)],
+            lambda: fa_mod.fused_attn_fwd(vw=vw.float(), **o32), ("out",),
+            tag)
+        e_b, t_b = bf16_twin(
+            "fused_attn_bwd", lambda: fa_mod.fused_attn_bwd(vw=vw, g=g, **ops),
+            lambda: fa_mod.fused_attn_bwd_plain(vw=vw, g=g, **ops),
+            lambda: fa_mod.fused_attn_bwd(vw=vw.float(), g=g.float(), **o32),
+            outs, tag, f32_outs)
+        errs["fused_attn_fwd"] = max(errs["fused_attn_fwd"], *e_f)
+        errs["fused_attn_bwd"] = max(errs["fused_attn_bwd"], *e_b)
+        mask = ops["mask"]
+        bounds = [bf16_bound(fused_cost(mask, h, d, w, vb=2))
+                  for w in ("fwd", "bwd")]
+        ratios = ""
+        if (b, n, pad) == shapes[0]:
+            args = [ops[k] for k in ("xa", "x", "cq", "ck", "c0")] + [vw] + [
+                ops[k] for k in ("pe", "deg", "mask", "inv_sqrt")] + [g]
+            with torch.inference_mode():
+                got_f = [fa_mod.fused_attn_fwd(vw=vw, **ops)]
+                got_b = fa_mod.fused_attn_bwd(vw=vw, g=g, **ops)
+            ratios = ("; error from float64 over the CPU plain bf16 "
+                      "route's: " + cpu32_ratios(
+                          got_f, lambda a: [fa_mod.fused_attn_fwd_plain(
+                              *a[:-1])], ("out",), args,
+                          f"fused_attn_fwd {tag}", cpu_dtype=None,
+                          factor=BF16_CPU_FACTOR) + " " + cpu32_ratios(
+                          got_b, lambda a: fa_mod.fused_attn_bwd_plain(*a),
+                          outs, args, f"fused_attn_bwd {tag}",
+                          cpu_dtype=None, factor=BF16_CPU_FACTOR))
+            for name, t, (bms, bby) in (("fused_attn_fwd", t_f, bounds[0]),
+                                        ("fused_attn_bwd", t_b, bounds[1])):
+                rows[name] = dict(ms_bf16=t[0], plain_ms_bf16=t[1],
+                                  bound_ms_bf16=bms, bound_by_bf16=bby,
+                                  ms_f32_twin=t[2])
+        text = lambda t, bd: (f"{t[0]:.4f} ms (plain {t[1]:.4f} ms, float32 "
+                              f"kernel {t[2]:.4f} ms, bound {bd[0]:.4f} ms "
+                              f"{bd[1]}, {100 * bd[0] / t[0]:.2f} %)")
+        print(f"fused-attention {tag} H={h} D={d} pad~{pad}: fwd err "
+              f"{e_f[0]:.3e} {text(t_f, bounds[0])}; bwd err " + " ".join(
+                  f"{o} {e:.3e}" for o, e in zip(outs, e_b))
+              + f" {text(t_b, bounds[1])}; two runs of each bit-identical; "
+              f"tolerance {BF16_KERNEL_TOL} (dcq, dck, dc0 {KERNEL_TOL})"
+              + ratios, flush=True)
+    for name in rows:
+        rows[name]["max_abs_err_bf16"] = errs[name]
+    return rows
+
+
+def check_bf16_mlp(device, shapes=BF16_MLP_SHAPES, seed=7):
+    """The bf16 phase's checks of the fused MLP pair (#12, #13) with bf16
+    x, w1, w2 and g and float32 biases (`mlp_inputs`' values rounded to
+    bf16: x, w1 and b1 lie on grids bf16 holds, so pre is exact) at each
+    (rows, d_in, F, d_out, rates, tag) of `shapes`: each against its plain
+    bf16 version on the card (`bf16_twin`: y and dx at BF16_KERNEL_TOL,
+    db1 and db2 at KERNEL_TOL, dW1 and dW2, float32 sums of rounded dh and
+    h, within BF16_KERNEL_TOL's rtol of their largest entry), two runs
+    bit-identical, timed beside the float32 kernel on the same values and
+    the bf16 bound. Returns each kernel's row fields, the "main" shape's
+    at the largest rate (`ms_bf16`, ...) and each other tagged shape's
+    (`ms_bf16_<tag>`, `bound_ms_bf16_<tag>`)."""
+    bf = torch.bfloat16
+    rows, errs = {}, {"fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}
+    outs = ("dx", "dW1", "db1", "dW2", "db2")
+    for r, din, f, dout, rates, tag in shapes:
+        x, w1, b1, w2, b2, g = mlp_inputs(r + f + 1, r, din, f, dout, device,
+                                          g_scale=mlp_g_scale(r))
+        x, w1, w2, g = (t.to(bf) for t in (x, w1, w2, g))
+        up = lambda *ts: [t.float() for t in ts]
+        with torch.inference_mode():
+            plain_b0 = fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2, g)
+        dw_tol = {o: dict(rtol=0, atol=BF16_KERNEL_TOL["rtol"] * float(
+            t.abs().max())) for o, t in (("dW1", plain_b0[1]),
+                                         ("dW2", plain_b0[3]))}
+        del plain_b0
+        tols = {**dw_tol, "db1": KERNEL_TOL, "db2": KERNEL_TOL}
+        for rate in rates:
+            label = f"bf16 R={r} d={din} rate={rate}"
+            e_f, t_f = bf16_twin(
+                "fused_mlp_fwd",
+                lambda: [fm_mod.fused_mlp_fwd(x, w1, b1, w2, b2, rate, seed)],
+                lambda: [fm_mod.fused_mlp_plain(x, w1, b1, w2, b2, rate,
+                                                seed)],
+                lambda: fm_mod.fused_mlp_fwd(*up(x, w1), b1, w2.float(), b2,
+                                             rate, seed), ("y",), label)
+            e_b, t_b = bf16_twin(
+                "fused_mlp_bwd",
+                lambda: fm_mod.fused_mlp_bwd(x, w1, b1, w2, g, rate, seed),
+                lambda: fm_mod.fused_mlp_bwd_plain(x, w1, b1, w2, g, rate,
+                                                   seed),
+                lambda: fm_mod.fused_mlp_bwd(*up(x, w1), b1, *up(w2, g),
+                                             rate, seed), outs, label, tols)
+            errs["fused_mlp_fwd"] = max(errs["fused_mlp_fwd"], *e_f)
+            errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], *e_b)
+            bounds = [bf16_bound(mlp_cost(r, din, f, dout, w, vb=2))
+                      for w in ("fwd", "bwd")]
+            text = lambda t, bd: (
+                f"{t[0]:.4f} ms (plain {t[1]:.4f} ms, float32 kernel "
+                f"{t[2]:.4f} ms, bound {bd[0]:.4f} ms {bd[1]}, "
+                f"{100 * bd[0] / t[0]:.2f} %)")
+            print(f"fused-MLP {label} F={f} d_out={dout}: fwd err "
+                  f"{e_f[0]:.3e} {text(t_f, bounds[0])}; bwd err "
+                  + " ".join(f"{o} {e:.3e}" for o, e in zip(outs, e_b))
+                  + f" {text(t_b, bounds[1])}; two runs of each "
+                  f"bit-identical; tolerance {BF16_KERNEL_TOL} (db1, db2 "
+                  f"{KERNEL_TOL}; dW1, dW2 atol "
+                  f"{dw_tol['dW1']['atol']:.3e} / "
+                  f"{dw_tol['dW2']['atol']:.3e})", flush=True)
+            if rate != max(rates):
+                continue
+            for name, t, (bms, bby) in (("fused_mlp_fwd", t_f, bounds[0]),
+                                        ("fused_mlp_bwd", t_b, bounds[1])):
+                if tag == "main":
+                    rows[name] = dict(ms_bf16=t[0], plain_ms_bf16=t[1],
+                                      bound_ms_bf16=bms, bound_by_bf16=bby,
+                                      ms_f32_twin=t[2])
+                else:
+                    rows.setdefault(name, {}).update({
+                        f"ms_bf16_{tag}": t[0],
+                        f"bound_ms_bf16_{tag}": bms})
     for name in rows:
         rows[name]["max_abs_err_bf16"] = errs[name]
     return rows
@@ -3992,12 +4211,14 @@ def gckn_slice(device, card):
 
 @contextlib.contextmanager
 def entry_point_tally():
-    """Count the launches of the unfolded flash kernels and colstat by C
-    entry point, {(wrapper, dtype suffix): launches} (suffix "" float32,
-    "_bf16", "_bf16_f32pe"; `common.dtype_suffix`): each launch looks its
-    entry point up once (`_kernel`), and a CPU tensor none."""
+    """Count the launches of the unfolded flash kernels, colstat, the
+    fused pair and the fused MLP pair by C entry point, {(wrapper, dtype
+    suffix): launches} (suffix "" float32, "_bf16", "_bf16_f32pe";
+    `common.dtype_suffix`): each launch looks its entry point up once
+    (`_kernel`), and a CPU tensor none."""
     tally = collections.Counter()
-    fl_kernel, cs_kernel = fl_mod._kernel, cs_mod._kernel
+    saved = (fl_mod._kernel, cs_mod._kernel, fa_mod._kernel, fm_mod._kernel)
+    fl_kernel, cs_kernel, fa_kernel, fm_kernel = saved
 
     def fl(name, suffix=""):
         tally[name, suffix] += 1
@@ -4007,11 +4228,22 @@ def entry_point_tally():
         tally["colstat", suffix] += 1
         return cs_kernel(suffix)
 
-    fl_mod._kernel, cs_mod._kernel = fl, cs
+    def fa(name, suffix=""):
+        tally[f"fused_attn_{name}", suffix] += 1
+        return fa_kernel(name, suffix)
+
+    def fm(name, suffix=""):
+        if name in ("fwd", "bwd"):            # not the grid's helpers
+            tally[f"fused_mlp_{name}", suffix] += 1
+        return fm_kernel(name, suffix)
+
+    fl_mod._kernel, cs_mod._kernel, fa_mod._kernel, fm_mod._kernel = \
+        fl, cs, fa, fm
     try:
         yield tally
     finally:
-        fl_mod._kernel, cs_mod._kernel = fl_kernel, cs_kernel
+        fl_mod._kernel, cs_mod._kernel, fa_mod._kernel, fm_mod._kernel = \
+            saved
 
 
 def check_tally(label, tally, want):
@@ -4021,9 +4253,10 @@ def check_tally(label, tally, want):
         raise AssertionError(f"{label}: entry points {got}, expected {want}")
 
 
-def policy_launches(launches, suffix):
-    """{(wrapper, suffix): n} of a run's flash-route launches."""
-    return {(k, suffix): launches[k] for k in FLASH_ROUTE}
+def policy_launches(launches, suffix, kernels=FLASH_ROUTE):
+    """{(wrapper, suffix): n} of a run's launches of `kernels` (the
+    flash route's by default)."""
+    return {(k, suffix): launches[k] for k in kernels}
 
 
 def bf16_step_parity(initial, graphs, device, label, collate, cfg, params):
@@ -4077,7 +4310,8 @@ def policy_env(compute, modulation):
 
 
 def bf16_route_check(initial, graphs, device, label, collate,
-                     params=BF16_ROUTE_PARAMS):
+                     params=BF16_ROUTE_PARAMS, routes=BF16_ROUTES,
+                     suffix=None):
     """The card under each bf16 route of BF16_ROUTES against the CPU plain
     version of that route, from the same weights (`initial`, its batch
     norms calibrated) on the same graphs: the eval-mode logits at the real
@@ -4088,20 +4322,23 @@ def bf16_route_check(initial, graphs, device, label, collate,
     the larger of the CPU route's distances from the other two CPU routes
     (the other bf16 route, float32), and the card's flash launches all
     through the route's entry points (`_bf16`, `_bf16_f32pe`: what tells
-    the route, as the numbers cannot: BF16_ROUTES' note). Prints every
+    the route, as the numbers cannot: BF16_ROUTES' note). `routes` and
+    `suffix` ({bf16 route: entry point suffix}) for a path whose kernels
+    take pe and deg float32 whatever FETA_BF16_MODULATION says (the fused
+    pair, the fused MLP): one bf16 route, and float32. Prints every
     distance."""
     batch = collate_graphs(graphs, **collate)
-    suffix = {"bf16": "_bf16", "bf16 pe f32": "_bf16_f32pe"}
+    suffix = suffix or {"bf16": "_bf16", "bf16 pe f32": "_bf16_f32pe"}
 
     def run(route, dev):
         model = copy.deepcopy(initial).to(dev)
         b = batch.to(dev)
-        with policy_env(*BF16_ROUTES[route]):
+        with policy_env(*routes[route]):
             model.eval()
             with torch.inference_mode():
-                out = model(b)[0].float()
+                out = first_output(model(b)).float()
             model.train()
-            y = model(b)[0].float()
+            y = first_output(model(b)).float()
             cot = torch.randn(y.shape, generator=torch.Generator()
                               .manual_seed(len(graphs))).to(dev)
             if y.dim() == 3:                     # node level: real nodes
@@ -4112,7 +4349,7 @@ def bf16_route_check(initial, graphs, device, label, collate,
             got[n] = model.get_parameter(n).grad.double().cpu()
         return got
 
-    cpu = {r: run(r, "cpu") for r in BF16_ROUTES}
+    cpu = {r: run(r, "cpu") for r in routes}
     keys = ["logits", *params]
 
     def dist(a, b, k):
@@ -4126,7 +4363,7 @@ def bf16_route_check(initial, graphs, device, label, collate,
         if {s for _, s in tally} != {suffix[route]}:
             raise AssertionError(f"{label} [{route}]: entry points "
                                  f"{dict(tally)}")
-        others = [r for r in BF16_ROUTES if r != route]
+        others = [r for r in routes if r != route]
         text = []
         for k in keys:
             d_card = dist(card, cpu[route], k)
@@ -4281,9 +4518,204 @@ def bf16_sbm(graphs, device, card):
     return runs, {p: (med(ms[p]), med(step_ms[p])) for p in policies}
 
 
-def bf16_zinc(device, card):
+def bf16_policy_net(label, build, graphs, per, collate, device, card,
+                    task, serve_want, step_want, step_cfg, params,
+                    train_cfg, n_ref):
+    """One model of the bf16 phase's fused paths (the fused pair, the
+    fused MLP pair), served and trained under the bf16 policy and with it
+    unset on the same weights, in turns (BF16_NET_ROUNDS rounds of one
+    request of `per` graphs and one step on them, the order alternating):
+    each run's launches exact by wrapper ({wrapper: launches} a request
+    and a step, `serve_want` / `step_want`) and by C entry point (`_bf16`
+    under the policy, float32 without; the modulation kernel, float32 on
+    both, is not among the entry points tallied); the first `n_ref`
+    served graphs' bf16 logits off a float64 CPU forward within
+    BF16_MODEL_FACTOR of the CPU plain bf16 route's error; finite losses;
+    then one step from the initial weights held to float64 within
+    BF16_MODEL_FACTOR of the CPU bf16 route's error
+    (`bf16_step_parity`). After the rounds, with both policies warm,
+    BF16_NET_TIMED_REQUESTS requests and BF16_NET_TIMED_STEPS steps under
+    each policy in turns (host clock; each ends in a copy to the host),
+    printed as medians and quartiles. `build(seed)` makes the model on
+    the card. Returns the launches of every run."""
+    policies = {"bf16": "bfloat16", "f32": None}
+    suffix = {"bf16": "_bf16", "f32": ""}
+    order = lambda r: list(policies)[::1 if r % 2 == 0 else -1]
+    node_level = task == "node_clf"
+    model = build(0)
+    calibrate_batch_norm(model, collate_graphs(graphs[:per], **collate),
+                         device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    pred = Predictor(model, device=device, max_batch=per,
+                     collate_kwargs=collate, node_level=node_level)
+    request = graphs[:per]
+    initial = build(1)
+    batch = collate_graphs(request, **collate).to(device)
+    trainers = {p: Trainer(copy.deepcopy(initial), train_cfg)
+                for p in policies}
+    runs, outs, losses = [], {}, []
+    with entry_point_tally() as tally:
+        for r in range(BF16_NET_ROUNDS):
+            for p in order(r):
+                with compute_dtype_env(policies[p]):
+                    reset_launches()
+                    outs.setdefault(p, pred.predict(request))
+                    served = read_launches()
+                    reset_launches()
+                    losses.append(float(trainers[p].step(batch)))
+                    trained = read_launches()
+                for got, want, what in ((served, serve_want, "request"),
+                                        (trained, step_want, "step")):
+                    if got != {**NONE, **want}:
+                        raise AssertionError(f"{label} [{p}] {what}: "
+                                             f"launches {got}, expected "
+                                             f"{want}")
+                runs += [served, trained]
+    check_tally(label, tally, {
+        (k, suffix[p]): BF16_NET_ROUNDS * (serve_want.get(k, 0)
+                                           + step_want.get(k, 0))
+        for p in policies for k in set(serve_want) | set(step_want)
+        if k not in ("modulation_fwd", "modulation_bwd")})
+    ms = {(p, what): [] for p in policies for what in ("request", "step")}
+    for what, n, fn in (
+            ("request", BF16_NET_TIMED_REQUESTS,
+             lambda p: pred.predict(request)),
+            ("step", BF16_NET_TIMED_STEPS,
+             lambda p: float(trainers[p].step(batch)))):
+        for r in range(n):
+            for p in order(r):
+                with compute_dtype_env(policies[p]):
+                    t0 = time.perf_counter()
+                    fn(p)
+                    ms[p, what].append((time.perf_counter() - t0) * 1e3)
+    quart = lambda v: "/".join(f"{q:.2f}" for q in statistics.quantiles(
+        v, n=4))
+    ratio = lambda what: (statistics.median(ms["bf16", what])
+                          / statistics.median(ms["f32", what]))
+    timed = "; ".join(
+        f"ms/{what} (quartiles of {n}) bf16 {quart(ms['bf16', what])}, f32 "
+        f"{quart(ms['f32', what])}, medians' ratio {ratio(what):.3f}"
+        for what, n in (("request", BF16_NET_TIMED_REQUESTS),
+                        ("step", BF16_NET_TIMED_STEPS)))
+    ref_graphs = request[:n_ref]
+    one = collate_graphs(ref_graphs, **collate)
+    with torch.inference_mode():
+        ref = first_output(copy.deepcopy(cpu_model).to(torch.float64)(
+            as_float64(one))).numpy()
+        with compute_dtype_env("bfloat16"):
+            cpu_bf16 = first_output(cpu_model(one)).numpy()
+    pick = lambda a, i, g: a[i, :g.num_nodes] if node_level else a[i]
+    gap = lambda got: max(float(np.abs(pick(got, i, g) - pick(ref, i, g))
+                                .max()) for i, g in enumerate(ref_graphs))
+    served = outs["bf16"]
+    err = max(float(np.abs(np.asarray(served[i]) - pick(ref, i, g)).max())
+              for i, g in enumerate(ref_graphs))
+    err_cpu = gap(cpu_bf16)
+    finite = all(np.isfinite(np.asarray(o, np.float64)).all()
+                 for out in outs.values() for o in out)
+    print(f"{label}: {BF16_NET_ROUNDS} rounds of a request of {per} graphs "
+          f"and a step on them under each policy in turns, then warm, in "
+          f"turns, {timed}; step losses "
+          f"{[round(x, 6) for x in losses]}; launches a request "
+          f"{serve_want}, a step {step_want}, by entry point {dict(tally)};"
+          f" {len(ref_graphs)} graphs' bf16 logits off the float64 CPU "
+          f"forward {err:.3e} (at most {BF16_MODEL_FACTOR}x the CPU bf16 "
+          f"route's {err_cpu:.3e}); max |logit| "
+          f"{float(np.abs(ref).max()):.3f}; on {card}", flush=True)
+    if not finite or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite logits or losses")
+    if err > BF16_MODEL_FACTOR * err_cpu:
+        raise AssertionError(f"{label}: bf16 logits off float64 by {err}, "
+                             f"the CPU bf16 route's {err_cpu}")
+    bf16_step_parity(initial, ref_graphs, device, f"{label} step",
+                     collate, step_cfg, params)
+    return runs
+
+
+def bf16_zinc_fused(graphs, device, card):
+    """The ZINC regressor (DiffGraphTransformerGenGCN at ZINC_CFG) on the
+    "fused" route under the bf16 policy and with it unset
+    (`bf16_policy_net`): 9 fused_attn_fwd and 1 modulation_fwd a request,
+    the fused pair through `_bf16` under the policy; then the route check
+    at BF16_ROUTE_LAYERS layers (`bf16_route_check`: the fused pair takes
+    pe and deg float32, so one bf16 route). Returns the launches."""
+    build = lambda seed: DiffGraphTransformerGenGCN(
+        **ZINC_CFG, attention_impl="fused", seed=seed, device=device)
+    collate = {"max_nodes": ZINC_NODES}
+    runs = bf16_policy_net(
+        "bf16 zinc [fused]", build, graphs, ZINC_GRAPHS, collate, device,
+        card, "graph_reg", ZINC_REQUEST_LAUNCHES["fused"],
+        ZINC_STEP_LAUNCHES["fused"],
+        TrainConfig(task="graph_reg", regularization=0.1, sign_flip=False),
+        STEP_PARAMS,
+        TrainConfig(task="graph_reg", lr=1e-3, weight_decay=1e-5,
+                    sign_flip=True, seed=0), BF16_REF_GRAPHS["zinc"])
+    model = DiffGraphTransformerGenGCN(
+        **dict(ZINC_CFG, nb_layers=BF16_ROUTE_LAYERS),
+        attention_impl="fused", seed=1, device=device)
+    calibrate_batch_norm(model, collate_graphs(graphs[:16], **collate),
+                         device)
+    bf16_route_check(model, graphs[:16], device, "bf16 route zinc [fused]",
+                     collate, routes={"bf16": ("bfloat16", "1"),
+                                      "f32": (None, None)},
+                     suffix={"bf16": "_bf16"})
+    return runs
+
+
+def bf16_lpe(device, card):
+    """The bf16 phase on the fused MLP pair: SANNodeSpectra at SAN_CFG
+    (the san phase's widths and batch) and the lpe phase's four nets
+    (LPE_NETS: SAN_NodeLPE, the PATTERN SAN_NodeLPE, SAN_EdgeLPE, GATFeTA)
+    built by their config trainers, each through `bf16_policy_net` (a
+    request launches the eigen-PE head's fused_mlp_fwd, a step its
+    fused_mlp_fwd and _bwd, once per encoder layer of the head; GATFeTA
+    none); then SANNodeSpectra's route check at BF16_ROUTE_LAYERS layers.
+    Returns the launches."""
+    graphs = zinc_categorical_dataset(seed=3, n_graphs=SAN_GRAPHS)
+    apply_laplace_decomp(graphs, SAN_FREQS)
+    heads = SAN_CFG["lpe_layers"]
+    collate = {"max_nodes": SAN_NODES}
+    mlp = lambda n: ({"fused_mlp_fwd": n}, {"fused_mlp_fwd": n,
+                                              "fused_mlp_bwd": n})
+    runs = bf16_policy_net(
+        "bf16 san", lambda seed: SANNodeSpectra(**SAN_CFG, seed=seed,
+                                                device=device),
+        graphs, SAN_GRAPHS, collate, device, card, "graph_reg", *mlp(heads),
+        TrainConfig(task="graph_reg", sign_flip=False), SAN_STEP_PARAMS,
+        TrainConfig(task="graph_reg", lr=1e-3, weight_decay=1e-5,
+                    sign_flip=True, seed=0), BF16_REF_GRAPHS["san"])
+    for label, config, overrides, trainer, per, nodes, n_heads, params \
+            in LPE_NETS:
+        _, transform, task, extra, make, cfg = lpe_build(
+            config, overrides, trainer, "cpu", seed=0)
+        net_graphs = make(per)
+        transform(net_graphs)
+        p = cfg["params"]
+        runs += bf16_policy_net(
+            f"bf16 lpe {label}",
+            lambda seed, c=config, o=overrides, t=trainer: lpe_build(
+                c, o, t, device, seed=seed)[0],
+            net_graphs, per, dict(max_nodes=nodes, **extra), device, card,
+            task, *mlp(n_heads), TrainConfig(task=task, sign_flip=False),
+            params, TrainConfig(task=task, lr=p["init_lr"],
+                                weight_decay=p["weight_decay"],
+                                sign_flip=n_heads > 0, seed=0),
+            BF16_REF_GRAPHS["lpe"])
+    model = SANNodeSpectra(**dict(SAN_CFG, n_layers=BF16_ROUTE_LAYERS),
+                           seed=1, device=device)
+    calibrate_batch_norm(model, collate_graphs(graphs[:16], **collate),
+                         device)
+    bf16_route_check(model, graphs[:16], device, "bf16 route san", collate,
+                     params=BF16_SAN_ROUTE_PARAMS,
+                     routes={"bf16": ("bfloat16", "1"), "f32": (None, None)},
+                     suffix={"bf16": "_bf16"})
+    return runs
+
+
+def bf16_zinc(device, card, graphs):
     """The bf16 phase on the ZINC regressor (DiffGraphTransformerGenGCN at
-    ZINC_CFG) on "flash" and "modulation": `zinc_serve` and `zinc_train`
+    ZINC_CFG) on "flash" and "modulation", on `make_zinc_graphs()`:
+    `zinc_serve` and `zinc_train`
     under the policy and with it unset, their launches exact (on "flash"
     by entry point too; "modulation" launches its float32 kernels on
     float32 scores, as the JAX layer does), then each combination's
@@ -4291,7 +4723,6 @@ def bf16_zinc(device, card):
     step on 16 graphs under the policy (`bf16_step_parity`), and the
     route check at 2 layers (`bf16_route_check`). Returns the
     launches."""
-    graphs = make_zinc_graphs()
     runs, request_fns, step_fns = [], {}, {}
     for impl in ("flash", "modulation"):
         for p, value, suffix in (("bf16", "bfloat16", "_bf16"),
@@ -4378,25 +4809,43 @@ def bf16_products(device, card, b=N_GRAPHS // 2, n=N_NODES, f=64):
 
 def bf16_slice(graphs, device, card, cli_device="cuda"):
     """The bf16 phase (the bf16 compute policy, FETA_COMPUTE_DTYPE=
-    bfloat16): kernels #1-#4 in bf16 (`check_bf16_kernels`), the SBM model
-    at N=1024 (`bf16_sbm`), the ZINC regressor (`bf16_zinc`), and
-    feta-torch-zinc under the policy, 2 + 2 epochs bit for bit against 4,
-    every flash launch through a bf16 entry point; between the kernels and
-    the models, the policy's longest plain product three ways
+    bfloat16): kernels #1-#4 in bf16 (`check_bf16_kernels`), then #10-#13
+    (`check_bf16_fused`, `check_bf16_mlp`), the SBM model at N=1024
+    (`bf16_sbm`), the ZINC regressor on "flash" and "modulation"
+    (`bf16_zinc`) and on "fused" (`bf16_zinc_fused`), SANNodeSpectra and
+    the lpe phase's nets (`bf16_lpe`), feta-torch-zinc under the policy,
+    2 + 2 epochs bit for bit against 4, every flash launch through a bf16
+    entry point, and the LPE config trainer (SAN_NodeLPE) so, every MLP
+    launch through a `_bf16` entry point; between the kernels and the
+    models, the policy's longest plain product three ways
     (`bf16_products`) and the SBM model's route check at 2 layers
-    (`bf16_route_check`; the ZINC one is in `bf16_zinc`). Returns the
-    kernels' JSON fields and the launches."""
+    (`bf16_route_check`; the ZINC, fused and SAN ones are in their
+    functions). Returns the kernels' JSON fields and the launches."""
     rows = check_bf16_kernels(device)
+    for name, fields in {**check_bf16_fused(device),
+                         **check_bf16_mlp(device)}.items():
+        rows[name] = fields
     bf16_products(device, card)
     bf16_route_sbm(graphs, device)
     runs, med = bf16_sbm(graphs, device, card)
-    runs += bf16_zinc(device, card)
+    zinc_graphs = make_zinc_graphs()
+    runs += bf16_zinc(device, card, zinc_graphs)
+    runs += bf16_zinc_fused(zinc_graphs, device, card)
+    runs += bf16_lpe(device, card)
     with tempfile.TemporaryDirectory() as workdir, \
             compute_dtype_env("bfloat16"), entry_point_tally() as tally:
         launches = cli_exact_resume("zinc_bf16", cli_zinc.main,
                                     CLI_ZINC_ARGV, workdir, card,
                                     cli_device)
-    check_tally("cli zinc_bf16", tally, policy_launches(launches, "_bf16"))
+        check_tally("cli zinc_bf16", tally,
+                    policy_launches(launches, "_bf16"))
+        runs.append(launches)
+        tally.clear()
+        name, main_fn, argv = CLI_LPE_RUNS[0]
+        launches = cli_exact_resume(f"{name}_bf16", main_fn, argv, workdir,
+                                    card, cli_device)
+        check_tally(f"cli {name}_bf16", tally,
+                    policy_launches(launches, "_bf16", MLP_ROUTE))
     runs.append(launches)
     print(f"bf16 against float32, SBM N={N_NODES} (medians, in turns): ms a "
           f"request of {N_GRAPHS} graphs {med['bf16'][0]:.2f} / "

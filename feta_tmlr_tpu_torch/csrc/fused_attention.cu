@@ -1,7 +1,7 @@
 // Fused GraphiT attention for small graphs (N <= 128, D <= 64), forward and
-// backward, f32, for sm_90a: one thread-block cluster per graph, one CTA per
-// (graph, head group), one warp per 16-query strip, every product but the
-// score on the tensor cores.
+// backward, f32 (and bf16 operands), for sm_90a: one thread-block cluster
+// per graph, one CTA per (graph, head group), one warp per 16-query strip,
+// every product but the score on the tensor cores.
 //
 // Replaces the TPU kernels feta_tmlr_tpu/ops/pallas/fused_attention.py
 // `_fwd_kernel` (launched by `_call_fwd`) and `_bwd_kernel` (`_call_bwd`).
@@ -93,6 +93,23 @@
 // 0.03 ms of the card alone, and a launch in clusters of 8 costs about
 // 0.006 ms more than one without (kernel_ab.py's variants, PERF.md).
 //
+// bf16 operands (the bf16 compute policy, FETA_COMPUTE_DTYPE=bfloat16): the
+// `_bf16` entry points take xa, x and vw (and g) in bf16, with cq, ck, c0,
+// pe, deg and the mask in float, as the JAX wrapper casts them
+// (fused_attention.py:245-262); out, dxa, dx and dvw are bf16, dcq, dck and
+// dc0 float. They replace the same TPU kernels under those operands (bf16
+// dots with f32 accumulators, fused_attention.py:77, :100-118). The bf16
+// tiles are staged into the same float tiles by converting loads
+// (mma_tf32.cuh's note), so the global bytes of the values halve and the
+// score's chain runs on bf16-exact values. Where JAX casts, the kernels
+// round: the forward's attn row to bf16 before P·V (the exact row, no
+// running maximum, so kernel and plain version round the same values), the
+// backward's attn before attn^T g and ds before ds x and ds^T xa (dcq, dck
+// and dc0 sum the unrounded ds). Every tensor-core product then has
+// bf16-exact operands and is one TF32 product (`mma1`), not three. The head
+// sums out and dx stay float across the cluster and are rounded once, on
+// the way out, as are dxa and dvw.
+//
 // Limits: N <= 128 (a strip's key row in registers; the backward's shared
 // memory), D <= 64 (the 68-float rows), any H >= 1.
 //
@@ -117,8 +134,13 @@ constexpr int kMaxNodes = 128;       // N
 constexpr int kMaxCluster = 8;       // the portable cluster size
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the H100's per-block limit
 
+// TV: the type of xa, x and vw (float, or bf16 under the bf16 policy)
+template <class TV>
 struct Ops {
-  const float *xa, *x, *cq, *ck, *c0, *vw, *pe, *deg, *mask;
+  const TV *xa, *x;
+  const float *cq, *ck, *c0;
+  const TV* vw;
+  const float *pe, *deg, *mask;
 };
 
 struct Geo {
@@ -153,9 +175,11 @@ __host__ inline int cluster_size(int H) {
   return 1;
 }
 
-// Block-wide cp.async of rows [NR][kLD] from src [N][D] and of a vector
-// [NR] from src [N], zero past N and (rows) from D to D rounded to 8.
-__device__ __forceinline__ void stage_mat(float* dst, const float* src,
+// Block-wide cp.async of rows [NR][kLD] from src [N][D] (bf16 src:
+// converting loads) and of a vector [NR] from src [N], zero past N and
+// (rows) from D to D rounded to 8.
+template <class T>
+__device__ __forceinline__ void stage_mat(float* dst, const T* src,
                                           int N, int D, int NR) {
   tc::stage_rows(dst, kLD, src, D, 0, NR, N, 0, D, D, threadIdx.x,
                  blockDim.x);
@@ -168,7 +192,8 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
 }
 
 // The graph's key mask and degree (ones where absent) into [NR] each.
-__device__ __forceinline__ void stage_keys(const Ops& op, int b, int N,
+template <class TV>
+__device__ __forceinline__ void stage_keys(const Ops<TV>& op, int b, int N,
                                            Geo geo, float* kms, float* dgs) {
   stage_vec(kms, op.mask + (size_t)b * N, N, geo.NR);
   if (op.deg)
@@ -178,8 +203,9 @@ __device__ __forceinline__ void stage_keys(const Ops& op, int b, int N,
 }
 
 // pe[b] into [NR][LP], if given.
-__device__ __forceinline__ void stage_pe(const Ops& op, int b, int N, Geo geo,
-                                         float* ps) {
+template <class TV>
+__device__ __forceinline__ void stage_pe(const Ops<TV>& op, int b, int N,
+                                         Geo geo, float* ps) {
   if (op.pe)
     tc::stage_rows(ps, geo.LP, op.pe + (size_t)b * N * N, N, 0, geo.NR, N, 0,
                    N, N, threadIdx.x, blockDim.x);
@@ -272,11 +298,27 @@ __device__ __forceinline__ float2 pd_global(const float* pe_b, int N,
   return make_float2(p.x * dgs[key], p.y * dgs[key + 1]);
 }
 
+// dst[0..3] = v: one 16-byte store of float, one 8-byte store of the four
+// values rounded to bf16
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(tc::bf16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
 // Rows r, r + C, ... < N of the cluster's head-group partials (each CTA's
 // [.][kLD] at `part`), summed over the ranks 0 .. C-1 in order, into dst
-// [N][D]. Both cluster syncs are here: the partials are complete before any
-// CTA reads them, and no CTA exits while another may still read its own.
-__device__ __forceinline__ void cluster_sum(float* part, float* dst, int N,
+// [N][D] (bf16: each sum rounded once). Both cluster syncs are here: the
+// partials are complete before any CTA reads them, and no CTA exits while
+// another may still read its own.
+template <class TO>
+__device__ __forceinline__ void cluster_sum(float* part, TO* dst, int N,
                                             int D, int C, int rank) {
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -294,7 +336,7 @@ __device__ __forceinline__ void cluster_sum(float* part, float* dst, int N,
         v.z += p.z;
         v.w += p.w;
       }
-      *reinterpret_cast<float4*>(dst + (size_t)row * D + c) = v;
+      store4(dst + (size_t)row * D + c, v);
     }
   } else {
     for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
@@ -302,7 +344,7 @@ __device__ __forceinline__ void cluster_sum(float* part, float* dst, int N,
       float v = 0.f;
       for (int q = 0; q < C; ++q)
         v += cluster.map_shared_rank(part, q)[row * kLD + c];
-      dst[(size_t)row * D + c] = v;
+      tc::store(dst + (size_t)row * D + c, v);
     }
   }
   cluster.sync();
@@ -322,8 +364,9 @@ __device__ __forceinline__ void put_tile(float* dst, int row0, Geo geo,
             acc[j][i];
 }
 
-// the same into dst [rows < N][D] of device memory
-__device__ __forceinline__ void store_tile(float* dst, int row0, int N, int D,
+// the same into dst [rows < N][D] of device memory (bf16: rounded once)
+template <class TO>
+__device__ __forceinline__ void store_tile(TO* dst, int row0, int N, int D,
                                            Geo geo,
                                            const float (&acc)[8][4]) {
   const int g = tc::lane_g(), t = tc::lane_t();
@@ -334,13 +377,15 @@ __device__ __forceinline__ void store_tile(float* dst, int row0, int N, int D,
       for (int i = 0; i < 4; ++i) {
         const int row = row0 + g + 8 * (i >> 1);
         const int col = 8 * j + 2 * t + (i & 1);
-        if (row < N && col < D) dst[(size_t)row * D + col] = acc[j][i];
+        if (row < N && col < D)
+          tc::store(dst + (size_t)row * D + col, acc[j][i]);
       }
 }
 
 // acc[j] += P · B[k0 .. k0 + 7][8 j ..] over the row-major k-steps of a
-// product whose A is the strip's C fragments p[n] (keys 8 n .. 8 n + 7)
-template <int NT>
+// product whose A is the strip's C fragments p[n] (keys 8 n .. 8 n + 7);
+// kBf: the operands are bf16-exact, one TF32 product each
+template <int NT, bool kBf>
 __device__ __forceinline__ void product_from_c(const float (&p)[NT][4],
                                                const float* B, Geo geo,
                                                float (&acc)[8][4]) {
@@ -351,13 +396,15 @@ __device__ __forceinline__ void product_from_c(const float (&p)[NT][4],
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (8 * j < geo.D8)
-          tc::mma3(acc[j], a, tc::load_b_kn_pairs(B, kLD, 8 * n, 8 * j));
+          tc::mma_add<kBf>(acc[j], a,
+                           tc::load_b_kn_pairs(B, kLD, 8 * n, 8 * j));
     }
 }
 
 // acc[j] += sum over the queries of At^T[row0 ..][q] · B[q][8 j ..]: At the
 // [query][key] tile, B rows of queries [.][kLD]; k-steps of 8 queries in
-// order
+// order; kBf as in product_from_c
+template <bool kBf>
 __device__ __forceinline__ void product_t(const float* At, const float* B,
                                           int row0, Geo geo,
                                           float (&acc)[8][4]) {
@@ -366,14 +413,15 @@ __device__ __forceinline__ void product_t(const float* At, const float* B,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       if (8 * j < geo.D8)
-        tc::mma3(acc[j], a, tc::load_b_kn(B, kLD, kq, 8 * j));
+        tc::mma_add<kBf>(acc[j], a, tc::load_b_kn(B, kLD, kq, 8 * j));
   }
 }
 
-template <int NT>
+template <int NT, class TV>
 __global__ void __launch_bounds__(16 * NT, NT == 16 ? 2 : 1)
-fused_fwd_kernel(Ops op, float* __restrict__ out, int H, int N, int D, int C,
-                 float inv_sqrt) {
+fused_fwd_kernel(Ops<TV> op, TV* __restrict__ out, int H, int N, int D,
+                 int C, float inv_sqrt) {
+  constexpr bool kBf = tc::is_bf16<TV>();
   extern __shared__ __align__(16) float smem[];
   const int rank = (int)cg::this_cluster().block_rank();
   const int b = blockIdx.x / C, hpc = H / C;
@@ -449,26 +497,30 @@ fused_fwd_kernel(Ops op, float* __restrict__ out, int H, int N, int D, int C,
       su[e] = lanes(su[e]);
       r[e] = qm[e] / (fabsf(su[e] / se[e]) > graphit::kEps ? su[e] : se[e]);
     }
+    // attn, rounded to bf16 where vw is (JAX's attn.astype(vw.dtype))
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] *= r[i >> 1];
+      for (int i = 0; i < 4; ++i)
+        s[n][i] = kBf ? tc::round_bf16(s[n][i] * r[i >> 1])
+                      : s[n][i] * r[i >> 1];
     tc::cp_async_wait_all();
     __syncthreads();   // vw visible
-    product_from_c<NT>(s, vws, geo, acc);   // += attn_h vw_h
+    product_from_c<NT, kBf>(s, vws, geo, acc);   // += attn_h vw_h
   }
   __syncwarp();   // the warp's lanes done with its xa rows
   put_tile(xas, q0, geo, acc);
   cluster_sum(xas, out + (size_t)b * N * D, N, D, C, rank);
 }
 
-template <int NT>
+template <int NT, class TV>
 __global__ void __launch_bounds__(16 * NT)
-fused_bwd_kernel(Ops op, const float* __restrict__ gt,
-                 float* __restrict__ dxa, float* __restrict__ dx,
+fused_bwd_kernel(Ops<TV> op, const TV* __restrict__ gt,
+                 TV* __restrict__ dxa, TV* __restrict__ dx,
                  float* __restrict__ dcq, float* __restrict__ dck,
-                 float* __restrict__ dc0, float* __restrict__ dvw, int H,
+                 float* __restrict__ dc0, TV* __restrict__ dvw, int H,
                  int N, int D, int C, float inv_sqrt) {
+  constexpr bool kBf = tc::is_bf16<TV>();
   extern __shared__ __align__(16) float smem[];
   const int rank = (int)cg::this_cluster().block_rank();
   const int b = blockIdx.x / C, hpc = H / C;
@@ -529,7 +581,7 @@ fused_bwd_kernel(Ops op, const float* __restrict__ gt,
 #pragma unroll
       for (int n = 0; n < NT; ++n)
         if (8 * n < geo.NK)
-          tc::mma3(ga[n], a, tc::load_b_nk(vws, kLD, 8 * n, kk));
+          tc::mma_add<kBf>(ga[n], a, tc::load_b_nk(vws, kLD, 8 * n, kk));
     }
     mask_and_max<NT>(s, geo, N, cq, cks, kms, op.c0[h], inv_sqrt, m);
     tc::cp_async_wait_all();
@@ -626,7 +678,11 @@ fused_bwd_kernel(Ops op, const float* __restrict__ gt,
             s[n][i] = a * (ga[n][i] - ts[e]) * inv_sqrt;   // ds
             rowsum[e] += s[n][i];
           }
-          *reinterpret_cast<float2*>(at) = make_float2(attn[0], attn[1]);
+          // attn^T g takes attn rounded to bf16 where g is (JAX's cast)
+          *reinterpret_cast<float2*>(at) =
+              kBf ? make_float2(tc::round_bf16(attn[0]),
+                                tc::round_bf16(attn[1]))
+                  : make_float2(attn[0], attn[1]);
         }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -647,15 +703,23 @@ fused_bwd_kernel(Ops op, const float* __restrict__ gt,
           v += __shfl_xor_sync(0xffffffffu, v, 16);
           if (g == 0) cols[w * geo.NR + 8 * n + 2 * t + f] = v;
         }
+    // ds x and ds^T xa take ds rounded to bf16 where x is (JAX's ds_c);
+    // dcq and the column sums above took it unrounded
+    if constexpr (kBf) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = tc::round_bf16(s[n][i]);
+    }
     {   // dxa_h = ds x, ds in registers
       float acc[8][4] = {};
-      product_from_c<NT>(s, xs, geo, acc);
+      product_from_c<NT, kBf>(s, xs, geo, acc);
       store_tile(dxa + bh * N * D, q0, N, D, geo, acc);
     }
     __syncthreads();   // attn and the strips' column sums complete
     {   // dvw_h = attn^T g for keys q0 ..
       float acc[8][4] = {};
-      product_t(ps, gs, q0, geo, acc);
+      product_t<kBf>(ps, gs, q0, geo, acc);
       store_tile(dvw + bh * N * D, q0, N, D, geo, acc);
     }
     if (tid < N) {   // dck: the strips' sums in strip order
@@ -682,7 +746,7 @@ fused_bwd_kernel(Ops op, const float* __restrict__ gt,
       if (lane == 0) dc0[bh] = v;
     }
     __syncthreads();   // ds complete
-    product_t(ps, xas, q0, geo, dxacc);   // dx += ds^T xa_h, keys q0 ..
+    product_t<kBf>(ps, xas, q0, geo, dxacc);   // dx += ds^T xa_h, keys q0 ..
   }
   __syncthreads();   // every warp done with the xa rows
   put_tile(xas, q0, geo, dxacc);
@@ -739,60 +803,55 @@ int max_clusters(Kernel kernel, const cudaLaunchConfig_t& cfg) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-Ops ops(const void* xa, const void* x, const void* cq, const void* ck,
-        const void* c0, const void* vw, const void* pe, const void* deg,
-        const void* mask) {
-  return Ops{(const float*)xa, (const float*)x,  (const float*)cq,
-             (const float*)ck, (const float*)c0, (const float*)vw,
-             (const float*)pe, (const float*)deg, (const float*)mask};
+template <class TV>
+Ops<TV> ops(const void* xa, const void* x, const void* cq, const void* ck,
+            const void* c0, const void* vw, const void* pe, const void* deg,
+            const void* mask) {
+  return Ops<TV>{(const TV*)xa,     (const TV*)x,     (const float*)cq,
+                 (const float*)ck,  (const float*)c0, (const TV*)vw,
+                 (const float*)pe,  (const float*)deg, (const float*)mask};
 }
 
-}  // namespace
-
-extern "C" int feta_fused_attn_fwd(const void* xa, const void* x,
-                                   const void* cq, const void* ck,
-                                   const void* c0, const void* vw,
-                                   const void* pe, const void* deg,
-                                   const void* mask, void* out, int B, int H,
-                                   int N, int D, float inv_sqrt,
-                                   void* stream) {
+template <class TV>
+int run_fwd(const void* xa, const void* x, const void* cq, const void* ck,
+            const void* c0, const void* vw, const void* pe, const void* deg,
+            const void* mask, void* out, int B, int H, int N, int D,
+            float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D)) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       config(B, H, N, D, false, (cudaStream_t)stream, &attr);
-  const Ops op = ops(xa, x, cq, ck, c0, vw, pe, deg, mask);
+  const Ops<TV> op = ops<TV>(xa, x, cq, ck, c0, vw, pe, deg, mask);
   const int C = cluster_size(H);
   switch (key_tiles(N)) {
     case 4:
-      return launch(fused_fwd_kernel<4>, cfg, op, (float*)out, H, N, D, C,
+      return launch(fused_fwd_kernel<4, TV>, cfg, op, (TV*)out, H, N, D, C,
                     inv_sqrt);
     case 8:
-      return launch(fused_fwd_kernel<8>, cfg, op, (float*)out, H, N, D, C,
+      return launch(fused_fwd_kernel<8, TV>, cfg, op, (TV*)out, H, N, D, C,
                     inv_sqrt);
     default:
-      return launch(fused_fwd_kernel<16>, cfg, op, (float*)out, H, N, D, C,
+      return launch(fused_fwd_kernel<16, TV>, cfg, op, (TV*)out, H, N, D, C,
                     inv_sqrt);
   }
 }
 
-extern "C" int feta_fused_attn_bwd(const void* xa, const void* x,
-                                   const void* cq, const void* ck,
-                                   const void* c0, const void* vw,
-                                   const void* pe, const void* deg,
-                                   const void* mask, const void* g, void* dxa,
-                                   void* dx, void* dcq, void* dck, void* dc0,
-                                   void* dvw, int B, int H, int N, int D,
-                                   float inv_sqrt, void* stream) {
+template <class TV>
+int run_bwd(const void* xa, const void* x, const void* cq, const void* ck,
+            const void* c0, const void* vw, const void* pe, const void* deg,
+            const void* mask, const void* g, void* dxa, void* dx, void* dcq,
+            void* dck, void* dc0, void* dvw, int B, int H, int N, int D,
+            float inv_sqrt, void* stream) {
   if (bad_shape(B, H, N, D)) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       config(B, H, N, D, true, (cudaStream_t)stream, &attr);
-  const Ops op = ops(xa, x, cq, ck, c0, vw, pe, deg, mask);
+  const Ops<TV> op = ops<TV>(xa, x, cq, ck, c0, vw, pe, deg, mask);
   const int C = cluster_size(H);
-#define FETA_FUSED_BWD(NT)                                                   \
-  launch(fused_bwd_kernel<NT>, cfg, op, (const float*)g, (float*)dxa,      \
-         (float*)dx, (float*)dcq, (float*)dck, (float*)dc0, (float*)dvw, H, \
-         N, D, C, inv_sqrt)
+#define FETA_FUSED_BWD(NT)                                                \
+  launch(fused_bwd_kernel<NT, TV>, cfg, op, (const TV*)g, (TV*)dxa,       \
+         (TV*)dx, (float*)dcq, (float*)dck, (float*)dc0, (TV*)dvw, H, N, D, \
+         C, inv_sqrt)
   switch (key_tiles(N)) {
     case 4:
       return FETA_FUSED_BWD(4);
@@ -802,6 +861,43 @@ extern "C" int feta_fused_attn_bwd(const void* xa, const void* x,
       return FETA_FUSED_BWD(16);
   }
 #undef FETA_FUSED_BWD
+}
+
+}  // namespace
+
+#define FETA_FUSED_FWD_ARGS                                                 \
+  const void *xa, const void *x, const void *cq, const void *ck,            \
+      const void *c0, const void *vw, const void *pe, const void *deg,      \
+      const void *mask, void *out, int B, int H, int N, int D,              \
+      float inv_sqrt, void *stream
+#define FETA_FUSED_FWD_CALL \
+  xa, x, cq, ck, c0, vw, pe, deg, mask, out, B, H, N, D, inv_sqrt, stream
+#define FETA_FUSED_BWD_ARGS                                                 \
+  const void *xa, const void *x, const void *cq, const void *ck,            \
+      const void *c0, const void *vw, const void *pe, const void *deg,      \
+      const void *mask, const void *g, void *dxa, void *dx, void *dcq,      \
+      void *dck, void *dc0, void *dvw, int B, int H, int N, int D,          \
+      float inv_sqrt, void *stream
+#define FETA_FUSED_BWD_CALL                                                 \
+  xa, x, cq, ck, c0, vw, pe, deg, mask, g, dxa, dx, dcq, dck, dc0, dvw, B, \
+      H, N, D, inv_sqrt, stream
+
+extern "C" int feta_fused_attn_fwd(FETA_FUSED_FWD_ARGS) {
+  return run_fwd<float>(FETA_FUSED_FWD_CALL);
+}
+
+extern "C" int feta_fused_attn_bwd(FETA_FUSED_BWD_ARGS) {
+  return run_bwd<float>(FETA_FUSED_BWD_CALL);
+}
+
+// bf16 xa, x, vw, g and outputs out, dxa, dx, dvw; float cq, ck, c0, pe,
+// deg, mask, dcq, dck, dc0 (the note on bf16 operands above)
+extern "C" int feta_fused_attn_fwd_bf16(FETA_FUSED_FWD_ARGS) {
+  return run_fwd<tc::bf16>(FETA_FUSED_FWD_CALL);
+}
+
+extern "C" int feta_fused_attn_bwd_bf16(FETA_FUSED_BWD_ARGS) {
+  return run_bwd<tc::bf16>(FETA_FUSED_BWD_CALL);
 }
 
 // The CTAs of a graph's cluster for H heads (the wrapper's `cluster_size`).
@@ -816,14 +912,14 @@ extern "C" int feta_fused_attn_max_clusters(int bwd, int B, int H, int N,
   const cudaLaunchConfig_t cfg = config(B, H, N, D, bwd != 0, 0, &attr);
   switch (key_tiles(N)) {
     case 4:
-      return bwd ? max_clusters(fused_bwd_kernel<4>, cfg)
-                 : max_clusters(fused_fwd_kernel<4>, cfg);
+      return bwd ? max_clusters(fused_bwd_kernel<4, float>, cfg)
+                 : max_clusters(fused_fwd_kernel<4, float>, cfg);
     case 8:
-      return bwd ? max_clusters(fused_bwd_kernel<8>, cfg)
-                 : max_clusters(fused_fwd_kernel<8>, cfg);
+      return bwd ? max_clusters(fused_bwd_kernel<8, float>, cfg)
+                 : max_clusters(fused_fwd_kernel<8, float>, cfg);
     default:
-      return bwd ? max_clusters(fused_bwd_kernel<16>, cfg)
-                 : max_clusters(fused_fwd_kernel<16>, cfg);
+      return bwd ? max_clusters(fused_bwd_kernel<16, float>, cfg)
+                 : max_clusters(fused_fwd_kernel<16, float>, cfg);
   }
 }
 

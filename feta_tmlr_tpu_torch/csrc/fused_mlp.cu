@@ -1,4 +1,5 @@
-// Fused two-layer MLP, forward and backward, f32, for sm_90a.
+// Fused two-layer MLP, forward and backward, f32 (and bf16 operands), for
+// sm_90a.
 //
 // Replaces the TPU kernels feta_tmlr_tpu/ops/pallas/fused_mlp.py
 // `_fwd_kernel` (launched by `_call_fwd`) and `_bwd_kernel` (`_call_bwd`).
@@ -145,6 +146,22 @@
 // bwd_kernel<8> 128 and <16> 120, no spill; <32> and <64> 128 with 496
 // and 2372 bytes of spill (one m-tile a warp, the weights loaded per use).
 //
+// bf16 operands (the bf16 compute policy, FETA_COMPUTE_DTYPE=bfloat16): the
+// `_bf16` entry points take x, W1 and W2 (and g) in bf16 with b1 and b2 in
+// float, as the SAN eigen-PE head hands them to the TPU kernels
+// (feta_tmlr_tpu/nn/san.py's fused branch); y and dx are bf16, the weight
+// gradients float (the wrapper rounds dW1 and dW2 once to bf16, as JAX's
+// custom VJP does). They replace the same TPU kernels under those operands
+// (bf16 dots with f32 accumulators, fused_mlp.py:58-106): pre = x W1 + b1
+// and relu and the dropout scale in float; h rounded to bf16 before h W2
+// (`h.astype(w2.dtype)`), y rounded once. The backward rounds dh to bf16
+// before dx = dh W1^T and dW1 = x^T dh (db1 sums it unrounded) and the
+// dropped hidden h * scale before dW2 = hd^T g. The bf16 tiles are staged
+// into the same float tiles and fragments by converting loads
+// (mma_tf32.cuh's note), so every tensor-core product has bf16-exact
+// operands and is one TF32 product (`mma1`) where the float kernels take
+// three; the dropout mask is the same hash.
+//
 // C interface (ctypes): pointers and the stream as void*, returns the
 // cudaError_t of the launches.
 
@@ -262,6 +279,37 @@ __device__ __forceinline__ void mma3_4(
   }
 }
 
+// mma3_2 / mma3_4, or where the operands are bf16-exact (kBf) one TF32
+// product each, added to d0, d1, ... in the same order
+template <bool kBf>
+__device__ __forceinline__ void mma_2(float (&d0)[4], const tc::FragA& a0,
+                                      const tc::FragB& b0, float (&d1)[4],
+                                      const tc::FragA& a1,
+                                      const tc::FragB& b1) {
+  if constexpr (kBf) {
+    tc::mma1(d0, a0, b0);
+    tc::mma1(d1, a1, b1);
+  } else {
+    mma3_2(d0, a0, b0, d1, a1, b1);
+  }
+}
+
+template <bool kBf>
+__device__ __forceinline__ void mma_4(
+    float (&d0)[4], const tc::FragA& a0, const tc::FragB& b0,
+    float (&d1)[4], const tc::FragA& a1, const tc::FragB& b1,
+    float (&d2)[4], const tc::FragA& a2, const tc::FragB& b2,
+    float (&d3)[4], const tc::FragA& a3, const tc::FragB& b3) {
+  if constexpr (kBf) {
+    tc::mma1(d0, a0, b0);
+    tc::mma1(d1, a1, b1);
+    tc::mma1(d2, a2, b2);
+    tc::mma1(d3, a3, b3);
+  } else {
+    mma3_4(d0, a0, b0, d1, a1, b1, d2, a2, b2, d3, a3, b3);
+  }
+}
+
 constexpr int kRunRows = 64;   // rows per run of the dW sums over rows
 constexpr int kRunTerms = 8;  // terms per run: db1, db2 tiles; splits, slabs
 
@@ -286,14 +334,16 @@ struct Bwd {
 
 // One (slab, split) of the backward: the split's dx partial of the slab
 // and its weight-gradient partial, part[split] = [dW1 din·F | db1 F |
-// dW2 F·dout | db2 dout] (the slab's units; db2 by slab 0).
-template <int D>
+// dW2 F·dout | db2 dout] (the slab's units; db2 by slab 0). TV: the type
+// of x, W1, W2 and g (the note on bf16 operands above).
+template <int D, class TV>
 __global__ void __launch_bounds__(kThreads, 2)
-bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           const float* __restrict__ g, float* __restrict__ part,
+bwd_kernel(const TV* __restrict__ x, const TV* __restrict__ w1,
+           const float* __restrict__ b1, const TV* __restrict__ w2,
+           const TV* __restrict__ g, float* __restrict__ part,
            float* __restrict__ dx_part, int R, int din, int F, int dout,
            int rows_per_split, Dropout drop) {
+  constexpr bool kBf = tc::is_bf16<TV>();
   using C = Bwd<D>;
   constexpr int MT = C::MT, KT = C::KT, U = C::U, RT = C::RT;
   constexpr int LDX = C::LDX, LDW = C::LDW, LDH = C::LDH;
@@ -431,15 +481,18 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
           for (int i = 0; i < 4; ++i) pre[mt][i] = b1r[mt][i >> 1];
         if constexpr (MT == 2) {   // D = 8: one k-step
-          mma3_4(pre[0], aw1(0, 0), bx[0], dhd[0], aw2(0, 0), bg[0], pre[1],
-                 aw1(1, 0), bx[0], dhd[1], aw2(1, 0), bg[0]);
+          mma_4<kBf>(pre[0], aw1(0, 0), bx[0], dhd[0], aw2(0, 0), bg[0],
+                     pre[1], aw1(1, 0), bx[0], dhd[1], aw2(1, 0), bg[0]);
         } else {
 #pragma unroll
           for (int ks = 0; ks < KT; ++ks) {
             if (8 * ks < din8 && 8 * ks < dout8)
-              mma3_2(pre[0], aw1(0, ks), bx[ks], dhd[0], aw2(0, ks), bg[ks]);
-            else if (8 * ks < din8) tc::mma3(pre[0], aw1(0, ks), bx[ks]);
-            else if (8 * ks < dout8) tc::mma3(dhd[0], aw2(0, ks), bg[ks]);
+              mma_2<kBf>(pre[0], aw1(0, ks), bx[ks], dhd[0], aw2(0, ks),
+                         bg[ks]);
+            else if (8 * ks < din8)
+              tc::mma_add<kBf>(pre[0], aw1(0, ks), bx[ks]);
+            else if (8 * ks < dout8)
+              tc::mma_add<kBf>(dhd[0], aw2(0, ks), bg[ks]);
           }
         }
         tc::FragA adh[MT], ahd[MT];
@@ -453,6 +506,10 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
             hd[i] = fmaxf(pre[mt][i], 0.f) * scale;
             dh[i] = pre[mt][i] > 0.f ? dhd[mt][i] * scale : 0.f;
             b1tile[mt][i >> 1] += dh[i];
+            if constexpr (kBf) {   // JAX's hd.astype(bf16) and dh_c
+              hd[i] = tc::round_bf16(hd[i]);
+              dh[i] = tc::round_bf16(dh[i]);
+            }
             dh_w[(8 * q + 2 * t + (i & 1)) * LDH + 16 * mt + g8 +
                  8 * (i >> 1)] = dh[i];
           }
@@ -460,15 +517,18 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
           ahd[mt] = tc::frag_a_from_c(hd);
         }
         if constexpr (MT == 2) {
-          mma3_4(w1run[0][0], adh[0], px[0], w2run[0][0], ahd[0], pg[0],
-                 w1run[1][0], adh[1], px[0], w2run[1][0], ahd[1], pg[0]);
+          mma_4<kBf>(w1run[0][0], adh[0], px[0], w2run[0][0], ahd[0], pg[0],
+                     w1run[1][0], adh[1], px[0], w2run[1][0], ahd[1], pg[0]);
         } else {
 #pragma unroll
           for (int c = 0; c < KT; ++c) {
             if (8 * c < din8 && 8 * c < dout8)
-              mma3_2(w1run[0][c], adh[0], px[c], w2run[0][c], ahd[0], pg[c]);
-            else if (8 * c < din8) tc::mma3(w1run[0][c], adh[0], px[c]);
-            else if (8 * c < dout8) tc::mma3(w2run[0][c], ahd[0], pg[c]);
+              mma_2<kBf>(w1run[0][c], adh[0], px[c], w2run[0][c], ahd[0],
+                         pg[c]);
+            else if (8 * c < din8)
+              tc::mma_add<kBf>(w1run[0][c], adh[0], px[c]);
+            else if (8 * c < dout8)
+              tc::mma_add<kBf>(w2run[0][c], ahd[0], pg[c]);
           }
         }
       }
@@ -483,9 +543,9 @@ bwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
         for (int c = 0; c < KT; ++c)
           if (8 * c < din8)
-            mma3_2(dxw[c], a0, tc::load_b_nk(w1s, LDW, 8 * c, u0 + 8 * ks),
-                   dxw[c], a1,
-                   tc::load_b_nk(w1s, LDW, 8 * c, u0 + 8 * ks + 8));
+            mma_2<kBf>(dxw[c], a0,
+                       tc::load_b_nk(w1s, LDW, 8 * c, u0 + 8 * ks), dxw[c],
+                       a1, tc::load_b_nk(w1s, LDW, 8 * c, u0 + 8 * ks + 8));
       }
       float* dxo = dxs + (warp * RT + h16) * LDX;
 #pragma unroll
@@ -567,11 +627,13 @@ __device__ float run_sum(const float* __restrict__ p, size_t stride, int n) {
 }
 
 // grads[e] = the splits' part[split][e] added in split order, in runs
-// (e < E); dx[i] = the slabs' dx_part[slab][i] added so in slab order.
+// (e < E); dx[i] = the slabs' dx_part[slab][i] added so in slab order
+// (bf16: rounded once).
+template <class TV>
 __global__ void finish_kernel(const float* __restrict__ part,
                               float* __restrict__ grads, int E, int n_splits,
                               const float* __restrict__ dx_part,
-                              float* __restrict__ dx, size_t RD,
+                              TV* __restrict__ dx, size_t RD,
                               int n_slabs) {
   const size_t total = (size_t)E + RD;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -579,7 +641,7 @@ __global__ void finish_kernel(const float* __restrict__ part,
     if (i < (size_t)E)
       grads[i] = run_sum(part + i, E, n_splits);
     else
-      dx[i - E] = run_sum(dx_part + (i - E), RD, n_slabs);
+      tc::store(dx + (i - E), run_sum(dx_part + (i - E), RD, n_slabs));
   }
 }
 
@@ -617,9 +679,15 @@ __device__ __forceinline__ tc::Split split_t(float x) {
 }
 
 // p[i] = a(i)·b(i) for i < N, each in 3xTF32 into a fresh fragment, the N
-// products' tensor-core steps interleaved (mma3's three are dependent).
-template <int N, class FA, class FB>
+// products' tensor-core steps interleaved (mma3's three are dependent);
+// where the operands are bf16-exact (kBf), one TF32 product each.
+template <int N, bool kBf, class FA, class FB>
 __device__ __forceinline__ void fresh3(float (&p)[N][4], FA a, FB b) {
+  if constexpr (kBf) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) tc::mma_fresh(p[i], a(i).hi, b(i).hi);
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < N; ++i) tc::mma_fresh(p[i], a(i).lo, b(i).hi);
 #pragma unroll
@@ -630,12 +698,14 @@ __device__ __forceinline__ void fresh3(float (&p)[N][4], FA a, FB b) {
 
 // One strip of a warp: MA m-tiles of 16 rows from r0, over the slab's
 // k-steps [kb, ke) of 8 hidden units; y into the lane's totals `tot` (slot
-// s at tot[32 s]) in runs of kRunTerms k-steps.
-template <int D, int MA, bool kDrop>
+// s at tot[32 s]) in runs of kRunTerms k-steps. bf16 x (TV): h scaled by
+// 1 / (1 - rate) and rounded to bf16 here, where the float kernel scales y.
+template <int D, int MA, bool kDrop, class TV>
 __device__ __forceinline__ void fwd_strip(
-    const float* __restrict__ x, const float* pack, const float* b1s,
+    const TV* __restrict__ x, const float* pack, const float* b1s,
     float* tot, int r0, int R, int din, int kb, int ke, int j0,
     const Dropout& drop) {
+  constexpr bool kBf = tc::is_bf16<TV>();
   using C = Fwd<D>;
   constexpr int KT = C::KT, N = MA * KT;
   const int g8 = tc::lane_g(), t = tc::lane_t(), lane = threadIdx.x & 31;
@@ -649,7 +719,8 @@ __device__ __forceinline__ void fwd_strip(
     for (int c = 0; c < KT; ++c) {
       const int ca = 8 * c + t, cb = ca + 4;
       auto ld = [&](int r, int k) {
-        return r < R && k < din ? __ldg(x + (size_t)r * din + k) : 0.f;
+        return r < R && k < din ? tc::to_f32(__ldg(x + (size_t)r * din + k))
+                                : 0.f;
       };
       const float v[4] = {ld(ra, ca), ld(rb, ca), ld(ra, cb), ld(rb, cb)};
 #pragma unroll
@@ -694,8 +765,9 @@ __device__ __forceinline__ void fwd_strip(
     const float2 bb = *reinterpret_cast<const float2*>(b1s + 8 * ks + 2 * t);
     // pre = b1 + x W1: a fresh fragment per din k-step, added in order
     float p[N][4];
-    fresh3<N>(p, [&](int i) -> const tc::FragA& { return ax[i / KT][i % KT]; },
-              [&](int i) -> const tc::FragB& { return bw1[i % KT]; });
+    fresh3<N, kBf>(
+        p, [&](int i) -> const tc::FragA& { return ax[i / KT][i % KT]; },
+        [&](int i) -> const tc::FragB& { return bw1[i % KT]; });
     uint32_t jp[2];
 #pragma unroll
     for (int f = 0; f < 2; ++f) {
@@ -715,6 +787,9 @@ __device__ __forceinline__ void fwd_strip(
       for (int i = 0; i < 4; ++i) {
         h[i] = fmaxf(h[i], 0.f);
         if (kDrop && !drop.keep_p(rk[m][i >> 1], jp[i & 1])) h[i] = 0.f;
+        // JAX's h * mask, then h.astype(w2.dtype)
+        if constexpr (kBf)
+          h[i] = tc::round_bf16(kDrop ? h[i] * drop.inv_keep : h[i]);
       }
       // frag_a_from_c with split_t
       const float v[4] = {h[0], h[2], h[1], h[3]};
@@ -726,8 +801,8 @@ __device__ __forceinline__ void fwd_strip(
       }
     }
     // y += h W2 (K = the k-step's 8 units), a fresh fragment per n-tile
-    fresh3<N>(p, [&](int i) -> const tc::FragA& { return ah[i / KT]; },
-              [&](int i) -> const tc::FragB& { return bw2[i % KT]; });
+    fresh3<N, kBf>(p, [&](int i) -> const tc::FragA& { return ah[i / KT]; },
+                   [&](int i) -> const tc::FragB& { return bw2[i % KT]; });
 #pragma unroll
     for (int m = 0; m < MA; ++m)
 #pragma unroll
@@ -746,13 +821,15 @@ __device__ __forceinline__ void fwd_strip(
 // rows, warp w of a group taking the w-th quarter of the slab's k-steps,
 // and the group adds its four warps' y in warp order. One slab: y + b2
 // into y; more: the slab's partial into y_part[slab] (fwd_finish_kernel).
-template <int D, bool kDrop>
+// TV: the type of x, W1, W2 and y (the note on bf16 operands above).
+template <int D, bool kDrop, class TV>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ y,
+fwd_kernel(const TV* __restrict__ x, const TV* __restrict__ w1,
+           const float* __restrict__ b1, const TV* __restrict__ w2,
+           const float* __restrict__ b2, TV* __restrict__ y,
            float* __restrict__ y_part, int R, int din, int F, int dout,
            int rows_per_group, Dropout drop) {
+  constexpr bool kBf = tc::is_bf16<TV>();
   using C = Fwd<D>;
   constexpr int KT = C::KT, MT = C::MT, S = C::kSlots;
   extern __shared__ float smem[];
@@ -772,7 +849,7 @@ fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     const int l = e & 31, q = (e >> 5) & 3, kc = e >> 7;
     const int ks = kc / KT, c = kc - ks * KT;
     const int g = l >> 2, t = l & 3, u = j0 + 8 * ks;
-    const float* src;
+    const TV* src;
     bool valid;
     if (q < 2) {
       const int k = 8 * c + t + 4 * q, j = u + g;
@@ -783,7 +860,7 @@ fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       valid = j < F && o < dout;
       src = w2 + (size_t)j * dout + o;
     }
-    tc::cp_async4(pack + 128 * kc + 4 * l + q, valid ? src : w1, valid);
+    tc::copy1(pack + 128 * kc + 4 * l + q, valid ? src : w1, valid);
   }
   for (int j = tid; j < 8 * nks; j += kFwdThreads)
     tc::cp_async4(b1s + j, j0 + j < F ? b1 + j0 + j : b1, j0 + j < F);
@@ -802,11 +879,11 @@ fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   const int gt = gw * 32 + lane;            // thread of the group
   for (int r0 = rbeg; r0 < rend; r0 += 16 * MT) {
     if (MT == 2 && r0 + 16 >= rend)
-      fwd_strip<D, 1, kDrop>(x, pack, b1s, tot, r0, R, din, kb, ke, j0,
-                             drop);
+      fwd_strip<D, 1, kDrop, TV>(x, pack, b1s, tot, r0, R, din, kb, ke, j0,
+                                 drop);
     else
-      fwd_strip<D, MT, kDrop>(x, pack, b1s, tot, r0, R, din, kb, ke, j0,
-                              drop);
+      fwd_strip<D, MT, kDrop, TV>(x, pack, b1s, tot, r0, R, din, kb, ke, j0,
+                                  drop);
     // the group's four warps' y added in warp order; the totals zeroed
     asm volatile("bar.sync %0, %1;" ::"r"(1 + group),
                  "n"(kGroupWarps * 32) : "memory");
@@ -819,14 +896,14 @@ fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       float v = p[0];
 #pragma unroll
       for (int w = 1; w < kGroupWarps; ++w) v += p[w * S * 32];
-      if (kDrop) v *= drop.inv_keep;   // h was relu(pre) or 0
+      if (kDrop && !kBf) v *= drop.inv_keep;   // h was relu(pre) or 0
 #pragma unroll
       for (int w = 0; w < kGroupWarps; ++w) p[w * S * 32] = 0.f;
       if (row < rend && col < dout) {
         if (y_part)
           y_part[((size_t)slab * R + row) * dout + col] = v;
         else
-          y[(size_t)row * dout + col] = v + b2[col];
+          tc::store(y + (size_t)row * dout + col, v + b2[col]);
       }
     }
     asm volatile("bar.sync %0, %1;" ::"r"(1 + group),
@@ -835,13 +912,15 @@ fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // y[r, o] = the slabs' partials added in slab order, in runs, + b2[o]
+// (bf16: rounded once)
+template <class TV>
 __global__ void fwd_finish_kernel(const float* __restrict__ y_part,
                                   const float* __restrict__ b2,
-                                  float* __restrict__ y, size_t RD,
+                                  TV* __restrict__ y, size_t RD,
                                   int dout, int n_slabs) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < RD;
        i += (size_t)gridDim.x * blockDim.x)
-    y[i] = run_sum(y_part + i, RD, n_slabs) + b2[i % dout];
+    tc::store(y + i, run_sum(y_part + i, RD, n_slabs) + b2[i % dout]);
 }
 
 int fwd_units(int D) {
@@ -853,14 +932,14 @@ int fwd_units(int D) {
   }
 }
 
-template <int D, bool kDrop>
-cudaError_t launch_fwd(const float* x, const float* w1, const float* b1,
-                       const float* w2, const float* b2, float* y,
-                       float* y_part, int R, int din, int F, int dout,
-                       int n_sm, Dropout drop, cudaStream_t stream) {
+template <int D, bool kDrop, class TV>
+cudaError_t launch_fwd(const TV* x, const TV* w1, const float* b1,
+                       const TV* w2, const float* b2, TV* y, float* y_part,
+                       int R, int din, int F, int dout, int n_sm,
+                       Dropout drop, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>(F);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<D, kDrop, TV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int slabs = (F + Fwd<D>::U - 1) / Fwd<D>::U;
@@ -868,27 +947,29 @@ cudaError_t launch_fwd(const float* x, const float* w1, const float* b1,
   const int splits = (n_sm + slabs - 1) / slabs;
   const int groups = splits * kGroups;
   const int rows = ((R + groups - 1) / groups + 15) / 16 * 16;
-  fwd_kernel<D, kDrop><<<dim3(slabs, splits), kFwdThreads, smem, stream>>>(
+  fwd_kernel<D, kDrop, TV><<<dim3(slabs, splits), kFwdThreads, smem,
+                             stream>>>(
       x, w1, b1, w2, b2, y, slabs > 1 ? y_part : nullptr, R, din, F, dout,
       rows, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return err;
   const size_t RD = (size_t)R * dout;
   const size_t blocks = (RD + kThreads - 1) / kThreads;
-  fwd_finish_kernel<<<blocks < 4096 ? (int)blocks : 4096, kThreads, 0,
-                      stream>>>(y_part, b2, y, RD, dout, slabs);
+  fwd_finish_kernel<TV><<<blocks < 4096 ? (int)blocks : 4096, kThreads, 0,
+                          stream>>>(y_part, b2, y, RD, dout, slabs);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_fwd_rate(const float* x, const float* w1, const float* b1,
-                            const float* w2, const float* b2, float* y,
+template <int D, class TV>
+cudaError_t launch_fwd_rate(const TV* x, const TV* w1, const float* b1,
+                            const TV* w2, const float* b2, TV* y,
                             float* y_part, int R, int din, int F, int dout,
                             int n_sm, Dropout drop, cudaStream_t stream) {
-  return drop.on ? launch_fwd<D, true>(x, w1, b1, w2, b2, y, y_part, R, din,
+  return drop.on
+             ? launch_fwd<D, true, TV>(x, w1, b1, w2, b2, y, y_part, R, din,
                                        F, dout, n_sm, drop, stream)
-                 : launch_fwd<D, false>(x, w1, b1, w2, b2, y, y_part, R,
-                                        din, F, dout, n_sm, drop, stream);
+             : launch_fwd<D, false, TV>(x, w1, b1, w2, b2, y, y_part, R, din,
+                                        F, dout, n_sm, drop, stream);
 }
 
 int bwd_units(int D) {
@@ -906,19 +987,19 @@ int rows_per_split(int R, int n_splits) {
   return (rows + kRunRows - 1) / kRunRows * kRunRows;
 }
 
-template <int D>
-cudaError_t launch_bwd(const float* x, const float* w1, const float* b1,
-                       const float* w2, const float* g, float* dx,
-                       float* part, float* grads, float* dx_part, int R,
-                       int din, int F, int dout, int n_splits, Dropout drop,
+template <int D, class TV>
+cudaError_t launch_bwd(const TV* x, const TV* w1, const float* b1,
+                       const TV* w2, const TV* g, TV* dx, float* part,
+                       float* grads, float* dx_part, int R, int din, int F,
+                       int dout, int n_splits, Dropout drop,
                        cudaStream_t stream) {
   const size_t smem = sizeof(float) * Bwd<D>::smem_floats();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_kernel<D, TV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int slabs = (F + Bwd<D>::U - 1) / Bwd<D>::U;
-  bwd_kernel<D><<<dim3(slabs, n_splits), kThreads, smem, stream>>>(
+  bwd_kernel<D, TV><<<dim3(slabs, n_splits), kThreads, smem, stream>>>(
       x, w1, b1, w2, g, part, dx_part, R, din, F, dout,
       rows_per_split(R, n_splits), drop);
   err = cudaGetLastError();
@@ -927,10 +1008,79 @@ cudaError_t launch_bwd(const float* x, const float* w1, const float* b1,
   const int E = din * F + F + F * dout + dout;
   const size_t total = (size_t)E + (size_t)R * din;
   const size_t blocks = (total + kThreads - 1) / kThreads;
-  finish_kernel<<<blocks < 4096 ? (int)blocks : 4096, kThreads, 0,
-                  stream>>>(part, grads, E, n_splits, dx_part, dx,
-                            (size_t)R * din, slabs);
+  finish_kernel<TV><<<blocks < 4096 ? (int)blocks : 4096, kThreads, 0,
+                      stream>>>(part, grads, E, n_splits, dx_part, dx,
+                                (size_t)R * din, slabs);
   return cudaGetLastError();
+}
+
+template <class TV>
+int run_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+            const void* b2, void* y, void* y_part, int R, int din, int F,
+            int dout, int n_sm, int drop_on, unsigned seed,
+            unsigned threshold, float inv_keep, void* stream) {
+  const int D = width_bucket(din, dout);
+  if (D == 0 || R <= 0 || F <= 0 || n_sm <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(drop_on, seed, threshold, inv_keep);
+  const auto* xf = (const TV*)x;
+  const auto* w1f = (const TV*)w1;
+  const auto* b1f = (const float*)b1;
+  const auto* w2f = (const TV*)w2;
+  const auto* b2f = (const float*)b2;
+  auto* yf = (TV*)y;
+  auto* pf = (float*)y_part;
+  auto s = (cudaStream_t)stream;
+  switch (D) {
+    case 8:
+      return (int)launch_fwd_rate<8, TV>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                         din, F, dout, n_sm, drop, s);
+    case 16:
+      return (int)launch_fwd_rate<16, TV>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                          din, F, dout, n_sm, drop, s);
+    case 32:
+      return (int)launch_fwd_rate<32, TV>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                          din, F, dout, n_sm, drop, s);
+    default:
+      return (int)launch_fwd_rate<64, TV>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
+                                          din, F, dout, n_sm, drop, s);
+  }
+}
+
+template <class TV>
+int run_bwd(const void* x, const void* w1, const void* b1, const void* w2,
+            const void* g, void* dx, void* part, void* grads, void* dx_part,
+            int R, int din, int F, int dout, int n_splits, int drop_on,
+            unsigned seed, unsigned threshold, float inv_keep,
+            void* stream) {
+  const int D = width_bucket(din, dout);
+  if (D == 0 || R <= 0 || F <= 0 || n_splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop = make_dropout(drop_on, seed, threshold, inv_keep);
+  const auto* xf = (const TV*)x;
+  const auto* w1f = (const TV*)w1;
+  const auto* b1f = (const float*)b1;
+  const auto* w2f = (const TV*)w2;
+  const auto* gf = (const TV*)g;
+  auto* dxf = (TV*)dx;
+  auto* pf = (float*)part;
+  auto* gr = (float*)grads;
+  auto* dp = (float*)dx_part;
+  auto s = (cudaStream_t)stream;
+  switch (D) {
+    case 8:
+      return (int)launch_bwd<8, TV>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp,
+                                    R, din, F, dout, n_splits, drop, s);
+    case 16:
+      return (int)launch_bwd<16, TV>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp,
+                                     R, din, F, dout, n_splits, drop, s);
+    case 32:
+      return (int)launch_bwd<32, TV>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp,
+                                     R, din, F, dout, n_splits, drop, s);
+    default:
+      return (int)launch_bwd<64, TV>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp,
+                                     R, din, F, dout, n_splits, drop, s);
+  }
 }
 
 }  // namespace
@@ -960,76 +1110,39 @@ extern "C" int feta_fused_mlp_fwd_slabs(int din, int F, int dout) {
   return (F + fwd_units(D) - 1) / fwd_units(D);
 }
 
-extern "C" int feta_fused_mlp_fwd(const void* x, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* b2, void* y, void* y_part,
-                                  int R, int din, int F, int dout, int n_sm,
-                                  int drop_on, unsigned seed,
-                                  unsigned threshold, float inv_keep,
-                                  void* stream) {
-  const int D = width_bucket(din, dout);
-  if (D == 0 || R <= 0 || F <= 0 || n_sm <= 0)
-    return (int)cudaErrorInvalidValue;
-  const Dropout drop = make_dropout(drop_on, seed, threshold, inv_keep);
-  const auto* xf = (const float*)x;
-  const auto* w1f = (const float*)w1;
-  const auto* b1f = (const float*)b1;
-  const auto* w2f = (const float*)w2;
-  const auto* b2f = (const float*)b2;
-  auto* yf = (float*)y;
-  auto* pf = (float*)y_part;
-  auto s = (cudaStream_t)stream;
-  switch (D) {
-    case 8:
-      return (int)launch_fwd_rate<8>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
-                                    din, F, dout, n_sm, drop, s);
-    case 16:
-      return (int)launch_fwd_rate<16>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
-                                     din, F, dout, n_sm, drop, s);
-    case 32:
-      return (int)launch_fwd_rate<32>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
-                                     din, F, dout, n_sm, drop, s);
-    default:
-      return (int)launch_fwd_rate<64>(xf, w1f, b1f, w2f, b2f, yf, pf, R,
-                                     din, F, dout, n_sm, drop, s);
-  }
+#define FETA_MLP_FWD_ARGS                                                  \
+  const void *x, const void *w1, const void *b1, const void *w2,           \
+      const void *b2, void *y, void *y_part, int R, int din, int F,        \
+      int dout, int n_sm, int drop_on, unsigned seed, unsigned threshold,  \
+      float inv_keep, void *stream
+#define FETA_MLP_FWD_CALL                                                  \
+  x, w1, b1, w2, b2, y, y_part, R, din, F, dout, n_sm, drop_on, seed,      \
+      threshold, inv_keep, stream
+#define FETA_MLP_BWD_ARGS                                                  \
+  const void *x, const void *w1, const void *b1, const void *w2,           \
+      const void *g, void *dx, void *part, void *grads, void *dx_part,     \
+      int R, int din, int F, int dout, int n_splits, int drop_on,          \
+      unsigned seed, unsigned threshold, float inv_keep, void *stream
+#define FETA_MLP_BWD_CALL                                                  \
+  x, w1, b1, w2, g, dx, part, grads, dx_part, R, din, F, dout, n_splits,   \
+      drop_on, seed, threshold, inv_keep, stream
+
+extern "C" int feta_fused_mlp_fwd(FETA_MLP_FWD_ARGS) {
+  return run_fwd<float>(FETA_MLP_FWD_CALL);
 }
 
-extern "C" int feta_fused_mlp_bwd(const void* x, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* g, void* dx, void* part,
-                                  void* grads, void* dx_part, int R, int din,
-                                  int F, int dout, int n_splits, int drop_on,
-                                  unsigned seed, unsigned threshold,
-                                  float inv_keep, void* stream) {
-  const int D = width_bucket(din, dout);
-  if (D == 0 || R <= 0 || F <= 0 || n_splits <= 0)
-    return (int)cudaErrorInvalidValue;
-  const Dropout drop = make_dropout(drop_on, seed, threshold, inv_keep);
-  const auto* xf = (const float*)x;
-  const auto* w1f = (const float*)w1;
-  const auto* b1f = (const float*)b1;
-  const auto* w2f = (const float*)w2;
-  const auto* gf = (const float*)g;
-  auto* dxf = (float*)dx;
-  auto* pf = (float*)part;
-  auto* gr = (float*)grads;
-  auto* dp = (float*)dx_part;
-  auto s = (cudaStream_t)stream;
-  switch (D) {
-    case 8:
-      return (int)launch_bwd<8>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
-                                din, F, dout, n_splits, drop, s);
-    case 16:
-      return (int)launch_bwd<16>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
-                                 din, F, dout, n_splits, drop, s);
-    case 32:
-      return (int)launch_bwd<32>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
-                                 din, F, dout, n_splits, drop, s);
-    default:
-      return (int)launch_bwd<64>(xf, w1f, b1f, w2f, gf, dxf, pf, gr, dp, R,
-                                 din, F, dout, n_splits, drop, s);
-  }
+extern "C" int feta_fused_mlp_bwd(FETA_MLP_BWD_ARGS) {
+  return run_bwd<float>(FETA_MLP_BWD_CALL);
+}
+
+// bf16 x, W1, W2, g, y and dx; float b1, b2 and weight gradients (the note
+// on bf16 operands above)
+extern "C" int feta_fused_mlp_fwd_bf16(FETA_MLP_FWD_ARGS) {
+  return run_fwd<tc::bf16>(FETA_MLP_FWD_CALL);
+}
+
+extern "C" int feta_fused_mlp_bwd_bf16(FETA_MLP_BWD_ARGS) {
+  return run_bwd<tc::bf16>(FETA_MLP_BWD_CALL);
 }
 
 extern "C" const char* feta_cuda_error_string(int err) {

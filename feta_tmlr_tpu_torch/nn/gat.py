@@ -23,6 +23,13 @@ package: GATFeTANet filters in every layer, whatever a config says.
 Parameters keep the flax names (`gatconv.fc`, `gatconv.attn_l` /
 `attn_r` [H, dh], `batchnorm_h`, ...); dropout masks as in `nn/san.py`,
 from the model's `dropout_generator`.
+
+The bf16 compute policy (`config.py`, FETA_COMPUTE_DTYPE read each time a
+net runs) follows the JAX nets' casts: the fc projection in bf16 (its
+product rounded once), el and er and attn @ feat as float32 sums of bf16
+operands, the scores, softmax and the attention returned float32; the
+FeTA filter's Chebyshev step in bf16 and its filt_linear float32 (the JAX
+GATFeTALayer's).
 """
 
 from __future__ import annotations
@@ -33,15 +40,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from feta_tmlr_tpu_torch.config import refuse_bf16
+from feta_tmlr_tpu_torch import config
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.layers import (
     MaskedBatchNorm,
     dense,
+    dense_in,
     glorot_uniform_,
 )
 from feta_tmlr_tpu_torch.nn.san import (
+    BF16,
+    F32,
     READOUTS,
     MLPReadout,
     add_feta_filter,
@@ -74,20 +84,23 @@ class DenseGATConv(nn.Module):
         self.attn_r = nn.Parameter(glorot_uniform_(
             torch.empty(num_heads, out_dim), g, num_heads, out_dim))
 
-    def forward(self, h, adj, node_mask):
+    def forward(self, h, adj, node_mask, cdt=F32):
+        """cdt: the compute dtype (bf16: the module docstring)."""
         b, n, _ = h.shape
         drop = lambda t, rate: hash_dropout(
             t, rate if self.training else 0.0, self.dropout_generator)
-        feat = self.fc(drop(h, self.feat_drop)).reshape(
+        feat = dense_in(self.fc, drop(h, self.feat_drop), cdt).reshape(
             b, n, self.num_heads, self.out_dim)
-        el = (feat * self.attn_l).sum(-1).permute(0, 2, 1)   # [B, H, N]
-        er = (feat * self.attn_r).sum(-1).permute(0, 2, 1)
+        # bf16: the products of bf16 values exact, their sums float32
+        up = (lambda t: t.to(cdt).float()) if cdt == BF16 else (lambda t: t)
+        el = (up(feat) * up(self.attn_l)).sum(-1).permute(0, 2, 1)  # [B,H,N]
+        er = (up(feat) * up(self.attn_r)).sum(-1).permute(0, 2, 1)
         scores = F.leaky_relu(el[:, :, None, :] + er[:, :, :, None],
                               self.negative_slope)
         real = in_edge_mask(adj, node_mask)[:, None]         # [dst, src]
         attn = torch.softmax(scores.masked_fill(~real, -1e30), -1)
         attn = drop(attn * real.to(attn.dtype), self.attn_drop)
-        out = torch.einsum("bhij,bjhd->bihd", attn, feat)
+        out = torch.einsum("bhij,bjhd->bihd", up(attn), up(feat))
         return out, attn
 
 
@@ -111,14 +124,14 @@ class GATLayer(nn.Module):
         self.batchnorm_h = (MaskedBatchNorm(out_dim * num_heads)
                             if batch_norm else None)
 
-    def forward(self, h, adj, node_mask):
+    def forward(self, h, adj, node_mask, cdt=F32):
         b, n, _ = h.shape
-        heads_out, attn = self.gatconv(h, adj, node_mask)
+        heads_out, attn = self.gatconv(h, adj, node_mask, cdt)
         x = heads_out.reshape(b, n, -1)
         if self.filtered:
             struct = in_edge_mask(adj, node_mask).to(h.dtype)
             filt = feta_filter(self, heads_out.transpose(1, 2), attn, struct,
-                               node_mask)
+                               node_mask, cdt, linear_in_cdt=False)
             x = x + filt.transpose(1, 2).reshape(b, n, -1)
         if self.batchnorm_h is not None:
             x = self.batchnorm_h(x, node_mask)
@@ -155,8 +168,8 @@ class GATStack(nn.Module):
     from a `torch.Generator` seeded with `seed`, dropout seeds from
     `dropout_generator` (CPU, seeded with `seed`), built on `device`
     (default CUDA; raises if CUDA is absent and the CPU was not asked
-    for). Under the bf16 compute policy (`config.py`) the constructor
-    raises (ROADMAP Queue 1 item 4)."""
+    for). The bf16 compute policy (`config.py`) is read each time the net
+    runs (the module docstring)."""
 
     def __init__(self, *, num_atom_type: int, hidden_dim: int, out_dim: int,
                  num_heads: int, n_layers: int, dropout: float,
@@ -164,7 +177,6 @@ class GATStack(nn.Module):
                  readout: str, n_out: int, node_level: bool,
                  filter_order: Optional[int], seed: int, device):
         super().__init__()
-        refuse_bf16(type(self).__name__, "Queue 1 item 4")
         if readout not in READOUTS:
             raise ValueError(f"readout {readout!r} is not one of {READOUTS}")
         dev = resolve_device(device)
@@ -192,8 +204,9 @@ class GATStack(nn.Module):
         rate = self.in_feat_dropout if self.training else 0.0
         h = hash_dropout(self.embedding_h(batch.x), rate,
                          self.dropout_generator)
+        cdt = config.default_compute_dtype()
         for layer in self.layers:
-            h = layer(h, batch.adj, batch.node_mask)
+            h = layer(h, batch.adj, batch.node_mask, cdt)
         if self.node_level:
             return self.mlp_readout(h)
         return self.mlp_readout(graph_readout(h, batch.node_mask,

@@ -45,8 +45,12 @@ product's float32 sums rounded once (`ops/cheb.py`'s note); the pe and
 degree streams go to the flash kernels in bf16 unless
 FETA_BF16_MODULATION=0, as they go to the plain pair-masked chain; the
 parameters, cq, ck, c0, the residual stream, the softmax and the norms
-stay float32. The "fused" route and `head_fold` have no bf16 kernels in
-the port yet and raise under it (ROADMAP Queue 2 item A2).
+stay float32. On the "fused" route xa, x and vw go to the fused kernels in
+bf16 with pe and degree float32 (JAX's fused wrapper casts them so), and
+its bf16 output plus the float32 output bias is float32; the filtered
+layer there takes the score route and the float32 modulation kernel, as
+under "modulation". `head_fold` has no bf16 kernels in the port yet and
+raises under the policy (ROADMAP Queue 2 item A2).
 
 Parameters keep the JAX package's layout so that `convert.from_flax` copies
 them one to one: `qkv` [d, 3d] and `out_proj_kernel` [d, d] are [in, out]
@@ -108,6 +112,16 @@ def dense(d_in: int, d_out: int, generator: torch.Generator,
     if bias:
         nn.init.zeros_(lin.bias)
     return lin
+
+
+def dense_in(lin: nn.Linear, x: torch.Tensor, cdt: torch.dtype):
+    """lin(x) as flax's Dense(dtype=cdt): under bf16 x, the weight and the
+    bias in bf16, the product rounded once (`ops/cheb.matmul`), the bias
+    added in bf16; otherwise lin(x)."""
+    if cdt != torch.bfloat16:
+        return lin(x)
+    y = matmul(x.to(cdt), lin.weight.t().to(cdt))
+    return y if lin.bias is None else y + lin.bias.to(cdt)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -197,11 +211,6 @@ class GraphiTEncoderLayer(nn.Module):
     def _norm(self, norm, x, node_mask):
         return norm(x, node_mask) if self.batch_norm else norm(x)
 
-    @staticmethod
-    def _dense(lin, x, cdt):
-        """lin(x) with x, the weight and the bias in `cdt`."""
-        return matmul(x.to(cdt), lin.weight.t().to(cdt)) + lin.bias.to(cdt)
-
     def forward(self, x, pe, node_mask, degree=None, need_heads=True,
                 pair_mask=None):
         b, n, d = x.shape
@@ -210,11 +219,9 @@ class GraphiTEncoderLayer(nn.Module):
         impl = self.attention_impl
         cdt = config.default_compute_dtype()
         bf16 = cdt == torch.bfloat16
-        if bf16 and (impl == "fused" or self.head_fold):
-            what = ("head_fold (kernels #5-#7)" if self.head_fold
-                    else 'attention_impl="fused" (kernels #10, #11)')
-            config.refuse_bf16(f"the GraphiT layer's {what}",
-                               "Queue 2 item A2")
+        if bf16 and self.head_fold:
+            config.refuse_bf16("the GraphiT layer's head_fold (kernels "
+                               "#5-#7)", "Queue 2 item A2")
         # a float32 tensor's bf16 copy, and a bf16 result back in float32
         # (both the tensor itself off the policy, at float32 or float64)
         lo = (lambda t: t.to(cdt)) if bf16 else (lambda t: t)
@@ -291,8 +298,8 @@ class GraphiTEncoderLayer(nn.Module):
         if bf16:
             # flax's Dense(dtype=bf16): bf16 product and bias, relu and
             # dropout in bf16, back to float32 at the residual add
-            ff = self.dropout(torch.relu(self._dense(self.ff1, x, cdt)))
-            ff = self._dense(self.ff2, ff, cdt).float()
+            ff = self.dropout(torch.relu(dense_in(self.ff1, x, cdt)))
+            ff = dense_in(self.ff2, ff, cdt).float()
         else:
             ff = self.ff2(self.dropout(torch.relu(self.ff1(x))))
         x = self._norm(self.norm2, x + self.dropout(ff), node_mask)

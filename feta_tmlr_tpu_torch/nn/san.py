@@ -41,6 +41,24 @@ the first batch: the nets always build the bond-type embedding (every
 dataset of the tier carries bond types; a batch without them raises), and
 a float-input net (`categorical_input=False`) takes its feature width as
 `in_feat_dim`.
+
+The bf16 compute policy (`config.py`, FETA_COMPUTE_DTYPE read each time a
+net runs) follows the JAX nets' casts:
+  - `SANAttention`: Q, K, V and E (Q_2, K_2, E_2) as flax's
+    Dense(dtype=bf16), each product of bf16 operands rounded once to bf16
+    (`ops/cheb.py`'s note); the score sums in float32, on the typed route
+    rounded to bf16 per type (`typed_edge_scores`' carry) and exp and clip
+    then in bf16, on the dense-field route the bf16 products of q, k and
+    e summed in float32 and rounded once; the [B, H, N, N] attention field
+    carried in bf16, as `SANCoeffHead` reads it; wV and z in float32;
+  - `SANSpectraLayer`'s filter: the scalar-coefficient Chebyshev filter
+    and `filt_linear` in bf16, back to float32 after them; O_h and the FFN
+    float32;
+  - `FreqTransformer`: qkv in bf16, the scores and P·V as float32 sums
+    with P rounded to bf16, and the FFN through the bf16 fused-MLP
+    kernels (x, w1, w2 bf16, float32 biases), as JAX's fused branch.
+Python scalars that JAX adds or multiplies into a bf16 array (gamma, 1 +
+gamma) are rounded to bf16 first, as JAX's weak types round them.
 """
 
 from __future__ import annotations
@@ -51,12 +69,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from feta_tmlr_tpu_torch.config import refuse_bf16
+from feta_tmlr_tpu_torch import config
 from feta_tmlr_tpu_torch.data.batch import GraphBatch
 from feta_tmlr_tpu_torch.device import resolve_device
 from feta_tmlr_tpu_torch.nn.layers import (
     MaskedBatchNorm,
     dense,
+    dense_in,
     glorot_uniform_,
     lecun_normal_,
 )
@@ -73,6 +92,32 @@ from feta_tmlr_tpu_torch.ops.masking import (
 
 READOUTS = ("mean", "sum", "max")
 LPE_KINDS = ("none", "node", "edge")
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+
+def mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with bf16 operands taken as their float32 values, the sums
+    float32 and not rounded (JAX's preferred_element_type=float32)."""
+    if a.dtype == BF16:
+        return a.float() @ b.float()
+    return a @ b
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi), gradient included: min(max(x, lo), hi), whose
+    gradient is 1/2 where x equals a bound (JAX's minimum and maximum
+    split a tie; torch.clamp passes all of it). A bf16 score lands on
+    +-5 often enough for that to show. The bounds are filled on x's
+    device (a tensor copied from the host would sync a training step)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
+def weak(v: float, cdt: torch.dtype) -> float:
+    """A Python scalar as JAX's weak type makes it against an array of
+    dtype `cdt`: rounded to bf16 under bf16, else as it is."""
+    return float(torch.tensor(v).to(cdt)) if cdt == BF16 else v
 
 
 def draw_seed(generator: torch.Generator) -> int:
@@ -134,21 +179,29 @@ def typed_edge_scores(q: torch.Tensor, k: torch.Tensor,
 
     q, k [B, H, N, dh]; table_hd [T, H, dh]; edge_ids [B, N, N] int types
     in (dst i, src j) layout. An id outside [0, T) matches no type and
-    scores 0, as in the JAX package."""
+    scores 0, as in the JAX package. bf16 q, k and table: k times the
+    type in bf16, the products' sums float32, each type's scaled score
+    rounded to bf16 (JAX's bf16 carry); the result is bf16."""
     s = q.new_zeros(q.shape[:-1] + (k.shape[-2],))
     for t in range(table_hd.shape[0]):
-        st = q @ (k * table_hd[t][None, :, None, :]).transpose(-1, -2)
-        s = torch.where((edge_ids == t)[:, None], st * scale, s)
+        st = mm32(q, (k * table_hd[t][None, :, None, :]).transpose(-1, -2))
+        s = torch.where((edge_ids == t)[:, None], (st * scale).to(q.dtype),
+                        s)
     return s
 
 
 def field_scores(q: torch.Tensor, k: torch.Tensor, e: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """score[b,h,i,j] = sum_d q[b,h,i,d] k[b,h,j,d] e[b,i,j,h*dh+d] *
-    scale over a dense projected edge field e [B, N(dst), N(src), H*dh]."""
+    scale over a dense projected edge field e [B, N(dst), N(src), H*dh].
+    bf16 q, k and e: the products in bf16, their sum in float32 rounded
+    once to bf16 (jnp.sum of bf16), then scaled in float32; the result is
+    float32."""
     b, hh, n, dh = q.shape
     em = e.reshape(b, n, n, hh, dh).permute(0, 3, 1, 2, 4)
     prod = q[:, :, :, None, :] * k[:, :, None, :, :] * em
+    if prod.dtype == BF16:
+        return prod.float().sum(-1).to(BF16).float() * scale
     return prod.sum(-1) * scale
 
 
@@ -176,47 +229,56 @@ class SANAttention(nn.Module):
             self.E_2 = edge()
 
     def forward(self, h, adj, node_mask, e_table=None, edge_ids=None,
-                e_emb=None, gamma_value=None):
+                e_emb=None, gamma_value=None, cdt=F32):
         """h [B, N, in_dim]; adj [B, N, N] real edges (src, dst); either
         e_table [T, edge_dim] the bond-type embeddings and edge_ids [B, N,
         N] int types (src, dst), or e_emb [B, N, N, edge_dim] the dense
         edge field (src, dst); neither with `edge_dim` 0 (no edge
         features: the scores are q·k alone). gamma_value: a tensor in place
-        of the static `gamma` (SAN-LSPE learns one, `nn/san_lspe.py`)."""
+        of the static `gamma` (SAN-LSPE learns one, `nn/san_lspe.py`).
+        cdt: the compute dtype (bf16: the module docstring; the attention
+        field returned is then bf16)."""
         b, n, _ = h.shape
         hh, dh = self.num_heads, self.out_dim
         split = lambda t: t.reshape(b, n, hh, dh).transpose(1, 2)
+        proj = lambda lin, x: dense_in(lin, x, cdt)
         real = in_edge_mask(adj, node_mask)
         scale = 1.0 / math.sqrt(dh)
         if self.E is None:
-            scores = lambda q, k, _e: (split(q(h)) @ split(k(h)).transpose(
-                -1, -2)) * scale
+            scores = lambda q, k, _e: mm32(
+                split(proj(q, h)), split(proj(k, h)).transpose(-1, -2)) \
+                * scale
         elif e_emb is None:
             et = edge_ids.transpose(1, 2)
             scores = lambda q, k, e_lin: typed_edge_scores(
-                split(q(h)), split(k(h)),
-                e_lin(e_table).reshape(-1, hh, dh), et, scale)
+                split(proj(q, h)), split(proj(k, h)),
+                proj(e_lin, e_table).reshape(-1, hh, dh), et, scale)
         else:
             scores = lambda q, k, e_lin: field_scores(
-                split(q(h)), split(k(h)), e_lin(e_emb).transpose(1, 2),
-                scale)
+                split(proj(q, h)), split(proj(k, h)),
+                proj(e_lin, e_emb).transpose(1, 2), scale)
         s_real = scores(self.Q, self.K, self.E)
         zero = torch.zeros_like(s_real)
         if self.full_graph:
             pm = pair_mask_no_diag(node_mask)
             s_fake = scores(self.Q_2, self.K_2, self.E_2)
             g = self.gamma if gamma_value is None else gamma_value
-            w_real = torch.exp(s_real.clamp(-5.0, 5.0)) / (g + 1.0)
-            w_fake = g * torch.exp(s_fake.clamp(-5.0, 5.0)) / (g + 1.0)
+            g_w, g1_w = ((weak(g, s_real.dtype), weak(g + 1.0, s_real.dtype))
+                         if gamma_value is None else (g, g + 1.0))
+            w_real = torch.exp(clip(s_real, -5.0, 5.0)) / g1_w
+            w_fake = g_w * torch.exp(clip(s_fake, -5.0, 5.0)) / g1_w
             attn = torch.where(real[:, None], w_real,
                                torch.where(pm[:, None], w_fake, zero))
             struct = pm
         else:
             attn = torch.where(real[:, None],
-                               torch.exp(s_real.clamp(-5.0, 5.0)), zero)
+                               torch.exp(clip(s_real, -5.0, 5.0)), zero)
             struct = real
-        v = split(self.V(h))
-        h_out = (attn @ v) / (attn.sum(-1, keepdim=True) + 1e-6)
+        if cdt == BF16:       # the field carried in bf16, summed in float32
+            attn = attn.to(cdt)
+        v = split(proj(self.V, h))
+        h_out = mm32(attn, v) / (attn.sum(-1, keepdim=True, dtype=h.dtype)
+                                 + 1e-6)
         h_out = h_out.transpose(1, 2).reshape(b, n, hh * dh)
         return (h_out * node_mask.to(h.dtype)[..., None], attn,
                 struct.to(h.dtype))
@@ -237,7 +299,9 @@ class SANCoeffHead(nn.Module):
         self.ffn_filter_coeff = dense(k, k, g)
 
     def forward(self, attn, node_mask):
-        rowsum = attn.detach().sum(-1)                        # [B, H, N]
+        # a bf16 field (the bf16 policy) summed in float32
+        rowsum = attn.detach().sum(
+            -1, dtype=torch.float32 if attn.dtype == BF16 else attn.dtype)
         agg = rowsum[..., None].expand(*rowsum.shape, self.filter_order)
         hgc = torch.tanh(self.gcn_linear(agg))
         pooled = masked_mean(hgc, node_mask[:, None, :], dim=2)
@@ -257,16 +321,26 @@ def add_feta_filter(layer: nn.Module, filter_order: int, dh: int,
     layer.filt_linear = dense(dh, dh, g)
 
 
-def feta_filter(layer: nn.Module, heads, attn, struct, node_mask):
+def feta_filter(layer: nn.Module, heads, attn, struct, node_mask, cdt=F32,
+                linear_in_cdt=True):
     """The FeTA block of `layer` (see `add_feta_filter`): coefficients from
     the detached attention, the scalar-coefficient Chebyshev filter of the
     heads' outputs [B, H, N, dh] over the structure Laplacian of `struct`,
-    tanh, filt_linear. Returns [B, H, N, dh]."""
+    tanh, filt_linear. Returns [B, H, N, dh] in the heads' dtype. Under
+    bf16 `cdt` the filter takes the heads, the Laplacian, the coefficients
+    and its weights in bf16; filt_linear runs in bf16 too where
+    `linear_in_cdt` (the SAN layer's Dense(dtype=cdt)), else in float32
+    after it (the GAT layer's)."""
     coeff = layer.coeff_head(attn, node_mask)
     lhat = san_structure_laplacian(struct, node_mask)
-    filt = cheb_filter_scalar_coeff(heads, lhat, coeff, layer.cheb_weight,
-                                    layer.cheb_bias)
-    return layer.filt_linear(torch.tanh(filt))
+    lo = (lambda t: t.to(cdt)) if cdt == BF16 else (lambda t: t)
+    filt = cheb_filter_scalar_coeff(lo(heads), lo(lhat), lo(coeff),
+                                    lo(layer.cheb_weight),
+                                    lo(layer.cheb_bias))
+    if cdt == BF16 and linear_in_cdt:
+        return dense_in(layer.filt_linear, torch.tanh(filt),
+                        cdt).to(heads.dtype)
+    return layer.filt_linear(torch.tanh(filt.to(heads.dtype)))
 
 
 class NormedLayer(nn.Module):
@@ -326,16 +400,16 @@ class SANSpectraLayer(NormedLayer):
         self._add_norm("norm2", out_dim)
 
     def forward(self, h, adj, node_mask, e_table=None, edge_ids=None,
-                e_emb=None):
+                e_emb=None, cdt=F32):
         b, n, _ = h.shape
         hh = self.num_heads
         h_attn, attn, struct = self.attention(h, adj, node_mask, e_table,
-                                              edge_ids, e_emb)
+                                              edge_ids, e_emb, cdt=cdt)
         x = h_attn
         if self.spectra:
             dh = h_attn.shape[-1] // hh
             heads = h_attn.reshape(b, n, hh, dh).transpose(1, 2)
-            filt = feta_filter(self, heads, attn, struct, node_mask)
+            filt = feta_filter(self, heads, attn, struct, node_mask, cdt)
             x = x + filt.transpose(1, 2).reshape(b, n, hh * dh)
         rate = self.dropout if self.training else 0.0
         drop = lambda t: hash_dropout(t, rate, self.dropout_generator)
@@ -384,33 +458,39 @@ class FreqTransformer(nn.Module):
             self.add_module(f"ff2_{i}", DenseParams(ff_dim, d, g))
             self.add_module(f"n2_{i}", nn.LayerNorm(d, eps=1e-5))
 
-    def forward(self, tokens, freq_mask):
+    def forward(self, tokens, freq_mask, cdt=F32):
+        """cdt: the compute dtype (bf16: the module docstring)."""
         x = self.linear_A(tokens)
         for i in range(self.lpe_layers):
-            x = self._encoder_layer(x, freq_mask, i)
+            x = self._encoder_layer(x, freq_mask, i, cdt)
         return torch.where(freq_mask[..., None], x,
                            torch.zeros_like(x)).sum(1)
 
-    def _encoder_layer(self, x, mask, i):
+    def _encoder_layer(self, x, mask, i, cdt):
         s, m, d = x.shape
         hn = self.lpe_heads
         dh = d // hn
         layer = lambda name: getattr(self, f"{name}_{i}")
         q, k, v = (t.reshape(s, m, hn, dh).transpose(1, 2)
-                   for t in layer("qkv")(x).chunk(3, -1))
-        sc = (q @ k.transpose(-1, -2)) / math.sqrt(dh)
+                   for t in dense_in(layer("qkv"), x, cdt).chunk(3, -1))
+        sc = mm32(q, k.transpose(-1, -2)) / math.sqrt(dh)
         sc = sc.masked_fill(~mask[:, None, None, :], -1e30)
         p = torch.softmax(sc, -1)
         p = p.masked_fill(~mask[:, None, :, None], 0.0)
-        out = (p @ v).transpose(1, 2).reshape(s, m, d)
+        out = mm32(p.to(v.dtype), v).transpose(1, 2).reshape(s, m, d)
         rate = self.dropout if self.training else 0.0
         drop = lambda t: hash_dropout(t, rate, self.dropout_generator)
         x = layer("n1")(x + drop(layer("proj")(out)))
         ff1, ff2 = layer("ff1"), layer("ff2")
         seed = draw_seed(self.dropout_generator) if rate > 0.0 else None
-        ff = fused_mlp(x.reshape(s * m, d), ff1.kernel, ff1.bias, ff2.kernel,
-                       ff2.bias, dropout_rate=rate, seed=seed)
-        return layer("n2")(x + drop(ff.reshape(s, m, d)))
+        # under bf16: x, w1, w2 in bf16, the biases float32 (`fused_mlp`),
+        # y bf16, its dropout in bf16 before the residual (JAX's fused
+        # branch)
+        rows = x.reshape(s * m, d)
+        ff = fused_mlp(rows.to(cdt) if cdt == BF16 else rows, ff1.kernel,
+                       ff1.bias, ff2.kernel, ff2.bias, dropout_rate=rate,
+                       seed=seed)
+        return layer("n2")(x + drop(ff.reshape(s, m, d)).to(x.dtype))
 
 
 class LPETransformer(nn.Module):
@@ -427,14 +507,14 @@ class LPETransformer(nn.Module):
             2, lpe_dim, lpe_heads, lpe_layers, generator=generator,
             dropout_generator=dropout_generator)
 
-    def forward(self, eigvecs, eigvals, node_mask):
+    def forward(self, eigvecs, eigvals, node_mask, cdt=F32):
         b, n, m = eigvecs.shape
         vals = eigvals[:, None, :].expand(b, n, m)
         tokens = torch.stack([eigvecs, vals], -1)          # [B, N, M, 2]
         freq_mask = ~torch.isnan(tokens[..., 0])
         tokens = torch.nan_to_num(tokens, nan=0.0)
         pos = self.freq_transformer(tokens.reshape(b * n, m, 2),
-                                    freq_mask.reshape(b * n, m))
+                                    freq_mask.reshape(b * n, m), cdt)
         pos = pos.reshape(b, n, self.lpe_dim)
         return pos * node_mask.to(pos.dtype)[..., None]
 
@@ -456,7 +536,7 @@ class EdgeLPETransformer(nn.Module):
             3, lpe_dim, lpe_heads, lpe_layers, generator=generator,
             dropout_generator=dropout_generator)
 
-    def forward(self, eigvecs, eigvals, node_mask):
+    def forward(self, eigvecs, eigvals, node_mask, cdt=F32):
         b, n, m = eigvecs.shape
         vi, vj = eigvecs[:, :, None, :], eigvecs[:, None, :, :]
         vals = eigvals[:, None, None, :].expand(b, n, n, m)
@@ -464,7 +544,7 @@ class EdgeLPETransformer(nn.Module):
         freq_mask = ~torch.isnan(tokens[..., 0])
         tokens = torch.nan_to_num(tokens, nan=0.0)
         pos = self.freq_transformer(tokens.reshape(b * n * n, m, 3),
-                                    freq_mask.reshape(b * n * n, m))
+                                    freq_mask.reshape(b * n * n, m), cdt)
         pos = pos.reshape(b, n, n, self.lpe_dim)
         return pos * pair_mask(node_mask).to(pos.dtype)[..., None]
 
@@ -501,9 +581,9 @@ class SANFamily(nn.Module):
     `seed`; `dropout_generator` (CPU, seeded with `seed` too) draws every
     dropout seed. Built on `device` (default CUDA; raises if CUDA is
     absent and the CPU was not asked for). The eigen-PE head keeps the
-    reference's FFN width 2048 and dropout 0.1. Under the bf16 compute
-    policy (`config.py`) the constructor raises (ROADMAP Queue 1 item
-    4)."""
+    reference's FFN width 2048 and dropout 0.1. The bf16 compute policy
+    (`config.py`) is read each time the net runs (the module
+    docstring)."""
 
     def __init__(self, *, num_atom_type: int, num_bond_type: int, lpe: str,
                  hidden_dim: int, out_dim: int, n_heads: int, n_layers: int,
@@ -515,7 +595,6 @@ class SANFamily(nn.Module):
                  typed_edges: bool, in_feat_dim: int, edge_features: bool,
                  seed: int, device):
         super().__init__()
-        refuse_bf16(type(self).__name__, "Queue 1 item 4")
         if lpe not in LPE_KINDS:
             raise ValueError(f"lpe {lpe!r} is not one of {LPE_KINDS}")
         if readout not in READOUTS:
@@ -556,7 +635,7 @@ class SANFamily(nn.Module):
         self.mlp_readout = MLPReadout(out_dim, n_out, generator=g)
         self.to(dev)
 
-    def _edges(self, batch: GraphBatch, h: torch.Tensor) -> dict:
+    def _edges(self, batch: GraphBatch, h: torch.Tensor, cdt) -> dict:
         """The layers' edge inputs, and h with the node eigen-PE."""
         edges = {}
         if self.edge_features:
@@ -568,20 +647,21 @@ class SANFamily(nn.Module):
                      else dict(e_emb=self.embedding_e(batch.edge_type)))
         if self.lpe == "node":
             h = torch.cat([h, self.pe_transformer(
-                batch.eigvecs, batch.eigvals, batch.node_mask)], -1)
+                batch.eigvecs, batch.eigvals, batch.node_mask, cdt)], -1)
         elif self.lpe == "edge":
             epos = self.pe_transformer(batch.eigvecs, batch.eigvals,
-                                       batch.node_mask)
+                                       batch.node_mask, cdt)
             edges["e_emb"] = (torch.cat([edges["e_emb"], epos], -1)
                               if self.edge_features else epos)
         return h, edges
 
     def forward(self, batch: GraphBatch) -> torch.Tensor:
-        h, edges = self._edges(batch, self.embedding_h(batch.x))
+        cdt = config.default_compute_dtype()
+        h, edges = self._edges(batch, self.embedding_h(batch.x), cdt)
         rate = self.in_feat_dropout if self.training else 0.0
         h = hash_dropout(h, rate, self.dropout_generator)
         for layer in self.layers:
-            h = layer(h, batch.adj, batch.node_mask, **edges)
+            h = layer(h, batch.adj, batch.node_mask, **edges, cdt=cdt)
         if self.node_level:
             return self.mlp_readout(h)
         return self.mlp_readout(graph_readout(h, batch.node_mask,

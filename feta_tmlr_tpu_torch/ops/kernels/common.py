@@ -5,11 +5,13 @@ Operand layout of the kernels (contiguous):
   pe [B, N, N] or None   deg [B, N] or None   mask [B, N] (1 = real node)
 
 All float32, except under the bf16 compute policy (`config.py`), which the
-unfolded flash kernels and colstat take: there the values (xa, x, and vw
-and g where a kernel has them) are bf16, and pe and deg bf16 as well or
-float32 (FETA_BF16_MODULATION 1 or 0); the masks, cq, ck, c0 and the row
-statistics stay float32 (`operand_dtypes`). Every other kernel takes
-float32 only and raises on a bf16 operand.
+unfolded flash kernels, colstat and the fused pair take: there the values
+(xa, x, and vw and g where a kernel has them) are bf16, and pe and deg
+bf16 as well or float32 (FETA_BF16_MODULATION 1 or 0; the fused pair takes
+them float32 only, as the JAX wrapper casts them); the masks, cq, ck, c0
+and the row statistics stay float32 (`operand_dtypes`). The fused MLP
+(`fused_mlp.py`) takes bf16 values with float32 biases. Every other kernel
+takes float32 only and raises on a bf16 operand.
 """
 
 from __future__ import annotations
@@ -111,11 +113,13 @@ def operand_dtypes(xa, pe, deg):
 
 def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask, extra=(),
                    entry="flash_graphit_attention(_heads) (FlashGraphiT)",
-                   bf16=False):
+                   bf16=False, f32_modulation=False):
     """Raise unless every operand is a contiguous CUDA tensor of the layout
     above, on one device, all float32; with `bf16` (a kernel that has bf16
     instantiations) the operands may instead follow the bf16 compute
-    policy (`operand_dtypes`). Returns (values dtype, modulation dtype)."""
+    policy (`operand_dtypes`), with `f32_modulation` (the fused pair) with
+    pe and deg float32 whatever the values are. Returns (values dtype,
+    modulation dtype)."""
     b, h, n, d = xa.shape
     shapes = {"xa": (xa, (b, h, n, d)), "x": (x, (b, n, d)),
               "cq": (cq, (b, h, n)), "ck": (ck, (b, h, n)),
@@ -123,6 +127,8 @@ def check_operands(name, xa, x, cq, ck, c0, pe, deg, mask, extra=(),
               "deg": (deg, (b, n)), "mask": (mask, (b, n))}
     vdt, mdt = (operand_dtypes(xa, pe, deg) if bf16
                 else (torch.float32, torch.float32))
+    if f32_modulation:
+        mdt = torch.float32
     dtypes = None
     if bf16:
         dtypes = {**dict.fromkeys(VALUES, vdt),

@@ -29,6 +29,15 @@ below `keep_threshold(rate)`, the same bits in the kernel and in
 kernel's tiling, the backward regenerates the forward's mask, and kernel and
 plain version agree bit for bit. The TPU kernel's PRNG bits cannot be
 reproduced on the card; only rate 0 is comparable to the JAX package.
+
+bf16 operands (the bf16 compute policy, `config.py`): both kernels also
+take x, w1, w2 and g in bf16 with float32 b1 and b2 (their `_bf16` entry
+points), as the SAN eigen-PE head hands them to the TPU kernels; y and dx
+are bf16, the weight gradients float32, which `FusedMLP` rounds once to
+the weights' dtype (JAX's custom VJP). The plain versions compute from
+such operands in float32 and round where the JAX kernels cast: the hidden
+row before its product with w2, dh before dx and dW1, the dropped hidden
+row before dW2; then each output once to its dtype.
 """
 
 from __future__ import annotations
@@ -44,7 +53,9 @@ from feta_tmlr_tpu_torch.ops.kernels.common import (
     check_launch,
     cuda_or_plain,
     ptr,
+    rounded,
     stream_ptr,
+    upcast,
 )
 
 _MASK32 = 0xFFFFFFFF
@@ -52,10 +63,11 @@ _GOLDEN = 0x9E3779B9
 _fns = {}
 
 
-def _kernel(name):
+def _kernel(name, suffix=""):
     """(lib, bound C function) for "fwd", "slabs", "bwd" or "grid", each
-    bound at its first use."""
-    if name not in _fns:
+    bound at its first use; `suffix` ("" float32, "_bf16") names the
+    operand dtypes of "fwd" and "bwd"."""
+    if (name, suffix) not in _fns:
         lib = build.load("fused_mlp")
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         sym, argtypes = {
@@ -66,12 +78,12 @@ def _kernel(name):
                     [p] * 9 + [i] * 6 + [u, u, ctypes.c_float, p]),
             "grid": ("feta_fused_mlp_bwd_grid",
                      [i] * 5 + [ctypes.POINTER(i)])}[name]
-        fn = getattr(lib, sym)
+        fn = getattr(lib, sym + suffix)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.feta_cuda_error_string.argtypes = [ctypes.c_int]
         lib.feta_cuda_error_string.restype = ctypes.c_char_p
-        _fns[name] = (lib, fn)
-    return _fns[name]
+        _fns[name, suffix] = (lib, fn)
+    return _fns[name, suffix]
 
 
 def keep_threshold(rate: float) -> int:
@@ -132,19 +144,28 @@ def _check_seed(rate, seed):
 
 def fused_mlp_plain(x, w1, b1, w2, b2, rate: float = 0.0,
                     seed: Optional[int] = None) -> torch.Tensor:
-    """Dense version of the forward kernel: addmm, relu, mask, addmm."""
+    """Dense version of the forward kernel: addmm, relu, mask, addmm. From
+    bf16 x, w1, w2: in float32, the hidden row rounded to bf16, y to x's
+    dtype."""
     seed = _check_seed(rate, seed)
+    vdt = x.dtype
+    x, w1, w2 = upcast(x), upcast(w1), upcast(w2)
     h = torch.relu(torch.addmm(b1, x, w1))
     scale = dropout_scale(seed, x.shape[0], w1.shape[1], rate, h)
     if scale is not None:
         h = h * scale
-    return torch.addmm(b2, h, w2)
+    return torch.addmm(b2, rounded(h, vdt), w2).to(vdt)
 
 
 def fused_mlp_bwd_plain(x, w1, b1, w2, g, rate: float = 0.0,
                         seed: Optional[int] = None):
-    """Dense version of the backward kernels: (dx, dw1, db1, dw2, db2)."""
+    """Dense version of the backward kernels: (dx, dw1, db1, dw2, db2).
+    From bf16 x, w1, w2, g: in float32, dh and the dropped hidden row
+    rounded to bf16 before the products that take them (db1 sums dh
+    unrounded), dx to x's dtype, the weight gradients float32."""
     seed = _check_seed(rate, seed)
+    vdt = x.dtype
+    x, w1, w2, g = upcast(x), upcast(w1), upcast(w2), upcast(g)
     pre = torch.addmm(b1, x, w1)
     scale = dropout_scale(seed, x.shape[0], w1.shape[1], rate, pre)
     hd = torch.relu(pre)
@@ -152,24 +173,34 @@ def fused_mlp_bwd_plain(x, w1, b1, w2, g, rate: float = 0.0,
     if scale is not None:
         hd, dh = hd * scale, dh * scale
     dh = dh * (pre > 0).to(dh.dtype)
-    return dh @ w1.T, x.T @ dh, dh.sum(0), hd.T @ g, g.sum(0)
+    dh_c = rounded(dh, vdt)
+    return ((dh_c @ w1.T).to(vdt), x.T @ dh_c, dh.sum(0),
+            rounded(hd, vdt).T @ g, g.sum(0))
+
+
+_VALUES = ("x", "w1", "w2", "g")     # bf16 under the bf16 compute policy
 
 
 def _check(name, x, w1, b1, w2, extra):
-    """Raise unless every operand is a contiguous float32 tensor on x's
-    device of the kernels' shapes, with widths <= 64 and fewer than 2^31
-    rows: the kernels take the row index as an int, widen every offset
-    from a row to size_t before multiplying it, and never form an R x F
-    index (the hidden field is not stored; R * F passes 2^31 at the edge
-    eigen-PE head of a 128-graph chunk)."""
+    """Raise unless every operand is a contiguous tensor on x's device of
+    the kernels' shapes, all float32 or (the bf16 compute policy) x, w1,
+    w2 and g bf16 with float32 biases, with widths <= 64 and fewer than
+    2^31 rows: the kernels take the row index as an int, widen every
+    offset from a row to size_t before multiplying it, and never form an
+    R x F index (the hidden field is not stored; R * F passes 2^31 at the
+    edge eigen-PE head of a 128-graph chunk). Returns (R, din, F,
+    dout)."""
     r, din = x.shape
     f, dout = w2.shape
+    vdt = _values_dtype(x)[1]
     shapes = [("x", x, (r, din)), ("w1", w1, (din, f)), ("b1", b1, (f,)),
               ("w2", w2, (f, dout)), *extra]
     for key, t, shape in shapes:
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be float32 on {x.device}, "
-                             f"got {t.dtype} on {t.device}")
+        want = vdt if key in _VALUES else torch.float32
+        if t.device != x.device or t.dtype != want:
+            raise ValueError(f"{name}: {key} must be "
+                             f"{str(want).replace('torch.', '')} on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -185,6 +216,14 @@ def _check(name, x, w1, b1, w2, extra):
                            "differentiable; call it under torch.no_grad(), "
                            "or use fused_mlp (FusedMLP) for gradients")
     return r, din, f, dout
+
+
+def _values_dtype(x):
+    """(C entry point suffix, dtype) of the values x, w1, w2, g, y and dx:
+    ("_bf16", bf16) for a bf16 x, else ("", float32)."""
+    if x.dtype == torch.bfloat16:
+        return "_bf16", torch.bfloat16
+    return "", torch.float32
 
 
 def _dropout_args(rate, seed):
@@ -213,13 +252,14 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, rate: float = 0.0,
     seed = _check_seed(rate, seed)
     r, din, f, dout = _check("fused_mlp_fwd", x, w1, b1, w2,
                              [("b2", b2, (w2.shape[1],))])
+    suffix, vdt = _values_dtype(x)
     dev = x.device
     n_slabs = fwd_slabs(din, f, dout)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    y = torch.empty((r, dout), dtype=torch.float32, device=dev)
+    y = torch.empty((r, dout), dtype=vdt, device=dev)
     part = (torch.empty((n_slabs, r, dout), dtype=torch.float32, device=dev)
             if n_slabs > 1 else y)
-    lib, fn = _kernel("fwd")
+    lib, fn = _kernel("fwd", suffix)
     err = fn(ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2), ptr(y), ptr(part),
              r, din, f, dout, n_sm, *_dropout_args(rate, seed),
              stream_ptr(dev))
@@ -243,6 +283,7 @@ def fused_mlp_bwd(x, w1, b1, w2, g, rate: float = 0.0,
     seed = _check_seed(rate, seed)
     r, din, f, dout = _check("fused_mlp_bwd", x, w1, b1, w2,
                              [("g", g, (x.shape[0], w2.shape[1]))])
+    suffix, vdt = _values_dtype(x)
     dev = x.device
     _, grid_fn = _kernel("grid")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -250,11 +291,11 @@ def fused_mlp_bwd(x, w1, b1, w2, g, rate: float = 0.0,
     n_splits = grid_fn(r, din, f, dout, n_sm, ctypes.byref(n_slabs))
     n_slabs = n_slabs.value
     e = din * f + f + f * dout + dout
-    dx = torch.empty((r, din), dtype=torch.float32, device=dev)
+    dx = torch.empty((r, din), dtype=vdt, device=dev)
     part = torch.empty((n_splits, e), dtype=torch.float32, device=dev)
     grads = torch.empty((e,), dtype=torch.float32, device=dev)
     dx_part = torch.empty((n_slabs, r, din), dtype=torch.float32, device=dev)
-    lib, fn = _kernel("bwd")
+    lib, fn = _kernel("bwd", suffix)
     err = fn(ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(g), ptr(dx), ptr(part),
              ptr(grads), ptr(dx_part), r, din, f, dout, n_splits,
              *_dropout_args(rate, seed), stream_ptr(dev))
@@ -270,12 +311,14 @@ fused_mlp_bwd.launches = 0
 class FusedMLP(torch.autograd.Function):
     """y = fused_mlp_fwd(...) with a backward through fused_mlp_bwd, which
     recomputes the hidden field and regenerates the dropout mask from the
-    seed (nothing of width F is saved)."""
+    seed (nothing of width F is saved). Each gradient is rounded once to
+    its input's dtype (bf16 dW1 and dW2 under the bf16 policy, float32 db1
+    and db2), as JAX's custom VJP rounds them."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, rate, seed):
         ctx.save_for_backward(x, w1, b1, w2)
-        ctx.rate, ctx.seed = rate, seed
+        ctx.rate, ctx.seed, ctx.b2_dtype = rate, seed, b2.dtype
         return fused_mlp_fwd(x, w1, b1, w2, b2, rate, seed)
 
     @staticmethod
@@ -284,7 +327,8 @@ class FusedMLP(torch.autograd.Function):
         x, w1, b1, w2 = ctx.saved_tensors
         dx, dw1, db1, dw2, db2 = fused_mlp_bwd(x, w1, b1, w2, g.contiguous(),
                                                ctx.rate, ctx.seed)
-        return dx, dw1, db1, dw2, db2, None, None
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(ctx.b2_dtype), None, None)
 
 
 def fused_mlp(x, w1, b1, w2, b2, dropout_rate: float = 0.0,
@@ -293,7 +337,9 @@ def fused_mlp(x, w1, b1, w2, b2, dropout_rate: float = 0.0,
 
     x [R, d_in]; w1 [d_in, F]; b1 [F]; w2 [F, d_out]; b2 [d_out]. `seed`
     (an int) drives the dropout mask and is required when dropout_rate > 0.
-    Operands become contiguous in x's dtype."""
-    c = lambda t: t.to(x.dtype).contiguous()
-    return FusedMLP.apply(x.contiguous(), c(w1), c(b1), c(w2), c(b2),
-                          float(dropout_rate), seed)
+    Operands become contiguous in x's dtype, except that the biases of a
+    bf16 x (the bf16 compute policy) become float32."""
+    bdt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    c = lambda t, dt=x.dtype: t.to(dt).contiguous()
+    return FusedMLP.apply(x.contiguous(), c(w1), c(b1, bdt), c(w2),
+                          c(b2, bdt), float(dropout_rate), seed)

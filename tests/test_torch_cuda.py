@@ -1416,12 +1416,89 @@ def test_cuda_bf16_kernels_match_plain(cuda, b, h, n, pad, d, dv, with_mod,
         before[0] + 2, before[1] + 4, before[2] + 2, before[3] + 2)
 
 
+# #10-#13 with bf16 operands: the fused pair on bf16 xa, x, vw and g with
+# float32 pe and deg (the ZINC batch, and B=32 at N=128), the fused MLP on
+# bf16 x, w1, w2 and g with float32 biases (the SAN head's rows at rates 0
+# and 0.1, a ragged R at d 16), each against its plain bf16 version on the
+# card: bf16 outputs at BF16_TOL, float32 sums of unrounded values (dcq,
+# dck, dc0, db1, db2) at TOL, dW1 and dW2 (sums of rounded dh and h) within
+# BF16_TOL's rtol of their largest entry; two runs bit-identical.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,pad,d", [
+    (128, 8, 48, 11, 64), (32, 8, 128, 17, 64), (3, 3, 17, 2, 20),
+    (2, 13, 1, 0, 20), (4, 12, 100, 5, 40)])
+def test_cuda_bf16_fused_pair_matches_plain(cuda, b, h, n, pad, d):
+    """#10 and #11 with bf16 operands: out, dxa, dx and dvw bf16, dcq, dck
+    and dc0 float32, each against the plain bf16 version, two runs
+    bit-identical, one launch counted per call on the `_bf16` entry
+    points; at the ZINC batch, B=32 at N=128, and the clusters' and
+    strips' edges (H 3, 13 and 12: clusters of 3, 1 and 6; N 1, 17, 100;
+    D 20 and 40, rows not a multiple of 8)."""
+    ops, vw = _ops(31, b, h, n, d, d, pad)
+    ops = _to(dict(ops, xa=ops["xa"].to(torch.bfloat16),
+                   x=ops["x"].to(torch.bfloat16)), cuda)
+    vw = vw.to(cuda, torch.bfloat16)
+    g = torch.randn((b, n, d), generator=torch.Generator().manual_seed(n)
+                    ).to(cuda, torch.bfloat16)
+    before = tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches
+    got, again = (tfa.fused_attn_fwd(vw=vw, **ops) for _ in range(2))
+    want = tfa.fused_attn_fwd_plain(vw=vw, **ops)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    _close_dtype([got], [want], BF16_TOL)
+    got, again = (tfa.fused_attn_bwd(vw=vw, g=g, **ops) for _ in range(2))
+    want = tfa.fused_attn_bwd_plain(vw=vw, g=g, **ops)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    for i, (gt, w) in enumerate(zip(got, want)):
+        _close_dtype([gt], [w], BF16_TOL if i in (0, 1, 5) else TOL)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [
+        torch.float32] * 3 + [torch.bfloat16]
+    assert (tfa.fused_attn_fwd.launches, tfa.fused_attn_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,din,f,dout,rate", [
+    (40960, 8, 2048, 8, 0.0), (40960, 8, 2048, 8, 0.1),
+    (3001, 16, 2048, 16, 0.1), (257, 3, 100, 5, 0.3),
+    (31, 16, 520, 16, 0.1), (64, 40, 70, 64, 0.0)])
+def test_cuda_bf16_fused_mlp_matches_plain(cuda, r, din, f, dout, rate):
+    """#12 and #13 with bf16 operands and float32 biases: y and dx bf16,
+    the weight gradients float32, each against the plain bf16 version,
+    two runs bit-identical; at the SAN head's rows, a ragged R at d 16
+    (two forward slabs) and the width buckets' edges."""
+    bf = torch.bfloat16
+    x, w1, b1, w2, b2, g = (t.to(cuda) for t in
+                            _mlp_inputs(41, r, din, f, dout))
+    x, w1, w2, g = (t.to(bf) for t in (x, w1, w2, g))
+    got, again = (tfm.fused_mlp_fwd(x, w1, b1, w2, b2, rate, 5)
+                  for _ in range(2))
+    want = tfm.fused_mlp_plain(x, w1, b1, w2, b2, rate, 5)
+    torch.cuda.synchronize()
+    assert got.dtype == bf and torch.equal(got, again)
+    _close_dtype([got], [want], BF16_TOL)
+    got, again = (tfm.fused_mlp_bwd(x, w1, b1, w2, g, rate, 5)
+                  for _ in range(2))
+    want = tfm.fused_mlp_bwd_plain(x, w1, b1, w2, g, rate, 5)
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, got, again))
+    assert [t.dtype for t in got] == [bf] + [torch.float32] * 4
+    _close_dtype(got[:1], want[:1], BF16_TOL)
+    _close_dtype([got[2], got[4]], [want[2], want[4]], TOL)
+    for i in (1, 3):
+        _close_dtype([got[i]], [want[i]], dict(
+            rtol=0, atol=BF16_TOL["rtol"] * float(want[i].abs().max())))
+
+
 @pytest.mark.cuda
 def test_cuda_bf16_operands_raise_where_a_kernel_takes_float32_only(cuda):
-    """A bf16 operand reaching a float32-only kernel (#5-#13: the folded
-    flash kernels, modulation, fused attention, the fused MLP) raises,
-    naming ROADMAP Queue 2 item A2; the bf16-capable kernels raise on an
-    operand combination outside the policy's three."""
+    """A bf16 operand reaching a float32-only kernel (#5-#9: the folded
+    flash kernels, modulation) raises, naming ROADMAP Queue 2 item A2; the
+    bf16-capable kernels raise on an operand combination outside the
+    policy's: the flash kernels outside their three, the fused pair on
+    bf16 pe (it takes pe and deg float32 only), the fused MLP on values of
+    mixed dtypes."""
     bf = torch.bfloat16
     ops, vw = _ops(21, 1, 2, 32, 16, 8, 3)
     gops, gvw = _to(ops, cuda), vw.to(cuda)
@@ -1443,16 +1520,16 @@ def test_cuda_bf16_operands_raise_where_a_kernel_takes_float32_only(cuda):
         tmod.modulation_fwd(scores.to(bf), pe, deg, mask)
     with pytest.raises(ValueError, match="Queue 2 item A2"):
         tmod.modulation_bwd(scores, pe.to(bf), deg, mask, g)
-    with pytest.raises(ValueError, match="Queue 2 item A2"):
+    with pytest.raises(ValueError, match="pe must be float32"):
         tfa.fused_attn_fwd(vw=bvw, **bops)
-    with pytest.raises(ValueError, match="Queue 2 item A2"):
+    with pytest.raises(ValueError, match="pe must be float32"):
         tfa.fused_attn_bwd(vw=bvw, g=torch.zeros(1, 32, 16, device=cuda,
                                                  dtype=bf), **bops)
     x, w1, b1, w2, b2, g = _mlp_inputs(23, 64, 8, 64, 8)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="w1 must be bfloat16"):
         tfm.fused_mlp_fwd(x.to(cuda, bf), w1.to(cuda), b1.to(cuda),
                           w2.to(cuda), b2.to(cuda))
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="w1 must be float32"):
         tfm.fused_mlp_bwd(x.to(cuda), w1.to(cuda, bf), b1.to(cuda),
                           w2.to(cuda), g.to(cuda))
     # outside the policy: float32 values with bf16 pe; bf16 xa with float32

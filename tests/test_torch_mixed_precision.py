@@ -333,7 +333,7 @@ def bf16_cotangents(monkeypatch):
         cur.update(layer=self, seen=False)
         return forward(self, *a, **k)
 
-    dense = tlayers.GraphiTEncoderLayer._dense
+    dense = tlayers.dense_in
     matmul = tlayers.node_matmul
 
     def hooked_matmul(a, b):
@@ -347,8 +347,8 @@ def bf16_cotangents(monkeypatch):
     cheb = tfeta.cheb_filter_dynamic
     monkeypatch.setattr(tlayers.GraphiTEncoderLayer, "forward",
                         layer_forward)
-    monkeypatch.setattr(tlayers.GraphiTEncoderLayer, "_dense", staticmethod(
-        lambda lin, x, cdt: keep(dense(lin, x, cdt), store["dense"], lin)))
+    monkeypatch.setattr(tlayers, "dense_in", lambda lin, x, cdt: keep(
+        dense(lin, x, cdt), store["dense"], lin))
     monkeypatch.setattr(tlayers, "node_matmul", hooked_matmul)
     monkeypatch.setattr(tfeta, "cheb_filter_dynamic",
                         lambda *a: keep(cheb(*a), store["cheb"]))
@@ -504,40 +504,41 @@ def test_bf16_pair_masked_chain_matches_jax(monkeypatch):
 
 # -------------------------------------------------------------- refusals
 
-def _families():
+def _families(atoms=4, bonds=2):
     from feta_tmlr_tpu_torch.nn.gat import GATFeTANet, GATNet
     from feta_tmlr_tpu_torch.nn.gatedgcn import GatedGCNLSPENet
     from feta_tmlr_tpu_torch.nn.lspe import GraphiTSpectraNet
     from feta_tmlr_tpu_torch.nn.pna import PNALSPENet
     from feta_tmlr_tpu_torch.nn.san import SANNet, SANNodeSpectra
     from feta_tmlr_tpu_torch.nn.san_lspe import SANLSPENet
-    two = dict(num_atom_type=4, num_bond_type=2, device="cpu")
+    two = dict(num_atom_type=atoms, num_bond_type=bonds, device="cpu")
     return {"SANNet": lambda: SANNet(**two),
             "SANNodeSpectra": lambda: SANNodeSpectra(**two),
-            "GATNet": lambda: GATNet(num_atom_type=4, device="cpu"),
-            "GATFeTANet": lambda: GATFeTANet(num_atom_type=4, device="cpu"),
+            "GATNet": lambda: GATNet(num_atom_type=atoms, device="cpu"),
+            "GATFeTANet": lambda: GATFeTANet(num_atom_type=atoms,
+                                             device="cpu"),
             "GraphiTSpectraNet": lambda: GraphiTSpectraNet(**two),
             "SANLSPENet": lambda: SANLSPENet(**two),
             "GatedGCNLSPENet": lambda: GatedGCNLSPENet(**two),
             "PNALSPENet": lambda: PNALSPENet(**two)}
 
 
-REFUSALS = ["fused", "head_fold", "SANNet", "SANNodeSpectra", "GATNet",
-            "GATFeTANet", "GraphiTSpectraNet", "SANLSPENet",
+REFUSALS = ["head_fold", "GraphiTSpectraNet", "SANLSPENet",
             "GatedGCNLSPENet", "PNALSPENet"]
+# run under the policy since the bf16 fused pair and fused MLP pair
+# (tests/test_torch_bf16_lpe.py holds them to JAX)
+RUNS = ["fused", "SANNet", "SANNodeSpectra", "GATNet", "GATFeTANet"]
 
 
 @pytest.mark.parametrize("what", REFUSALS)
 def test_bf16_refusals_name_the_roadmap_item(what, monkeypatch):
     """What has no bf16 path in the port raises NotImplementedError naming
     its ROADMAP item under the policy, and builds in float32 without it:
-    the "fused" route and `head_fold` (Queue 2 item A2) when a layer runs,
-    the six other families (Queue 1 item 4) when a net is built."""
+    `head_fold` (Queue 2 item A2) when a layer runs, the four LSPE
+    families (Queue 1 item 4) when a net is built."""
     monkeypatch.setenv("FETA_COMPUTE_DTYPE", "bf16")
-    if what in ("fused", "head_fold"):
-        kw = ({"attention_impl": "fused"} if what == "fused"
-              else {"head_fold": True})
-        layer = tlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, **kw)
+    if what == "head_fold":
+        layer = tlayers.GraphiTEncoderLayer(16, 2, 32, 0.0, head_fold=True)
         x, mask, pe, deg = _layer_inputs(n=8, pad=2)
         with pytest.raises(NotImplementedError, match="Queue 2 item A2"):
             layer(_t(x), _t(pe), _t(mask), _t(deg), need_heads=False)
@@ -549,6 +550,36 @@ def test_bf16_refusals_name_the_roadmap_item(what, monkeypatch):
         build()
     monkeypatch.delenv("FETA_COMPUTE_DTYPE")
     build()
+
+
+@pytest.mark.parametrize("what", RUNS)
+def test_bf16_builds_and_runs_one_forward_under_the_policy(what,
+                                                           monkeypatch):
+    """What the bf16 fused pair and MLP pair made runnable under the
+    policy builds and runs one forward there, finite and float32 at the
+    output, and moved by the policy: the GraphiT layer on the "fused"
+    route, the SAN and GAT nets (at their default widths, on the graphs of
+    tests/test_torch_san_family.py)."""
+    monkeypatch.setenv("FETA_COMPUTE_DTYPE", "bf16")
+    if what == "fused":
+        layer = tlayers.GraphiTEncoderLayer(16, 2, 32, 0.0,
+                                            attention_impl="fused").eval()
+        x, mask, pe, deg = _layer_inputs(n=8, pad=2)
+        run = lambda: layer(_t(x), _t(pe), _t(mask), _t(deg),
+                            need_heads=False)[0]
+    else:
+        from test_torch_san_family import BASE, lpe_batches
+        model = _families(BASE["num_atom_type"],
+                          BASE["num_bond_type"])[what]().eval()
+        _, tb = lpe_batches()
+        run = lambda: model(tb)
+    with torch.inference_mode():
+        out = run()
+        monkeypatch.setenv("FETA_COMPUTE_DTYPE", "float32")
+        out32 = run()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert out.shape == out32.shape
+    assert not torch.equal(out, out32)
 
 
 def test_bf16_products_round_once():
